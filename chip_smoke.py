@@ -25,10 +25,31 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 4. Inference: ``coma_tpu_torch.cli.inference`` for all four products; the
    outputs must be finite with maxima 1.0 (contact, orientation) or 0.7
    (occupancy).
+5. K3 (flash attention, ``csrc/flash_attention.cu``) against its plain
+   version computed in fp32 from the same inputs, at every shape phase 6
+   gives it, (B, heads, Lq, Lk, D): the UNet's under classifier-free
+   guidance (batch 8 for 4 images) at the 64², 32², 16² and 8² levels,
+   self (8, 8, L, L, D) and cross (8, 8, L, 77, D) with (L, D) = (4096, 40),
+   (1024, 80), (256, 160) and (64, 160), and the VAE mid block's (4, 1, 4096,
+   4096, 512), in bf16 (|kernel - plain| <= 5e-4 + 8e-3 |plain|: the output
+   is rounded to bf16 once, a relative error of at most 2^-8), and (8, 8,
+   1024, 1024, 80) in float32 (within 1e-4). Then the kernel's time, the
+   plain version's, ``F.scaled_dot_product_attention``'s as a yardstick (the
+   port never calls it) and the bound.
+6. Inpainting: ``coma_tpu_torch.cli.inpaint`` at full width (SD-1.x UNet and
+   VAE in bf16, CLIP ViT-L, the person segmenter; 512², 50 DDIM steps,
+   guidance 7.5, mode ``p``, ``--random_weights``) on one batch of 4 images
+   of a synthetic tree. The K3 counter is set to 0 just before and read just
+   after: it must be 1644 (16 transformer blocks x 2 attentions x 50 steps,
+   plus 44 VAE mid-block calls). The 4 images must be finite, in [0, 1], and
+   written as 512x512 RGB PNGs. Then the tiny loop (64², f32) runs on the
+   card and on the CPU from the same weights and noise and must agree within
+   1e-3.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Without a card, or without the package
-beside this file, the script fails before printing either.
+After the phases come three lines: ``{"kernels": [...]}``, the card's name
+and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
+"device": {...}}``. Without a card, or without the package beside this file,
+the script fails before printing any of them.
 """
 from __future__ import annotations
 
@@ -39,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,8 +111,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float):
-    ops_ms, bytes_ms = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_F32_OPS):
+    ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -350,6 +372,176 @@ def check_products(paths, contact_pickle, occupancy_pickle, out_dir):
     log(f"inference occupancy: shape {field.shape}, max {field.max()}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: K3 (flash attention) against its plain version
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_OPS = 989e12   # H100 SXM, dense bf16 tensor cores (data sheet)
+K3_SHAPES = (  # (name, B, H, Lq, Lk, D, dtype): phase 6's, CFG doubling the UNet's batch
+    ("unet_self_64x64", 8, 8, 4096, 4096, 40, torch.bfloat16),
+    ("unet_cross_64x64", 8, 8, 4096, 77, 40, torch.bfloat16),
+    ("unet_self_32x32", 8, 8, 1024, 1024, 80, torch.bfloat16),
+    ("unet_cross_32x32", 8, 8, 1024, 77, 80, torch.bfloat16),
+    ("unet_self_16x16", 8, 8, 256, 256, 160, torch.bfloat16),
+    ("unet_cross_16x16", 8, 8, 256, 77, 160, torch.bfloat16),
+    ("unet_mid_self_8x8", 8, 8, 64, 64, 160, torch.bfloat16),
+    ("unet_mid_cross_8x8", 8, 8, 64, 77, 160, torch.bfloat16),
+    ("vae_mid", 4, 1, 4096, 4096, 512, torch.bfloat16),
+    ("unet_self_32x32_f32", 8, 8, 1024, 1024, 80, torch.float32),
+)
+K3_BF16_ATOL, K3_BF16_RTOL, K3_F32_ATOL = 5e-4, 8e-3, 1e-4
+
+
+def check_k3(rng, name, B, H, Lq, Lk, D, dtype):
+    """Kernel vs the plain version computed in fp32 from the same inputs;
+    times of the kernel, the plain version (in the input dtype) and SDPA."""
+    import torch.nn.functional as F
+
+    from coma_tpu_torch.ops.attention import attention_reference, scaled_dot_attention
+
+    q, k, v = (torch.from_numpy(np.float32(rng.normal(size=(B, H, n, D)))).to(DEVICE, dtype)
+               for n in (Lq, Lk, Lk))
+    out = scaled_dot_attention(q, k, v)
+    want = attention_reference(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs()
+    rtol = K3_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    atol = K3_BF16_ATOL if dtype == torch.bfloat16 else K3_F32_ATOL
+    max_abs = float(err.max())
+    atol_used = float((err - rtol * want.abs()).max())   # the least atol that passes
+    if atol_used > atol or not torch.isfinite(out).all():
+        raise AssertionError(f"K3 {name}: kernel disagrees with plain (max abs {max_abs:.3e}, "
+                             f"needs atol {atol_used:.3e} > {atol:.0e} with rtol {rtol:.0e})")
+    del out, want, err
+    ms = cuda_ms(lambda: scaled_dot_attention(q, k, v), reps=10)
+    plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10)
+    torch.cuda.empty_cache()
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * B * H * (2 * Lq + 2 * Lk) * D
+    peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
+    bound_ms, bound_by = bound(4.0 * B * H * Lq * Lk * D, nbytes, peak)
+    return dict(shape=f"{name} ({B}, {H}, {Lq}, {Lk}, {D}) {str(dtype)[6:]}",
+                max_abs_err=max_abs, atol_used=atol_used, atol=atol, rtol=rtol, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: inpainting through the CLI, and a tiny loop against the CPU
+# ---------------------------------------------------------------------------
+
+INPAINT_RES, INPAINT_IMAGES = 512, 4   # 1 mask x 1 prompt x 2 view texts x 2 seeds
+K3_LAUNCHES_PER_BATCH = 50 * 32 + 44   # UNet: 16 blocks x 2 attentions x 50 steps; VAE: 44
+
+
+def write_inpaint_tree(root: str, rng) -> None:
+    """A render, an asset mask, its valid-mask pickle and one prompt."""
+    from coma_tpu_torch.utils.png import write_png
+
+    res, view = INPAINT_RES, "view:00000"
+    g = f"{root}/results/generation"
+    base = f"{SC}/{CAT}/{ASSET}"
+    for d in (f"renders/{base}", f"valid_masks/{base}", f"prompts/{base}",
+              f"asset_masks/{base}/{view}"):
+        os.makedirs(f"{g}/{d}", exist_ok=True)
+    yy, xx = np.mgrid[:res, :res] / res
+    render = np.stack([yy, xx, 0.5 + 0.5 * np.sin(6 * xx)], -1) * 200 \
+        + rng.integers(0, 55, size=(res, res, 3))
+    write_png(f"{g}/renders/{base}/{view}.png", np.uint8(render))
+    mask = np.zeros((res, res), np.uint8)
+    mask[res // 8: 7 * res // 8, res // 4: 3 * res // 4] = 255
+    write_png(f"{g}/asset_masks/{base}/{view}/0.png", mask)
+    with open(f"{g}/valid_masks/{base}/{view}.pickle", "wb") as fh:
+        pickle.dump({"valid_mask_ids": [0]}, fh)
+    with open(f"{g}/prompts/{base}/prompts.pickle", "wb") as fh:
+        pickle.dump({"prompts": [PROMPT]}, fh)
+
+
+def inpaint(root: str, label: str):
+    """``cli/inpaint`` at full width; returns (seconds, peak GB, outputs)."""
+    from coma_tpu_torch.cli import inpaint as cli
+    from coma_tpu_torch.models.diffusion.pipeline import AdaptiveMaskInpaintPipeline
+    from coma_tpu_torch.utils.png import read_png
+
+    outputs, generate = [], AdaptiveMaskInpaintPipeline.generate
+
+    def kept(self, *args, **kwargs):     # keep the float images for the finiteness check
+        out = generate(self, *args, **kwargs)
+        outputs.append(out.float().cpu())
+        return out
+
+    AdaptiveMaskInpaintPipeline.generate = kept
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cli.main(["--random_weights", "--device", DEVICE, "--num_img_per_combination", "2",
+                  "--batch_size", str(INPAINT_IMAGES), "--adaptive_mask_model_type", "p"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        AdaptiveMaskInpaintPipeline.generate = generate
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pngs = sorted(Path(root, "results", "generation", "inpaintings").rglob("*.png"))
+    if len(pngs) != INPAINT_IMAGES or len(outputs) != 1:
+        raise AssertionError(f"inpaint wrote {len(pngs)} images in {len(outputs)} batches")
+    for p in pngs:
+        img = read_png(str(p))
+        if img.shape != (INPAINT_RES, INPAINT_RES, 3):
+            raise AssertionError(f"{p}: shape {img.shape}")
+    out = outputs[0]
+    if out.shape != (INPAINT_IMAGES, 3, INPAINT_RES, INPAINT_RES) or not torch.isfinite(out).all() \
+            or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"inpaint output: shape {tuple(out.shape)}, "
+                             f"finite {bool(torch.isfinite(out).all())}")
+    log(f"inpaint {INPAINT_IMAGES} images at {INPAINT_RES}², bf16, 50 steps, mode p: "
+        f"{seconds:.3f} s = {INPAINT_IMAGES / seconds:.4f} images/s (CLI wall clock: models "
+        f"made from a seed, prompts, the loop, PNGs), peak device memory {peak_gb:.3f} GB "
+        f"[{label}]")
+    return seconds, peak_gb, out
+
+
+def tiny_loop_against_cpu():
+    """The tiny f32 loop ('baseline' mode, no segmenter) on the card, K3
+    included, against the same loop on the CPU with the plain attention; the
+    same weights and noise. cuDNN's TF32 is switched off for this comparison."""
+    import copy
+
+    from coma_tpu_torch.models.diffusion import pipeline, unet, vae
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    g = torch.Generator().manual_seed(SEED)
+    models = [init_flax_default_(unet.UNet2DCondition(unet.tiny_unet_config()), g),
+              init_flax_default_(vae.Encoder(vae.tiny_vae_config()), g),
+              init_flax_default_(vae.Decoder(vae.tiny_vae_config()), g)]
+    rng = np.random.default_rng(SEED)
+    image = torch.from_numpy(np.float32(rng.uniform(-1, 1, size=(2, 3, 64, 64))))
+    mask = torch.zeros(2, 64, 64)
+    mask[:, 8:56, 12:52] = 1.0
+    ctx = torch.from_numpy(np.float32(rng.normal(size=(2, 7, 32))))
+    outs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", DEVICE):
+            m = [copy.deepcopy(x).to(dev).eval() for x in models]
+            pipe = pipeline.AdaptiveMaskInpaintPipeline(
+                *m, None, pipeline.AdaptiveMaskConfig(use_adaptive_mask=False))
+            noise = pipeline.TorchNoise(torch.Generator().manual_seed(SEED + 1))
+            outs.append(pipe.generate(image.to(dev), mask.to(dev), ctx.to(dev),
+                                      ctx.to(dev) * 0, noise=noise).cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((outs[0] - outs[1]).abs().max())
+    if not torch.isfinite(outs[1]).all() or err > 1e-3:
+        raise AssertionError(f"tiny loop: card vs CPU max abs {err:.3e} (limit 1e-3)")
+    log(f"tiny loop (64², f32, 50 steps) on the card vs the CPU: max abs {err:.3e}")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
@@ -359,7 +551,7 @@ def main() -> int:
         print("chip_smoke: coma_tpu_torch/ is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from coma_tpu_torch.ops import build, contact_kernel, occupancy_kernel
+    from coma_tpu_torch.ops import attention, build, contact_kernel, occupancy_kernel
 
     # phase 1: device
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -405,6 +597,30 @@ def main() -> int:
         # phase 4: inference for all four products
         check_products(paths, contact_pickle, occupancy_pickle, f"{tmp}/output")
 
+    # phase 5: K3 against its plain version
+    k3 = []
+    for shape in K3_SHAPES:
+        r = check_k3(rng, *shape)
+        k3.append(r)
+        log(f"K3 {r['shape']}: max abs err {r['max_abs_err']:.3e}, least passing atol "
+            f"{r['atol_used']:.3e} (limit {r['atol']:.0e} + {r['rtol']:.0e} |plain|); "
+            f"kernel {r['ms']:.3f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+
+    # phase 6: inpainting through the CLI, the K3 counter from 0; then the
+    # tiny loop on the card against the CPU
+    with tempfile.TemporaryDirectory(prefix="inpaint_", dir=SCRATCH) as tmp:
+        write_inpaint_tree(tmp, np.random.default_rng(SEED + 2))
+        attention.launches = 0
+        inpaint(tmp, label)
+        launches["flash_attention"] = attention.launches
+    log(f"launches on the inpainting path: flash_attention {launches['flash_attention']}")
+    if launches["flash_attention"] != K3_LAUNCHES_PER_BATCH:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times, "
+                             f"expected {K3_LAUNCHES_PER_BATCH}")
+    tiny_loop_against_cpu()
+
     k1_main = k1[0]
     kernels = [
         dict(name="contact_splat", route="cuda", source="coma_tpu_torch/csrc/contact_splat.cu",
@@ -420,6 +636,14 @@ def main() -> int:
              differing_cells=k2["differing_cells"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
              shape=k2["shape"]),
+        dict(name="flash_attention", route="cuda",
+             source="coma_tpu_torch/csrc/flash_attention.cu",
+             replaces="coma_tpu/ops/attention.py:41",
+             launches=launches["flash_attention"],
+             max_abs_err=max(r["max_abs_err"] for r in k3),
+             ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"], bound_ms=k3[0]["bound_ms"],
+             bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
+             shapes=k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

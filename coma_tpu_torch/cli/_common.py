@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: seeding, filter-list normalization, common flags."""
+"""Shared CLI plumbing: seeding, filter-list normalization, work-list
+sharding, common flags."""
 from __future__ import annotations
 
 import argparse
@@ -20,6 +21,15 @@ def seed_everything(seed: int = DEFAULT_SEED) -> None:
 
 def lower_all(values: Optional[List[str]]) -> Optional[List[str]]:
     return [v.lower() for v in values] if values is not None else None
+
+
+def shard_worklist(items: list, parallel_idx: int, parallel_num: int) -> list:
+    """The reference's static index sharding (``inpaint.py:271-278``):
+    ``sub_length = len(X)//n + 1; X[i*sub_length:(i+1)*sub_length]``."""
+    if parallel_num <= 1:
+        return items
+    sub = len(items) // parallel_num + 1
+    return items[parallel_idx * sub : (parallel_idx + 1) * sub]
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:

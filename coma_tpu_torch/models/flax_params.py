@@ -1,0 +1,64 @@
+"""Carry ``coma_tpu``'s Flax parameters into the port's modules.
+
+A Flax params tree (nested dicts of numpy arrays, with or without the
+top-level ``"params"``) of the UNet, the VAE encoder or decoder, the CLIP
+text tower or the person segmenter becomes the ``state_dict`` of the port's
+module of the same name: submodule paths are the same, ``kernel`` becomes
+``weight`` — a Conv's (kh, kw, I, O) transposed to (O, I, kh, kw), a
+Dense's (I, O) to (O, I) — and a norm's ``scale`` and an embedding's
+``embedding`` become ``weight``. A key that is missing on either side, or a
+shape that does not fit, raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    params = variables["params"] if "params" in variables else variables
+    out = {}
+    for path, leaf in _flatten(params):
+        *mods, name = path
+        arr = np.asarray(leaf)
+        if name == "kernel":
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise ValueError(f"{'/'.join(path)}: kernel of rank {arr.ndim}")
+            name = "weight"
+        elif name in ("scale", "embedding"):
+            name = "weight"
+        out[".".join(mods + [name])] = np.ascontiguousarray(arr)
+    return out
+
+
+@torch.no_grad()
+def load_flax_params(module: nn.Module, variables: Mapping) -> nn.Module:
+    """Copy a Flax params tree into ``module`` in place; returns ``module``."""
+    given = flax_to_state_dict(variables)
+    target = module.state_dict()
+    missing = sorted(set(target) - set(given))
+    unused = sorted(set(given) - set(target))
+    if missing or unused:
+        raise KeyError(f"{type(module).__name__}: missing {missing[:8]} "
+                       f"({len(missing)}), unused {unused[:8]} ({len(unused)})")
+    for key, arr in given.items():
+        dst = target[key]
+        if tuple(dst.shape) != arr.shape:
+            raise ValueError(f"{key}: shape {arr.shape}, module has {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return module

@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels (K1, K2, K3) against their plain versions, on the card.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither JAX nor ``coma_tpu`` and uses no fixture of
@@ -96,3 +96,63 @@ def test_wrappers_reject_mismatched_inputs():
         contact_kernel.fused_contact_update_batch(s, good[0].double(), *good[1:])
     with pytest.raises(ValueError):
         contact_kernel.fused_contact_update_batch(s, *good, slab=65)
+
+
+def k3_inputs(rng, B, H, Lq, Lk, D, dtype, logit_scale=1.0):
+    q, k, v = (rng.normal(size=(B, H, n, D)) for n in (Lq, Lk, Lk))
+    q *= logit_scale
+    return [torch.from_numpy(np.float32(a)).cuda().to(dtype) for a in (q, k, v)]
+
+
+K3_CASES = [  # (B, H, Lq, Lk, D, dtype, logit scale)
+    (2, 3, 300, 300, 40, torch.bfloat16, 1.0),     # Lq not a multiple of the row tile
+    (2, 3, 257, 77, 40, torch.bfloat16, 1.0),      # cross-attention, ragged key tile
+    (1, 8, 1024, 1024, 80, torch.bfloat16, 1.0),
+    (1, 8, 256, 77, 160, torch.bfloat16, 1.0),
+    (1, 8, 64, 64, 160, torch.float32, 1.0),
+    (1, 1, 4096, 4096, 512, torch.bfloat16, 1.0),  # the VAE mid block
+    (1, 1, 200, 13, 512, torch.float32, 1.0),
+    (2, 2, 129, 130, 64, torch.float32, 30.0),     # large logits: the running max
+    (2, 2, 100, 77, 32, torch.float32, 1.0),
+    (2, 2, 100, 9, 16, torch.bfloat16, 1.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Lq,Lk,D,dtype,scale", K3_CASES)
+def test_k3_kernel_matches_plain(B, H, Lq, Lk, D, dtype, scale):
+    """K3 against its plain version computed in fp32 from the same inputs:
+    bf16 within 5e-4 + 8e-3 |plain| (one rounding of the output to bf16,
+    a relative error of at most 2^-8),
+    f32 within 1e-4 (exp2 of pre-scaled scores, another summation order)."""
+    need_card()
+    from coma_tpu_torch.ops import attention
+
+    q, k, v = k3_inputs(np.random.default_rng(D + Lk), B, H, Lq, Lk, D, dtype, scale)
+    before = attention.launches
+    out = attention.scaled_dot_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attention.attention_reference(q.float(), k.float(), v.float())
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want, atol=5e-4, rtol=8e-3)
+    else:
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_rejects_what_the_kernel_does_not_take():
+    need_card()
+    from coma_tpu_torch.ops import attention
+
+    q = torch.zeros(1, 1, 8, 48, device="cuda")
+    with pytest.raises(ValueError):
+        attention.scaled_dot_attention(q, q, q)   # no instance for D = 48
+    q = torch.zeros(1, 1, 8, 40, device="cuda")
+    with pytest.raises(TypeError):
+        attention.scaled_dot_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        attention.scaled_dot_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError):
+        attention.scaled_dot_attention(q, q.cpu(), q)

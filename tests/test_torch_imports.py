@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor ``coma_tpu``.
+"""The port imports neither JAX nor ``coma_tpu``, nor PIL (the card machine
+has none).
 
 The in-process check proves nothing (``tests/conftest.py`` imports JAX), so
 the package and its CLIs are imported in a fresh interpreter; an AST scan
@@ -10,7 +11,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -22,9 +23,15 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import sys\n"
         "import coma_tpu_torch, coma_tpu_torch.cli.extract_coma, coma_tpu_torch.cli.inference\n"
         "import coma_tpu_torch.ops.contact_kernel, coma_tpu_torch.ops.occupancy_kernel\n"
+        "import coma_tpu_torch.ops.attention, coma_tpu_torch.cli.inpaint\n"
+        "import coma_tpu_torch.models.diffusion.pipeline, coma_tpu_torch.models.diffusion.unet\n"
+        "import coma_tpu_torch.models.diffusion.vae, coma_tpu_torch.models.diffusion.clip_text\n"
+        "import coma_tpu_torch.models.segmentation, coma_tpu_torch.models.flax_params\n"
+        "import coma_tpu_torch.utils.png, coma_tpu_torch.utils.checkpoint\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.inpaint' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -33,7 +40,8 @@ def test_import_in_fresh_interpreter_loads_no_jax():
 
 
 def test_no_module_of_the_port_imports_jax_or_coma_tpu():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "profile_inpaint_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
