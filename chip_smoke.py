@@ -7,8 +7,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. Device: the card's name, the device count, and ``nvidia-smi``'s name and
    power limit.
-2. Kernels: build both CUDA kernels from ``coma_tpu_torch/csrc/`` (one
-   ``nvcc`` per source, started together) and hold each against its plain
+2. Kernels: build the CUDA kernels from ``coma_tpu_torch/csrc/`` (one
+   ``nvcc`` per source, started together; the compiler's registers and
+   spills, the bf16 attention kernel's dynamic shared memory per head dim,
+   and its count of ``wgmma`` (HGMMA) and TMA-load (UTMALDG) instructions in
+   the compiled code are printed), then hold K1 and K2 against their plain
    PyTorch version on the card — K1 (contact splat) at the qual
    (10475x180x250), object-contact (1000x1500x250) and quant:full
    (750x2048x250) shapes, K2 (occupancy hits) at H=10475, R=30 — with a
@@ -25,23 +28,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 4. Inference: ``coma_tpu_torch.cli.inference`` for all four products; the
    outputs must be finite with maxima 1.0 (contact, orientation) or 0.7
    (occupancy).
-5. K3 (flash attention, ``csrc/flash_attention.cu``) against its plain
-   version computed in fp32 from the same inputs, at every shape phase 6
-   gives it, (B, heads, Lq, Lk, D): the UNet's under classifier-free
-   guidance (batch 8 for 4 images) at the 64², 32², 16² and 8² levels,
-   self (8, 8, L, L, D) and cross (8, 8, L, 77, D) with (L, D) = (4096, 40),
-   (1024, 80), (256, 160) and (64, 160), and the VAE mid block's (4, 1, 4096,
-   4096, 512), in bf16 (|kernel - plain| <= 5e-4 + 8e-3 |plain|: the output
-   is rounded to bf16 once, a relative error of at most 2^-8), and (8, 8,
-   1024, 1024, 80) in float32 (within 1e-4). Then the kernel's time, the
-   plain version's, ``F.scaled_dot_product_attention``'s as a yardstick (the
-   port never calls it) and the bound.
+5. K3 (flash attention) against its plain version computed in fp32 from the
+   same inputs, at every shape phase 6 gives it, (B, heads, Lq, Lk, D): the
+   UNet's under classifier-free guidance (batch 8 for 4 images) at the 64²,
+   32², 16² and 8² levels, self (8, 8, L, L, D) and cross (8, 8, L, 77, D)
+   with (L, D) = (4096, 40), (1024, 80), (256, 160) and (64, 160), and the
+   VAE mid block's (4, 1, 4096, 4096, 512), in bf16 on the tensor-core
+   kernel ``csrc/flash_attention_sm90.cu`` (|kernel - plain| <= 5e-4 + 8e-3
+   |plain|: the output is rounded to bf16 once, a relative error of at most
+   2^-8, and P enters the tensor cores as two bf16 terms), and (8, 8, 1024,
+   1024, 80) in float32 on ``csrc/flash_attention.cu`` (within 1e-4). A
+   non-finite output raises. Then the kernel's time, the plain version's,
+   ``F.scaled_dot_product_attention``'s as a yardstick (the port never calls
+   it), the bound, the kernel's share of the bound (bound / kernel) and its
+   ratio to SDPA (kernel / SDPA).
 6. Inpainting: ``coma_tpu_torch.cli.inpaint`` at full width (SD-1.x UNet and
    VAE in bf16, CLIP ViT-L, the person segmenter; 512², 50 DDIM steps,
    guidance 7.5, mode ``p``, ``--random_weights``) on one batch of 4 images
-   of a synthetic tree. The K3 counter is set to 0 just before and read just
-   after: it must be 1644 (16 transformer blocks x 2 attentions x 50 steps,
-   plus 44 VAE mid-block calls). The 4 images must be finite, in [0, 1], and
+   of a synthetic tree. The K3 counters are set to 0 just before and read
+   just after: 1644 launches (16 transformer blocks x 2 attentions x 50
+   steps, plus 44 VAE mid-block calls), every one of them on the bf16
+   tensor-core kernel. The 4 images must be finite, in [0, 1], and
    written as 512x512 RGB PNGs. Then the tiny loop (64², f32) runs on the
    card and on the CPU from the same weights and noise and must agree within
    1e-3.
@@ -114,6 +121,16 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32_OPS):
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sass_counts(source: str) -> str:
+    """Tensor-core (HGMMA) and TMA-load (UTMALDG) instructions in a built library."""
+    from coma_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(source))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return f"{sass.count('HGMMA')} HGMMA, {sass.count('UTMALDG')} UTMALDG"
 
 
 def unit(x):
@@ -397,7 +414,7 @@ def check_k3(rng, name, B, H, Lq, Lk, D, dtype):
     times of the kernel, the plain version (in the input dtype) and SDPA."""
     import torch.nn.functional as F
 
-    from coma_tpu_torch.ops.attention import attention_reference, scaled_dot_attention
+    from coma_tpu_torch.ops.attention import KERNELS, attention_reference, scaled_dot_attention
 
     q, k, v = (torch.from_numpy(np.float32(rng.normal(size=(B, H, n, D)))).to(DEVICE, dtype)
                for n in (Lq, Lk, Lk))
@@ -422,8 +439,10 @@ def check_k3(rng, name, B, H, Lq, Lk, D, dtype):
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     bound_ms, bound_by = bound(4.0 * B * H * Lq * Lk * D, nbytes, peak)
     return dict(shape=f"{name} ({B}, {H}, {Lq}, {Lk}, {D}) {str(dtype)[6:]}",
+                source=f"coma_tpu_torch/csrc/{KERNELS[dtype][0]}.cu",
                 max_abs_err=max_abs, atol_used=atol_used, atol=atol, rtol=rtol, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms, ratio_to_sdpa=ms / library_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +586,9 @@ def main() -> int:
             for line in build.log_path(src).read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  {src}: {line.strip()}")
+    log("  flash_attention_sm90 dynamic shared memory per block: " + ", ".join(
+        f"D={d} {attention.shared_memory_bytes(d)} B" for d in attention.HEAD_DIMS))
+    log(f"  flash_attention_sm90 compiled code: {sass_counts('flash_attention_sm90')}")
     rng = np.random.default_rng(SEED)
     k1 = []
     for shape in K1_SHAPES:
@@ -604,21 +626,27 @@ def main() -> int:
         k3.append(r)
         log(f"K3 {r['shape']}: max abs err {r['max_abs_err']:.3e}, least passing atol "
             f"{r['atol_used']:.3e} (limit {r['atol']:.0e} + {r['rtol']:.0e} |plain|); "
-            f"kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{label}]")
+            f"kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+            f"{r['share_of_bound']:.3f}, kernel/SDPA {r['ratio_to_sdpa']:.3f} [{label}]")
 
     # phase 6: inpainting through the CLI, the K3 counter from 0; then the
     # tiny loop on the card against the CPU
     with tempfile.TemporaryDirectory(prefix="inpaint_", dir=SCRATCH) as tmp:
         write_inpaint_tree(tmp, np.random.default_rng(SEED + 2))
         attention.launches = 0
+        for src in attention.source_launches:
+            attention.source_launches[src] = 0
         inpaint(tmp, label)
         launches["flash_attention"] = attention.launches
-    log(f"launches on the inpainting path: flash_attention {launches['flash_attention']}")
-    if launches["flash_attention"] != K3_LAUNCHES_PER_BATCH:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times, "
-                             f"expected {K3_LAUNCHES_PER_BATCH}")
+        by_source = dict(attention.source_launches)
+    log(f"launches on the inpainting path: flash_attention {launches['flash_attention']} "
+        f"({by_source})")
+    if launches["flash_attention"] != K3_LAUNCHES_PER_BATCH \
+            or by_source["flash_attention_sm90"] != K3_LAUNCHES_PER_BATCH:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
+                             f"({by_source}), expected {K3_LAUNCHES_PER_BATCH}, all bf16")
     tiny_loop_against_cpu()
 
     k1_main = k1[0]
@@ -637,13 +665,13 @@ def main() -> int:
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
              shape=k2["shape"]),
         dict(name="flash_attention", route="cuda",
-             source="coma_tpu_torch/csrc/flash_attention.cu",
+             source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
              launches=launches["flash_attention"],
              max_abs_err=max(r["max_abs_err"] for r in k3),
              ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"], bound_ms=k3[0]["bound_ms"],
              bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
-             shapes=k3),
+             launches_by_source=by_source, shapes=k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

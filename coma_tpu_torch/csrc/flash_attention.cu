@@ -1,29 +1,25 @@
-// K3: scaled dot-product attention, softmax(Q K^T / sqrt(D)) V, non-causal,
-// for Hopper (sm_90a).
+// K3 in float32: scaled dot-product attention, softmax(Q K^T / sqrt(D)) V,
+// non-causal, for Hopper (sm_90a), on the FP32 pipes.
 //
-// Replaces the TPU route of coma_tpu/ops/attention.py:41 scaled_dot_attention,
-// which calls the JAX library's Pallas flash_attention (:44-59) when
-// Lq == Lk >= 1024, L % 512 == 0 and D % 128 == 0, and XLA's einsum chain
-// (_xla_attention, :17) otherwise. Its plain version is
+// Replaces, for float32, the TPU route of coma_tpu/ops/attention.py:41
+// scaled_dot_attention, which calls the JAX library's Pallas flash_attention
+// (:44-59) when Lq == Lk >= 1024, L % 512 == 0 and D % 128 == 0, and XLA's
+// einsum chain (_xla_attention, :17) otherwise. Its plain version is
 // coma_tpu_torch/ops/attention.py attention_reference; the wrapper is
-// coma_tpu_torch/ops/attention.py scaled_dot_attention. The D % 128 rule is
-// the TPU's lane padding and means nothing here: every call on the card,
-// from the UNet (D = 40/80/160, Lk = Lq or 77) and the VAE mid block
-// (D = 512, one head), comes here.
+// coma_tpu_torch/ops/attention.py scaled_dot_attention, which sends every
+// float32 call here and every bf16 call to flash_attention_sm90.cu (the
+// tensor-core kernel). The inpainting path at full width is bf16 throughout;
+// float32 reaches this kernel from the tiny 64x64 loop and the tests.
 //
 // What it computes. For one (batch, head) slice, q (Lq, D), k and v (Lk, D),
-// all contiguous: o = softmax(q k^T / sqrt(D)) v. Inputs and output are float
-// or bf16; every product, the running max and sum, and the output
-// accumulator are fp32, and the output is rounded to the input type once at
-// the end.
+// all contiguous float: o = softmax(q k^T / sqrt(D)) v. Every product, the
+// running max and sum, and the output accumulator are fp32.
 //
-// What bounds it on the H100. 4 Lq Lk D operations per slice. At the UNet's
-// 64x64 self-attention (Lq = Lk = 4096, D = 40) that is 2.7 GFLOP per slice,
-// 2.7 us per slice at the 989 TFLOP/s bf16 tensor-core peak, against 1.3 MB
-// of q, k, v and o (0.4 us at 3.35 TB/s): the work is bound by operations.
-// This kernel does them on the FP32 pipes (67 TFLOP/s), not the tensor
-// cores, so it can reach at most ~7% of the bound; wgmma and TMA are the
-// next step.
+// What bounds it on the H100. 4 Lq Lk D operations per slice, float32 in and
+// out: at (8, 8, 1024, 1024, 80) 0.32 ms at the 67 TFLOP/s FP32 rate, against
+// 0.025 ms of memory traffic, so operations bound it. It runs them on the
+// FP32 pipes, as a float32 product must to keep float32's precision (TF32
+// tensor cores keep ~3 decimal digits).
 //
 // Design. One block of 256 threads per (batch*head, tile of BQ query rows).
 // TPR threads share a query row; each owns DP = D / TPR of its dims, in
@@ -41,7 +37,6 @@
 // past Lq are computed on zeros and not stored; keys past Lk are zero-filled
 // in shared memory and masked out of the softmax.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -50,14 +45,8 @@ namespace {
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // TPR threads per query row, R rows per thread, BK keys per shared-memory
@@ -233,17 +222,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH, int L
 
 extern "C" {
 
-// q, o: (BH, Lq, D); k, v: (BH, Lk, D); all contiguous, of one type:
-// dtype 0 = float, 1 = bf16. qscale = log2(e) / sqrt(D). Launches on
-// `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a D or dtype the kernel does not take.
-int coma_flash_attention(const void* q, const void* k, const void* v, void* o, int BH, int Lq,
-                         int Lk, int D, int dtype, float qscale, void* stream) {
+// q, o: (BH, Lq, D); k, v: (BH, Lk, D); float, contiguous. qscale =
+// log2(e) / sqrt(D). Launches on `stream`; returns cudaGetLastError() (0 on
+// success), or cudaErrorInvalidValue for a shape or D the kernel does not
+// take.
+int coma_flash_attention_f32(const void* q, const void* k, const void* v, void* o, int BH, int Lq,
+                             int Lk, int D, float qscale, void* stream) {
   if (BH <= 0 || BH > 65535 || Lq <= 0 || Lk <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(q, k, v, o, BH, Lq, Lk, D, qscale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, BH, Lq, Lk, D, qscale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<float>(q, k, v, o, BH, Lq, Lk, D, qscale, (cudaStream_t)stream);
 }
 
 const char* coma_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("contact_splat", "occupancy_hits", "flash_attention")
+SOURCES = ("contact_splat", "occupancy_hits", "flash_attention", "flash_attention_sm90")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -11,6 +11,11 @@ differ by up to 3e-4 in a score of about 240, which a softmax at that
 sharpness passes on to the output. On a CPU tensor the wrapper runs the plain version and
 counts no launch; the kernel itself is held against it on the card
 (``tests/test_torch_cuda.py``).
+
+The bf16 kernel's tolerance argument is held here before any card run: an
+emulation of its rounding points (P split into two bf16 terms) stays within
+5e-4 + 8e-3·|plain(fp32)| at the UNet's and the VAE's shapes and at ×30
+logits, where one bf16 rounding of P would not.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -54,6 +59,57 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     # coma_tpu's dispatcher takes its XLA route on the CPU as well
     want = np.asarray(j_attention(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy()))))
     np.testing.assert_allclose(out.numpy(), want, atol=1e-5, rtol=0)
+
+
+BF16_ATOL, BF16_RTOL = 5e-4, 8e-3   # the card kernel's bf16 limit against plain(fp32)
+
+
+def emulate_bf16_kernel(q, k, v, split_p=True):
+    """The rounding points of ``csrc/flash_attention_sm90.cu`` on bf16 inputs:
+    Q·Kᵀ in fp32, the softmax in fp32 (exp2 of the scores scaled by
+    log2(e)/√D, minus the scaled row max), P fed to the tensor cores as
+    bf16 — two terms, P_hi = bf16(P) and P_lo = bf16(P − P_hi), or one when
+    ``split_p`` is false — P·V accumulated in fp32, fp32 row sums of the
+    unrounded P, and the output rounded to bf16 once. The kernel's online
+    rescaling is exact up to fp32 rounding and is not modelled."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = attention.LOG2E / np.sqrt(q.shape[-1])
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.exp2(s * c - s.amax(-1, keepdim=True) * c)
+    hi = p.bfloat16().float()
+    pv = hi @ vf
+    if split_p:
+        pv = pv + (p - hi).bfloat16().float() @ vf
+    return (pv / p.sum(-1, keepdim=True)).bfloat16()
+
+
+def least_passing_atol(out, q, k, v):
+    """The least atol with which ``out`` passes against plain(fp32) at rtol 8e-3."""
+    want = attention.attention_reference(q.float(), k.float(), v.float())
+    return float(((out.float() - want).abs() - BF16_RTOL * want.abs()).max())
+
+
+EMULATED = [  # (B, H, Lq, Lk, D, logit scale): the UNet's self and cross, the VAE's, ×30
+    (2, 8, 1024, 1024, 40, 1.0),
+    (2, 8, 1024, 77, 40, 1.0),
+    (1, 1, 1024, 1024, 512, 1.0),
+    (2, 2, 256, 77, 64, 30.0),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,scale", EMULATED)
+def test_bf16_kernel_rounding_stays_within_the_limit(B, H, Lq, Lk, D, scale):
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in inputs(B, H, Lq, Lk, D, scale, seed=3))
+    out = emulate_bf16_kernel(q, k, v)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    assert least_passing_atol(out, q, k, v) <= BF16_ATOL
+
+
+def test_one_bf16_rounding_of_p_would_exceed_the_limit():
+    """Why the kernel splits P: rounded to bf16 once (2^-8 relative per
+    weight), P·V at Lk = 77 misses the limit by more than 2x."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in inputs(2, 8, 1024, 77, 40, 1.0, seed=3))
+    assert least_passing_atol(emulate_bf16_kernel(q, k, v, split_p=False), q, k, v) > 2 * BF16_ATOL
 
 
 def test_reference_in_bfloat16_stays_in_bfloat16():

@@ -115,6 +115,25 @@ K3_CASES = [  # (B, H, Lq, Lk, D, dtype, logit scale)
     (2, 2, 129, 130, 64, torch.float32, 30.0),     # large logits: the running max
     (2, 2, 100, 77, 32, torch.float32, 1.0),
     (2, 2, 100, 9, 16, torch.bfloat16, 1.0),
+    # the bf16 (tensor-core) kernel's edges
+    (2, 2, 100, 9, 40, torch.bfloat16, 1.0),       # fewer keys than one 128-key tile
+    (1, 2, 257, 300, 80, torch.bfloat16, 1.0),     # partial query and key tiles, two chunks
+    (1, 2, 300, 77, 160, torch.bfloat16, 1.0),     # three chunks, 64-key tiles
+    (1, 2, 300, 200, 512, torch.bfloat16, 1.0),    # D = 512: split columns, 32-key tiles
+    (2, 2, 129, 130, 64, torch.bfloat16, 30.0),    # large logits in bf16: the running max
+    (2, 3, 257, 77, 40, torch.bfloat16, 30.0),
+    (2, 2, 100, 77, 32, torch.bfloat16, 1.0),
+    (1, 2, 200, 333, 64, torch.bfloat16, 1.0),
+    # lengths at the tile edges: one query or key, whole tiles, one past,
+    # an odd and an even count of key tiles after the first
+    (1, 1, 1, 1, 40, torch.bfloat16, 1.0),
+    (1, 2, 128, 128, 40, torch.bfloat16, 1.0),
+    (1, 2, 129, 257, 40, torch.bfloat16, 1.0),
+    (2, 2, 100, 200, 64, torch.bfloat16, 1.0),
+    (1, 1, 64, 384, 80, torch.bfloat16, 1.0),
+    (1, 1, 1, 65, 160, torch.bfloat16, 1.0),
+    (1, 1, 64, 33, 512, torch.bfloat16, 1.0),
+    (1, 1, 5, 96, 512, torch.bfloat16, 1.0),
 ]
 
 
@@ -123,16 +142,20 @@ K3_CASES = [  # (B, H, Lq, Lk, D, dtype, logit scale)
 def test_k3_kernel_matches_plain(B, H, Lq, Lk, D, dtype, scale):
     """K3 against its plain version computed in fp32 from the same inputs:
     bf16 within 5e-4 + 8e-3 |plain| (one rounding of the output to bf16,
-    a relative error of at most 2^-8),
-    f32 within 1e-4 (exp2 of pre-scaled scores, another summation order)."""
+    a relative error of at most 2^-8, and P fed to the tensor cores as two
+    bf16 terms, ~2^-16), f32 within 1e-4 (exp2 of pre-scaled scores,
+    another summation order)."""
     need_card()
     from coma_tpu_torch.ops import attention
 
     q, k, v = k3_inputs(np.random.default_rng(D + Lk), B, H, Lq, Lk, D, dtype, scale)
     before = attention.launches
+    source = attention.KERNELS[dtype][0]
+    before_source = attention.source_launches[source]
     out = attention.scaled_dot_attention(q, k, v)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    assert attention.source_launches[source] == before_source + 1   # routed by dtype
     assert out.dtype == dtype and out.shape == q.shape
     want = attention.attention_reference(q.float(), k.float(), v.float())
     if dtype == torch.bfloat16:
@@ -156,3 +179,34 @@ def test_k3_wrapper_rejects_what_the_kernel_does_not_take():
         attention.scaled_dot_attention(q, q.bfloat16(), q)
     with pytest.raises(ValueError):
         attention.scaled_dot_attention(q, q.cpu(), q)
+    # TMA needs 16-byte aligned bases: a view that starts 2 bytes in raises
+    # and is not copied
+    n = 8 * 40
+    odd = torch.zeros(n + 1, dtype=torch.bfloat16, device="cuda")[1:].view(1, 1, 8, 40)
+    even = torch.zeros(1, 1, 8, 40, dtype=torch.bfloat16, device="cuda")
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.scaled_dot_attention(odd, even, even)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.scaled_dot_attention(even, odd, even)
+    assert attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(2, 4, 257, 77, 40), (1, 3, 100, 77, 512)])
+def test_k3_reads_only_its_own_head(B, H, Lq, Lk, D):
+    """Every head but the first holds K and V of 1e4: a key tile that read
+    past its slice (Lk = 77 ends inside a tile) would pull them into the
+    first head's output."""
+    need_card()
+    from coma_tpu_torch.ops import attention
+
+    q, k, v = k3_inputs(np.random.default_rng(D), B, H, Lq, Lk, D, torch.bfloat16)
+    k[:, 1:] = 1e4
+    v[:, 1:] = 1e4
+    out = attention.scaled_dot_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = attention.attention_reference(q[:, :1].float(), k[:, :1].float(), v[:, :1].float())
+    torch.testing.assert_close(out[:, :1].float(), want, atol=5e-4, rtol=8e-3)
+

@@ -23,7 +23,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (  # (label, substrings of the kernel name), first match wins
-    ("K3 flash_attention", ("flash_attention_kernel",)),
+    ("K3 flash_attention", ("flash_attention",)),
     ("convolution", ("conv", "implicit_gemm", "xmma_fprop", "sm90_xmma", "cudnn")),
     ("matmul", ("gemm", "cutlass", "nvjet")),
     ("normalization", ("norm", "moments")),
