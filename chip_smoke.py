@@ -17,14 +17,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    (750x2048x250) shapes, K2 (occupancy hits) at H=10475, R=30 — with a
    batch the slab does not divide, a padded slot, a zero normal and a pair on
    the singular branch. K1 tolerance: |kernel - plain| <= 1e-5 + 1e-4 |plain|
-   (the kernel may fuse multiply-adds in the canonicalization); K2: equal
-   hit counts. Then the kernel's time (CUDA events, after a warm-up), the
-   plain version's and the bound, at the main path's slab of 32 samples.
+   (the kernel splats with the TPU kernel's theta^2 polynomial where sigma
+   gives one, <= ~3e-7 from the exact splat, and forms t = 1 - c.g with
+   fused multiply-adds); K2: equal hit counts. At the qual shape the contact
+   map and the min-max-normalised orientation score of the two states are
+   held against each other too (within 1e-4 of the map's maximum, within
+   1e-3). Then, at the main path's slab of 32 samples, each K1 shape's
+   route (polynomial or exact), the share of (h, o, sample, direction,
+   patch) groups the warp-skip mask keeps, the kernel's time, the plain
+   version's and the bound; K2 on a slab of i.i.d. Gaussian vertices: equal hits, its
+   time, the share of tests its brick cull keeps and of accumulator elements
+   it touches, and the bound of that work beside the dense bound. First, the
+   host's time to make K1's splat plan for the 250-point grid (the first
+   call in a process: the fit and the patch partition; then a second call).
+   A kernel's time is its device time alone (``torch.profiler``); the
+   wrapper's whole call, timed by CUDA events, is printed beside it.
 3. Extraction: a synthetic results tree made from a numpy seed (a 10475-vertex
    human surface, 64 posed samples, a 180-point / 1500-vertex backpack) goes
    through ``coma_tpu_torch.cli.extract_coma`` at ``qual:backpack_human_contact``
-   and ``qual:backpack_occupancy``. The launch counters are set to 0 just
-   before and read just after; each kernel must have launched.
+   and ``qual:backpack_occupancy``. Before it, K2 runs on the tree's first 32
+   posed samples as the extraction prepares them (equal hits, time, kept
+   share, touched share, bounds: the main path's data). The launch counters
+   are set to 0 just before the extraction and read just after; each kernel
+   must have launched.
 4. Inference: ``coma_tpu_torch.cli.inference`` for all four products; the
    outputs must be finite with maxima 1.0 (contact, orientation) or 0.7
    (occupancy).
@@ -118,6 +133,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, kernel: str, reps: int):
+    """(ms per call from CUDA events; device ms per call of the kernels whose
+    name holds ``kernel``, and device operations per call, both from
+    ``torch.profiler``), after one warm-up call. A call's events also hold
+    its wrapper's other launches and, where the host issues more slowly
+    than the card runs, the host's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = cuda_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / reps / 1e3
+    if not device_ms > 0:
+        raise AssertionError(f"the profiler saw no device time of {kernel}")
+    return call_ms, device_ms, sum(e.count for e in events) / reps
+
+
 def bound(ops: float, nbytes: float, peak: float = PEAK_F32_OPS):
     ops_ms, bytes_ms = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -153,11 +189,28 @@ def contact_inputs(rng, B, H, O):
     return [torch.from_numpy(np.float32(a)).to(DEVICE) for a in (hv, hn, ov, on)]
 
 
-def check_k1(rng, name, H, O, N, key):
+def product_diffs(kern, plain):
+    """Largest difference of the contact map (relative to its maximum) and
+    of the min-max-normalised orientation score between two states."""
+    from coma_tpu_torch.affordance.contact import contact_map, orientational_tendency
+
+    cm_k, cm_p = contact_map(kern, "human")["human"], contact_map(plain, "human")["human"]
+    map_err = float((cm_k - cm_p).abs().max()) / float(cm_p.abs().max())
+    del cm_k, cm_p
+    ot_k, ot_p = orientational_tendency(kern), orientational_tendency(plain)
+    orient_err = float((ot_k - ot_p).abs().max())
+    if not (map_err <= 1e-4 and orient_err <= 1e-3) or not torch.isfinite(ot_k).all():
+        raise AssertionError(f"K1 products: contact map differs by {map_err:.3e} of its maximum "
+                             f"(limit 1e-4), orientation score by {orient_err:.3e} (limit 1e-3)")
+    return map_err, orient_err
+
+
+def check_k1(rng, name, H, O, N, key, products=False):
     from coma_tpu_torch.affordance.contact import contact_update_batch
     from coma_tpu_torch.affordance.state import init_coma_state
     from coma_tpu_torch.config.hyperparams import get_hyperparams
-    from coma_tpu_torch.ops.contact_kernel import fused_contact_update_batch
+    from coma_tpu_torch.ops.contact_kernel import (fused_contact_update_batch, mask_keep_share,
+                                                   polynomial_route)
 
     hp = get_hyperparams(key)
     init = lambda: init_coma_state(
@@ -165,6 +218,7 @@ def check_k1(rng, name, H, O, N, key):
         hp["normal_gaussian_sigma"], hp["principle_vec"], hp["sub_principle_vec"],
         hp["eps"], device=DEVICE,
     )
+    poly = polynomial_route(float(hp["normal_gaussian_sigma"])) is not None
     # 6 samples in slabs of 4 (4 + 2), sample 4 padded and holding NaN
     args = contact_inputs(rng, 6, H, O)
     args[0][4] = float("nan")
@@ -183,16 +237,21 @@ def check_k1(rng, name, H, O, N, key):
             bad.append(f)
         max_abs = max(max_abs, float(err.max()))
         max_rel = max(max_rel, float((err / p.abs().clamp(min=1e-6)).max()))
-    del kern, plain
     if bad:
         raise AssertionError(f"K1 {name}: kernel disagrees with plain in {bad} "
                              f"(max abs {max_abs:.3e})")
+    map_err, orient_err = product_diffs(kern, plain) if products else (None, None)
+    del kern, plain
+    torch.cuda.empty_cache()
 
     # timing at the main path's slab: 32 valid samples, one launch per call
     slab = contact_inputs(rng, SLAB, H, O)
     ones = torch.ones(SLAB, dtype=torch.float32, device=DEVICE)
     acc = init()
-    ms = cuda_ms(lambda: fused_contact_update_batch(acc, *slab, valid=ones, slab=SLAB), reps=3)
+    call_ms, ms, ops_per_call = kernel_ms(
+        lambda: fused_contact_update_batch(acc, *slab, valid=ones, slab=SLAB),
+        "contact_splat_kernel", reps=3)
+    keep_share = mask_keep_share(acc, slab[1], slab[3], ones)
     plain_acc = init()
     plain_ms = cuda_ms(lambda: contact_update_batch(plain_acc, *slab, valid=ones), reps=1)
     del acc, plain_acc
@@ -200,24 +259,32 @@ def check_k1(rng, name, H, O, N, key):
     splats = 2.0 * SLAB * H * O * N
     nbytes = 4.0 * (2 * 2 * H * O * N + 3 * 2 * H * O + 2 * SLAB * (H + O) * 3 + 3 * N + SLAB)
     bound_ms, bound_by = bound(K1_OPS_PER_SPLAT * splats, nbytes)
-    return dict(shape=f"{name} H={H} O={O} N={N} slab={SLAB}", max_abs_err=max_abs,
-                max_rel_err=max_rel, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(shape=f"{name} H={H} O={O} N={N} slab={SLAB}",
+                route="polynomial" if poly else "exact", mask_keep_share=keep_share,
+                max_abs_err=max_abs, max_rel_err=max_rel, contact_map_err=map_err,
+                orientation_err=orient_err, ms=ms, call_ms=call_ms,
+                device_ops_per_call=ops_per_call, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def init_k2():
+    from coma_tpu_torch.affordance.state import init_occupancy_state
+
+    return init_occupancy_state(H_FULL, OCC_O, OCC_R, scale_tolerance=3.0, device=DEVICE)
 
 
 def check_k2(rng):
+    """Equal hits on 6 samples in slabs of 4 with a padded NaN sample; then
+    :func:`k2_slab` on 32 i.i.d. Gaussian samples."""
     from coma_tpu_torch.affordance.occupancy import occupancy_update_batch
-    from coma_tpu_torch.affordance.state import init_occupancy_state
     from coma_tpu_torch.ops.occupancy_kernel import fused_occupancy_update_batch
 
-    H, O, R = H_FULL, OCC_O, OCC_R
-    init = lambda: init_occupancy_state(H, O, R, scale_tolerance=3.0, device=DEVICE)
     inputs = lambda B: [torch.from_numpy(np.float32(rng.normal(size=(B, n, 3)) * 0.6))
-                        .to(DEVICE) for n in (H, O)]
+                        .to(DEVICE) for n in (H_FULL, OCC_O)]
     hv, ov = inputs(6)
     hv[4] = float("nan")
     valid = torch.tensor([1, 1, 1, 1, 0, 1], dtype=torch.float32, device=DEVICE)
-    kern, plain = init(), init()
+    kern, plain = init_k2(), init_k2()
     fused_occupancy_update_batch(kern, hv, ov, valid=valid, slab=4)
     occupancy_update_batch(plain, hv, ov, valid=valid)
     torch.cuda.synchronize()
@@ -229,20 +296,69 @@ def check_k2(rng):
         raise AssertionError(f"K2: {differing} differing cells, {hits} hits, anchors "
                              f"{kern.anchor_vert.tolist()} vs {plain.anchor_vert.tolist()}")
     del kern, plain
+    return dict(k2_slab(*inputs(SLAB), "i.i.d. Gaussian vertices"), max_abs_err=max_abs)
 
-    hv, ov = inputs(SLAB)
+
+def k2_slab(hv, ov, inputs: str):
+    """K2 on one slab of 32 valid samples: hits equal to the plain
+    version's, both times, the tests the cull keeps and the accumulator
+    elements the kernel reads and writes, and the bound of that work beside
+    the dense bound."""
+    from coma_tpu_torch.affordance.occupancy import occupancy_update_batch
+    from coma_tpu_torch.ops.occupancy_kernel import fused_occupancy_update_batch, kept_work
+
+    H, L = H_FULL, OCC_R ** 3
     ones = torch.ones(SLAB, dtype=torch.float32, device=DEVICE)
-    acc = init()
-    ms = cuda_ms(lambda: fused_occupancy_update_batch(acc, hv, ov, valid=ones, slab=SLAB), reps=5)
-    plain_acc = init()
-    plain_ms = cuda_ms(lambda: occupancy_update_batch(plain_acc, hv, ov, valid=ones), reps=1)
-    del acc, plain_acc
+    kern, plain = init_k2(), init_k2()
+    fused_occupancy_update_batch(kern, hv, ov, valid=ones, slab=SLAB)
+    occupancy_update_batch(plain, hv, ov, valid=ones)
+    torch.cuda.synchronize()
+    differing = int((kern.spatial_occupancy_grids != plain.spatial_occupancy_grids).sum())
+    if differing or float(kern.spatial_occupancy_grids.sum()) == 0:
+        raise AssertionError(f"K2 on {inputs}: {differing} differing cells")
+    call_ms, ms, ops_per_call = kernel_ms(
+        lambda: fused_occupancy_update_batch(kern, hv, ov, valid=ones, slab=SLAB),
+        "occupancy_hits_kernel", reps=5)
+    plain_ms = cuda_ms(lambda: occupancy_update_batch(plain, hv, ov, valid=ones), reps=1)
+    kept, dense, touched = kept_work(kern, hv, ov, ones)
+    del kern, plain
     torch.cuda.empty_cache()
-    L = R ** 3
-    nbytes = 4.0 * (2 * H * L + SLAB * H * 4 + 4 * L + SLAB)
-    bound_ms, bound_by = bound(K2_OPS_PER_TEST * SLAB * H * L, nbytes)
-    return dict(shape=f"H={H} R={R} slab={SLAB}", max_abs_err=max_abs, differing_cells=differing,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    inputs_bytes = 4.0 * (SLAB * H * 4 + 4 * L + SLAB)   # x and ||x||^2, grid and ||g||^2, valid
+    bound_ms, bound_by = bound(K2_OPS_PER_TEST * kept, 8.0 * touched + inputs_bytes)
+    dense_bound_ms, dense_bound_by = bound(K2_OPS_PER_TEST * dense, 8.0 * H * L + inputs_bytes)
+    return dict(shape=f"H={H} R={OCC_R} slab={SLAB}, {inputs}", differing_cells=differing,
+                kept_tests=kept, dense_tests=dense, kept_share=kept / dense,
+                touched_share=touched / (H * L), ms=ms, call_ms=call_ms,
+                device_ops_per_call=ops_per_call, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, dense_bound_ms=dense_bound_ms, dense_bound_by=dense_bound_by)
+
+
+def log_k2(r, label):
+    log(f"K2 {r['shape']}: {r['differing_cells']} differing cells; the cull keeps "
+        f"{r['kept_tests']} of {r['dense_tests']} tests ({r['kept_share']:.4f}) and touches "
+        f"{r['touched_share']:.4f} of the accumulator; kernel {r['ms']:.3f} ms (the wrapper's "
+        f"call {r['call_ms']:.3f} ms, {r['device_ops_per_call']:.0f} device operations), plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, the kept work) "
+        f"against {r['dense_bound_ms']:.3f} ms ({r['dense_bound_by']}, dense), share of bound "
+        f"{r['bound_ms'] / r['ms']:.3f} [{label}]")
+
+
+def time_splat_plan(key: str):
+    """Host ms of K1's splat plan for the 250-point grid at ``key``'s σ: the
+    first call in the process (the fit, its check and the patch partition),
+    then a second call (the fit cached)."""
+    from coma_tpu_torch.affordance.sphere import fibonacci_sphere
+    from coma_tpu_torch.config.hyperparams import get_hyperparams
+    from coma_tpu_torch.ops.contact_kernel import splat_plan
+
+    grid = fibonacci_sphere(250).astype(np.float32)
+    sigma = float(get_hyperparams(key)["normal_gaussian_sigma"])
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        splat_plan(grid, sigma)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +423,7 @@ def write_tree(root: str, rng) -> dict:
             N_raw=180,
         ))
 
-    whitelist = []
+    whitelist, keys = [], []
     for k in range(N_SAMPLES):
         key = SampleKey(SC, CAT, ASSET, f"{k // 16:03d}", "0", PROMPT, f"{k % 16:05d}")
         yaw = rng.uniform(-0.1, 0.1)
@@ -315,12 +431,31 @@ def write_tree(root: str, rng) -> dict:
         posed = verts @ rot.T + rng.normal(scale=0.005, size=3) \
             + rng.normal(scale=0.002, size=verts.shape)
         dump(tree.human_sample(key), dict(verts=posed, faces=faces))
+        keys.append(key)
         whitelist.append([key.view_id, key.asset_mask_id, key.prompt, key.inpaint_id])
     wl = tree.postfilter_json(SC, CAT, ASSET, PROMPT)
     os.makedirs(os.path.dirname(wl), exist_ok=True)
     with open(wl, "w") as fh:
         json.dump(whitelist, fh)
-    return dict(tree=tree, constants=constants)
+    return dict(tree=tree, constants=constants, keys=keys)
+
+
+def posed_slab(paths, key: str):
+    """The tree's first 32 samples as the extraction prepares them for
+    ``key``: (human verts, object verts) on the card."""
+    from coma_tpu_torch.affordance.io import load_pickle
+    from coma_tpu_torch.config.hyperparams import get_hyperparams
+    from coma_tpu_torch.core.paths import smplx_downsample_path
+    from coma_tpu_torch.pipelines.affordance_inputs import prepare_affordance_extraction_inputs
+
+    hp, tree = get_hyperparams(key), paths["tree"]
+    human = load_pickle(smplx_downsample_path("FULL", paths["constants"]))
+    obj = load_pickle(tree.asset_downsample(SC, CAT, ASSET, hp["object_res"]))
+    samples = [prepare_affordance_extraction_inputs(
+        tree.human_sample(k), human, obj, hp["human_use_downsample_pcd_raw"],
+        hp["object_use_downsample_pcd_raw"], hp["eps"]) for k in paths["keys"][:SLAB]]
+    return [torch.from_numpy(np.stack([d[f] for d in samples])).to(DEVICE)
+            for f in ("human_verts", "obj_verts")]
 
 
 def extract(paths, key: str, label: str):
@@ -589,23 +724,35 @@ def main() -> int:
     log("  flash_attention_sm90 dynamic shared memory per block: " + ", ".join(
         f"D={d} {attention.shared_memory_bytes(d)} B" for d in attention.HEAD_DIMS))
     log(f"  flash_attention_sm90 compiled code: {sass_counts('flash_attention_sm90')}")
+    plan_ms = time_splat_plan(K1_SHAPES[0][4])
+    log(f"K1 splat plan, 250-point grid, host: {plan_ms[0]:.3f} ms on the first call in the "
+        f"process (fit, check, partition), {plan_ms[1]:.3f} ms on a second")
     rng = np.random.default_rng(SEED)
     k1 = []
     for shape in K1_SHAPES:
-        r = check_k1(rng, *shape)
+        r = check_k1(rng, *shape, products=shape[0] == "qual")
         k1.append(r)
-        log(f"K1 {r['shape']}: max abs err {r['max_abs_err']:.3e}, max rel err "
-            f"{r['max_rel_err']:.3e}; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}) [{label}]")
-    k2 = check_k2(rng)
-    log(f"K2 {k2['shape']}: {k2['differing_cells']} differing cells; kernel {k2['ms']:.3f} ms, "
-        f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}) "
-        f"[{label}]")
+        log(f"K1 {r['shape']}: {r['route']} route, max abs err {r['max_abs_err']:.3e}, "
+            f"max rel err {r['max_rel_err']:.3e}; mask keeps {r['mask_keep_share']:.4f} of the "
+            f"(h, o, sample, direction, patch) groups; kernel {r['ms']:.3f} ms (the wrapper's "
+            f"call {r['call_ms']:.3f} ms, {r['device_ops_per_call']:.0f} device operations), "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+            f"share of bound {r['bound_ms'] / r['ms']:.3f} [{label}]")
+        if r["contact_map_err"] is not None:
+            log(f"K1 {r['shape']}: kernel vs plain state, contact map max diff "
+                f"{r['contact_map_err']:.3e} of its maximum (limit 1e-4), orientation score "
+                f"max diff {r['orientation_err']:.3e} (limit 1e-3)")
+    k2_iid = check_k2(rng)
+    log_k2(k2_iid, label)
 
-    # phase 3: extraction through the CLI, with the launch counters from 0
+    # phase 3: K2 on the extraction's posed samples, then the extraction
+    # through the CLI with the launch counters from 0
     os.makedirs(SCRATCH, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="tree_", dir=SCRATCH) as tmp:
         paths = write_tree(tmp, np.random.default_rng(SEED + 1))
+        k2 = k2_slab(*posed_slab(paths, "qual:backpack_occupancy"),
+                     "the extraction's first 32 posed samples")
+        log_k2(k2, label)
         contact_kernel.launches = 0
         occupancy_kernel.launches = 0
         contact_pickle = extract(paths, "qual:backpack_human_contact", label)
@@ -657,13 +804,14 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k1),
              max_rel_err=max(r["max_rel_err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
-             bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"]),
+             bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"], shapes=k1),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
-             launches=launches["occupancy_hits"], max_abs_err=k2["max_abs_err"],
-             differing_cells=k2["differing_cells"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-             bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
-             shape=k2["shape"]),
+             launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
+             differing_cells=k2["differing_cells"] + k2_iid["differing_cells"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+             library_ms=None, dense_bound_ms=k2["dense_bound_ms"], kept_share=k2["kept_share"],
+             touched_share=k2["touched_share"], shape=k2["shape"], shapes=[k2, k2_iid]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",

@@ -40,9 +40,10 @@ def unit(x):
 @pytest.mark.cuda
 def test_k1_kernel_matches_plain():
     """A slab (4) that does not divide the batch (11), a padded slot holding
-    NaN, a zero normal and the singular branch. The kernel may fuse
-    multiply-adds in the canonicalization, so splats differ by a few ulps:
-    rtol 1e-4 / atol 1e-5."""
+    NaN, a zero normal and the singular branch. At σ = 0.25 the kernel
+    splats with the θ² polynomial (≤ ~3e-7 from the exact splat) and t from
+    fused multiply-adds, so splats differ from the plain version's by a
+    few 1e-7: rtol 1e-4 / atol 1e-5."""
     need_card()
     rng = np.random.default_rng(0)
     B, H, O, N = 11, 40, 37, 250
@@ -66,6 +67,76 @@ def test_k1_kernel_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sigma,route", [(0.3, "polynomial"), (0.6, "exact"), (0.75, "exact")])
+def test_k1_routes_match_plain(sigma, route):
+    """The polynomial up to σ = 0.3; at σ = 0.6 the TPU kernel's fit exists
+    but is 1.5e-2 off, and from σ ≈ 0.717 there is none: the kernel splats
+    the exact arccos and exp. Both at the same limits."""
+    need_card()
+    assert (contact_kernel.polynomial_route(sigma) is None) == (route == "exact")
+    rng = np.random.default_rng(2)
+    B, H, O, N = 6, 30, 21, 250
+    hv, ov = rng.normal(size=(B, H, 3)) * 0.3, rng.normal(size=(B, O, 3)) * 0.3
+    hn, on = unit(rng.normal(size=(B, H, 3))), unit(rng.normal(size=(B, O, 3)))
+    hn[:, 0] = 0.0
+    on[:, 1] = (0.0, 0.0, -1.0)
+    args = [cuda(a) for a in (hv, hn, ov, on)]
+    k, p = (state.init_coma_state(H, O, N, 0.07, 0.24, sigma, device="cuda") for _ in "kp")
+    contact_kernel.fused_contact_update_batch(k, *args, slab=4)
+    contact.contact_update_batch(p, *args)
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(k, f), getattr(p, f), rtol=1e-4, atol=1e-5)
+
+
+def directions_at(grid, angle, rng):
+    """One unit direction per grid point, at ``angle`` from it."""
+    side = unit(np.cross(grid, unit(rng.normal(size=grid.shape))))
+    return unit(np.cos(angle) * grid + np.sin(angle) * side)
+
+
+@pytest.mark.cuda
+def test_k1_on_grid_points_at_the_cutoff_and_nan():
+    """Object normals on the principal axis make the human-wrt-object
+    direction the human normal itself: sample 0 puts it on every grid
+    point, samples 1-3 at the polynomial's cutoff angle (and just inside
+    and outside it) from every grid point. Sample 4 is valid and holds a
+    NaN human normal at vertex 7: the kernel adds 0 for it there, where the
+    plain version's sums turn NaN, so row 7 of the grids is held against
+    the plain version without sample 4."""
+    need_card()
+    rng = np.random.default_rng(3)
+    H, O, N, sigma = 250, 5, 250, 0.25
+    grid = np.float64(state.init_coma_state(1, 1, N, 0.07, 0.24, device="cpu")
+                      .canon_normal_grid.numpy())
+    theta = np.arccos(1.0 - contact_kernel.fit_geo2_poly(sigma)[1])
+    hn = np.stack([grid] + [directions_at(grid, theta * f, rng)
+                            for f in (1 - 1e-6, 1.0, 1 + 1e-6)] + [unit(rng.normal(size=(H, 3)))])
+    B = len(hn)
+    hn[4, 7] = np.nan
+    on = np.zeros((B, O, 3))
+    on[..., 2] = 1.0
+    on[:, 3] = unit(rng.normal(size=(B, 3)))
+    hv, ov = rng.normal(size=(B, H, 3)) * 0.3, rng.normal(size=(B, O, 3)) * 0.3
+    args = [cuda(a) for a in (hv, hn, ov, on)]
+    init = lambda: state.init_coma_state(H, O, N, 0.07, 0.24, sigma, device="cuda")
+    k, p, p_drop = init(), init(), init()
+    contact_kernel.fused_contact_update_batch(k, *args, slab=B)
+    contact.contact_update_batch(p, *args)
+    contact.contact_update_batch(p_drop, *args, valid=cuda([1, 1, 1, 1, 0]))
+    torch.cuda.synchronize()
+    rows = torch.arange(H, device="cuda") != 7
+    for f in FIELDS:
+        got, want = getattr(k, f), getattr(p, f)
+        assert torch.isfinite(got).all()
+        if f.startswith("prob_grid"):
+            torch.testing.assert_close(got[rows], want[rows], rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(got[7], getattr(p_drop, f)[7], rtol=1e-4, atol=1e-5)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_k2_kernel_hits_equal_plain():
     need_card()
     rng = np.random.default_rng(1)
@@ -83,6 +154,41 @@ def test_k2_kernel_hits_equal_plain():
     assert torch.equal(k.spatial_occupancy_grids, p.spatial_occupancy_grids)
     assert torch.equal(k.anchor_vert, p.anchor_vert)
     assert float(k.used_count) == float(p.used_count) == 9.0
+
+
+@pytest.mark.cuda
+def test_k2_hits_at_brick_edges_equal_plain():
+    """Vertices at thres ± a few ulps from voxel centres on brick edges
+    (R = 20: bricks of 4 slices by 6 rows, the last ones ragged), a NaN
+    vertex in a valid sample and a padded sample of NaN: the cull drops no
+    hit."""
+    need_card()
+    rng = np.random.default_rng(4)
+    B, H, O, R = 7, 200, 3, 20
+    k, p = (state.init_occupancy_state(H, O, R, 3.0, device="cuda") for _ in "kp")
+    grid = k.spatial_grid.cpu().numpy()
+    thres = np.float32(k.rel_dist_thres)
+    hv = np.empty((B, H, 3), np.float32)
+    for b in range(B):
+        for h in range(H):
+            idx = rng.integers(0, R, 3)
+            idx[rng.integers(3)] = rng.choice([3, 4, 5, 6, 7, 8, 11, 12])
+            x = grid[:, idx[0], idx[1], idx[2]].copy()
+            axis = rng.integers(3)
+            x[axis] = np.float32(x[axis] + rng.choice([-1.0, 1.0]) * thres)
+            steps = int(rng.integers(-3, 4))
+            for _ in range(abs(steps)):
+                x[axis] = np.nextafter(x[axis], np.float32(np.sign(steps) * np.inf))
+            hv[b, h] = x
+    hv[1, 5] = np.nan
+    hv[2] = np.nan
+    ov = np.zeros((B, O, 3), np.float32)
+    valid = cuda([1, 1, 0, 1, 1, 1, 1])
+    occupancy_kernel.fused_occupancy_update_batch(k, cuda(hv), cuda(ov), valid=valid, slab=4)
+    occupancy.occupancy_update_batch(p, cuda(hv), cuda(ov), valid=valid)
+    torch.cuda.synchronize()
+    assert k.spatial_occupancy_grids.sum() > 0
+    assert torch.equal(k.spatial_occupancy_grids, p.spatial_occupancy_grids)
 
 
 @pytest.mark.cuda
