@@ -43,6 +43,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 4. Inference: ``coma_tpu_torch.cli.inference`` for all four products; the
    outputs must be finite with maxima 1.0 (contact, orientation) or 0.7
    (occupancy).
+4b. learn_coma: ``coma_tpu_torch.cli.learn_coma`` on a second synthetic tree
+   at the published qual widths — a seeded SMPL-X-shaped npz in the official
+   key layout (phase 3's 10475-vertex body and its faces, 55 joints) for
+   ``downsample_human`` at 1000/1500/2000/2048/20000 points, a backpack OBJ
+   downsampled at 2048/1500/180, 72 human samples carrying ``IoU``,
+   ``interscetion_ratio`` and ``num_inliers`` (64 survive; 3, 2 and 2 are
+   rejected by the three thresholds; one sentinel) and the four default qual
+   extractions — with every kernel's counter set to 0 just before and read
+   just after (K1 and K2 must launch, K3 must not). Checks: the filter's counts, the star-pose
+   vertices written from the card against the CPU's LBS (within 1e-5),
+   ``used_count`` 64 in each pickle, the four products' rules. Printed: each
+   stage's wall clock, the card's SMPL-X forward in ms, the poisson-disk path
+   (native or Python). Then phase 3's two extractions on two ranks through
+   ``cli/extract_coma --multihost``, one process each: under gloo with both
+   ranks on card 0 (torchrun's variables), and under NCCL with a card per rank
+   where the machine has two (``COMA_*`` variables). Each is held against phase
+   3's one-rank pickle (contact within 1e-5 + 1e-4 |x|; occupancy hits,
+   ``used_count`` and anchor equal) and every rank must launch its kernel;
+   each rank's wall clock, wait for the other rank (its first collective),
+   all-reduce ms and bytes, peak device memory and launches of every kernel
+   are printed beside the one-rank wall clock.
 5. K3 (flash attention) against its plain version computed in fp32 from the
    same inputs, at every shape phase 6 gives it, (B, heads, Lq, Lk, D): the
    UNet's under classifier-free guidance (batch 8 for 4 images) at the 64²,
@@ -483,7 +504,7 @@ def extract(paths, key: str, label: str):
     log(f"extract {key}: {N_SAMPLES} samples in {seconds:.3f} s = "
         f"{N_SAMPLES / seconds:.2f} samples/s (CLI wall clock: load, prep, aggregate, "
         f"export, product), peak device memory {peak_gb:.3f} GB [{label}]")
-    return pickle_path
+    return pickle_path, seconds
 
 
 def infer(paths, coma_path, visualize_type, key, res, out_dir):
@@ -497,31 +518,308 @@ def infer(paths, coma_path, visualize_type, key, res, out_dir):
     ])
 
 
-def check_products(paths, contact_pickle, occupancy_pickle, out_dir):
+def check_product(visualize_type: str, path: str, n: int) -> str:
+    """The rules for one product file: finite, max 1.0 over ``n`` human
+    vertices (contact, orientation); ``n`` object points, one with the colour
+    of 1.0 (object contact); an R³ field with max 0.7 (occupancy)."""
     from coma_tpu_torch.utils.colormap import jet_rgb
     from coma_tpu_torch.utils.ply import read_ply_pointcloud
 
-    for vt, key in (("aggr-human-contact", "qual:backpack_human_contact"),
-                    ("orientation", "qual:backpack_orientation")):
-        arr = np.load(infer(paths, contact_pickle, vt, key, "180", out_dir))
-        if arr.shape != (H_FULL,) or not np.isfinite(arr).all() or arr.max() != 1.0:
-            raise AssertionError(f"{vt}: shape {arr.shape}, max {arr.max()}")
-        log(f"inference {vt}: shape {arr.shape}, max {arr.max()}, mean {arr.mean():.4f}")
-    ply = infer(paths, contact_pickle, "aggr-object-contact", "qual:backpack_object_contact",
-                "180", out_dir)
-    points, normals, colors = read_ply_pointcloud(ply)
-    top = np.round(jet_rgb(np.float32([1.0])) * 255) / 255
-    if points.shape != (180, 3) or not np.isfinite(colors).all() \
-            or not np.isclose(colors, top).all(-1).any():
-        raise AssertionError("aggr-object-contact: no point carries the colour of 1.0")
-    log(f"inference aggr-object-contact: {len(points)} points, colour of 1.0 present")
-    occ = np.load(infer(paths, occupancy_pickle, "occupancy", "qual:backpack_occupancy",
-                        str(OCC_O), out_dir), allow_pickle=True).item()
-    field = occ["prob_field"]
+    if visualize_type in ("aggr-human-contact", "orientation"):
+        arr = np.load(path)
+        if arr.shape != (n,) or not np.isfinite(arr).all() or arr.max() != 1.0:
+            raise AssertionError(f"{visualize_type}: shape {arr.shape}, max {arr.max()}")
+        return f"shape {arr.shape}, max {arr.max()}, mean {arr.mean():.4f}"
+    if visualize_type == "aggr-object-contact":
+        points, normals, colors = read_ply_pointcloud(path)
+        top = np.round(jet_rgb(np.float32([1.0])) * 255) / 255
+        if points.shape != (n, 3) or not np.isfinite(colors).all() \
+                or not np.isclose(colors, top).all(-1).any():
+            raise AssertionError(f"{visualize_type}: no point carries the colour of 1.0")
+        return f"{len(points)} points, colour of 1.0 present"
+    field = np.load(path, allow_pickle=True).item()["prob_field"]
     if field.shape != (OCC_R,) * 3 or not np.isfinite(field).all() \
             or not np.isclose(field.max(), 0.7):
         raise AssertionError(f"occupancy: shape {field.shape}, max {field.max()}")
-    log(f"inference occupancy: shape {field.shape}, max {field.max()}")
+    return f"shape {field.shape}, max {field.max()}"
+
+
+def check_products(paths, contact_pickle, occupancy_pickle, out_dir):
+    for vt, key in (("aggr-human-contact", "qual:backpack_human_contact"),
+                    ("orientation", "qual:backpack_orientation")):
+        path = infer(paths, contact_pickle, vt, key, "180", out_dir)
+        log(f"inference {vt}: {check_product(vt, path, H_FULL)}")
+    ply = infer(paths, contact_pickle, "aggr-object-contact", "qual:backpack_object_contact",
+                "180", out_dir)
+    log(f"inference aggr-object-contact: {check_product('aggr-object-contact', ply, 180)}")
+    occ = infer(paths, occupancy_pickle, "occupancy", "qual:backpack_occupancy", str(OCC_O),
+                out_dir)
+    log(f"inference occupancy: {check_product('occupancy', occ, 0)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: learn_coma through the CLI; phase 3's extractions on two ranks
+# ---------------------------------------------------------------------------
+
+# SMPL-X's kinematic tree (55 joints: body, jaw and eyes, 2 x 15 hand joints)
+SMPLX_PARENTS = [-1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19,
+                 15, 15, 15, 20, 25, 26, 20, 28, 29, 20, 31, 32, 20, 34, 35, 20, 37, 38,
+                 21, 40, 41, 21, 43, 44, 21, 46, 47, 21, 49, 50, 21, 52, 53]
+LEARN_METRICS = (  # (IoU, interscetion_ratio, num_inliers, samples): survivors, then rejects
+    (0.9, 0.01, 5, N_SAMPLES), (0.5, 0.01, 5, 3), (0.9, 0.2, 5, 2), (0.9, 0.01, 0, 2))
+LEARN_KEYS = ("qual:backpack_human_contact", "qual:backpack_object_contact",
+              "qual:backpack_occupancy", "qual:backpack_orientation")
+STAR_ATOL = 1e-5
+RANK_RTOL, RANK_ATOL = 1e-4, 1e-5
+RANK_TIMEOUT_S = 600
+
+
+def write_smplx_npz(path: str, rng) -> None:
+    """A seeded SMPL-X-shaped model in the official npz layout at the
+    published widths: the phase 3 body (10475 vertices and its faces), 55
+    joints, 400 shape and expression directions, posedirs (10475, 3, 486),
+    12 hand PCA components. Skinning weights lean on the root (0.9), so the
+    star pose bends the surface without tearing it."""
+    verts, faces = human_template()
+    V, J = len(verts), len(SMPLX_PARENTS)
+    weights = 0.1 * rng.dirichlet(np.ones(J), size=V)
+    weights[:, 0] += 0.9
+    np.savez(
+        path, v_template=verts, shapedirs=np.float32(rng.normal(size=(V, 3, 400)) * 1e-3),
+        posedirs=np.float32(rng.normal(size=(V, 3, 486)) * 1e-3),
+        J_regressor=rng.dirichlet(np.ones(V), size=J), weights=weights,
+        kintree_table=np.stack([SMPLX_PARENTS, np.arange(J)]).astype(np.int64),
+        hands_meanl=rng.normal(size=45) * 0.1, hands_meanr=rng.normal(size=45) * 0.1,
+        hands_componentsl=rng.normal(size=(12, 45)), hands_componentsr=rng.normal(size=(12, 45)),
+        f=faces.astype(np.uint32),
+    )
+
+
+def backpack_mesh(n_around: int = 40, n_up: int = 30):
+    """The phase 3 backpack patch as a mesh 2 cm behind the body's back,
+    faces wound outward."""
+    theta = np.linspace(np.pi - 0.6, np.pi + 0.6, n_around)
+    z = np.linspace(0.8, 1.4, n_up)
+    radius = 0.3 + 0.05 * np.sin(np.pi * z / 1.7) + 0.02
+    verts = np.stack([radius[:, None] * np.cos(theta), radius[:, None] * np.sin(theta),
+                      np.broadcast_to(z[:, None], (n_up, n_around))], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n_up - 1), np.arange(n_around - 1), indexing="ij")
+    v00, v01 = i * n_around + j, i * n_around + j + 1
+    v10, v11 = v00 + n_around, v01 + n_around
+    faces = np.concatenate([np.stack([v00, v01, v11], -1).reshape(-1, 3),
+                            np.stack([v00, v11, v10], -1).reshape(-1, 3)])
+    return verts, faces
+
+
+def write_learn_tree(root: str, rng) -> dict:
+    """The learn_coma inputs under ``root``: ``smplx.npz``, ``backpack.obj``
+    and the human samples with their filter metrics, one sentinel among them."""
+    from coma_tpu_torch.geometry.mesh import save_obj
+
+    write_smplx_npz(f"{root}/smplx.npz", rng)
+    save_obj(f"{root}/backpack.obj", *backpack_mesh())
+    verts, faces = human_template()
+    samples = [m[:3] for m in LEARN_METRICS for _ in range(m[3])] + [None]
+    for k, metrics in enumerate(samples):
+        d = f"{root}/results/generation/human_sample/{SC}/{CAT}/{ASSET}/{k // 16:03d}/0/{PROMPT}"
+        os.makedirs(d, exist_ok=True)
+        yaw = rng.uniform(-0.1, 0.1)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        payload = "NO HUMANS" if metrics is None else dict(
+            verts=verts @ rot.T + rng.normal(scale=0.005, size=3)
+            + rng.normal(scale=0.002, size=verts.shape), faces=faces,
+            IoU=metrics[0], interscetion_ratio=metrics[1], num_inliers=metrics[2])
+        with open(f"{d}/{k % 16:05d}.pickle", "wb") as fh:
+            pickle.dump(payload, fh)
+    return dict(root=root, samples=len(samples))
+
+
+def star_pose_check(npz: str, star_pickle: str, label: str):
+    """The star template learn_coma wrote (from the card) against the CPU's
+    LBS on the same npz, within 1e-5; then the card's SMPL-X forward in ms."""
+    from coma_tpu_torch.models.smplx import SMPLXModel, star_pose_vertices
+
+    with open(star_pickle, "rb") as fh:
+        card = pickle.load(fh)["vertices"]
+    cpu = star_pose_vertices(SMPLXModel.from_npz(npz, device="cpu")).numpy()
+    err = float(np.abs(card - cpu).max())
+    if card.shape != (H_FULL, 3) or not err <= STAR_ATOL:
+        raise AssertionError(f"star pose: card vs CPU max abs {err:.3e} (limit {STAR_ATOL:.0e})")
+    model = SMPLXModel.from_npz(npz, device=DEVICE)
+    ms = cuda_ms(lambda: star_pose_vertices(model), reps=10)
+    log(f"SMPL-X star pose (V={H_FULL}, 55 joints, posedirs {tuple(model.posedirs.shape)}): card "
+        f"vs CPU max abs {err:.3e} (limit {STAR_ATOL:.0e}); forward {ms:.3f} ms on the card [{label}]")
+    return err, ms
+
+
+def learn_coma(root: str, label: str) -> dict:
+    """``cli/learn_coma`` on the tree, every kernel's counter from 0; the
+    checks: the filter's rejections, K1 and K2 launched and K3 not, the star
+    pose, ``used_count`` equal to the survivors in each pickle, the four
+    products' rules."""
+    from coma_tpu_torch import native
+    from coma_tpu_torch.cli import learn_coma as cli
+    from coma_tpu_torch.config.hyperparams import get_hyperparams
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        contact_kernel.launches = 0
+        occupancy_kernel.launches = 0
+        attention.launches = 0
+        t0 = time.perf_counter()
+        out = cli.main(["--smplx_model_path", "smplx.npz", "--obj_pth", "backpack.obj",
+                        "--supercategory", SC, "--category", CAT, "--asset_id", ASSET,
+                        "--device", DEVICE])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"contact_splat": contact_kernel.launches,
+                    "occupancy_hits": occupancy_kernel.launches,
+                    "flash_attention": attention.launches}
+    finally:
+        os.chdir(cwd)
+    survivors = LEARN_METRICS[0][3]
+    want = dict(rejected_iou=LEARN_METRICS[1][3], rejected_intersection=LEARN_METRICS[2][3],
+                rejected_inliers=LEARN_METRICS[3][3])
+    if {k: out["filter"][k] for k in want} != want or out["filter"]["leftover"] != survivors:
+        raise AssertionError(f"filter: {out['filter']}, expected {want}")
+    if not (launches["contact_splat"] and launches["occupancy_hits"]) \
+            or launches["flash_attention"]:
+        raise AssertionError(f"learn_coma must launch K1 and K2, not K3: {launches}")
+    log(f"learn_coma: {seconds:.3f} s, stages " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in out["seconds"].items()) + f"; poisson-disk elimination: "
+        f"{native.path_name()}; filter {out['filter']}; launches {launches} [{label}]")
+    star = star_pose_check(f"{root}/smplx.npz", f"{root}/constants/mesh/smplx_star.pickle",
+                           label)
+    tree = f"{root}/results/coma"
+    for key in LEARN_KEYS:
+        with open(f"{tree}/extracted_coma/{SC}/{CAT}/{ASSET}/{key}:{PROMPT}.pickle", "rb") as fh:
+            d = pickle.load(fh)
+        if d["used_count"] != survivors:
+            raise AssertionError(f"learn_coma {key}: used_count {d['used_count']} != {survivors}")
+        (product,) = out[f"extract ({key})"]
+        vt = get_hyperparams(key)["visualize_type"]
+        n = d["obj_res"] if vt == "aggr-object-contact" else d["human_res"]
+        log(f"learn_coma {key}: used_count {d['used_count']}, H={d['human_res']}, "
+            f"O={d['obj_res']}; {vt}: {check_product(vt, os.path.join(root, product), n)} "
+            f"[{label}]")
+        del d
+    return dict(seconds=seconds, stage_seconds=out["seconds"], launches=launches,
+                star_pose_max_abs_err=star[0], smplx_forward_ms=star[1],
+                native=native.path_name())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def extract_on_ranks(paths, key: str, backend: str, world: int, style: str, label: str):
+    """``cli/extract_coma --multihost`` in ``world`` processes (launch
+    variables of ``style``: torchrun's or COMA_*); returns (wall clock of the
+    processes, each rank's report)."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONPATH=REPO)
+        if style == "torchrun":
+            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        else:
+            env.update(COMA_COORDINATOR=f"localhost:{port}", COMA_NUM_PROCESSES=str(world),
+                       COMA_PROCESS_ID=str(rank))
+        cmd = [sys.executable, "-m", "coma_tpu_torch.cli.extract_coma", "--multihost",
+               "--dist_backend", backend, "--device", DEVICE,
+               "--human_sample_dir", f"{paths['tree'].root}/generation/human_sample",
+               "--constants_mesh_dir", paths["constants"], "--hyperparams_key", key]
+        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"{world} ranks ({backend}) {key} failed:\n" + "\n".join(
+            o[-3000:] for o in outs))
+    reports = []
+    for out in outs:
+        lines = [json.loads(l)["extract_rank"] for l in out.splitlines()
+                 if l.startswith('{"extract_rank"')]
+        if len(lines) != 1:
+            raise AssertionError(f"a rank printed {len(lines)} reports:\n{out[-3000:]}")
+        reports.append(lines[0])
+    return seconds, sorted(reports, key=lambda r: r["rank"])
+
+
+def compare_rank_pickle(key: str, got_path: str, want_path: str) -> dict:
+    """The ranks' pickle against the single process's: contact fields within
+    1e-5 + 1e-4 |x| (on the card), occupancy hits, counts and anchor equal."""
+    with open(got_path, "rb") as fh:
+        got = pickle.load(fh)
+    with open(want_path, "rb") as fh:
+        want = pickle.load(fh)
+    if got["used_count"] != want["used_count"]:
+        raise AssertionError(f"{key}: used_count {got['used_count']} != {want['used_count']}")
+    if "spatial_occupancy_grids" in want:
+        differing = int((got["spatial_occupancy_grids"] != want["spatial_occupancy_grids"]).sum())
+        if differing or not np.array_equal(got["debug_obj_vert"], want["debug_obj_vert"]):
+            raise AssertionError(f"{key}: {differing} differing occupancy cells, anchors "
+                                 f"{got['debug_obj_vert']} vs {want['debug_obj_vert']}")
+        return dict(differing_cells=0, max_abs_err=0.0)
+    worst = 0.0
+    for f in ("prob_grid_canon_human_wrt_obj", "prob_grid_canon_obj_wrt_human",
+              "contact_dist_expectation_grid_nom", "contact_dist_expectation_grid_denom",
+              "significant_contact_count"):
+        a = torch.from_numpy(got[f]).to(DEVICE)
+        b = torch.from_numpy(want[f]).to(DEVICE)
+        err = (a - b).abs()
+        if bool((err > RANK_ATOL + RANK_RTOL * b.abs()).any()) or not torch.isfinite(a).all():
+            raise AssertionError(f"{key}: the ranks' {f} differs by {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+        del a, b, err
+    return dict(max_abs_err=worst)
+
+
+def extractions_on_two_ranks(paths, single: dict, label: str) -> list:
+    """Phase 3's two extractions on two ranks, each against phase 3's pickle:
+    under gloo with both ranks on card 0, and under NCCL with a card per
+    rank where the machine has two. Every rank must launch its kernel."""
+    runs = [("gloo", "torchrun")] + ([("nccl", "coma")] if torch.cuda.device_count() >= 2 else [])
+    if len(runs) == 1:
+        log(f"NCCL on two ranks: skipped, {torch.cuda.device_count()} card(s) on this machine "
+            f"[{label}]")
+    results = []
+    for backend, style in runs:
+        for key, kernel in (("qual:backpack_human_contact", "contact_splat"),
+                            ("qual:backpack_occupancy", "occupancy_hits")):
+            seconds, reports = extract_on_ranks(paths, key, backend, 2, style, label)
+            launches = [r["launches"][kernel] for r in reports]
+            if len(reports) != 2 or not all(n > 0 for n in launches):
+                raise AssertionError(f"{backend} {key}: {kernel} launches per rank {launches}")
+            diff = compare_rank_pickle(key, single[key]["path"], single[key]["single_path"])
+            one = single[key]["seconds"]
+            log(f"2 ranks ({backend}, {style} variables) {key}: processes {seconds:.3f} s, "
+                f"in-process CLI " + ", ".join(f"rank {r['rank']} {r['seconds']:.3f} s" for r in reports)
+                + f" against one rank's {one:.3f} s (phase 3); equal to one rank's pickle "
+                f"({diff}); " + "; ".join(
+                    f"rank {r['rank']} on {r['device']}: launches {r['launches']}, "
+                    f"waited {r['wait_ms']:.3f} ms for the other rank (the sample count's "
+                    f"all-reduce), then all-reduce "
+                    f"{r['allreduce_ms']:.3f} ms for {r['allreduce_bytes']} bytes, "
+                    f"peak device memory {r['peak_device_gb']} GB" for r in reports)
+                + f" [{label}]")
+            results.append(dict(backend=backend, key=key, seconds=seconds, one_rank_seconds=one,
+                                ranks=reports, **diff))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -755,8 +1053,8 @@ def main() -> int:
         log_k2(k2, label)
         contact_kernel.launches = 0
         occupancy_kernel.launches = 0
-        contact_pickle = extract(paths, "qual:backpack_human_contact", label)
-        occupancy_pickle = extract(paths, "qual:backpack_occupancy", label)
+        single = {key: dict(zip(("path", "seconds"), extract(paths, key, label)))
+                  for key in ("qual:backpack_human_contact", "qual:backpack_occupancy")}
         launches = {"contact_splat": contact_kernel.launches,
                     "occupancy_hits": occupancy_kernel.launches}
         if not all(launches.values()):
@@ -764,7 +1062,22 @@ def main() -> int:
         log(f"launches on the extraction path: {launches}")
 
         # phase 4: inference for all four products
-        check_products(paths, contact_pickle, occupancy_pickle, f"{tmp}/output")
+        check_products(paths, single["qual:backpack_human_contact"]["path"],
+                       single["qual:backpack_occupancy"]["path"], f"{tmp}/output")
+
+        # phase 4b: learn_coma through the CLI (K1/K2 counters from 0), then
+        # phase 3's extractions on two ranks against phase 3's pickles
+        with tempfile.TemporaryDirectory(prefix="learn_", dir=SCRATCH) as learn_tmp:
+            write_learn_tree(learn_tmp, np.random.default_rng(SEED + 3))
+            learned = learn_coma(learn_tmp, label)
+        for run in single.values():
+            run["single_path"] = run["path"] + ".one_rank"
+            os.replace(run["path"], run["single_path"])
+        ranked = extractions_on_two_ranks(paths, single, label)
+        per_rank = {kernel: [dict(backend=r["backend"], key=r["key"], rank=rank["rank"],
+                                  launches=rank["launches"][kernel])
+                             for r in ranked for rank in r["ranks"]]
+                    for kernel in ("contact_splat", "occupancy_hits", "flash_attention")}
 
     # phase 5: K3 against its plain version
     k3 = []
@@ -804,14 +1117,18 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k1),
              max_rel_err=max(r["max_rel_err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
-             bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"], shapes=k1),
+             bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"], shapes=k1,
+             launches_learn_coma=learned["launches"]["contact_splat"],
+             launches_per_rank=per_rank["contact_splat"]),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
              differing_cells=k2["differing_cells"] + k2_iid["differing_cells"], ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
              library_ms=None, dense_bound_ms=k2["dense_bound_ms"], kept_share=k2["kept_share"],
-             touched_share=k2["touched_share"], shape=k2["shape"], shapes=[k2, k2_iid]),
+             touched_share=k2["touched_share"], shape=k2["shape"], shapes=[k2, k2_iid],
+             launches_learn_coma=learned["launches"]["occupancy_hits"],
+             launches_per_rank=per_rank["occupancy_hits"]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -819,7 +1136,9 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k3),
              ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"], bound_ms=k3[0]["bound_ms"],
              bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
-             launches_by_source=by_source, shapes=k3),
+             launches_by_source=by_source, shapes=k3,
+             launches_learn_coma=learned["launches"]["flash_attention"],
+             launches_per_rank=per_rank["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

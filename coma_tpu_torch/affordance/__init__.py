@@ -13,6 +13,7 @@ from coma_tpu_torch.affordance.contact import (
     orientational_tendency,
     significant_contact_pairs,
 )
+from coma_tpu_torch.affordance.evaluation import mean_absolute_error, quant_metrics, similarity
 from coma_tpu_torch.affordance.io import (
     load_coma_state,
     load_occupancy_state,
@@ -51,6 +52,7 @@ __all__ = [
     "load_coma_state",
     "load_occupancy_state",
     "make_voxel_grid",
+    "mean_absolute_error",
     "merge_occupancy_states",
     "merge_states",
     "nonphysical_response",
@@ -58,7 +60,9 @@ __all__ = [
     "occupancy_update",
     "occupancy_update_batch",
     "orientational_tendency",
+    "quant_metrics",
     "save_coma_state",
     "save_occupancy_state",
     "significant_contact_pairs",
+    "similarity",
 ]

@@ -70,22 +70,25 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    log = open(log_path(name), "w")
+    # per process, renamed into place as the library is: two processes that
+    # build at once never interleave one log
+    tmp_log = log_path(name).with_suffix(f".{os.getpid()}.log")
+    log = open(tmp_log, "w")
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-    return proc, log, tmp, out, cmd
+    return proc, log, tmp_log, tmp, out, cmd
 
 
 def _finish(name: str, started) -> None:
-    proc, log, tmp, out, cmd = started
+    proc, log, tmp_log, tmp, out, cmd = started
     try:
         rc = proc.wait()
     finally:
         log.close()
+        tail = tmp_log.read_text()[-4000:]
+        os.replace(tmp_log, log_path(name))   # the last build's log, failed or not
     if rc != 0:
-        raise RuntimeError(
-            f"nvcc failed ({rc}) building {name}: {' '.join(cmd)}\n"
-            + log_path(name).read_text()[-4000:]
-        )
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({rc}) building {name}: {' '.join(cmd)}\n{tail}")
     os.replace(tmp, out)
 
 

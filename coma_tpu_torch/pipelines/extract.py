@@ -1,11 +1,13 @@
 """ComA extraction driver: samples on disk -> aggregated state -> products.
 
-Counterpart of ``coma_tpu/pipelines/extract.py`` for one device. Reference
-parity: ``src/coma/extract_coma.py:run_affordance_extraction:66-503``.
-Samples are loaded and prepped on host threads in batches; each batch goes
-to the device and is added into accumulators that live there once and are
-updated in place: on CUDA by the kernels K1 (contact) and K2 (occupancy),
-on the CPU by their plain versions.
+Counterpart of ``coma_tpu/pipelines/extract.py``. Reference parity:
+``src/coma/extract_coma.py:run_affordance_extraction:66-503``. Samples are
+loaded and prepped on host threads in batches; each batch goes to the device
+and is added into accumulators that live there once and are updated in
+place: on CUDA by the kernels K1 (contact) and K2 (occupancy), on the CPU by
+their plain versions. Over several processes (:func:`aggregate_shards`) each
+rank aggregates its shard of the samples, the additive accumulators are
+all-reduced, and rank 0 writes the outputs.
 """
 from __future__ import annotations
 
@@ -28,6 +30,13 @@ from coma_tpu_torch.core.sentinels import is_sentinel
 from coma_tpu_torch.device import resolve_device
 from coma_tpu_torch.ops.contact_kernel import fused_contact_update_batch
 from coma_tpu_torch.ops.occupancy_kernel import fused_occupancy_update_batch
+from coma_tpu_torch.parallel.distributed import (
+    DistContext,
+    allreduce_count,
+    allreduce_state,
+    process_shard_worklist,
+    zero_contribution,
+)
 from coma_tpu_torch.pipelines.affordance_inputs import prepare_affordance_extraction_inputs
 from coma_tpu_torch.pipelines.loader import PrefetchingSampleLoader
 from coma_tpu_torch.pipelines.products import save_product
@@ -105,6 +114,30 @@ def aggregate_samples_streaming(
     return state, n
 
 
+def aggregate_shards(
+    state, keys, prepare_fn, occupancy: bool, ctx: DistContext, batch_size: int = 32,
+    num_workers: int = 4,
+):
+    """This rank's part of a multi-process aggregation, in place.
+
+    The rank aggregates its shard of ``sorted(keys)``
+    (:func:`process_shard_worklist`) into its state, the additive
+    accumulators are summed over the ranks and the occupancy anchor is
+    combined (:func:`allreduce_state`). The carried ``state`` counts once:
+    rank 0 aggregates onto it, the other ranks onto zeros. Every rank joins
+    every collective, one with an empty shard too. Returns (state, number of
+    samples over all ranks), the same on every rank.
+    """
+    shard = process_shard_worklist(sorted(keys), ctx.rank, ctx.world_size)
+    zero_contribution(state, ctx)
+    state, n = aggregate_samples_streaming(
+        state, shard, prepare_fn, occupancy, batch_size=batch_size, num_workers=num_workers
+    )
+    n = allreduce_count(n, ctx)   # first: its time is the wait for the slowest rank
+    allreduce_state(state, ctx)
+    return state, n
+
+
 def run_affordance_extraction(
     hyperparams: Dict[str, Any],
     hyperparams_key: str,
@@ -117,10 +150,19 @@ def run_affordance_extraction(
     skip_done: bool = False,
     verbose: bool = True,
     device="cuda",
+    dist: Optional[DistContext] = None,
+    batch_size: int = 32,
 ) -> List[str]:
     """Run extraction for every discovered SCAM on ``device``; returns the
-    saved product paths."""
-    device = resolve_device(device)
+    saved product paths.
+
+    With ``dist`` (``parallel.distributed.initialize()``), on its device:
+    each rank aggregates its shard of every SCAM's samples, the
+    accumulators are all-reduced, and rank 0 alone writes the pickle, the
+    JSON and the product; the other ranks return an empty list. Every rank
+    must run the same call."""
+    device = resolve_device(dist.device if dist is not None else device)
+    root = dist is None or dist.is_root
     tree = ResultsTree(results_root)
     visualize_type = hyperparams["visualize_type"]
     occupancy = visualize_type == "occupancy"
@@ -165,6 +207,8 @@ def run_affordance_extraction(
         out_dir = tree.affordance_dir(sc, cat, asset, hyperparams_key, mainprompt)
 
         if skip_done and os.path.exists(coma_pickle):
+            if not root:
+                continue
             load = load_occupancy_state if occupancy else load_coma_state
             state = load(coma_pickle, device=device)
         else:
@@ -207,9 +251,16 @@ def run_affordance_extraction(
                     eps=hyperparams["eps"],
                     device=device,
                 )
-            state, n_samples = aggregate_samples_streaming(
-                state, keys, prepare_one, occupancy
-            )
+            if dist is None:
+                state, n_samples = aggregate_samples_streaming(
+                    state, keys, prepare_one, occupancy, batch_size=batch_size
+                )
+            else:
+                state, n_samples = aggregate_shards(
+                    state, keys, prepare_one, occupancy, dist, batch_size=batch_size
+                )
+                if not root:
+                    continue  # rank 0 owns the writes
             if n_samples == 0:
                 if verbose:
                     print(f"[extract] {scam}: no surviving samples, skipping")

@@ -28,10 +28,17 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.models.diffusion.vae, coma_tpu_torch.models.diffusion.clip_text\n"
         "import coma_tpu_torch.models.segmentation, coma_tpu_torch.models.flax_params\n"
         "import coma_tpu_torch.utils.png, coma_tpu_torch.utils.checkpoint\n"
+        "import coma_tpu_torch.cli.learn_coma, coma_tpu_torch.cli.filter\n"
+        "import coma_tpu_torch.cli.downsample_human, coma_tpu_torch.cli.downsample_objects\n"
+        "import coma_tpu_torch.parallel.distributed, coma_tpu_torch.models.smplx\n"
+        "import coma_tpu_torch.native, coma_tpu_torch.geometry.sampling\n"
+        "import coma_tpu_torch.pipelines.downsample, coma_tpu_torch.pipelines.postfilter\n"
+        "import coma_tpu_torch.affordance.evaluation, coma_tpu_torch.config.assets\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.inpaint' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.learn_coma' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
