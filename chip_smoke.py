@@ -88,6 +88,35 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    written as 512x512 RGB PNGs. Then the tiny loop (64², f32) runs on the
    card and on the CPU from the same weights and noise and must agree within
    1e-3.
+6b. Inpainting from a diffusers directory at SD-2-inpainting's published
+   widths: the port's writer puts seeded random weights (UNet
+   320/640/1280/1280, heads 5/10/20/20, cross-dim 1024, Linear
+   ``proj_in``/``proj_out``; the OpenCLIP text tower, 1024 wide, 23 layers,
+   16 heads, gelu; the VAE) in F16 under the diffusers layout with the
+   published ``config.json`` files and a miniature vocabulary, then
+   ``cli/inpaint --weights_dir`` inpaints phase 6's batch of 4 at 512², 50
+   steps. Checks: the images finite in [0, 1]; K3's counters from 0, every
+   launch bf16, 1600 at D = 64 and 44 at D = 512. Printed: the directory's
+   size, the load's seconds, images/s, peak memory.
+6c. Phase 6's run with ``--provoke_crop auto`` on a tree whose default mask
+   (192 x 128 pixels) lets it take a bucket: the bucket, K3's launches at
+   the crop's VAE shapes (42: a decode and an encode in each of 21 provoke
+   rounds) and the wall clock beside phase 6's.
+7. The HOI-reconstruction application: ``cli/optimize`` on phase 4b's
+   SMPL-X-shaped npz, its ``qual:backpack_human_contact`` pickle (H 10475,
+   O 180, N 250) and 180-point object downsample, with a seeded VPoser
+   snapshot (512 wide, latent 32), at the CLI defaults (2000 steps, lr 1e-2,
+   weights 1e12 / 2.6e11), then with ``--use_collision`` at 200 steps; every
+   kernel's counter from 0 (the application runs none). Checks: the losses
+   finite and the total falling from step 0; the card against the CPU over
+   10 steps (total loss within 1e-3 relative, vertices within 1e-3 m; the
+   card sums ``index_add`` and the gather's backward with atomics). Printed:
+   the wall clocks, ms per step (CUDA events), peak memory, and the device's
+   idle share over 50 steps (``torch.profiler``).
+
+Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
+(8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
+phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
 
 After the phases come three lines: ``{"kernels": [...]}``, the card's name
 and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
@@ -99,6 +128,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -838,6 +868,15 @@ K3_SHAPES = (  # (name, B, H, Lq, Lk, D, dtype): phase 6's, CFG doubling the UNe
     ("unet_mid_cross_8x8", 8, 8, 64, 77, 160, torch.bfloat16),
     ("vae_mid", 4, 1, 4096, 4096, 512, torch.bfloat16),
     ("unet_self_32x32_f32", 8, 8, 1024, 1024, 80, torch.float32),
+    # phase 6b's SD-2 UNet: heads 5/10/20/20 of 64 channels
+    ("sd2_unet_self_64x64", 8, 5, 4096, 4096, 64, torch.bfloat16),
+    ("sd2_unet_cross_64x64", 8, 5, 4096, 77, 64, torch.bfloat16),
+    ("sd2_unet_self_32x32", 8, 10, 1024, 1024, 64, torch.bfloat16),
+    ("sd2_unet_cross_32x32", 8, 10, 1024, 77, 64, torch.bfloat16),
+    ("sd2_unet_self_16x16", 8, 20, 256, 256, 64, torch.bfloat16),
+    ("sd2_unet_cross_16x16", 8, 20, 256, 77, 64, torch.bfloat16),
+    ("sd2_unet_mid_self_8x8", 8, 20, 64, 64, 64, torch.bfloat16),
+    ("sd2_unet_mid_cross_8x8", 8, 20, 64, 77, 64, torch.bfloat16),
 )
 K3_BF16_ATOL, K3_BF16_RTOL, K3_F32_ATOL = 5e-4, 8e-3, 1e-4
 
@@ -886,8 +925,10 @@ INPAINT_RES, INPAINT_IMAGES = 512, 4   # 1 mask x 1 prompt x 2 view texts x 2 se
 K3_LAUNCHES_PER_BATCH = 50 * 32 + 44   # UNet: 16 blocks x 2 attentions x 50 steps; VAE: 44
 
 
-def write_inpaint_tree(root: str, rng) -> None:
-    """A render, an asset mask, its valid-mask pickle and one prompt."""
+def write_inpaint_tree(root: str, rng, mask_box=None) -> None:
+    """A render, an asset mask (rows res/8..7res/8, columns res/4..3res/4, or
+    ``mask_box`` = (top, bottom, left, right)), its valid-mask pickle and one
+    prompt."""
     from coma_tpu_torch.utils.png import write_png
 
     res, view = INPAINT_RES, "view:00000"
@@ -900,8 +941,9 @@ def write_inpaint_tree(root: str, rng) -> None:
     render = np.stack([yy, xx, 0.5 + 0.5 * np.sin(6 * xx)], -1) * 200 \
         + rng.integers(0, 55, size=(res, res, 3))
     write_png(f"{g}/renders/{base}/{view}.png", np.uint8(render))
+    top, bottom, left, right = mask_box or (res // 8, 7 * res // 8, res // 4, 3 * res // 4)
     mask = np.zeros((res, res), np.uint8)
-    mask[res // 8: 7 * res // 8, res // 4: 3 * res // 4] = 255
+    mask[top:bottom, left:right] = 255
     write_png(f"{g}/asset_masks/{base}/{view}/0.png", mask)
     with open(f"{g}/valid_masks/{base}/{view}.pickle", "wb") as fh:
         pickle.dump({"valid_mask_ids": [0]}, fh)
@@ -909,8 +951,9 @@ def write_inpaint_tree(root: str, rng) -> None:
         pickle.dump({"prompts": [PROMPT]}, fh)
 
 
-def inpaint(root: str, label: str):
-    """``cli/inpaint`` at full width; returns (seconds, peak GB, outputs)."""
+def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 steps, mode p"):
+    """``cli/inpaint`` at full width with ``flags``; returns (seconds, peak
+    GB, outputs)."""
     from coma_tpu_torch.cli import inpaint as cli
     from coma_tpu_torch.models.diffusion.pipeline import AdaptiveMaskInpaintPipeline
     from coma_tpu_torch.utils.png import read_png
@@ -929,7 +972,7 @@ def inpaint(root: str, label: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cli.main(["--random_weights", "--device", DEVICE, "--num_img_per_combination", "2",
+        cli.main([*flags, "--device", DEVICE, "--num_img_per_combination", "2",
                   "--batch_size", str(INPAINT_IMAGES), "--adaptive_mask_model_type", "p"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -949,10 +992,9 @@ def inpaint(root: str, label: str):
             or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"inpaint output: shape {tuple(out.shape)}, "
                              f"finite {bool(torch.isfinite(out).all())}")
-    log(f"inpaint {INPAINT_IMAGES} images at {INPAINT_RES}², bf16, 50 steps, mode p: "
-        f"{seconds:.3f} s = {INPAINT_IMAGES / seconds:.4f} images/s (CLI wall clock: models "
-        f"made from a seed, prompts, the loop, PNGs), peak device memory {peak_gb:.3f} GB "
-        f"[{label}]")
+    log(f"inpaint {INPAINT_IMAGES} images at {INPAINT_RES}², {what}: "
+        f"{seconds:.3f} s = {INPAINT_IMAGES / seconds:.4f} images/s (CLI wall clock: models, "
+        f"prompts, the loop, PNGs), peak device memory {peak_gb:.3f} GB [{label}]")
     return seconds, peak_gb, out
 
 
@@ -992,6 +1034,407 @@ def tiny_loop_against_cpu():
         raise AssertionError(f"tiny loop: card vs CPU max abs {err:.3e} (limit 1e-3)")
     log(f"tiny loop (64², f32, 50 steps) on the card vs the CPU: max abs {err:.3e}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: inpainting from a diffusers directory at SD-2-inpainting's widths
+# ---------------------------------------------------------------------------
+
+SD2_UNET_JSON = dict(  # stabilityai/stable-diffusion-2-inpainting, unet/config.json
+    in_channels=9, out_channels=4, block_out_channels=[320, 640, 1280, 1280],
+    layers_per_block=2, cross_attention_dim=1024, attention_head_dim=[5, 10, 20, 20],
+    norm_num_groups=32, use_linear_projection=True,
+    down_block_types=["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"])
+SD2_CLIP_JSON = dict(  # its text_encoder/config.json (OpenCLIP ViT-H, penultimate layer)
+    vocab_size=49408, hidden_size=1024, intermediate_size=4096, num_hidden_layers=23,
+    num_attention_heads=16, max_position_embeddings=77, hidden_act="gelu")
+SD2_VAE_JSON = dict(in_channels=3, latent_channels=4, block_out_channels=[128, 256, 512, 512],
+                    layers_per_block=2, norm_num_groups=32, scaling_factor=0.18215)
+SD_WEIGHTS_DTYPE = "F16"
+
+
+def write_vocab(d: str) -> None:
+    """A miniature CLIP vocabulary holding every byte symbol (alone and
+    word-final), so any prompt tokenizes; one merge."""
+    from coma_tpu_torch.models.diffusion.tokenizer import bytes_to_unicode
+
+    os.makedirs(d, exist_ok=True)
+    vocab = {"<|startoftext|>": 49406, "<|endoftext|>": 49407}
+    for ch in bytes_to_unicode().values():
+        for tok in (ch, ch + "</w>"):
+            vocab.setdefault(tok, len(vocab) - 2)
+    vocab.setdefault("pe", len(vocab) - 2)
+    with open(f"{d}/vocab.json", "w") as fh:
+        json.dump(vocab, fh)
+    with open(f"{d}/merges.txt", "w") as fh:
+        fh.write("#version: 0.2\np e\n")
+
+
+def write_sd2_dir(d: str, seed: int) -> dict:
+    """A diffusers SD-2-inpainting directory from seeded random weights
+    (Flax's initialisers, made on the card), written by the port's writer in
+    F16, ``proj_in``/``proj_out`` as Linear weights; returns sizes and seconds."""
+    from coma_tpu_torch.models.diffusion import weights as W
+    from coma_tpu_torch.models.diffusion.clip_text import CLIPTextEncoder, sd2_clip_text_config
+    from coma_tpu_torch.models.diffusion.unet import UNet2DCondition, sd2_inpaint_unet_config
+    from coma_tpu_torch.models.diffusion.vae import Decoder, Encoder, VAEConfig
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    t0 = time.perf_counter()
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    for sub, cfg in (("unet", SD2_UNET_JSON), ("vae", SD2_VAE_JSON),
+                     ("text_encoder", SD2_CLIP_JSON)):
+        os.makedirs(f"{d}/{sub}", exist_ok=True)
+        with open(f"{d}/{sub}/config.json", "w") as fh:
+            json.dump(cfg, fh)
+    write_vocab(f"{d}/tokenizer")
+    ucfg = sd2_inpaint_unet_config(torch.float32)
+    unet = init_flax_default_(UNet2DCondition(ucfg, device=DEVICE), g)
+    W.write_safetensors(f"{d}/{W.UNET_FILE}", W.export_state_dict(
+        unet.state_dict(), W.unet_key_map(ucfg), linear_projection=True), SD_WEIGHTS_DTYPE)
+    n_unet = sum(p.numel() for p in unet.parameters())
+    del unet
+    vcfg = VAEConfig()
+    enc_map, dec_map = W.vae_key_map(vcfg)
+    enc = init_flax_default_(Encoder(vcfg, device=DEVICE), g)
+    dec = init_flax_default_(Decoder(vcfg, device=DEVICE), g)
+    W.write_safetensors(f"{d}/{W.VAE_FILE}", {**W.export_state_dict(enc.state_dict(), enc_map),
+                                             **W.export_state_dict(dec.state_dict(), dec_map)},
+                        SD_WEIGHTS_DTYPE)
+    del enc, dec
+    ccfg = sd2_clip_text_config()
+    clip = init_flax_default_(CLIPTextEncoder(ccfg, device=DEVICE), g)
+    W.write_safetensors(f"{d}/{W.CLIP_FILE}", W.export_state_dict(
+        clip.state_dict(), W.clip_key_map(ccfg)), SD_WEIGHTS_DTYPE)
+    n_clip = sum(p.numel() for p in clip.parameters())
+    del clip
+    torch.cuda.empty_cache()
+    nbytes = sum(os.path.getsize(f"{d}/{f}") for f in (W.UNET_FILE, W.VAE_FILE, W.CLIP_FILE))
+    return dict(write_seconds=time.perf_counter() - t0, bytes=nbytes, unet_params=n_unet,
+                clip_params=n_clip)
+
+
+def launches_by_head_dim() -> dict:
+    """K3's launches since the counters were reset, by (dtype, head dim)."""
+    from coma_tpu_torch.ops import attention
+
+    out = {}
+    for (_, _, _, _, D, dtype), n in attention.shape_launches.items():
+        out[f"{dtype} D={D}"] = out.get(f"{dtype} D={D}", 0) + n
+    return out
+
+
+def reset_k3_counters() -> None:
+    from coma_tpu_torch.ops import attention
+
+    attention.launches = 0
+    for src in attention.source_launches:
+        attention.source_launches[src] = 0
+    attention.shape_launches.clear()
+
+
+def inpaint_sd2(label: str) -> dict:
+    """Phase 6b: write the directory, then ``cli/inpaint --weights_dir`` on
+    phase 6's tree, K3's counters from 0; checks the images and that every
+    K3 launch is bf16: 1600 UNet launches at D = 64 and 44 VAE ones at 512."""
+    from coma_tpu_torch.models.diffusion import weights as W
+    from coma_tpu_torch.ops import attention
+
+    with tempfile.TemporaryDirectory(prefix="sd2_", dir=SCRATCH) as tmp:
+        written = write_sd2_dir(f"{tmp}/sd2", SEED + 5)
+        write_inpaint_tree(tmp, np.random.default_rng(SEED + 2))
+        load_seconds, load = [], W.load_sd_params
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = load(*args, **kwargs)
+            load_seconds.append(time.perf_counter() - t0)
+            return out
+
+        W.load_sd_params = timed
+        reset_k3_counters()
+        try:
+            seconds, peak_gb, _ = inpaint(tmp, label, ("--weights_dir", f"{tmp}/sd2"),
+                                          "SD-2-inpainting widths from --weights_dir, bf16 UNet, "
+                                          "50 steps, mode p")
+        finally:
+            W.load_sd_params = load
+        by_dim = launches_by_head_dim()
+        total = attention.launches
+    want = {"bfloat16 D=64": 50 * 32, "bfloat16 D=512": 44}
+    if by_dim != want or total != K3_LAUNCHES_PER_BATCH or len(load_seconds) != 1:
+        raise AssertionError(f"SD-2 run: K3 launches {by_dim} (total {total}), expected {want}; "
+                             f"{len(load_seconds)} loads")
+    log(f"SD-2 directory: {written['bytes']} bytes in {SD_WEIGHTS_DTYPE} (UNet "
+        f"{written['unet_params']} parameters, CLIP {written['clip_params']}), written in "
+        f"{written['write_seconds']:.3f} s; load_sd_params {load_seconds[0]:.3f} s; the CLI "
+        f"{seconds:.3f} s = {INPAINT_IMAGES / seconds:.4f} images/s, "
+        f"{INPAINT_IMAGES / (seconds - load_seconds[0]):.4f} images/s past the load; K3 "
+        f"launches by head dim {by_dim} [{label}]")
+    return dict(seconds=seconds, load_seconds=load_seconds[0], peak_gb=peak_gb,
+                images_per_s=INPAINT_IMAGES / seconds, launches=total,
+                launches_by_head_dim=by_dim, **written)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: phase 6's run with --provoke_crop auto
+# ---------------------------------------------------------------------------
+
+# rows, columns of the default mask: 192 x 128 pixels, so at 512² auto takes
+# the 40-latent bucket (24 x 16 latents plus a 6-latent halo on each side)
+CROP_MASK_BOX = (160, 352, 192, 320)
+
+
+def crop_bucket() -> int:
+    """The bucket ``--provoke_crop auto`` takes for phase 6c's mask."""
+    from coma_tpu_torch.models.diffusion.pipeline import choose_crop_latent
+
+    mask = np.zeros((INPAINT_RES, INPAINT_RES), np.float32)
+    top, bottom, left, right = CROP_MASK_BOX
+    mask[top:bottom, left:right] = 1.0
+    return choose_crop_latent(mask[None])
+
+
+def inpaint_cropped(label: str, full_frame_seconds: float) -> dict:
+    """Phase 6c: ``--provoke_crop auto`` on a tree whose mask lets it crop;
+    the bucket taken, K3's launches at the crop's VAE shapes (a decode and an
+    encode in each of the 21 provoke rounds), the wall clock beside phase 6's."""
+    from coma_tpu_torch.cli import inpaint as cli
+    from coma_tpu_torch.ops import attention
+
+    taken, choose = [], cli.provoke_crop_for
+
+    def recorded(*args, **kwargs):
+        taken.append(choose(*args, **kwargs))
+        return taken[-1]
+
+    with tempfile.TemporaryDirectory(prefix="crop_", dir=SCRATCH) as tmp:
+        write_inpaint_tree(tmp, np.random.default_rng(SEED + 2), CROP_MASK_BOX)
+        cli.provoke_crop_for = recorded
+        reset_k3_counters()
+        try:
+            seconds, peak_gb, _ = inpaint(tmp, label, ("--random_weights", "--provoke_crop",
+                                                       "auto"), "bf16, 50 steps, mode p, "
+                                          "--provoke_crop auto")
+        finally:
+            cli.provoke_crop_for = choose
+        shapes = dict(attention.shape_launches)
+        total = attention.launches
+    c = crop_bucket()
+    crop_shape = (INPAINT_IMAGES, 1, c * c, c * c, 512, "bfloat16")
+    full_shape = (INPAINT_IMAGES, 1, 4096, 4096, 512, "bfloat16")
+    if taken != [c] or not c or shapes.get(crop_shape) != 42 or shapes.get(full_shape) != 2 \
+            or total != K3_LAUNCHES_PER_BATCH:
+        raise AssertionError(f"crop run: buckets {taken} (expected [{c}]), K3 launches {shapes}")
+    log(f"inpaint --provoke_crop auto: bucket {c} latents, K3 {shapes[crop_shape]} launches at "
+        f"{crop_shape[:5]} and {shapes[full_shape]} at the full frame's {full_shape[:5]}; "
+        f"{seconds:.3f} s against phase 6's {full_frame_seconds:.3f} s (its mask declines the "
+        f"crop) [{label}]")
+    return dict(bucket=c, seconds=seconds, peak_gb=peak_gb, launches=total,
+                crop_shape_launches=shapes[crop_shape], full_frame_seconds=full_frame_seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the HOI-reconstruction application through cli/optimize
+# ---------------------------------------------------------------------------
+
+OPT_CPU_STEPS = 10
+# card vs CPU after 10 steps at the CLI's weights (1e12, 2.6e11): Adam's first
+# steps move each parameter by ≈ lr·sign(g), so a gradient's sign decides; the
+# sums (index_add, the gather's backward) run in another order on the card
+OPT_LOSS_RTOL, OPT_VERTS_ATOL = 1e-3, 1e-3
+OPT_TIMED_STEPS = (20, 120)
+OPT_PROFILED_STEPS = 50
+
+
+def write_vposer_snapshot(path: str, seed: int) -> None:
+    """A seeded VPoser snapshot by the reference's keys (512 wide, latent 32):
+    Flax's initialisers, the biases then drawn N(0, 0.05²) and the output
+    bias centred on the identity's 6D code (1, 0, 0, 1, 0, 0), so that the
+    zero latent decodes, as a trained VPoser's does, to a pose near rest
+    (not to the identity exactly, where the decoder's gradient vanishes)."""
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.models.vposer import VPoserDecoder, VPoserEncoder
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for module in (VPoserEncoder(), VPoserDecoder()):
+        init_flax_default_(module, g)
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                if name.endswith("bias"):
+                    p.normal_(0.0, 0.05, generator=g)
+            if isinstance(module, VPoserDecoder):
+                module.dec_out.bias += torch.tensor([1.0, 0, 0, 1.0, 0, 0]).repeat(21)
+        sd.update({f"bodyprior_{k}": v for k, v in module.state_dict().items()})
+    torch.save(sd, path)
+
+
+def optimize_inputs(learn_root: str, keep: str) -> dict:
+    """Move phase 4b's SMPL-X npz, its ``qual:backpack_human_contact`` pickle
+    and its 180-point object downsample into ``keep``."""
+    from coma_tpu_torch.core.paths import ResultsTree
+
+    tree = ResultsTree(f"{learn_root}/results")
+    files = dict(npz=f"{learn_root}/smplx.npz",
+                 coma=tree.coma_pickle(SC, CAT, ASSET, "qual:backpack_human_contact", PROMPT),
+                 obj=tree.asset_downsample(SC, CAT, ASSET, "180"))
+    out = {}
+    for k, path in files.items():
+        out[k] = os.path.join(keep, os.path.basename(path))
+        os.replace(path, out[k])
+    out["vposer"] = os.path.join(keep, "vposer.pt")
+    write_vposer_snapshot(out["vposer"], SEED + 6)
+    return out
+
+
+def run_optimize_cli(files: dict, out_dir: str, label: str, extra=()) -> dict:
+    """``cli/optimize`` once, every kernel's counter from 0 (the application
+    runs none); the losses finite and the total falling from step 0."""
+    from coma_tpu_torch.cli import optimize
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+
+    contact_kernel.launches = occupancy_kernel.launches = attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = optimize.main(["--coma_pth", files["coma"], "--obj_downsample_pth", files["obj"],
+                            "--smplx_model_path", files["npz"], "--vposer_snapshot",
+                            files["vposer"], "--save_pth", f"{out_dir}/optimized.obj",
+                            "--losses_json", f"{out_dir}/losses.json", "--device", DEVICE, *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"contact_splat": contact_kernel.launches,
+                "occupancy_hits": occupancy_kernel.launches,
+                "flash_attention": attention.launches}
+    hist = result.loss_history
+    if not (np.isfinite(hist).all() and all(np.isfinite(v) for v in result.losses.values())
+            and np.isfinite(result.vertices).all() and hist[-1] < hist[0]) \
+            or any(launches.values()):
+        raise AssertionError(f"optimize {list(extra)}: losses {result.losses}, total "
+                             f"{hist[0]} -> {hist[-1]}, launches {launches}")
+    log(f"optimize {' '.join(extra) or 'at the CLI defaults (2000 steps)'}: {seconds:.3f} s "
+        f"(CLI wall clock: pickle, npz, snapshot, the fit, OBJ), {len(hist)} steps, total loss "
+        f"{hist[0]:.6e} at step 0 -> {hist[-1]:.6e}; final {result.losses}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {launches} [{label}]")
+    return dict(seconds=seconds, steps=len(hist), loss_first=float(hist[0]),
+                loss_last=float(hist[-1]), losses=result.losses, launches=launches,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def optimize_problem(files: dict, device):
+    """The fit's arguments at the CLI defaults on ``device``."""
+    from coma_tpu_torch.affordance.io import load_pickle
+    from coma_tpu_torch.cli.optimize import load_decoder
+    from coma_tpu_torch.models.smplx import SMPLXModel
+
+    obj = load_pickle(files["obj"])
+    return dict(smplx_model=SMPLXModel.from_npz(files["npz"], device=device),
+                vposer_decoder=load_decoder(files["vposer"], device),
+                obj_verts=np.asarray(obj["downsampled_pcd_points_raw"], np.float32),
+                obj_normals=np.asarray(obj["downsampled_pcd_normal_raw"], np.float32))
+
+
+def optimize_phase(files: dict, label: str) -> dict:
+    """Phase 7: the CLI at its defaults, then with ``--use_collision`` at 200
+    steps; ms per step (CUDA events, the difference of two fits); the card
+    against the CPU over 10 steps; the device's idle share over 50 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coma_tpu_torch.affordance.io import load_pickle
+    from coma_tpu_torch.pipelines.application import derive_targets_from_coma, optimize_smpl
+
+    with tempfile.TemporaryDirectory(prefix="opt_", dir=SCRATCH) as out:
+        runs = dict(defaults=run_optimize_cli(files, out, label),
+                    collision=run_optimize_cli(files, out, label,
+                                               ("--use_collision", "--num_iters", "200")))
+    coma = load_pickle(files["coma"])
+    sel = len(derive_targets_from_coma(coma, 0, 0.3)[1])
+    card = optimize_problem(files, DEVICE)
+
+    def fit(n, problem=card):
+        return optimize_smpl(coma_dict=coma, num_iters=n, **problem)
+
+    fit(2)   # warm-up
+    ms = []
+    for n in OPT_TIMED_STEPS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fit(n)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    ms_per_step = (ms[1] - ms[0]) / (OPT_TIMED_STEPS[1] - OPT_TIMED_STEPS[0])
+
+    got = fit(OPT_CPU_STEPS)
+    want = fit(OPT_CPU_STEPS, optimize_problem(files, "cpu"))
+    loss_err = float(np.max(np.abs(got.loss_history - want.loss_history)
+                            / np.abs(want.loss_history)))
+    verts_err = float(np.abs(got.vertices - want.vertices).max())
+    if not (loss_err <= OPT_LOSS_RTOL and verts_err <= OPT_VERTS_ATOL):
+        raise AssertionError(f"optimize, card vs CPU over {OPT_CPU_STEPS} steps: total loss "
+                             f"rel {loss_err:.3e} (limit {OPT_LOSS_RTOL:.0e}), vertices abs "
+                             f"{verts_err:.3e} (limit {OPT_VERTS_ATOL:.0e})")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit(OPT_PROFILED_STEPS)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    launches_per_step = sum(e.count for e in events) / OPT_PROFILED_STEPS
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device time in the fit")
+    idle = 1.0 - busy_ms / window_ms
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    log("optimize fit, device time by kernel over "
+        f"{OPT_PROFILED_STEPS} steps: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ({e.count})" for e in top))
+    split = step_split(files, coma)
+    log(f"optimize fit (H={card['smplx_model'].num_verts}, |sel|={sel} contact pairs): "
+        f"{ms_per_step:.3f} ms per step (CUDA events, {OPT_TIMED_STEPS[1]} - "
+        f"{OPT_TIMED_STEPS[0]} steps); card vs CPU over {OPT_CPU_STEPS} steps: total loss max "
+        f"rel {loss_err:.3e} (limit {OPT_LOSS_RTOL:.0e}), vertices max abs {verts_err:.3e} m "
+        f"(limit {OPT_VERTS_ATOL:.0e}); {OPT_PROFILED_STEPS} steps under the profiler: "
+        f"{window_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle {idle:.4f}, "
+        f"{launches_per_step:.0f} device operations per step; host ms per step, each part "
+        f"ending in a synchronise: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" [{label}]")
+    return dict(runs=runs, contact_pairs=sel, ms_per_step=ms_per_step,
+                card_vs_cpu_loss_rel=loss_err, card_vs_cpu_verts_abs=verts_err,
+                profiled_ms=window_ms, busy_ms=busy_ms, idle_share=idle,
+                device_ops_per_step=launches_per_step, step_split_ms=split)
+
+
+def step_split(files: dict, coma, steps: int = 50) -> dict:
+    """Host ms per step of the fit's parts (the losses, their gradient,
+    Adam), each ended by a synchronise: the loop is bound by the host's
+    launches, so the split shows where the host spends a step."""
+    from coma_tpu_torch.pipelines.application import OptaxAdam, build_problem
+
+    problem = build_problem(coma_dict=coma, **optimize_problem(files, DEVICE))
+    params, names = problem.params, list(problem.params)
+    opt = OptaxAdam(params, 1e-2)
+    parts = dict(losses=0.0, gradient=0.0, adam=0.0)
+    for step in range(steps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, _ = problem.losses_fn(params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(total, [params[k] for k in names])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step(params, dict(zip(names, grads)))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if step >= 2:   # two warm-up steps
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k] += dt * 1e3 / steps
+    return parts
 
 
 def main() -> int:
@@ -1067,9 +1510,11 @@ def main() -> int:
 
         # phase 4b: learn_coma through the CLI (K1/K2 counters from 0), then
         # phase 3's extractions on two ranks against phase 3's pickles
+        keep = tempfile.mkdtemp(prefix="optimize_", dir=SCRATCH)   # phase 7's inputs
         with tempfile.TemporaryDirectory(prefix="learn_", dir=SCRATCH) as learn_tmp:
             write_learn_tree(learn_tmp, np.random.default_rng(SEED + 3))
             learned = learn_coma(learn_tmp, label)
+            opt_files = optimize_inputs(learn_tmp, keep)
         for run in single.values():
             run["single_path"] = run["path"] + ".one_rank"
             os.replace(run["path"], run["single_path"])
@@ -1079,9 +1524,11 @@ def main() -> int:
                              for r in ranked for rank in r["ranks"]]
                     for kernel in ("contact_splat", "occupancy_hits", "flash_attention")}
 
-    # phase 5: K3 against its plain version
+    # phase 5: K3 against its plain version, at phase 6's, 6b's and 6c's shapes
+    c = crop_bucket()
     k3 = []
-    for shape in K3_SHAPES:
+    for shape in K3_SHAPES + ((f"vae_mid_crop_{c}x{c}", INPAINT_IMAGES, 1, c * c, c * c, 512,
+                               torch.bfloat16),):
         r = check_k3(rng, *shape)
         k3.append(r)
         log(f"K3 {r['shape']}: max abs err {r['max_abs_err']:.3e}, least passing atol "
@@ -1098,7 +1545,7 @@ def main() -> int:
         attention.launches = 0
         for src in attention.source_launches:
             attention.source_launches[src] = 0
-        inpaint(tmp, label)
+        inpaint_seconds = inpaint(tmp, label)[0]
         launches["flash_attention"] = attention.launches
         by_source = dict(attention.source_launches)
     log(f"launches on the inpainting path: flash_attention {launches['flash_attention']} "
@@ -1108,6 +1555,18 @@ def main() -> int:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
                              f"({by_source}), expected {K3_LAUNCHES_PER_BATCH}, all bf16")
     tiny_loop_against_cpu()
+
+    # phase 6b: SD-2-inpainting from a diffusers directory; phase 6c: the crop
+    sd2 = inpaint_sd2(label)
+    cropped = inpaint_cropped(label, inpaint_seconds)
+
+    # phase 7: the HOI-reconstruction application
+    try:
+        optimized = optimize_phase(opt_files, label)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    app_launches = {k: [r["launches"][k] for r in optimized["runs"].values()]
+                    for k in ("contact_splat", "occupancy_hits", "flash_attention")}
 
     k1_main = k1[0]
     kernels = [
@@ -1119,7 +1578,8 @@ def main() -> int:
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"], shapes=k1,
              launches_learn_coma=learned["launches"]["contact_splat"],
-             launches_per_rank=per_rank["contact_splat"]),
+             launches_per_rank=per_rank["contact_splat"],
+             launches_optimize=app_launches["contact_splat"]),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -1128,7 +1588,8 @@ def main() -> int:
              library_ms=None, dense_bound_ms=k2["dense_bound_ms"], kept_share=k2["kept_share"],
              touched_share=k2["touched_share"], shape=k2["shape"], shapes=[k2, k2_iid],
              launches_learn_coma=learned["launches"]["occupancy_hits"],
-             launches_per_rank=per_rank["occupancy_hits"]),
+             launches_per_rank=per_rank["occupancy_hits"],
+             launches_optimize=app_launches["occupancy_hits"]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -1138,7 +1599,12 @@ def main() -> int:
              bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
              launches_by_source=by_source, shapes=k3,
              launches_learn_coma=learned["launches"]["flash_attention"],
-             launches_per_rank=per_rank["flash_attention"]),
+             launches_per_rank=per_rank["flash_attention"],
+             launches_sd2_weights_dir=sd2["launches"],
+             launches_sd2_by_head_dim=sd2["launches_by_head_dim"],
+             launches_provoke_crop=cropped["launches"],
+             launches_provoke_crop_shape=cropped["crop_shape_launches"],
+             launches_optimize=app_launches["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -6,15 +6,22 @@ list (renders x valid masks x prompts x viewpoint augmentations x
 pipeline batched over images. Runs on ``--device cuda`` (the default; it
 raises without a card) or ``--device cpu``.
 
-Weights: ``--random_weights`` runs the full machinery with random weights
-made from a seed (outputs are noise); prompts then become token ids without
-a tokenizer. The diffusers-weights loader (``--weights_dir``), the SAM and
-PointRend modes, the provoke crop, step videos and ``--mesh`` are not ported
-yet: each raises ``SystemExit`` naming the ROADMAP item that brings it.
+Weights: ``--weights_dir`` reads a diffusers SD-inpainting directory
+(``models/diffusion/weights.py`` names the files) and rebuilds the UNet,
+VAE and CLIP around the configs it declares; prompts go through its CLIP
+tokenizer. A directory that does not exist raises; there is no fallback to
+random weights. ``--random_weights`` runs the full machinery with random
+weights made from a seed (outputs are noise); prompts then become token ids
+without a tokenizer. ``--provoke_crop {0,auto,<int>}`` runs the provoke
+rounds on a latent window around the default mask (``auto`` picks a bucket
+per batch, or the full frame). The SAM and PointRend modes, step videos and
+``--mesh`` are not ported yet: each raises ``SystemExit`` naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob as _glob
 import os
 import pickle
@@ -40,7 +47,11 @@ from coma_tpu_torch.config.prompts import (
 )
 from coma_tpu_torch.core.paths import unflatten
 from coma_tpu_torch.device import resolve_device
-from coma_tpu_torch.models.diffusion.pipeline import TorchNoise
+from coma_tpu_torch.models.diffusion.pipeline import (
+    AdaptiveMaskInpaintPipeline,
+    TorchNoise,
+    choose_crop_latent,
+)
 from coma_tpu_torch.utils.png import read_png, to_gray, to_rgb, write_png
 
 SEGMENTER_CHECKPOINT = (Path(__file__).resolve().parents[2]
@@ -62,7 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=list(HF_MODEL_KEYS.keys()))
     parser.add_argument("--adaptive_mask_model_type", type=str, default="p",
                         choices=["p", "baseline", *SAM_MODES])
-    parser.add_argument("--weights_dir", type=str, help="converted SD params (not ported yet)")
+    parser.add_argument("--weights_dir", type=str,
+                        help="a diffusers SD-inpainting directory (unet/, vae/, text_encoder/, "
+                             "tokenizer/)")
     parser.add_argument("--sam_weights", type=str)
     parser.add_argument("--person_segmenter", type=str, default="unet",
                         choices=["unet", "pointrend"])
@@ -75,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--provoke_decode_factor", type=int, default=1,
                         help="decode in-loop x-hat-0 at 1/f resolution (f=1 is "
                              "reference-exact)")
-    parser.add_argument("--provoke_crop", type=str, default="0")
+    parser.add_argument("--provoke_crop", type=str, default="0",
+                        help="0 (full frame), auto, or a latent window side")
     parser.add_argument("--default_ddim_steps", type=int, default=50)
     parser.add_argument("--guidance_scale", type=float, default=7.5)
     parser.add_argument("--num_img_per_combination", type=int, default=NUM_IMG_PER_COMBINATION)
@@ -90,9 +104,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """``SystemExit`` for a mode or flag of ``coma_tpu``'s CLI the port lacks."""
     waits = []
-    if args.weights_dir:
-        waits.append("--weights_dir waits for ROADMAP Queue 1 item 13a (the diffusers "
-                     "weights loader and the CLIP tokenizer)")
     if args.adaptive_mask_model_type in SAM_MODES or args.sam_weights:
         waits.append(f"--adaptive_mask_model_type {args.adaptive_mask_model_type} "
                      "(SAM) waits for ROADMAP Queue 1 item 12 (segmenters)")
@@ -100,16 +111,20 @@ def check_ported(args) -> None:
             or args.pointrend_fast or args.pointrend_scale_native):
         waits.append("--person_segmenter pointrend waits for ROADMAP Queue 1 item 12 "
                      "(segmenters)")
-    if args.provoke_crop != "0":
-        waits.append("--provoke_crop waits for ROADMAP Queue 1 item 13b (the crop path)")
     if args.save_step_video:
         waits.append("--save_step_video waits for ROADMAP Queue 1 item 13c (step videos)")
     if args.mesh is not None:
         waits.append("--mesh waits for ROADMAP Queue 1 item 13d (multi-GPU inpainting)")
     if waits:
         raise SystemExit("coma_tpu_torch.cli.inpaint: " + "; ".join(waits))
-    if not args.random_weights:
-        raise SystemExit("pass --random_weights (--weights_dir is not ported yet)")
+    if args.weights_dir and not os.path.isdir(args.weights_dir):
+        raise SystemExit(f"--weights_dir {args.weights_dir} does not exist (there is no "
+                         "fallback to random weights)")
+    if not args.weights_dir and not args.random_weights:
+        raise SystemExit("pass --weights_dir or --random_weights")
+    if args.provoke_crop != "auto" and not args.provoke_crop.isdigit():
+        raise SystemExit(f"--provoke_crop takes 0, auto or a window side, not "
+                         f"{args.provoke_crop!r}")
 
 
 def build_worklist(args):
@@ -183,15 +198,18 @@ def load_person_segmenter(random_weights: bool, device, generator: torch.Generat
 
 
 def build_pipeline(args, device: torch.device):
+    """(pipeline, prompt encoder, resolution). With ``--weights_dir`` the UNet
+    (bf16), the VAE and the CLIP text tower are rebuilt around the configs
+    the directory declares (``coma_tpu/cli/inpaint.py:187-203``; the VAE's
+    layout from ``vae/config.json`` where ``coma_tpu`` keeps its own), else
+    made from seed 0."""
+    from coma_tpu_torch.models.diffusion import weights
     from coma_tpu_torch.models.diffusion.clip_text import (
         CLIPTextConfig,
         CLIPTextEncoder,
         tiny_clip_config,
     )
-    from coma_tpu_torch.models.diffusion.pipeline import (
-        AdaptiveMaskConfig,
-        AdaptiveMaskInpaintPipeline,
-    )
+    from coma_tpu_torch.models.diffusion.pipeline import AdaptiveMaskConfig
     from coma_tpu_torch.models.diffusion.unet import (
         UNet2DCondition,
         UNetConfig,
@@ -211,10 +229,25 @@ def build_pipeline(args, device: torch.device):
     vcfg = tiny_vae_config() if args.tiny else VAEConfig(dtype=torch.bfloat16)
     ccfg = tiny_clip_config() if args.tiny else CLIPTextConfig()
     g = torch.Generator(device).manual_seed(0)
-    unet = init_flax_default_(UNet2DCondition(ucfg, device=device), g).eval()
-    enc = init_flax_default_(Encoder(vcfg, device=device), g).eval()
-    dec = init_flax_default_(Decoder(vcfg, device=device), g).eval()
-    clip = init_flax_default_(CLIPTextEncoder(ccfg, device=device), g).eval()
+    tokenizer = None
+    if args.weights_dir:
+        params = weights.load_sd_params(
+            args.weights_dir, vae_config=weights.infer_vae_config(args.weights_dir, vcfg))
+        ucfg = dataclasses.replace(params["unet_config"], dtype=torch.bfloat16)
+        vcfg, ccfg = params["vae_config"], params["clip_config"]
+        unet = weights.load_state(UNet2DCondition(ucfg, device=device), params["unet"])
+        enc = weights.load_state(Encoder(vcfg, device=device), params["vae_encoder"])
+        dec = weights.load_state(Decoder(vcfg, device=device), params["vae_decoder"])
+        clip = weights.load_state(CLIPTextEncoder(ccfg, device=device), params["clip"])
+        tokenizer = params["tokenizer"]
+        del params
+    else:
+        unet = init_flax_default_(UNet2DCondition(ucfg, device=device), g)
+        enc = init_flax_default_(Encoder(vcfg, device=device), g)
+        dec = init_flax_default_(Decoder(vcfg, device=device), g)
+        clip = init_flax_default_(CLIPTextEncoder(ccfg, device=device), g)
+    for m in (unet, enc, dec, clip):
+        m.eval()
     seg = load_person_segmenter(args.random_weights, device, g)
 
     segment_fn = (make_person_segment_fn(seg) if args.adaptive_mask_model_type == "p"
@@ -234,9 +267,32 @@ def build_pipeline(args, device: torch.device):
 
     @torch.no_grad()
     def encode_prompts(texts):
-        return clip(torch.from_numpy(prompt_token_ids(texts)).to(device))
+        ids = prompt_token_ids(texts) if tokenizer is None else tokenizer(texts)
+        return clip(torch.from_numpy(np.asarray(ids, np.int64)).to(device))
 
     return pipe, encode_prompts, res
+
+
+def provoke_crop_for(args, masks: np.ndarray, vae_scale: int) -> int:
+    """The batch's crop (``coma_tpu/cli/inpaint.py:427-450``): ``auto`` picks
+    the smallest fitting bucket, or 0 when none fits or the window is near
+    full-frame; an explicit side must cover every default-mask box plus the
+    decoder's halo, else ``SystemExit``."""
+    if args.provoke_crop == "auto":
+        crop = choose_crop_latent(masks, vae_scale=vae_scale)
+        if crop == 0:
+            print("  provoke_crop auto: declined (bbox near-full-frame or no bucket fits); "
+                  "using the full-frame path")
+        return crop
+    crop = int(args.provoke_crop)
+    if crop:
+        need = choose_crop_latent(masks, vae_scale=vae_scale, max_area_ratio=1.0)
+        if need == 0 or need > crop:
+            raise SystemExit(
+                f"--provoke_crop {crop} is smaller than this batch's default-mask bbox + "
+                f"decoder halo (needs {'full-frame' if need == 0 else f'>= {need}'}); "
+                "use --provoke_crop auto")
+    return crop
 
 
 def _resize(images: np.ndarray, res: int) -> np.ndarray:
@@ -277,9 +333,13 @@ def main(argv=None) -> None:
         imgs, masks = load_batch(chunk, res)
         ctx = encode_prompts([w["prompt"] for w in chunk])
         neg = encode_prompts([args.negative_prompt] * len(chunk))
+        crop = provoke_crop_for(args, masks.numpy(), pipe.config.vae_scale)
+        run = pipe if not crop else AdaptiveMaskInpaintPipeline(
+            pipe.unet_fn, pipe.vae_encode_fn, pipe.vae_decode_fn, pipe.segment_fn,
+            dataclasses.replace(pipe.config, provoke_crop_latent=crop), pipe.vae_scaling)
         # the batch's seed: the global seed and the first item's inpaint_id
         gen = torch.Generator(device).manual_seed(args.seed * 1_000_003 + chunk[0]["inpaint_id"])
-        out = pipe.generate(imgs.to(device), masks.to(device), ctx, neg, noise=TorchNoise(gen))
+        out = run.generate(imgs.to(device), masks.to(device), ctx, neg, noise=TorchNoise(gen))
         out_np = (out.permute(0, 2, 3, 1).float().cpu().numpy() * 255).astype(np.uint8)
         for w, img in zip(chunk, out_np):
             os.makedirs(os.path.dirname(w["out"]), exist_ok=True)

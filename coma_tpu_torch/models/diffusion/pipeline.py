@@ -10,8 +10,10 @@ small), and re-encodes the masked image latents mid-loop.
 ``coma_tpu`` compiles the 50 steps into one ``lax.scan``; here they are a
 Python loop over eager PyTorch calls, and a provoke step is taken or skipped
 on the host. Layout is NCHW: images (B, 3, H, W), masks (B, H, W), latents
-(B, 4, h, w). The full-frame path and ``provoke_decode_factor`` are ported;
-the crop path and the per-step intermediates are not yet.
+(B, 4, h, w). The full-frame path, ``provoke_decode_factor`` and the provoke
+crop (``provoke_crop_latent``: decode, segment and re-encode only a window
+around each image's default-mask box; its offsets are chosen on the host)
+are ported; the per-step intermediates are not yet.
 
 Randomness comes from one noise source (:class:`TorchNoise` by default): the
 initial latents, the default-mask encode, and one draw per provoke step.
@@ -62,6 +64,16 @@ class AdaptiveMaskConfig:
     use_adaptive_mask: bool = True
     # decode x̂0 at 1/f resolution in the provoke steps (f=1: the reference)
     provoke_decode_factor: int = 1
+    # provoke rounds on a (c, c)-latent window around each image's
+    # default-mask box (0: the full frame). Outside the default mask the
+    # adapted mask is discarded by the AND anyway; the window's re-encoded
+    # masked latents are pasted into the step-0 encode. Two approximations,
+    # as in coma_tpu: the VAE's mid-block attention couples the whole frame,
+    # so cropped decodes and encodes differ from full-frame ones (the masks
+    # agree), and the too-small test counts person pixels inside the window
+    # only, against the full frame's threshold. Pick c with
+    # :func:`choose_crop_latent`.
+    provoke_crop_latent: int = 0
 
     def dilate_schedule(self) -> List[int]:
         return default_dilate_schedule(self.num_inference_steps)
@@ -73,6 +85,65 @@ class AdaptiveMaskConfig:
             for one_indexed in default_provoke_schedule(self.num_inference_steps):
                 flags[one_indexed - 1] = True
         return flags
+
+
+def mask_bbox_center(mask: np.ndarray) -> np.ndarray:
+    """(H, W) binary mask -> (cy, cx) int32 box centre (the frame's centre
+    when the mask is empty)."""
+    H, W = mask.shape
+
+    def axis_center(any_line: np.ndarray, n: int) -> int:
+        idx = np.flatnonzero(any_line)
+        return (int(idx[0]) + int(idx[-1]) + 1) // 2 if len(idx) else n // 2
+
+    m = np.asarray(mask) > 0
+    return np.array([axis_center(m.any(axis=1), H), axis_center(m.any(axis=0), W)], np.int32)
+
+
+def crop_offsets(default_mask, crop_lat: int, vae_scale: int) -> np.ndarray:
+    """(B, 2) int32 latent offsets of a (crop_lat, crop_lat) window centred
+    on each image's default-mask box, clamped inside the frame. Host-side:
+    ``default_mask`` (B, H, W) is a numpy array or a tensor."""
+    m = default_mask.cpu().numpy() if isinstance(default_mask, torch.Tensor) else default_mask
+    B, H, W = m.shape
+    h, w = H // vae_scale, W // vae_scale
+    out = np.zeros((B, 2), np.int32)
+    for b in range(B):
+        cy, cx = mask_bbox_center(m[b])
+        out[b] = (np.clip(cy // vae_scale - crop_lat // 2, 0, h - crop_lat),
+                  np.clip(cx // vae_scale - crop_lat // 2, 0, w - crop_lat))
+    return out
+
+
+def choose_crop_latent(
+    default_masks: np.ndarray,
+    vae_scale: int = 8,
+    halo: int = 6,
+    buckets: Tuple[int, ...] = (24, 32, 40, 48, 56),
+    max_area_ratio: float = 0.75,
+) -> int:
+    """The smallest bucket covering every image's default-mask box plus
+    ``halo`` latent pixels on each side, or 0 (no crop) when none fits or
+    the fitting window covers more than ``max_area_ratio`` of the latent
+    area (a near-full-frame crop saves little and keeps the approximation;
+    pass 1.0 to validate an explicit choice)."""
+    m = np.asarray(default_masks) > 0
+    if m.ndim == 2:
+        m = m[None]
+    need = 0
+    for i in range(m.shape[0]):
+        ys, xs = np.any(m[i], axis=1), np.any(m[i], axis=0)
+        if not ys.any():
+            continue
+        yext = int(ys.argmax() + ys[::-1].argmax())
+        xext = int(xs.argmax() + xs[::-1].argmax())
+        ext = max(m.shape[1] - yext, m.shape[2] - xext)
+        need = max(need, -(-ext // vae_scale) + 2 * halo)
+    lat_side = min(m.shape[1], m.shape[2]) // vae_scale
+    for b in buckets:
+        if need <= b < lat_side:
+            return 0 if (b / lat_side) ** 2 > max_area_ratio else b
+    return 0
 
 
 def dilate_mask(mask: torch.Tensor, iterations: int) -> torch.Tensor:
@@ -193,6 +264,40 @@ class AdaptiveMaskInpaintPipeline:
         mask = torch.where(fallback[:, None, None], default_mask, adapted)
         return self._mask_latents(mask, init_image, noise)
 
+    def adapt_cropped(self, pred_x0, default_mask, init_crops, base_masked_lat, offs,
+                      dilate: int, use_default: bool, noise: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The provoke round on each image's (c, c)-latent window at
+        ``offs``: decode, segment, dilate ∧ default mask, then re-encode the
+        masked window into the step-0 encode ``base_masked_lat``."""
+        cfg = self.config
+        B, H, W = default_mask.shape
+        s = cfg.vae_scale
+        c = init_crops.shape[-1] // s
+        lat = lambda a, b: a[b, :, offs[b][0]:offs[b][0] + c, offs[b][1]:offs[b][1] + c]
+        pix = lambda a, b: a[b, offs[b][0] * s:(offs[b][0] + c) * s,
+                             offs[b][1] * s:(offs[b][1] + c) * s]
+        x0_c = torch.stack([lat(pred_x0, b) for b in range(B)])
+        image_c = torch.clamp(self.vae_decode_fn(x0_c / self.vae_scaling) / 2 + 0.5, 0, 1)
+        human_c = self.segment_fn(image_c).to(default_mask.dtype)   # (B, c·s, c·s)
+        dmask_c = torch.stack([pix(default_mask, b) for b in range(B)])
+        adapted_c = ((dilate_mask(human_c, dilate) > 0) & (dmask_c > 0)).to(human_c.dtype)
+        # the reference's area test (1130-1132) keeps the full frame's denominator
+        too_small = human_c.sum(dim=(1, 2)) < H * W * cfg.human_detection_thres
+        fallback = (too_small | use_default)[:, None, None]
+        mask_c = torch.where(fallback, dmask_c, adapted_c)
+        pasted = torch.zeros_like(default_mask)
+        for b in range(B):
+            pix(pasted, b).copy_(adapted_c[b])
+        mask_lat = downsample_mask(binarize_mask(torch.where(fallback, default_mask, pasted)),
+                                   s)
+        masked_c = init_crops * (binarize_mask(mask_c)[:, None] < 0.5)
+        lat_c = self._encode_image(masked_c, noise)
+        masked_lat = base_masked_lat.clone()
+        for b in range(B):
+            lat(masked_lat, b).copy_(lat_c[b])
+        return mask_lat, masked_lat
+
     @torch.no_grad()
     def generate(
         self,
@@ -235,10 +340,28 @@ class AdaptiveMaskInpaintPipeline:
         context = torch.cat([negative_embeds, prompt_embeds], dim=0)
         adaptive = self.segment_fn is not None and cfg.use_adaptive_mask
 
+        c = int(cfg.provoke_crop_latent)
+        use_crop = 0 < c < min(h, w)
+        if use_crop and cfg.provoke_decode_factor > 1:
+            raise ValueError("provoke_crop_latent and provoke_decode_factor > 1 are "
+                             "alternative provoke-round accelerators; set one")
+        if use_crop and adaptive:
+            offs = crop_offsets(default_mask, c, cfg.vae_scale).tolist()
+            Cp = c * cfg.vae_scale
+            init_crops = torch.stack([
+                init_image[b, :, oy * cfg.vae_scale:oy * cfg.vae_scale + Cp,
+                           ox * cfg.vae_scale:ox * cfg.vae_scale + Cp]
+                for b, (oy, ox) in enumerate(offs)])
+            base_masked_lat = masked_lat      # the step-0 (default-mask) encode
+
         for i in range(n_steps):
             eps = self.unet_eps(latents, mask_lat, masked_lat, float(timesteps[i]), context)
             latents, pred_x0 = ddim_step_traced(self.schedule, i, eps, latents)
-            if adaptive and provoke[i]:
+            if adaptive and provoke[i] and use_crop:
+                mask_lat, masked_lat = self.adapt_cropped(
+                    pred_x0, default_mask, init_crops, base_masked_lat, offs, dilate[i],
+                    bool(use_default[i]), draw(noise.adapt(i, (B, 4, c, c))))
+            elif adaptive and provoke[i]:
                 mask_lat, masked_lat = self.adapt(
                     pred_x0, default_mask, init_image, dilate[i], bool(use_default[i]),
                     draw(noise.adapt(i, (B, 4, h, w))))

@@ -6,8 +6,9 @@ text tower or the person segmenter becomes the ``state_dict`` of the port's
 module of the same name: submodule paths are the same, ``kernel`` becomes
 ``weight`` — a Conv's (kh, kw, I, O) transposed to (O, I, kh, kw), a
 Dense's (I, O) to (O, I) — and a norm's ``scale`` and an embedding's
-``embedding`` become ``weight``. A key that is missing on either side, or a
-shape that does not fit, raises.
+``embedding`` become ``weight``; a batch norm's ``batch_stats`` ``mean`` and
+``var`` become ``running_mean`` and ``running_var``. A key that is missing on
+either side, or a shape that does not fit, raises.
 """
 from __future__ import annotations
 
@@ -29,6 +30,11 @@ def _flatten(tree: Mapping, prefix=()):
 def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     params = variables["params"] if "params" in variables else variables
     out = {}
+    # a batch norm's running statistics (Flax's ``batch_stats`` collection)
+    for path, leaf in _flatten(variables.get("batch_stats", {})):
+        *mods, name = path
+        name = {"mean": "running_mean", "var": "running_var"}[name]
+        out[".".join(mods + [name])] = np.ascontiguousarray(np.asarray(leaf))
     for path, leaf in _flatten(params):
         *mods, name = path
         arr = np.asarray(leaf)

@@ -14,6 +14,7 @@ do not take.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -30,10 +31,11 @@ KERNELS = {
 ALIGN = 16   # bytes: TMA's base-address alignment, and the f32 kernel's vector loads
 LOG2E = 1.4426950408889634
 
-# Kernel launches since import, both routes, and per source; callers may
-# reset them to 0.
+# Kernel launches since import, both routes, per source, and per shape
+# ((B, H, Lq, Lk, D, dtype name) -> launches); callers may reset them.
 launches = 0
 source_launches = {source: 0 for source, _ in KERNELS.values()}
+shape_launches = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_I] * 4 + [_F, _P]
@@ -100,6 +102,7 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     build.check(lib, code, "flash_attention launch")
     launches += 1
     source_launches[KERNELS[q.dtype][0]] += 1
+    shape_launches[(B, H, Lq, Lk, D, str(q.dtype).split(".")[-1])] += 1
     return out
 
 

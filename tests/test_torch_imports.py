@@ -1,5 +1,5 @@
-"""The port imports neither JAX nor ``coma_tpu``, nor PIL (the card machine
-has none).
+"""The port imports neither JAX nor ``coma_tpu``, nor Flax, optax,
+``safetensors`` or PIL (the card machine has none).
 
 The in-process check proves nothing (``tests/conftest.py`` imports JAX), so
 the package and its CLIs are imported in a fresh interpreter; an AST scan
@@ -11,7 +11,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax", "safetensors", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -34,11 +34,18 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.native, coma_tpu_torch.geometry.sampling\n"
         "import coma_tpu_torch.pipelines.downsample, coma_tpu_torch.pipelines.postfilter\n"
         "import coma_tpu_torch.affordance.evaluation, coma_tpu_torch.config.assets\n"
+        "import coma_tpu_torch.models.keypoints, coma_tpu_torch.models.vposer\n"
+        "import coma_tpu_torch.models.coap, coma_tpu_torch.models.coap_partition\n"
+        "import coma_tpu_torch.pipelines.application, coma_tpu_torch.cli.optimize\n"
+        "import coma_tpu_torch.models.diffusion.tokenizer\n"
+        "import coma_tpu_torch.models.diffusion.weights\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.inpaint' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.learn_coma' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.optimize' in sys.modules\n"
+        "assert 'coma_tpu_torch.models.diffusion.weights' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

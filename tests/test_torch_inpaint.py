@@ -43,6 +43,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, B, BLOCK, THRESHOLD = 64, 2, 16, 0.5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    """Two torch threads: the test workers share the host's cores, and
+    oversubscribed intra-op threads slow every worker many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 class JaxKeyNoise:
     """The port's noise source, drawing what ``coma_tpu``'s loop draws from
     ``key``: NHWC normals from JAX, handed over as NCHW tensors."""
@@ -229,6 +239,95 @@ def test_provoke_decode_factor_step_matches(tiny_models):
 
 
 # ---------------------------------------------------------------------------
+# the provoke crop
+# ---------------------------------------------------------------------------
+
+def crop_masks():
+    """Default masks at 64² and 512²: boxes, one off-centre, one empty."""
+    out = {}
+    for H in (64, 512):
+        m = np.zeros((4, H, H), np.float32)
+        u = H // 64
+        m[0, 8 * u:56 * u, 12 * u:52 * u] = 1
+        m[1, 2 * u:20 * u, 40 * u:62 * u] = 1
+        m[2, 30 * u:34 * u, 5 * u:6 * u] = 1
+        out[H] = m                           # m[3] stays empty
+    return out
+
+
+def test_crop_helpers_match_coma_tpu():
+    for H, masks in crop_masks().items():
+        for m in masks:
+            np.testing.assert_array_equal(t_pipe.mask_bbox_center(m),
+                                          np.asarray(j_pipe.mask_bbox_center(jnp.asarray(m))))
+        for c in ((4, 6) if H == 64 else (24, 32, 40, 48, 56)):
+            want = np.asarray(jax.jit(j_pipe.crop_offsets, static_argnums=(1, 2))(
+                jnp.asarray(masks), c, 8))
+            np.testing.assert_array_equal(t_pipe.crop_offsets(masks, c, 8), want)
+            np.testing.assert_array_equal(t_pipe.crop_offsets(torch.from_numpy(masks), c, 8),
+                                          want)
+        for kw in (dict(), dict(max_area_ratio=1.0), dict(halo=1, buckets=(4, 6)),
+                   dict(halo=2, buckets=(8, 16, 24, 40))):
+            for sel in ([0], [1], [2], [3], [1, 2], [0, 1, 2, 3]):
+                assert t_pipe.choose_crop_latent(masks[sel], **kw) == \
+                    j_pipe.choose_crop_latent(masks[sel], **kw), (H, kw, sel)
+    assert t_pipe.choose_crop_latent(crop_masks()[512][[1, 2]]) == 40
+
+
+def test_cropped_generate_loop_matches_coma_tpu(tiny_models):
+    """The adaptive-mask loop with a 6x6-latent provoke window at 64²: the
+    same key tree, the mask latents equal at every step, images within 1e-3."""
+    (j_unet_fn, j_enc_fn, j_dec_fn), (unet, enc, dec) = tiny_models
+    rng = np.random.default_rng(5)
+    init_image = np.float32(rng.uniform(-1, 1, size=(B, H, H, 3)))
+    mask = np.zeros((B, H, H), np.float32)
+    mask[0, 8:56, 12:52] = 1.0
+    mask[1, 20:60, 24:60] = 1.0
+    ctx = np.float32(rng.normal(size=(B, 7, 32)))
+    neg = np.float32(rng.normal(size=(B, 7, 32)) * 0.1)
+    key = jax.random.PRNGKey(6)
+    cfg = dict(provoke_crop_latent=6)
+
+    jpipe = j_pipe.AdaptiveMaskInpaintPipeline(j_unet_fn, j_enc_fn, j_dec_fn, j_block_person,
+                                               j_pipe.AdaptiveMaskConfig(**cfg))
+    j_gen = jax.jit(functools.partial(jpipe.generate_p, return_intermediates=True))
+    want, inter = j_gen(None, key, init_image, mask, ctx, neg)
+    want, want_masks = np.asarray(want), np.asarray(inter["mask_lat"])[..., 0]
+
+    unet_masks, block_means, crops = [], [], []
+
+    def unet_fn(lat, t, c):
+        unet_masks.append(lat[:B, 4].clone())
+        return unet(lat, t, c)
+
+    def person(img):
+        crops.append(tuple(img.shape[-2:]))
+        return t_block_person(img, block_means)
+
+    tpipe = t_pipe.AdaptiveMaskInpaintPipeline(unet_fn, enc, dec, person,
+                                               t_pipe.AdaptiveMaskConfig(**cfg))
+    to_t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    got = tpipe.generate(to_t(init_image.transpose(0, 3, 1, 2)), to_t(mask), to_t(ctx),
+                         to_t(neg), noise=JaxKeyNoise(key, 50))
+
+    assert crops == [(48, 48)] * 21
+    margin = float(torch.cat([m.flatten() for m in block_means]).sub(THRESHOLD).abs().min())
+    assert margin > 1e-4, f"a block mean came within {margin:.2e} of the threshold"
+    provoke = np.flatnonzero(tpipe.config.provoke_flags())
+    default_lat = unet_masks[0].numpy()
+    adapted = 0
+    for i in range(49):
+        np.testing.assert_array_equal(unet_masks[i + 1].numpy(), want_masks[i], err_msg=f"step {i}")
+        adapted += i in provoke and not np.array_equal(want_masks[i], default_lat)
+    assert adapted >= 5, "the loop never moved the mask away from the default"
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, atol=1e-3, rtol=0)
+    with pytest.raises(ValueError, match="set one"):
+        t_pipe.AdaptiveMaskInpaintPipeline(
+            unet, enc, dec, person, t_pipe.AdaptiveMaskConfig(provoke_decode_factor=2, **cfg)
+        ).generate(to_t(init_image.transpose(0, 3, 1, 2)), to_t(mask), to_t(ctx), to_t(neg))
+
+
+# ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
 
@@ -284,14 +383,23 @@ def test_worklist_matches_coma_tpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--weights_dir", "w"], ["--adaptive_mask_model_type", "ps"],
-    ["--person_segmenter", "pointrend"], ["--provoke_crop", "auto"],
+    ["--adaptive_mask_model_type", "ps"], ["--person_segmenter", "pointrend"],
     ["--save_step_video"], ["--mesh", "all"], [],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
     argv = ["--device", "cpu", "--tiny"] + (flags or []) + (["--random_weights"] if flags else [])
     with pytest.raises(SystemExit, match="ROADMAP|random_weights"):
         t_cli.main(argv)
+
+
+def test_cli_missing_weights_dir_raises(tmp_path, monkeypatch):
+    """A ``--weights_dir`` that does not exist raises, with or without
+    ``--random_weights``: no fallback to random weights."""
+    make_tree(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    for extra in ([], ["--random_weights"]):
+        with pytest.raises(SystemExit, match="does not exist"):
+            t_cli.main(["--device", "cpu", "--tiny", "--weights_dir", "w"] + extra)
 
 
 def test_cli_defaults_to_cuda_and_raises_without_a_card(tmp_path, monkeypatch):
@@ -314,3 +422,56 @@ def test_prompt_ids_do_not_depend_on_the_process():
     ids = t_cli.prompt_token_ids(texts)
     assert str(ids.tolist()) == outs.pop().strip()
     assert ids.shape == (2, 77) and ids.min() >= 0 and ids.max() < 1000
+
+
+def small_mask_tree(root):
+    """``make_tree`` with a 16x16 default-mask box at 64², so a 4- or 6-latent
+    window covers it and its halo."""
+    make_tree(root)
+    mask = np.zeros((64, 64), np.uint8)
+    mask[24:40, 20:36] = 255
+    write_png(f"{root}/results/generation/asset_masks/{SC}/{CAT}/{ASSET}/{VIEW}/0.png", mask)
+
+
+def run_cli_recording_crops(root, monkeypatch, crop):
+    taken, generate = [], t_pipe.AdaptiveMaskInpaintPipeline.generate
+
+    def recorded(self, *args, **kwargs):
+        taken.append(self.config.provoke_crop_latent)
+        return generate(self, *args, **kwargs)
+
+    monkeypatch.setattr(t_pipe.AdaptiveMaskInpaintPipeline, "generate", recorded)
+    monkeypatch.chdir(root)
+    t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--num_img_per_combination",
+                "2", "--batch_size", "4", "--provoke_crop", crop])
+    outs = sorted((root / "results" / "generation" / "inpaintings").rglob("*.png"))
+    assert len(outs) == 4 and all(read_png(str(p)).shape == (64, 64, 3) for p in outs)
+    return taken
+
+
+@pytest.mark.parametrize("crop,want", [("auto", 4), ("6", 6)])
+def test_cli_provoke_crop_runs_the_cropped_loop(tmp_path, monkeypatch, crop, want):
+    """``--provoke_crop auto`` and a fixed side through the CLI. The published
+    buckets (24..56 latents, a 6-latent halo) never fit a 64² frame, so the
+    bucket table is cut to (4, 6) with a 1-latent halo; the choice is then
+    ``coma_tpu``'s on the same masks."""
+    small_mask_tree(tmp_path)
+    kw = dict(halo=1, buckets=(4, 6))
+    monkeypatch.setattr(t_cli, "choose_crop_latent",
+                        functools.partial(t_pipe.choose_crop_latent, **kw))
+    masks = t_cli.load_batch([dict(render=f"{tmp_path}/results/generation/renders/{SC}/{CAT}/"
+                                          f"{ASSET}/{VIEW}.png",
+                                   mask=f"{tmp_path}/results/generation/asset_masks/{SC}/{CAT}/"
+                                        f"{ASSET}/{VIEW}/0.png")], 64)[1].numpy()
+    assert j_pipe.choose_crop_latent(masks, **kw) == 4
+    assert run_cli_recording_crops(tmp_path, monkeypatch, crop) == [want]
+
+
+def test_cli_provoke_crop_declines_or_refuses_a_window_too_small(tmp_path, monkeypatch, capsys):
+    make_tree(tmp_path)
+    assert run_cli_recording_crops(tmp_path, monkeypatch, "auto") == [0]
+    assert "declined" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="smaller than"):
+        t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--provoke_crop", "6"])
+    with pytest.raises(SystemExit, match="provoke_crop"):
+        t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--provoke_crop", "big"])
