@@ -114,6 +114,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the wall clocks, ms per step (CUDA events), peak memory, and the device's
    idle share over 50 steps (``torch.profiler``).
 
+8. SAM in the loop: ``cli/inpaint --adaptive_mask_model_type ps_ae
+   --random_weights`` on phase 6's tree (4 images at 512², 50 steps; SAM
+   ViT-B at 1024² refining the U-Net's person box in each of the 21 provoke
+   rounds, seeded weights), then ``s_ab_ae`` on the same route (all five SAM
+   modes parse and pass the CLI's checks). Printed: images/s, peak memory,
+   SAM's time per provoke step (CUDA events around its forward), K3's
+   launches (1644 each, as mode p). Then SAM's forward on the card against
+   the CPU at one seeded image and box (TF32 off): max |dlogits| within
+   1e-3 + 1e-3 max|logits|, at most 1e-3 of the mask pixels differing.
+9. PointRend in the loop: ``--person_segmenter pointrend`` (``PointRendConfig(
+   max_detections=20)``, 800 px) in mode p with seeded stand-in weights
+   through ``--pointrend_weights`` (a Flax-layout ``.npz``: Flax's
+   initializers, the box regressions zeroed and the classifier favouring the
+   person class, so the anchors are the proposals and masks reach the
+   paste), then with ``--pointrend_fast``. Printed: the wall clock, the
+   detector's time per provoke step, the NMS rounds, the merged masks'
+   share of the frames, K3's launches (1644). Then the detector on the card
+   against the CPU at one seeded image (TF32 off): the same valid slots and
+   classes, boxes within 1e-2 px, at most 1e-3 of the merged mask's pixels
+   differing.
+10. ``cli/segment_human`` on phase 6's four images with the committed U-Net,
+   and with ``--segmenter pointrend`` (``PointRendConfig()``) on phase 9's
+   stand-in as a Flax-layout ``.npz``: the pickles' keys, dtypes and shapes;
+   images/s.
+11. ``--save_step_video`` on phase 6's batch: the GIF decoded by the numpy
+   decoder here (``decode_gif``) must hold ⌈50/3⌉ = 17 frames of 512x1024
+   that equal ``compose_step_frames``' output quantised to the GIF's
+   palette; K3 launches 1645 (the video's one VAE decode of the 17 x̂0);
+   the video's cost beside phase 6's wall clock.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -951,9 +981,10 @@ def write_inpaint_tree(root: str, rng, mask_box=None) -> None:
         pickle.dump({"prompts": [PROMPT]}, fh)
 
 
-def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 steps, mode p"):
-    """``cli/inpaint`` at full width with ``flags``; returns (seconds, peak
-    GB, outputs)."""
+def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 steps, mode p",
+            mode="p"):
+    """``cli/inpaint`` at full width with ``flags`` in ``mode``; returns
+    (seconds, peak GB, outputs)."""
     from coma_tpu_torch.cli import inpaint as cli
     from coma_tpu_torch.models.diffusion.pipeline import AdaptiveMaskInpaintPipeline
     from coma_tpu_torch.utils.png import read_png
@@ -962,7 +993,7 @@ def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 s
 
     def kept(self, *args, **kwargs):     # keep the float images for the finiteness check
         out = generate(self, *args, **kwargs)
-        outputs.append(out.float().cpu())
+        outputs.append((out[0] if isinstance(out, tuple) else out).float().cpu())
         return out
 
     AdaptiveMaskInpaintPipeline.generate = kept
@@ -973,7 +1004,7 @@ def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 s
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         cli.main([*flags, "--device", DEVICE, "--num_img_per_combination", "2",
-                  "--batch_size", str(INPAINT_IMAGES), "--adaptive_mask_model_type", "p"])
+                  "--batch_size", str(INPAINT_IMAGES), "--adaptive_mask_model_type", mode])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
@@ -1232,6 +1263,490 @@ def inpaint_cropped(label: str, full_frame_seconds: float) -> dict:
         f"crop) [{label}]")
     return dict(bucket=c, seconds=seconds, peak_gb=peak_gb, launches=total,
                 crop_shape_launches=shapes[crop_shape], full_frame_seconds=full_frame_seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phases 8-10: the segmenters in the loop, and segment_human
+# ---------------------------------------------------------------------------
+
+SEG_ATOL, SEG_RTOL = 1e-3, 1e-3   # card vs CPU, float32 on both with TF32 off
+SEG_MASK_SHARE = 1e-3             # mask pixels allowed to differ (logits at the threshold)
+PR_BOX_ATOL = 1e-2                # px
+PROVOKE_ROUNDS = 21
+
+
+class ForwardTimer:
+    """CUDA events around every call of ``cls.forward`` while the ``with``
+    block runs (the device's time between them, kernels and any gaps)."""
+
+    def __init__(self, cls):
+        self.cls, self.pairs = cls, []
+
+    def __enter__(self):
+        forward, pairs = self.cls.forward, self.pairs
+        self.forward = forward
+
+        def timed(module, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = forward(module, *args, **kwargs)
+            end.record()
+            pairs.append((start, end))
+            return out
+
+        self.cls.forward = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.forward
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+class NoTF32:
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def fresh_outputs(root: str) -> None:
+    shutil.rmtree(f"{root}/results/generation/inpaintings", ignore_errors=True)
+
+
+def ms_summary(ms: list) -> str:
+    return (f"{np.mean(ms):.3f} ms mean (min {np.min(ms):.3f}, max {np.max(ms):.3f}) over "
+            f"{len(ms)} provoke steps")
+
+
+def sam_card_vs_cpu(label: str) -> dict:
+    """The CLI's seeded SAM ViT-B at 1024² on one seeded image and box, on
+    the card and on the CPU."""
+    import copy
+
+    from coma_tpu_torch.models import sam
+
+    cfg = sam.SAMConfig()
+    model = sam.init_sam_random_(sam.SAM(cfg), torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(SEED + 8)
+    S = cfg.img_size
+    x = torch.from_numpy(np.float32(rng.normal(size=(1, 3, S, S))))
+    box = torch.tensor([[0.2, 0.15, 0.7, 0.9]]) * S
+    with torch.no_grad(), NoTF32():
+        want, want_iou = model.eval()(x, box)
+        got, got_iou = copy.deepcopy(model).to(DEVICE)(x.to(DEVICE), box.to(DEVICE))
+        got, got_iou = got.cpu(), got_iou.cpu()
+    err = float((got - want).abs().max())
+    limit = SEG_ATOL + SEG_RTOL * float(want.abs().max())
+    share = float(((got > 0) != (want > 0)).float().mean())
+    if not torch.isfinite(got).all() or err > limit or share > SEG_MASK_SHARE:
+        raise AssertionError(f"SAM card vs CPU: max |dlogits| {err:.3e} (limit {limit:.3e}), "
+                             f"mask pixels differing {share:.3e} (limit {SEG_MASK_SHARE})")
+    log(f"SAM ViT-B forward at {S}² on the card vs the CPU (TF32 off): max |dlogits| "
+        f"{err:.3e} (limit {limit:.3e}; logits up to {float(want.abs().max()):.3e}), mask pixels "
+        f"differing {share:.3e} (positive share {float((want > 0).float().mean()):.4f}), IoU "
+        f"{float(got_iou[0]):.6f} vs {float(want_iou[0]):.6f}")
+    return dict(max_abs_err=err, limit=limit, mask_share_differing=share)
+
+
+def sam_phase(root: str, label: str, p_seconds: float) -> dict:
+    """Phase 8: ``--adaptive_mask_model_type ps_ae`` at full width (SAM ViT-B
+    at 1024² refining the U-Net's person box in each of the 21 provoke
+    rounds), then ``s_ab_ae`` on the same route; K3's counters from 0."""
+    from coma_tpu_torch.cli import inpaint as cli
+    from coma_tpu_torch.models import sam
+    from coma_tpu_torch.ops import attention
+
+    for mode in cli.SAM_MODES:      # each parses and passes the CLI's checks
+        args = cli.build_parser().parse_args(["--random_weights", "--adaptive_mask_model_type",
+                                              mode])
+        cli.check_ported(args)
+    runs = {}
+    for mode in ("ps_ae", "s_ab_ae"):
+        fresh_outputs(root)
+        reset_k3_counters()
+        with ForwardTimer(sam.SAM) as timer:
+            seconds, peak_gb, _ = inpaint(root, label, what=f"bf16, 50 steps, mode {mode}, SAM "
+                                          "ViT-B at 1024²", mode=mode)
+        ms = timer.ms()
+        if len(ms) != PROVOKE_ROUNDS or attention.launches != K3_LAUNCHES_PER_BATCH:
+            raise AssertionError(f"mode {mode}: SAM ran {len(ms)} times, K3 launched "
+                                 f"{attention.launches} times (expected {PROVOKE_ROUNDS}, "
+                                 f"{K3_LAUNCHES_PER_BATCH})")
+        runs[mode] = dict(seconds=seconds, images_per_s=INPAINT_IMAGES / seconds,
+                          peak_gb=peak_gb, sam_ms=float(np.mean(ms)), sam_calls=len(ms),
+                          launches=attention.launches)
+        log(f"mode {mode}: SAM {ms_summary(ms)} (CUDA events around its forward, batch "
+            f"{INPAINT_IMAGES}); K3 launches {attention.launches}; against mode p's "
+            f"{p_seconds:.3f} s [{label}]")
+    runs["card_vs_cpu"] = sam_card_vs_cpu(label)
+    return runs
+
+
+def pointrend_stand_in(cfg, seed: int):
+    """Seeded PointRend weights (Flax's initializers) with the box
+    regressions zeroed and the classifier constant in favour of the person
+    class: the proposals are the anchors (which overlap in long NMS chains),
+    every detection is a person at one score (ties for top-K), and the point
+    head's seeded logits cut masks out of the boxes. Seeded weights alone
+    reach activations of ~1e3 at pixel scale and push every box off the
+    frame, so no mask would reach the paste."""
+    from coma_tpu_torch.models import pointrend as pr
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    model = init_flax_default_(pr.PointRendModel(cfg), torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for layer in (model.rpn_head.anchor_deltas, model.box.bbox_pred, model.box.cls_score):
+            layer.weight.zero_()
+            layer.bias.zero_()
+        model.box.cls_score.bias[0] = 10.0
+    return model.eval()
+
+
+def pointrend_card_vs_cpu(label: str) -> dict:
+    """Phase 9's detector (the stand-in at the loop's config) on one seeded
+    512² image at the loop's 800 px scale, on the card and on the CPU."""
+    import copy
+
+    from coma_tpu_torch.models import pointrend as pr
+
+    cfg = pr.PointRendConfig(max_detections=20)
+    model = pointrend_stand_in(cfg, SEED + 10)
+    image = torch.from_numpy(np.float32(np.random.default_rng(SEED + 9).uniform(
+        size=(1, 3, INPAINT_RES, INPAINT_RES))))
+    net, box_scale = pr.preprocess_batch(image, cfg)
+    pr.reset_nms_stats()
+    with torch.no_grad(), NoTF32():
+        want = model(net)
+        cpu_rounds = dict(pr.NMS_STATS)
+        pr.reset_nms_stats()
+        got = {k: v.cpu() for k, v in copy.deepcopy(model).to(DEVICE)(net.to(DEVICE)).items()}
+        card_rounds = dict(pr.NMS_STATS)
+    masks = [pr.merged_person_mask(d, (INPAINT_RES,) * 2, box_scale) for d in (want, got)]
+    share = float((masks[0] != masks[1]).float().mean())
+    box_err = float((got["boxes"] - want["boxes"]).abs().max())
+    logit_err = float((got["mask_logits"] - want["mask_logits"]).abs().max())
+    same = torch.equal(got["valid"], want["valid"]) and torch.equal(got["classes"],
+                                                                    want["classes"])
+    if not same or box_err > PR_BOX_ATOL or share > SEG_MASK_SHARE or not want["valid"].any():
+        raise AssertionError(f"PointRend card vs CPU: same slots {same}, boxes {box_err:.3e} px "
+                             f"(limit {PR_BOX_ATOL}), mask pixels differing {share:.3e}")
+    log(f"PointRend R50-FPN at 800 px on the card vs the CPU (TF32 off): "
+        f"{int(want['valid'].sum())} valid slots, the same slots and classes; boxes within "
+        f"{box_err:.3e} px (limit {PR_BOX_ATOL}); mask logits within {logit_err:.3e}; merged "
+        f"person mask {float(masks[0].float().mean()):.4f} of the frame, pixels differing "
+        f"{share:.3e} (limit {SEG_MASK_SHARE}); NMS rounds card {card_rounds}, CPU {cpu_rounds}")
+    return dict(box_err=box_err, mask_logit_err=logit_err, mask_share_differing=share,
+                valid=int(want["valid"].sum()), nms_card=card_rounds)
+
+
+def pointrend_phase(root: str, label: str, p_seconds: float) -> dict:
+    """Phase 9: ``--person_segmenter pointrend`` in mode p with the stand-in
+    weights through ``--pointrend_weights`` (a Flax-layout ``.npz``), then
+    with ``--pointrend_fast``; the detector's time per provoke step, NMS
+    rounds, the merged person masks' share of the frames, K3's launches;
+    then the card against the CPU at one input."""
+    from coma_tpu_torch.models import pointrend as pr
+    from coma_tpu_torch.ops import attention
+
+    runs = {}
+    npz = f"{root}/pointrend_stand_in.npz"
+    write_flax_npz(pointrend_stand_in(pr.PointRendConfig(max_detections=20), SEED + 10), npz)
+    for name, extra in (("f32", ()), ("fast", ("--pointrend_fast",))):
+        fresh_outputs(root)
+        reset_k3_counters()
+        pr.reset_nms_stats()
+        masks, make = [], pr.make_pointrend_segment_fn
+
+        def recording(*args, _make=make, **kwargs):
+            fn = _make(*args, **kwargs)
+            return lambda x: masks.append(fn(x)) or masks[-1]
+
+        pr.make_pointrend_segment_fn = recording
+        try:
+            with ForwardTimer(pr.PointRendModel) as timer:
+                seconds, peak_gb, _ = inpaint(root, label, (
+                    "--random_weights", "--person_segmenter", "pointrend", "--pointrend_weights",
+                    npz, *extra), f"bf16, 50 steps, mode p, PointRend {name}")
+        finally:
+            pr.make_pointrend_segment_fn = make
+        ms = timer.ms()
+        nms = dict(pr.NMS_STATS)
+        share = float(torch.stack([m.float().mean() for m in masks]).mean())
+        if len(ms) != PROVOKE_ROUNDS or attention.launches != K3_LAUNCHES_PER_BATCH \
+                or not 0 < share < 1:
+            raise AssertionError(f"PointRend {name}: the detector ran {len(ms)} times, K3 "
+                                 f"launched {attention.launches} times, person share {share}")
+        runs[name] = dict(seconds=seconds, peak_gb=peak_gb, detector_ms=float(np.mean(ms)),
+                          nms=nms, person_share=share, launches=attention.launches)
+        log(f"PointRend {name}: detector {ms_summary(ms)} (CUDA events, batch "
+            f"{INPAINT_IMAGES} at 800 px); NMS {nms['calls']} calls, {nms['rounds']} rounds "
+            f"({nms['rounds'] / max(nms['calls'], 1):.2f} a call, at most {nms['max_rounds']}); "
+            f"merged person masks {share:.4f} of the frames; K3 launches {attention.launches}; "
+            f"against mode p's U-Net {p_seconds:.3f} s [{label}]")
+    runs["card_vs_cpu"] = pointrend_card_vs_cpu(label)
+    runs["profile"] = profile_detector(label)
+    return runs
+
+
+def profile_detector(label: str, calls: int = 3) -> dict:
+    """Where a provoke step's detector time goes: the in-loop segment
+    function (stand-in weights, batch 4 at 800 px, float32) under
+    ``torch.profiler`` after a warm-up; wall ms per call, the device's busy
+    ms and idle share, device operations per call, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coma_tpu_torch.models import pointrend as pr
+
+    model = pointrend_stand_in(pr.PointRendConfig(max_detections=20), SEED + 10).to(DEVICE)
+    fn = pr.make_pointrend_segment_fn(model)
+    images = torch.from_numpy(np.float32(np.random.default_rng(SEED + 11).uniform(
+        size=(INPAINT_IMAGES, 3, INPAINT_RES, INPAINT_RES)))).to(DEVICE)
+    fn(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / calls / 1e3
+    ops = sum(e.count for e in events) / calls
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device time of the detector")
+    log(f"PointRend in-loop call under the profiler (batch {INPAINT_IMAGES}, 800 px, f32): "
+        f"{wall_ms:.3f} ms wall per call, device busy {busy_ms:.3f} ms (idle "
+        f"{1 - busy_ms / wall_ms:.3f}), {ops:.0f} device operations per call; largest: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / calls / 1e3:.3f} ms x"
+                    f"{e.count // calls}" for e in top) + f" [{label}]")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                device_ops=ops)
+
+
+def write_flax_npz(model: torch.nn.Module, path: str) -> None:
+    """The module's weights as a ``/``-keyed Flax-layout params store (the
+    format ``coma_tpu``'s ``save_params`` writes): Conv weights (O, I, kh, kw)
+    as kernels (kh, kw, I, O), Linear weights (O, I) as kernels (I, O)."""
+    arrays = {}
+    for key, value in model.state_dict().items():
+        *parents, leaf = key.split(".")
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight" and arr.ndim in (2, 4):
+            leaf, arr = "kernel", (arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0))
+        arrays["/".join(["params", *parents, leaf])] = np.ascontiguousarray(arr)
+    np.savez(path, **arrays)
+
+
+PICKLE_LAYOUT = {"pred_masks": np.bool_, "pred_boxes": np.float32, "scores": np.float32,
+                 "pred_classes": np.int64}
+
+
+def check_instance_pickles(out_dir: str, n_images: int) -> int:
+    pickles = sorted(Path(out_dir).rglob("*.pickle"))
+    if len(pickles) != n_images:
+        raise AssertionError(f"segment_human wrote {len(pickles)} pickles for {n_images} images")
+    total = 0
+    for p in pickles:
+        with open(p, "rb") as fh:
+            d = pickle.load(fh)
+        if list(d) != [*PICKLE_LAYOUT, "image_size"] or d["image_size"] != (INPAINT_RES,) * 2:
+            raise AssertionError(f"{p}: keys {list(d)}, image_size {d.get('image_size')}")
+        n = len(d["scores"])
+        for k, dt in PICKLE_LAYOUT.items():
+            if d[k].dtype != dt or d[k].shape[0] != n:
+                raise AssertionError(f"{p}: {k} {d[k].dtype} {d[k].shape}")
+        if d["pred_masks"].shape[1:] != (INPAINT_RES,) * 2 or d["pred_boxes"].shape[1:] != (4,):
+            raise AssertionError(f"{p}: masks {d['pred_masks'].shape}, boxes "
+                                 f"{d['pred_boxes'].shape}")
+        total += n
+    return total
+
+
+def segment_human_phase(inpaint_dir: str, label: str) -> dict:
+    """Phase 10: ``cli/segment_human`` on phase 6's images, with the committed
+    U-Net and with PointRend (``PointRendConfig()``) from phase 9's seeded
+    stand-in written as a Flax-layout ``.npz``."""
+    from coma_tpu_torch.cli import segment_human as cli
+    from coma_tpu_torch.models import pointrend as pr
+
+    n_images = len(list(Path(inpaint_dir).rglob("*.png")))
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="segment_", dir=SCRATCH) as tmp:
+        write_flax_npz(pointrend_stand_in(pr.PointRendConfig(), SEED + 10),
+                       f"{tmp}/pointrend.npz")
+        for name, extra in (("unet", ()), ("pointrend", ("--segmenter", "pointrend",
+                                                          "--segmenter_params",
+                                                          f"{tmp}/pointrend.npz"))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(["--inpaint_dir", inpaint_dir, "--save_dir", f"{tmp}/{name}", "--device",
+                      DEVICE, *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            instances = check_instance_pickles(f"{tmp}/{name}", n_images)
+            runs[name] = dict(seconds=seconds, images_per_s=n_images / seconds,
+                              instances=instances)
+            log(f"segment_human --segmenter {name}: {n_images} images at {INPAINT_RES}² in "
+                f"{seconds:.3f} s = {n_images / seconds:.4f} images/s (the CLI's wall clock: "
+                f"weights, PNGs, pickles), {instances} instances kept; the pickles' keys, dtypes "
+                f"and shapes are coma_tpu's [{label}]")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the step video's GIF, decoded with numpy
+# ---------------------------------------------------------------------------
+
+def lzw_decode(data: bytes, min_code_size: int) -> bytes:
+    """GIF's variable-width LZW (codes least-significant bit first)."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out = bytearray()
+    table, prev, size = None, None, min_code_size + 1
+    buf = nbits = i = 0
+    while True:
+        while nbits < size and i < len(data):
+            buf |= data[i] << nbits
+            nbits += 8
+            i += 1
+        if nbits < size:
+            break
+        code = buf & ((1 << size) - 1)
+        buf >>= size
+        nbits -= size
+        if code == clear:
+            table = [bytes([c]) for c in range(clear)] + [b"", b""]
+            prev, size = None, min_code_size + 1
+            continue
+        if code == end:
+            break
+        if prev is None:
+            entry = table[code]
+        else:
+            entry = table[code] if code < len(table) else table[prev] + table[prev][:1]
+            if len(table) < 4096:
+                table.append(table[prev] + entry[:1])
+        out += entry
+        prev = code
+        if len(table) == (1 << size) and size < 12:
+            size += 1
+    return bytes(out)
+
+
+def decode_gif(data: bytes):
+    """GIF89a bytes -> (frames (S, H, W, 3) uint8, delays in 1/100 s, loop
+    count); full-frame, non-interlaced images over a global or local palette."""
+    if data[:6] not in (b"GIF89a", b"GIF87a"):
+        raise AssertionError(f"not a GIF: {data[:6]!r}")
+    le16 = lambda at: int.from_bytes(data[at:at + 2], "little")
+    W, H, flags = le16(6), le16(8), data[10]
+    pos, palette = 13, None
+    if flags & 0x80:
+        n = 2 << (flags & 7)
+        palette = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+        pos += 3 * n
+
+    def sub_blocks(at):
+        chunks = []
+        while data[at]:
+            chunks.append(data[at + 1:at + 1 + data[at]])
+            at += 1 + data[at]
+        return chunks, at + 1
+
+    frames, delays, loop = [], [], None
+    canvas = np.zeros((H, W, 3), np.uint8)
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        if kind == 0x21:
+            label = data[pos + 1]
+            blocks, pos = sub_blocks(pos + 2)
+            if label == 0xF9:
+                delays.append(int.from_bytes(blocks[0][1:3], "little"))
+            elif label == 0xFF and blocks[0] == b"NETSCAPE2.0":
+                loop = int.from_bytes(blocks[1][1:3], "little")
+        elif kind == 0x2C:
+            x, y, w, h, fl = le16(pos + 1), le16(pos + 3), le16(pos + 5), le16(pos + 7), data[pos + 9]
+            pos += 10
+            pal = palette
+            if fl & 0x80:
+                n = 2 << (fl & 7)
+                pal = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
+                pos += 3 * n
+            if fl & 0x40:
+                raise AssertionError("interlaced GIF frames are not decoded here")
+            min_code_size = data[pos]
+            blocks, pos = sub_blocks(pos + 1)
+            idx = np.frombuffer(lzw_decode(b"".join(blocks), min_code_size), np.uint8)
+            if idx.size != w * h:
+                raise AssertionError(f"GIF frame {len(frames)}: {idx.size} pixels, want {w * h}")
+            canvas[y:y + h, x:x + w] = pal[idx.reshape(h, w)]
+            frames.append(canvas.copy())
+        else:
+            raise AssertionError(f"GIF block 0x{kind:02x} at byte {pos}")
+    return np.stack(frames), delays, loop
+
+
+def step_video_phase(root: str, label: str, p_seconds: float) -> dict:
+    """Phase 11: phase 6's batch with ``--save_step_video``: the GIF decoded
+    here against the frames the CLI composed, and what the video costs."""
+    from coma_tpu_torch.ops import attention
+    from coma_tpu_torch.utils.gif import quantize
+    from coma_tpu_torch.visualization import video
+
+    composed, write_seconds = [], []
+    compose, write = video.compose_step_frames, video.write_adaptive_mask_video
+
+    def recorded(*args, **kwargs):
+        composed.append(compose(*args, **kwargs))
+        return composed[-1]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = write(*args, **kwargs)
+        write_seconds.append(time.perf_counter() - t0)
+        return out
+
+    fresh_outputs(root)
+    reset_k3_counters()
+    video.compose_step_frames, video.write_adaptive_mask_video = recorded, timed
+    try:
+        seconds, _, _ = inpaint(root, label, ("--random_weights", "--save_step_video"),
+                                "bf16, 50 steps, mode p, --save_step_video")
+    finally:
+        video.compose_step_frames, video.write_adaptive_mask_video = compose, write
+    gifs = sorted(Path(root, "results", "generation", "inpaintings").rglob("*.steps.gif"))
+    if len(gifs) != 1 or len(composed) != 1:
+        raise AssertionError(f"{len(gifs)} step videos, {len(composed)} composed")
+    data = gifs[0].read_bytes()
+    t0 = time.perf_counter()
+    frames, delays, loop = decode_gif(data)
+    decode_s = time.perf_counter() - t0
+    want_shape = (-(-50 // 3), INPAINT_RES, 2 * INPAINT_RES, 3)
+    palette, indices = quantize(composed[0])
+    if frames.shape != want_shape or composed[0].shape != want_shape or loop != 0 \
+            or not np.array_equal(frames, palette[indices]):
+        raise AssertionError(f"step video: frames {frames.shape} (want {want_shape}), loop "
+                             f"{loop}, equal to the quantised composed frames "
+                             f"{np.array_equal(frames, palette[indices])}")
+    # one more attention than phase 6: the video's single VAE decode of the 17 x̂0
+    if attention.launches != K3_LAUNCHES_PER_BATCH + 1:
+        raise AssertionError(f"step video run: K3 launched {attention.launches} times")
+    quant_err = float(np.abs(frames.astype(np.int16) - composed[0]).mean())
+    log(f"--save_step_video: {gifs[0].name}, {len(data)} bytes, {frames.shape[0]} frames of "
+        f"{frames.shape[2]}x{frames.shape[1]}, delay {delays[0]} cs, loop {loop}; decoded here "
+        f"({decode_s:.3f} s) equal to the palette-quantised composed frames (mean |d| to them "
+        f"{quant_err:.3f} of 255); compose + encode + write {write_seconds[0]:.3f} s; the run "
+        f"{seconds:.3f} s against phase 6's {p_seconds:.3f} s; K3 launches {attention.launches} "
+        f"(phase 6's + 1: the video's VAE decode) [{label}]")
+    return dict(seconds=seconds, write_seconds=write_seconds[0], frames=int(frames.shape[0]),
+                bytes=len(data), launches=attention.launches, phase6_seconds=p_seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -1548,6 +2063,9 @@ def main() -> int:
         inpaint_seconds = inpaint(tmp, label)[0]
         launches["flash_attention"] = attention.launches
         by_source = dict(attention.source_launches)
+        phase6_images = tempfile.mkdtemp(prefix="phase6_images_", dir=SCRATCH)  # phase 10's
+        shutil.copytree(f"{tmp}/results/generation/inpaintings", phase6_images,
+                        dirs_exist_ok=True)
     log(f"launches on the inpainting path: flash_attention {launches['flash_attention']} "
         f"({by_source})")
     if launches["flash_attention"] != K3_LAUNCHES_PER_BATCH \
@@ -1559,6 +2077,17 @@ def main() -> int:
     # phase 6b: SD-2-inpainting from a diffusers directory; phase 6c: the crop
     sd2 = inpaint_sd2(label)
     cropped = inpaint_cropped(label, inpaint_seconds)
+
+    # phases 8, 9 and 11 on phase 6's tree (its seed), phase 10 on phase 6's images
+    with tempfile.TemporaryDirectory(prefix="segmenters_", dir=SCRATCH) as tmp:
+        write_inpaint_tree(tmp, np.random.default_rng(SEED + 2))
+        sam_runs = sam_phase(tmp, label, inpaint_seconds)
+        pointrend_runs = pointrend_phase(tmp, label, inpaint_seconds)
+        try:
+            segment_human_phase(phase6_images, label)
+        finally:
+            shutil.rmtree(phase6_images, ignore_errors=True)
+        video_run = step_video_phase(tmp, label, inpaint_seconds)
 
     # phase 7: the HOI-reconstruction application
     try:
@@ -1604,6 +2133,11 @@ def main() -> int:
              launches_sd2_by_head_dim=sd2["launches_by_head_dim"],
              launches_provoke_crop=cropped["launches"],
              launches_provoke_crop_shape=cropped["crop_shape_launches"],
+             launches_sam_modes={m: r["launches"] for m, r in sam_runs.items()
+                                 if "launches" in r},
+             launches_pointrend={m: r["launches"] for m, r in pointrend_runs.items()
+                                 if "launches" in r},
+             launches_step_video=video_run["launches"],
              launches_optimize=app_launches["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))

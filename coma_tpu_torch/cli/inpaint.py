@@ -14,9 +14,19 @@ random weights. ``--random_weights`` runs the full machinery with random
 weights made from a seed (outputs are noise); prompts then become token ids
 without a tokenizer. ``--provoke_crop {0,auto,<int>}`` runs the provoke
 rounds on a latent window around the default mask (``auto`` picks a bucket
-per batch, or the full frame). The SAM and PointRend modes, step videos and
-``--mesh`` are not ported yet: each raises ``SystemExit`` naming the ROADMAP
-item that brings it.
+per batch, or the full frame).
+
+The in-loop person mask comes from the U-Net segmenter or, with
+``--person_segmenter pointrend``, from PointRend R50-FPN (``--pointrend_weights``
+a Flax ``.npz``, a detectron2 ``.pkl`` or ``.pth``; ``--pointrend_fast``: bf16
+and a stride-4 paste; ``--pointrend_scale_native``: the detector at 512 px).
+The five SAM modes (``ps``, ``ps_ae``, ``s_pdb_ae``, ``s_db_ae``,
+``s_ab_ae``) refine that mask's box with SAM ViT-B (``--sam_weights`` the
+official ``.pth`` or a Flax ``.npz``); as in ``coma_tpu`` they share one
+in-loop route. With ``--random_weights`` both segmenters take seeded random
+weights; a weights path that does not exist raises. ``--save_step_video``
+writes a ``.steps.gif`` beside each batch's first image. ``--mesh`` is not
+ported yet and raises ``SystemExit`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +36,6 @@ import glob as _glob
 import os
 import pickle
 import zlib
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,10 +61,9 @@ from coma_tpu_torch.models.diffusion.pipeline import (
     TorchNoise,
     choose_crop_latent,
 )
+from coma_tpu_torch.models.segmentation import SEGMENTER_CHECKPOINT
 from coma_tpu_torch.utils.png import read_png, to_gray, to_rgb, write_png
 
-SEGMENTER_CHECKPOINT = (Path(__file__).resolve().parents[2]
-                        / "coma_tpu" / "data" / "person_segmenter.npz")
 SAM_MODES = ("ps", "ps_ae", "s_pdb_ae", "s_db_ae", "s_ab_ae")
 
 
@@ -102,26 +110,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """``SystemExit`` for a mode or flag of ``coma_tpu``'s CLI the port lacks."""
-    waits = []
-    if args.adaptive_mask_model_type in SAM_MODES or args.sam_weights:
-        waits.append(f"--adaptive_mask_model_type {args.adaptive_mask_model_type} "
-                     "(SAM) waits for ROADMAP Queue 1 item 12 (segmenters)")
-    if (args.person_segmenter == "pointrend" or args.pointrend_weights
-            or args.pointrend_fast or args.pointrend_scale_native):
-        waits.append("--person_segmenter pointrend waits for ROADMAP Queue 1 item 12 "
-                     "(segmenters)")
-    if args.save_step_video:
-        waits.append("--save_step_video waits for ROADMAP Queue 1 item 13c (step videos)")
+    """``SystemExit`` for a flag of ``coma_tpu``'s CLI the port lacks, and for
+    weights that are neither given nor asked to be random."""
     if args.mesh is not None:
-        waits.append("--mesh waits for ROADMAP Queue 1 item 13d (multi-GPU inpainting)")
-    if waits:
-        raise SystemExit("coma_tpu_torch.cli.inpaint: " + "; ".join(waits))
+        raise SystemExit("coma_tpu_torch.cli.inpaint: --mesh waits for ROADMAP Queue 1 "
+                         "item 13d (multi-GPU inpainting)")
     if args.weights_dir and not os.path.isdir(args.weights_dir):
         raise SystemExit(f"--weights_dir {args.weights_dir} does not exist (there is no "
                          "fallback to random weights)")
     if not args.weights_dir and not args.random_weights:
         raise SystemExit("pass --weights_dir or --random_weights")
+    for flag, path in (("--sam_weights", args.sam_weights),
+                       ("--pointrend_weights", args.pointrend_weights)):
+        if path and not os.path.isfile(path):
+            raise SystemExit(f"{flag} {path} does not exist (there is no fallback to random "
+                             "weights)")
+    if args.adaptive_mask_model_type in SAM_MODES and not (args.sam_weights
+                                                           or args.random_weights):
+        raise SystemExit(f"'{args.adaptive_mask_model_type}' needs --sam_weights (or "
+                         "--random_weights for a mechanical smoke run)")
+    if args.person_segmenter == "pointrend" and not (args.pointrend_weights
+                                                     or args.random_weights):
+        raise SystemExit("--person_segmenter pointrend needs --pointrend_weights (or "
+                         "--random_weights)")
     if args.provoke_crop != "auto" and not args.provoke_crop.isdigit():
         raise SystemExit(f"--provoke_crop takes 0, auto or a window side, not "
                          f"{args.provoke_crop!r}")
@@ -197,6 +208,57 @@ def load_person_segmenter(random_weights: bool, device, generator: torch.Generat
     return init_flax_default_(seg, generator).eval()
 
 
+def pointrend_config(args):
+    """The in-loop detector's config (``coma_tpu/cli/inpaint.py:232-244``): 20
+    padded detections in the loop, which needs only the merged mask."""
+    from coma_tpu_torch.models.pointrend import PointRendConfig
+
+    if args.tiny:
+        return PointRendConfig(max_detections=4, test_size=64, pre_nms_topk=64,
+                               post_nms_topk=32, box_candidates=32)
+    if args.pointrend_scale_native:
+        return PointRendConfig(test_size=512, pre_nms_topk=256, post_nms_topk=128,
+                               box_candidates=64, max_detections=8)
+    return PointRendConfig(max_detections=20)
+
+
+def build_person_fn(args, device, generator: torch.Generator):
+    """``images (B, 3, H, W) -> (B, H, W)`` person masks: the U-Net segmenter,
+    or PointRend with its weights (seed 2 with ``--random_weights``, drawn on
+    the CPU so every device gets the same ones)."""
+    from coma_tpu_torch.models.segmentation import make_person_segment_fn
+
+    if args.person_segmenter != "pointrend":
+        return make_person_segment_fn(load_person_segmenter(args.random_weights, device,
+                                                            generator))
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.models.pointrend import PointRendModel, make_pointrend_segment_fn
+    from coma_tpu_torch.models.segmenter_weights import load_pointrend_weights
+
+    model = PointRendModel(pointrend_config(args))
+    if args.pointrend_weights:
+        load_pointrend_weights(model, args.pointrend_weights)
+    else:
+        init_flax_default_(model, torch.Generator().manual_seed(2))
+    return make_pointrend_segment_fn(
+        model.to(device).eval(), compute_dtype=torch.bfloat16 if args.pointrend_fast else None,
+        paste_stride=4 if args.pointrend_fast else 1)
+
+
+def build_sam(args, device):
+    """SAM ViT-B (``tiny_sam_config`` with ``--tiny``) from ``--sam_weights``,
+    or seeded random weights (seed 1, drawn on the CPU)."""
+    from coma_tpu_torch.models.sam import SAM, SAMConfig, init_sam_random_, tiny_sam_config
+    from coma_tpu_torch.models.segmenter_weights import load_sam_weights
+
+    sam = SAM(tiny_sam_config() if args.tiny else SAMConfig())
+    if args.sam_weights:
+        load_sam_weights(sam, args.sam_weights)
+    else:
+        init_sam_random_(sam, torch.Generator().manual_seed(1))
+    return sam.to(device).eval()
+
+
 def build_pipeline(args, device: torch.device):
     """(pipeline, prompt encoder, resolution). With ``--weights_dir`` the UNet
     (bf16), the VAE and the CLIP text tower are rebuilt around the configs
@@ -222,7 +284,7 @@ def build_pipeline(args, device: torch.device):
         tiny_vae_config,
     )
     from coma_tpu_torch.models.layers import init_flax_default_
-    from coma_tpu_torch.models.segmentation import make_person_segment_fn
+    from coma_tpu_torch.models.sam import make_sam_segment_fn
 
     res = 64 if args.tiny else 512
     ucfg = tiny_unet_config() if args.tiny else UNetConfig(dtype=torch.bfloat16)
@@ -248,10 +310,13 @@ def build_pipeline(args, device: torch.device):
         clip = init_flax_default_(CLIPTextEncoder(ccfg, device=device), g)
     for m in (unet, enc, dec, clip):
         m.eval()
-    seg = load_person_segmenter(args.random_weights, device, g)
-
-    segment_fn = (make_person_segment_fn(seg) if args.adaptive_mask_model_type == "p"
-                  else None)
+    mode = args.adaptive_mask_model_type
+    segment_fn = None
+    if mode != "baseline":
+        segment_fn = build_person_fn(args, device, g)
+    if mode in SAM_MODES:
+        # person mask -> its box prompts SAM, in the loop (coma_tpu/cli/inpaint.py:276-314)
+        segment_fn = make_sam_segment_fn(build_sam(args, device), segment_fn)
     pipe = AdaptiveMaskInpaintPipeline(
         unet_fn=lambda lat, t, ctx: unet(lat.to(ucfg.dtype), t, ctx.to(ucfg.dtype)).float(),
         vae_encode_fn=lambda img: enc(img.to(vcfg.dtype)).float(),
@@ -339,7 +404,16 @@ def main(argv=None) -> None:
             dataclasses.replace(pipe.config, provoke_crop_latent=crop), pipe.vae_scaling)
         # the batch's seed: the global seed and the first item's inpaint_id
         gen = torch.Generator(device).manual_seed(args.seed * 1_000_003 + chunk[0]["inpaint_id"])
-        out = run.generate(imgs.to(device), masks.to(device), ctx, neg, noise=TorchNoise(gen))
+        out = run.generate(imgs.to(device), masks.to(device), ctx, neg, noise=TorchNoise(gen),
+                           return_intermediates=args.save_step_video)
+        if args.save_step_video:
+            from coma_tpu_torch.visualization.video import write_adaptive_mask_video
+
+            out, inter = out
+            gif = chunk[0]["out"].rsplit(".", 1)[0] + ".steps.gif"
+            os.makedirs(os.path.dirname(gif), exist_ok=True)
+            write_adaptive_mask_video(inter, run.vae_decode_fn, gif, sample=0,
+                                      every=max(1, args.default_ddim_steps // 16))
         out_np = (out.permute(0, 2, 3, 1).float().cpu().numpy() * 255).astype(np.uint8)
         for w, img in zip(chunk, out_np):
             os.makedirs(os.path.dirname(w["out"]), exist_ok=True)

@@ -10,10 +10,10 @@ small), and re-encodes the masked image latents mid-loop.
 ``coma_tpu`` compiles the 50 steps into one ``lax.scan``; here they are a
 Python loop over eager PyTorch calls, and a provoke step is taken or skipped
 on the host. Layout is NCHW: images (B, 3, H, W), masks (B, H, W), latents
-(B, 4, h, w). The full-frame path, ``provoke_decode_factor`` and the provoke
+(B, 4, h, w). The full-frame path, ``provoke_decode_factor``, the provoke
 crop (``provoke_crop_latent``: decode, segment and re-encode only a window
 around each image's default-mask box; its offsets are chosen on the host)
-are ported; the per-step intermediates are not yet.
+and the per-step intermediates of the step video are ported.
 
 Randomness comes from one noise source (:class:`TorchNoise` by default): the
 initial latents, the default-mask encode, and one draw per provoke step.
@@ -306,11 +306,16 @@ class AdaptiveMaskInpaintPipeline:
         prompt_embeds: torch.Tensor,    # (B, L, C) conditional
         negative_embeds: torch.Tensor,  # (B, L, C) unconditional
         noise=None,
-    ) -> torch.Tensor:
+        return_intermediates: bool = False,
+    ):
         """Run the adaptive-mask inpainting; returns images (B, 3, H, W) in [0, 1].
 
         ``noise`` is the noise source (see :class:`TorchNoise`); by default a
         :class:`TorchNoise` over a generator on the images' device seeded with 0.
+        With ``return_intermediates`` (the step video) it returns ``(images,
+        {"mask_lat": (S, B, 1, h, w), "pred_x0": (S, B, 4, h, w)})``: each
+        step's x̂0 and the mask latent after that step's provoke round, as
+        ``coma_tpu``'s scan outputs them, stacked on the device.
         """
         cfg = self.config
         B, _, H, W = init_image.shape
@@ -354,6 +359,7 @@ class AdaptiveMaskInpaintPipeline:
                 for b, (oy, ox) in enumerate(offs)])
             base_masked_lat = masked_lat      # the step-0 (default-mask) encode
 
+        steps_mask, steps_x0 = [], []
         for i in range(n_steps):
             eps = self.unet_eps(latents, mask_lat, masked_lat, float(timesteps[i]), context)
             latents, pred_x0 = ddim_step_traced(self.schedule, i, eps, latents)
@@ -365,6 +371,11 @@ class AdaptiveMaskInpaintPipeline:
                 mask_lat, masked_lat = self.adapt(
                     pred_x0, default_mask, init_image, dilate[i], bool(use_default[i]),
                     draw(noise.adapt(i, (B, 4, h, w))))
+            if return_intermediates:
+                steps_mask.append(mask_lat)
+                steps_x0.append(pred_x0)
 
-        image = self.vae_decode_fn(latents / self.vae_scaling)
-        return torch.clamp(image / 2 + 0.5, 0.0, 1.0)
+        image = torch.clamp(self.vae_decode_fn(latents / self.vae_scaling) / 2 + 0.5, 0.0, 1.0)
+        if return_intermediates:
+            return image, {"mask_lat": torch.stack(steps_mask), "pred_x0": torch.stack(steps_x0)}
+        return image

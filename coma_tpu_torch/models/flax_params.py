@@ -7,8 +7,11 @@ module of the same name: submodule paths are the same, ``kernel`` becomes
 ``weight`` — a Conv's (kh, kw, I, O) transposed to (O, I, kh, kw), a
 Dense's (I, O) to (O, I) — and a norm's ``scale`` and an embedding's
 ``embedding`` become ``weight``; a batch norm's ``batch_stats`` ``mean`` and
-``var`` become ``running_mean`` and ``running_var``. A key that is missing on
-either side, or a shape that does not fit, raises.
+``var`` become ``running_mean`` and ``running_var``. A Flax ``ConvTranspose``
+kernel (kh, kw, I, O), stride 2 and 'SAME' padding, becomes the weight (I,
+O, kh, kw) of the ``nn.ConvTranspose2d`` at its path, flipped in both
+spatial axes. A key that is missing on either side, or a shape that does
+not fit, raises.
 """
 from __future__ import annotations
 
@@ -52,10 +55,20 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-@torch.no_grad()
 def load_flax_params(module: nn.Module, variables: Mapping) -> nn.Module:
     """Copy a Flax params tree into ``module`` in place; returns ``module``."""
     given = flax_to_state_dict(variables)
+    for name, sub in module.named_modules():
+        key = f"{name}.weight"
+        if isinstance(sub, nn.ConvTranspose2d) and key in given:
+            given[key] = np.ascontiguousarray(given[key].transpose(1, 0, 2, 3)[:, :, ::-1, ::-1])
+    return load_state_strict(module, given)
+
+
+@torch.no_grad()
+def load_state_strict(module: nn.Module, given: Mapping[str, np.ndarray]) -> nn.Module:
+    """Copy numpy arrays keyed by ``module``'s state-dict names into it; a
+    missing or unused key, or a shape that does not fit, raises."""
     target = module.state_dict()
     missing = sorted(set(target) - set(given))
     unused = sorted(set(given) - set(target))

@@ -106,13 +106,18 @@ def init_flax_default_(module: nn.Module, generator: torch.Generator) -> nn.Modu
     """Fill every parameter of ``module`` as ``flax.linen``'s ``init`` would:
     Dense/Conv kernels lecun-normal (truncated), biases zero, norm scales one,
     embeddings normal with std 1/√features, ``position_embedding`` normal(0.01).
-    The numbers differ from JAX's; their distributions do not."""
+    ``torch.nn``'s Linear, Conv2d, ConvTranspose2d (fan-in over its input
+    channels, as Flax's ``ConvTranspose``) and LayerNorm count as the Flax
+    layers they stand for. The numbers differ from JAX's; their
+    distributions do not."""
     for sub in module.modules():
-        if isinstance(sub, (Dense, Conv)):
-            _lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
+        if isinstance(sub, (Dense, Conv, nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = (sub.weight[:, 0].numel() if isinstance(sub, nn.ConvTranspose2d)
+                      else sub.weight[0].numel())
+            _lecun_normal_(sub.weight, fan_in, generator)
             if sub.bias is not None:
                 sub.bias.zero_()
-        elif isinstance(sub, (GroupNorm, LayerNorm)):
+        elif isinstance(sub, (GroupNorm, LayerNorm, nn.LayerNorm)):
             sub.weight.fill_(1.0)
             sub.bias.zero_()
         elif isinstance(sub, Embed):

@@ -5,17 +5,26 @@ person-vs-background segmenter, run at its training scale (128²) and
 resized back, thresholded into the person mask that the adaptive-mask loop
 dilates. The committed checkpoint ``coma_tpu/data/person_segmenter.npz``
 loads into it through ``models/flax_params.py``. The host-side instance
-utilities come with the ``segment_human`` stage.
+utilities of the ``segment_human`` stage (``coma_tpu/models/segmentation.py:
+121-159``) are plain numpy.
 """
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from coma_tpu_torch.models.layers import Conv, GroupNorm, upsample_nearest2x
+
+# the committed trained checkpoint, read by path (the port imports nothing of coma_tpu)
+SEGMENTER_CHECKPOINT = (Path(__file__).resolve().parents[2]
+                        / "coma_tpu" / "data" / "person_segmenter.npz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,3 +113,41 @@ def make_person_segment_fn(model: PersonSegmenter, work_res: int = 128,
         return (person_probs_canonical(model, images, work_res) >= threshold).float()
 
     return fn
+
+
+# ----------------------------------------------------------------------
+# Instance utilities (host-side, for the segment_human stage)
+# ----------------------------------------------------------------------
+
+def connected_instances(mask: np.ndarray, min_area: int = 64) -> List[Dict[str, np.ndarray]]:
+    """A binary person mask split into instances by connected components
+    (4-connectivity, ``scipy.ndimage.label``): ``[{'mask' (H, W) bool,
+    'bbox' xyxy float32, 'area'}]`` for each component of at least
+    ``min_area`` pixels; callers fill in the score."""
+    from scipy import ndimage
+
+    labeled, n = ndimage.label(mask > 0)
+    out = []
+    for i in range(1, n + 1):
+        inst = labeled == i
+        area = int(inst.sum())
+        if area < min_area:
+            continue
+        ys, xs = np.nonzero(inst)
+        bbox = np.array([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1], np.float32)
+        out.append(dict(mask=inst, bbox=bbox, area=area))
+    return out
+
+
+def seg2bbox(mask: np.ndarray) -> np.ndarray:
+    """Tight xyxy box of a binary mask (the reference's ``seg2bbox``)."""
+    ys, xs = np.nonzero(mask)
+    return np.array([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1])
+
+
+def merge_bbox(bboxes: List[np.ndarray]) -> np.ndarray:
+    """Union of xyxy boxes (the reference's ``merge_bbox``)."""
+    if not bboxes:
+        raise ValueError("merge_bbox needs at least one box")
+    all_b = np.stack(bboxes, axis=0)
+    return np.array([all_b[:, 0].min(), all_b[:, 1].min(), all_b[:, 2].max(), all_b[:, 3].max()])

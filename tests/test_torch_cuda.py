@@ -316,3 +316,84 @@ def test_k3_reads_only_its_own_head(B, H, Lq, Lk, D):
     want = attention.attention_reference(q[:, :1].float(), k[:, :1].float(), v[:, :1].float())
     torch.testing.assert_close(out[:, :1].float(), want, atol=5e-4, rtol=8e-3)
 
+
+
+# ---------------------------------------------------------------------------
+# the segmenters on the card against the CPU (no kernel of the repo: plain
+# PyTorch; cuDNN's TF32 is switched off for the comparison)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("img_size", [64, 256])
+def test_sam_forward_on_the_card_matches_the_cpu(no_tf32, img_size):
+    """The seeded ``--random_weights`` SAM (ViT-B widths at 256², the tiny
+    config at 64²): mask logits and IoU within 1e-3 (float32 on both)."""
+    need_card()
+    from coma_tpu_torch.models import sam
+
+    cfg = sam.tiny_sam_config() if img_size == 64 else sam.SAMConfig(img_size=256)
+    model = sam.init_sam_random_(sam.SAM(cfg), torch.Generator().manual_seed(1)).eval()
+    rng = np.random.default_rng(img_size)
+    image = torch.from_numpy(np.float32(rng.normal(size=(2, 3, img_size, img_size))))
+    boxes = torch.tensor([[4.0, 8.0, img_size * 0.6, img_size * 0.9], [0, 0, img_size - 1,
+                                                                          img_size - 1]])
+    with torch.no_grad():
+        want = model(image, boxes)
+        got = model.cuda()(image.cuda(), boxes.cuda())
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_pointrend_forward_on_the_card_matches_the_cpu(no_tf32):
+    """The seeded detector at the ``--tiny`` config on a 64x96 input: the
+    same valid slots and classes, boxes within 1e-2 px, mask logits within
+    1e-2 (float32 through 50 layers on either side)."""
+    need_card()
+    from coma_tpu_torch.models import pointrend
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    cfg = pointrend.PointRendConfig(max_detections=4, test_size=64, pre_nms_topk=64,
+                                    post_nms_topk=32, box_candidates=32, box_score_thresh=0.0)
+    model = init_flax_default_(pointrend.PointRendModel(cfg), torch.Generator().manual_seed(2))
+    image = torch.from_numpy(np.float32(np.random.default_rng(3).normal(size=(2, 3, 64, 96)) * 50))
+    with torch.no_grad():
+        want = model.eval()(image)
+        got = {k: v.cpu() for k, v in model.cuda()(image.cuda()).items()}
+    assert want["valid"].any()
+    assert torch.equal(got["valid"], want["valid"]) and torch.equal(got["classes"],
+                                                                   want["classes"])
+    torch.testing.assert_close(got["boxes"], want["boxes"], atol=1e-2, rtol=0)
+    torch.testing.assert_close(got["mask_logits"], want["mask_logits"], atol=1e-2, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,seed", [(1000, 0), (500, 1), (64, 2)])
+def test_fixed_point_nms_equals_the_loop_on_the_card(K, seed):
+    """The batched fixed-point NMS on the card against the sequential loop on
+    the CPU, over (image, level) sets with overlapping chains, ties and
+    -inf padding."""
+    need_card()
+    from coma_tpu_torch.models import pointrend
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 200, size=(4, 5, K, 2))
+    wh = rng.uniform(5, 60, size=(4, 5, K, 2))
+    boxes = torch.from_numpy(np.float32(np.concatenate([c, c + wh], axis=-1)))
+    boxes[0, 0, 1::2] = boxes[0, 0, ::2]                 # exact duplicates
+    scores = torch.from_numpy(np.float32(-np.sort(-rng.uniform(size=(4, 5, K)), axis=-1)))
+    scores[1, :, K // 2:] = -np.inf
+    keep = pointrend.greedy_nms(boxes.cuda(), scores.cuda(), 0.7).cpu()
+    for i in range(4):
+        for j in range(5):
+            assert torch.equal(keep[i, j], pointrend.greedy_nms_loop(boxes[i, j], scores[i, j],
+                                                                     0.7)), (i, j)

@@ -39,6 +39,11 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.pipelines.application, coma_tpu_torch.cli.optimize\n"
         "import coma_tpu_torch.models.diffusion.tokenizer\n"
         "import coma_tpu_torch.models.diffusion.weights\n"
+        "import coma_tpu_torch.ops.sampling, coma_tpu_torch.models.pointrend\n"
+        "import coma_tpu_torch.models.sam, coma_tpu_torch.models.segmenter_weights\n"
+        "import coma_tpu_torch.models.mask_predictors, coma_tpu_torch.config.segmentation\n"
+        "import coma_tpu_torch.cli.segment_human, coma_tpu_torch.visualization.video\n"
+        "import coma_tpu_torch.utils.gif\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -46,6 +51,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.learn_coma' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.optimize' in sys.modules\n"
         "assert 'coma_tpu_torch.models.diffusion.weights' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.segment_human' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

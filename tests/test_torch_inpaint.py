@@ -11,8 +11,11 @@ so float differences cannot flip a block. The mask latents agree exactly at
 every step, the 21 provoke steps included, and the final images within
 atol 1e-3.
 
+The loop with the real segmenters in it is in
+``tests/test_torch_segmenter_loops.py``.
+
 The CLI runs on the CPU with ``--random_weights --tiny`` on a small seeded
-tree; its work list equals ``coma_tpu``'s on the same tree.
+tree, in every mode; its work list equals ``coma_tpu``'s on the same tree.
 """
 import functools
 import os
@@ -383,13 +386,86 @@ def test_worklist_matches_coma_tpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--adaptive_mask_model_type", "ps"], ["--person_segmenter", "pointrend"],
-    ["--save_step_video"], ["--mesh", "all"], [],
+    ["--adaptive_mask_model_type", "ps", "--sam_weights", "missing.pth"],
+    ["--person_segmenter", "pointrend", "--pointrend_weights", "missing.npz"],
+    ["--save_step_video", "--mesh", "2"], ["--mesh", "all"], [],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
+    """``--mesh`` is the one flag still to port; a weights file that does not
+    exist, or no weights at all, raises too (no fallback to random weights)."""
     argv = ["--device", "cpu", "--tiny"] + (flags or []) + (["--random_weights"] if flags else [])
-    with pytest.raises(SystemExit, match="ROADMAP|random_weights"):
+    with pytest.raises(SystemExit, match="ROADMAP|random_weights|does not exist"):
         t_cli.main(argv)
+
+
+@pytest.mark.parametrize("mode", ["p", "baseline", *t_cli.SAM_MODES])
+def test_cli_builds_each_mode_on_coma_tpus_route(mode):
+    """'baseline' has no segmenter, 'p' the person segmenter alone, and the
+    five SAM modes the person mask refined by SAM, as in ``coma_tpu``
+    (``cli/inpaint.py:276-314``)."""
+    args = t_cli.build_parser().parse_args(["--device", "cpu", "--tiny", "--random_weights",
+                                            "--adaptive_mask_model_type", mode])
+    pipe = t_cli.build_pipeline(args, torch.device("cpu"))[0]
+    route = None if pipe.segment_fn is None else pipe.segment_fn.__qualname__.split(".")[0]
+    assert route == {"baseline": None, "p": "make_person_segment_fn"}.get(
+        mode, "make_sam_segment_fn")
+    assert pipe.config.use_adaptive_mask == (mode != "baseline")
+
+
+def test_pointrend_configs_are_coma_tpus():
+    """The in-loop detector configs of ``coma_tpu/cli/inpaint.py:232-244``."""
+    from coma_tpu_torch.models.pointrend import PointRendConfig
+
+    parse = lambda *f: t_cli.build_parser().parse_args(["--person_segmenter", "pointrend", *f])
+    assert t_cli.pointrend_config(parse("--tiny", "--pointrend_scale_native")) == PointRendConfig(
+        max_detections=4, test_size=64, pre_nms_topk=64, post_nms_topk=32, box_candidates=32)
+    assert t_cli.pointrend_config(parse("--pointrend_scale_native")) == PointRendConfig(
+        test_size=512, pre_nms_topk=256, post_nms_topk=128, box_candidates=64, max_detections=8)
+    assert t_cli.pointrend_config(parse("--pointrend_fast")) == PointRendConfig(max_detections=20)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--adaptive_mask_model_type", "ps", "--sam_weights", "SAM_PTH"],
+    ["--adaptive_mask_model_type", "s_ab_ae", "--person_segmenter", "pointrend",
+     "--pointrend_fast"],
+    ["--person_segmenter", "pointrend", "--pointrend_weights", "POINTREND_NPZ"],
+])
+def test_cli_runs_the_segmenter_modes(tmp_path, monkeypatch, flags):
+    """The CLI end to end on the CPU: SAM from an official-layout ``.pth``,
+    PointRend from a Flax ``.npz`` or seeded; 21 segmenter calls per batch."""
+    from coma_tpu_torch.models import pointrend, sam
+
+    files = {}
+    if "SAM_PTH" in flags:
+        from tests.test_sam import _official_tiny_state_dict
+        from coma_tpu.models.sam import tiny_sam_config
+
+        files["SAM_PTH"] = str(tmp_path / "sam.pth")
+        torch.save(_official_tiny_state_dict(tiny_sam_config(), np.random.default_rng(3)),
+                   files["SAM_PTH"])
+    if "POINTREND_NPZ" in flags:
+        from coma_tpu.utils.checkpoint import save_params
+        from tests.test_torch_pointrend import weights
+
+        files["POINTREND_NPZ"] = str(tmp_path / "pr.npz")
+        save_params(weights.__wrapped__()[1], files["POINTREND_NPZ"])
+    calls = []
+    for module, name in ((pointrend, "make_pointrend_segment_fn"), (sam, "make_sam_segment_fn")):
+        make = getattr(module, name)
+
+        def counted(*a, _make=make, _name=name, **k):
+            fn = _make(*a, **k)
+            return lambda x: (calls.append(_name), fn(x))[1]
+
+        monkeypatch.setattr(module, name, counted)
+    make_tree(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--num_img_per_combination", "1",
+                "--batch_size", "4"] + [files.get(f, f) for f in flags])
+    outs = sorted((tmp_path / "results" / "generation" / "inpaintings").rglob("*.png"))
+    assert len(outs) == 2 and all(read_png(str(p)).shape == (64, 64, 3) for p in outs)
+    want = 21 * (("make_sam_segment_fn" in calls) + ("make_pointrend_segment_fn" in calls))
+    assert len(calls) == want > 0
 
 
 def test_cli_missing_weights_dir_raises(tmp_path, monkeypatch):
@@ -475,3 +551,4 @@ def test_cli_provoke_crop_declines_or_refuses_a_window_too_small(tmp_path, monke
         t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--provoke_crop", "6"])
     with pytest.raises(SystemExit, match="provoke_crop"):
         t_cli.main(["--device", "cpu", "--random_weights", "--tiny", "--provoke_crop", "big"])
+
