@@ -144,6 +144,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    palette; K3 launches 1645 (the video's one VAE decode of the 17 x̂0);
    the video's cost beside phase 6's wall clock.
 
+12. Stage 2, 3D HOI lifting, with every kernel's counter set to 0 before
+   and read after (stage 2 launches none of K1, K2, K3). (a)
+   ``cli/predict_human`` with a seeded Hand4Whole at the published widths
+   (ResNet-50 body at 256x192, ResNet-50 hands on 2 x 256², ResNet-18 face
+   at 192²) and phase 4b's npz on phase 6's four images, each with a
+   one-person instance pickle whose box is the inpainting mask's: every
+   image regressed, finite meshes of 10475 vertices; one 512x384 patch on
+   the card against the CPU with TF32 off, within 1e-3 + 1e-3 |x|; images/s,
+   peak memory, the network's ms per patch. (b)
+   ``cli/generate_3d_hoi_samples --skip segment predict`` with the neural
+   COAP backend (a seeded COAP at the published widths written as a Flax
+   ``.npz``, its output bias at +2) on a tree written here: phase 4b's body
+   posed with seeded parameters, a closed ring (4096 faces) around its legs
+   and a 1 cm marker 8 cm from its pelvis, 8 orthographic views at 512²
+   (elevation 15°, azimuth steps of 45°, the Chair category's ortho scale),
+   per view the body's exact projection as ``human_preds`` and its occluded
+   silhouette as ``human_segs``. Checks: depth init picks, in every view,
+   the candidate nearest the true depth (recomputed on the host); the mean
+   vertex error and the summed loss fall; the losses are finite;
+   ``compute_metrics`` writes ``IoU`` (>= 0.9) and ``interscetion_ratio``;
+   the port's ``cli/filter`` keeps all 8. Printed: each stage's wall clock,
+   depth init's ms per sample and its rasterizer's share, RANSAC ms, the
+   optimizer's ms per step and idle share (``torch.profiler``),
+   compute_metrics' ms per sample and refinements, one 128³ ratio's ms,
+   peak memory.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -1952,6 +1978,473 @@ def step_split(files: dict, coma, steps: int = 50) -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: stage 2 (3D lifting): predict_human, then the lifting chain
+# ---------------------------------------------------------------------------
+
+H4W_RTOL = H4W_ATOL = 1e-3      # Hand4Whole, card vs CPU in float32 (TF32 off)
+LIFT_SC, LIFT_CAT = "Chair", "Lounge Chair / Cafe Chair / Office Chair"
+LIFT_ASSET = "0a5a346c-cc3b-4280-b358-ccd1c4d8a865"
+LIFT_PROMPT = "1 person sits on a chair"
+LIFT_RES, LIFT_VIEWS, LIFT_ELEVATION = 512, 8, 15.0   # render_objects' defaults
+LIFT_ORTHO_SCALE, LIFT_Z_SCALE = 1.75, 0.5             # the Chair category's camera config
+LIFT_EPOCHS = 200                                      # optimize_depth's default
+LIFT_TIMED_STEPS = (10, 60)
+LIFT_PROFILED_STEPS = 20
+RETRIEVAL_RANGE, INTERVAL_RATIO = 3, 0.3               # initialize_depth's defaults
+MARKER_OFFSET = 0.08   # m: the asset vertex nearest every view's pelvis ray, off the pelvis
+RING = dict(r_in=0.46, r_out=0.52, z0=0.25, z1=0.6, around=128, rows=8)
+
+
+def euler_xyz_to_matrix(rx: float, ry: float, rz: float) -> np.ndarray:
+    """Blender 'XYZ' euler -> rotation matrix (R = Rz Ry Rx)."""
+    cx, sx, cy, sy, cz, sz = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return Rz @ Ry @ Rx
+
+
+def camera_ring(asset_world: np.ndarray) -> list:
+    """``render_objects``' camera pickles: ``LIFT_VIEWS`` orthographic views
+    on a 10 m ring at ``LIFT_ELEVATION``°, azimuth 2πi/n, ortho scale = the
+    asset's largest extent x ortho_scale x 2, no perturbation."""
+    lengths = asset_world.max(0) - asset_world.min(0)
+    scale = float(lengths.max()) * LIFT_ORTHO_SCALE * 2
+    elev = np.deg2rad(LIFT_ELEVATION)
+    cams = []
+    for i in range(LIFT_VIEWS):
+        a = 2 * np.pi * i / LIFT_VIEWS
+        t = np.array([10 * np.cos(elev) * np.cos(a), 10 * np.cos(elev) * np.sin(a),
+                      10 * np.sin(elev) + lengths[2] * LIFT_Z_SCALE])
+        cams.append(dict(R=euler_xyz_to_matrix(np.pi / 2 - elev, 0.0, np.pi / 2 + a), t=t,
+                         scale=scale, resolution=(LIFT_RES, LIFT_RES), obj_R=np.eye(3),
+                         obj_t=np.zeros((3, 1)), obj_rotation=np.eye(3),
+                         obj_location=np.zeros((3, 1))))
+    return cams
+
+
+def ring_asset(pelvis: np.ndarray, rng):
+    """A closed ring (a low wall around the body's legs; RING gives its radii,
+    heights and resolution: 4096 faces) and a 1 cm tetrahedron whose first
+    vertex lies MARKER_OFFSET from the pelvis, inside the body. World
+    coordinates (z up), the ring centred on the pelvis' vertical axis."""
+    n, rows = RING["around"], RING["rows"]
+    theta = 2 * np.pi * np.arange(n) / n
+    z = np.linspace(RING["z0"], RING["z1"], rows)
+    walls = [np.stack([r * np.cos(theta)[None].repeat(rows, 0), r * np.sin(theta)[None].repeat(
+        rows, 0), z[:, None].repeat(n, 1)], -1).reshape(-1, 3) for r in (RING["r_out"],
+                                                                        RING["r_in"])]
+    verts = np.concatenate(walls) + [pelvis[0], pelvis[1], 0.0]
+    o = lambda i, k: i * n + k % n
+    q = lambda i, k: rows * n + i * n + k % n
+    faces = []
+    for k in range(n):
+        for i in range(rows - 1):
+            faces += [(o(i, k), o(i, k + 1), o(i + 1, k + 1)), (o(i, k), o(i + 1, k + 1),
+                                                                 o(i + 1, k)),
+                      (q(i, k), q(i + 1, k + 1), q(i, k + 1)), (q(i, k), q(i + 1, k),
+                                                                 q(i + 1, k + 1))]
+        for i in (0, rows - 1):
+            faces += [(o(i, k), q(i, k + 1), o(i, k + 1)), (o(i, k), q(i, k), q(i, k + 1))]
+    phi = rng.uniform(0, 2 * np.pi)
+    m0 = pelvis + MARKER_OFFSET * np.array([np.cos(phi), np.sin(phi), 0.0])
+    marker = m0 + np.array([[0, 0, 0], [0.01, 0, 0], [0, 0.01, 0], [0, 0, 0.01]])
+    b = len(verts)
+    faces += [(b, b + 2, b + 1), (b, b + 1, b + 3), (b, b + 3, b + 2), (b + 1, b + 2, b + 3)]
+    return np.concatenate([verts, marker]), np.asarray(faces, np.int64)
+
+
+def seeded_body(npz: str, rng):
+    """Phase 4b's SMPL-X-shaped body posed with seeded parameters, standing
+    on the ground with its pelvis on the world's z axis: (smplx_data with
+    its world ``transl``, world vertices (V, 3), world joints and landmarks
+    (76, 3), faces)."""
+    from coma_tpu_torch.models.keypoints import append_vertex_landmarks
+    from coma_tpu_torch.models.smplx import SMPLXModel, smplx_forward
+
+    model = SMPLXModel.from_npz(npz, device=DEVICE)
+    data = dict(betas=rng.normal(size=(1, 10)) * 0.5, expression=rng.normal(size=(1, 10)) * 0.5,
+                global_orient=np.array([[0.0, 0.0, rng.uniform(-np.pi, np.pi)]]),
+                body_pose=rng.normal(size=(1, 63)) * 0.1,
+                left_hand_pose=rng.normal(size=(1, 45)) * 0.1,
+                right_hand_pose=rng.normal(size=(1, 45)) * 0.1, jaw_pose=np.zeros((1, 3)),
+                leye_pose=np.zeros((1, 3)), reye_pose=np.zeros((1, 3)))
+    data = {k: np.float32(v) for k, v in data.items()}
+    with torch.no_grad():
+        verts, joints = smplx_forward(model, **{k: torch.as_tensor(v, device=DEVICE)
+                                                for k, v in data.items()})
+        joints = append_vertex_landmarks(verts, joints)
+    verts, joints = verts[0].cpu().numpy(), joints[0].cpu().numpy()
+    shift = np.array([-joints[0, 0], -joints[0, 1], -verts[:, 2].min()])
+    data["transl"] = np.float32(shift[None])
+    return data, np.float32(verts + shift), np.float32(joints + shift), model.faces_array
+
+
+def write_lift_tree(root: str, npz: str, rng) -> dict:
+    """The stage-2 inputs under ``root``: the asset OBJ (trimesh axes), the
+    camera pickles, and per view the exact projection of the body and its
+    joints (``human_preds``, a perfect regressor's output) and its occluded
+    silhouette (``human_segs``); the seeded COAP weights as a Flax ``.npz``."""
+    from coma_tpu_torch.core.paths import flatten
+    from coma_tpu_torch.geometry.mesh import save_obj
+    from coma_tpu_torch.lifting.cameras import (
+        COMPATIBILITY_MATRIX_TRIMESH_P3D_TO_BLENDER,
+        OrthoCamera,
+        project_points,
+    )
+    from coma_tpu_torch.lifting.rasterizer import render_silhouette
+    from coma_tpu_torch.pipelines.asset_world import asset_to_world
+
+    smplx_data, body, joints, faces = seeded_body(npz, rng)
+    asset_v, asset_f = ring_asset(joints[0], rng)
+    # the OBJ in trimesh axes (y up): world = obj @ M
+    save_obj(f"{root}/asset.obj", asset_v @ COMPATIBILITY_MATRIX_TRIMESH_P3D_TO_BLENDER.T,
+             asset_f)
+    cams = camera_ring(asset_v)
+    rel = f"{flatten(LIFT_SC)}/{flatten(LIFT_CAT)}/{LIFT_ASSET}"
+    gen = f"{root}/results/generation"
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=DEVICE)
+    views = []
+    for i, cam in enumerate(cams):
+        view = f"view:{i:05d}"
+        os.makedirs(f"{gen}/cameras/{rel}", exist_ok=True)
+        with open(f"{gen}/cameras/{rel}/{view}.pickle", "wb") as fh:
+            pickle.dump(cam, fh)
+        world_asset, _ = asset_to_world(asset_v @ COMPATIBILITY_MATRIX_TRIMESH_P3D_TO_BLENDER.T,
+                                        cam, "3D-FUTURE")
+        camera = OrthoCamera.from_pickle(cam, DEVICE)
+        with torch.no_grad():
+            verts_px = project_points(camera, t(body)).cpu().numpy()
+            joints_px = project_points(camera, t(joints)).cpu().numpy()
+            mask = render_silhouette(camera, t(body), torch.as_tensor(faces, device=DEVICE),
+                                     occluder_verts=t(world_asset),
+                                     occluder_faces=torch.as_tensor(asset_f, device=DEVICE))
+        mask = mask.cpu().numpy()
+        ys, xs = np.nonzero(mask)
+        pred = dict(verts=verts_px, faces=faces, pelvis=joints_px[0].copy(),
+                    smplx_data=smplx_data, joints_proj=joints_px[:, :2].copy(),
+                    joints_img=joints_px.copy(),
+                    convert_data=dict(focals=[5000.0, 5000.0], princpt=[LIFT_RES / 2] * 2,
+                                      z_mean=float(verts_px[:, 2].mean())))
+        seg = dict(pred_masks=mask[None], pred_boxes=np.float32([[xs.min(), ys.min(),
+                                                                  xs.max() + 1, ys.max() + 1]]),
+                   scores=np.float32([0.99]), pred_classes=np.zeros(1, np.int64),
+                   image_size=mask.shape)
+        for kind, payload in (("human_preds", pred), ("human_segs", seg)):
+            d = f"{gen}/{kind}/{rel}/{view}/00000/{LIFT_PROMPT}"
+            os.makedirs(d, exist_ok=True)
+            with open(f"{d}/00000.pickle", "wb") as fh:
+                pickle.dump(payload, fh)
+        views.append(dict(view=view, cam=cam, world_asset=world_asset, mask_px=int(mask.sum())))
+    coap = write_coap_npz(f"{root}/coap.npz", npz, SEED + 12)
+    return dict(body=body, joints=joints, faces=faces, asset_faces=asset_f, views=views,
+                obj=f"{root}/asset.obj", coap=coap, rel=rel)
+
+
+def write_coap_npz(path: str, npz: str, seed: int) -> dict:
+    """A seeded COAP at the published widths for phase 4b's partition, as a
+    Flax-layout ``.npz``: Flax's initialisers, the decoder's output bias at
+    +2 (occupancy σ(−2) ≈ 0.12 away from the learned surface), so the term is
+    live where the network says so and the multiview evidence still leads."""
+    from coma_tpu_torch.models.coap import COAPConfig, COAPOccupancy
+    from coma_tpu_torch.models.coap_partition import build_partition
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.models.smplx import SMPLXModel
+
+    smplx = SMPLXModel.from_npz(npz, device="cpu")
+    part = build_partition(smplx.lbs_weights.numpy(), smplx.parents)
+    model = COAPOccupancy(COAPConfig(num_parts=part.num_parts))
+    init_flax_default_(model, torch.Generator().manual_seed(seed))
+    last = getattr(model.decoder, f"lin{model.decoder.n_layers - 1}")
+    with torch.no_grad():
+        last.bias.fill_(2.0)
+    write_flax_npz(model, path)
+    return dict(path=path, parts=part.num_parts, max_part_size=part.max_part_size)
+
+
+def expected_candidates(tree: dict) -> list:
+    """Per view, initialize_depth's candidate displacements recomputed on the
+    host in float64 from the same lifted pelvis and asset, and the index of
+    the one nearest the true depth (displacement 0: the predictions are the
+    body's exact projections)."""
+    out = []
+    for v in tree["views"]:
+        R = np.asarray(v["cam"]["R"])
+        d = R[:, 2] / np.linalg.norm(R[:, 2])
+        p = tree["joints"][0].astype(np.float64)
+        disp = p[None] - v["world_asset"]
+        perp = disp - (disp @ d)[:, None] * d[None]
+        sel = v["world_asset"][np.argmin(np.linalg.norm(perp, axis=1))]
+        dist = (sel - p) @ d
+        proj = tree["body"] @ d
+        cand = dist + np.arange(-RETRIEVAL_RANGE, RETRIEVAL_RANGE + 1) * (
+            proj.max() - proj.min()) * INTERVAL_RATIO
+        out.append(dict(candidates=cand, nearest=int(np.argmin(np.abs(cand)))))
+    return out
+
+
+def predict_phase(images_dir: str, npz: str, label: str) -> dict:
+    """Phase 12a: ``cli/predict_human`` at Hand4Whole's published widths on
+    phase 6's images, each with a one-person instance pickle whose box is
+    the inpainting mask's; then one patch regressed on the card against the
+    CPU (TF32 off), and the network's ms per image."""
+    from coma_tpu_torch.cli import predict_human
+    from coma_tpu_torch.models.hand4whole import Hand4Whole
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.pipelines.mocap import crop_patch, process_bbox
+    from coma_tpu_torch.utils.png import read_png, to_rgb
+
+    pngs = sorted(Path(images_dir).rglob("*.png"))
+    res = INPAINT_RES
+    box = np.float32([[res // 4, res // 8, 3 * res // 4, 7 * res // 8]])   # the mask, xyxy
+    mask = np.zeros((1, res, res), bool)
+    mask[0, res // 8: 7 * res // 8, res // 4: 3 * res // 4] = True
+    with tempfile.TemporaryDirectory(prefix="predict_", dir=SCRATCH) as tmp:
+        for p in pngs:
+            out = Path(tmp, "segs", p.relative_to(images_dir)).with_suffix(".pickle")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            with open(out, "wb") as fh:
+                pickle.dump(dict(pred_masks=mask, pred_boxes=box, scores=np.float32([0.99]),
+                                 pred_classes=np.zeros(1, np.int64), image_size=(res, res)), fh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts = predict_human.main(["--inpaint_dir", images_dir, "--human_seg_dir",
+                                     f"{tmp}/segs", "--save_dir", f"{tmp}/preds",
+                                     "--smplx_model_path", npz, "--device", DEVICE])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        preds = [pickle.load(open(p, "rb")) for p in sorted(Path(tmp, "preds").rglob("*.pickle"))]
+    # predictions are grouped by the main prompt: an image under "<prompt>, full body"
+    # and one of the same name under "<prompt>" share a pickle, as in coma_tpu
+    outputs = {p.relative_to(images_dir).parent.parent / p.parent.name.split(",")[0] / p.stem
+               for p in pngs}
+    if counts["regressed"] != len(pngs) or len(preds) != len(outputs) or any(
+            isinstance(p, str) or p["verts"].shape != (H_FULL, 3)
+            or not np.isfinite(p["verts"]).all() or p["joints_img"].shape != (76, 3)
+            or not np.isfinite(p["joints_img"]).all() for p in preds):
+        raise AssertionError(f"predict_human: {counts}, {len(preds)} pickles for {len(pngs)} "
+                             f"images ({len(outputs)} distinct outputs)")
+
+    model = init_flax_default_(Hand4Whole(), torch.Generator().manual_seed(0)).eval()
+    image = to_rgb(read_png(str(pngs[0])))
+    bbox = process_bbox(np.float32([box[0, 0], box[0, 1], box[0, 2] - box[0, 0],
+                                    box[0, 3] - box[0, 1]]), res, res)
+    patch = crop_patch(image, bbox, "cpu")
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = model(patch)
+            model = model.to(DEVICE)
+            card_patch = patch.to(DEVICE)
+            got = model(card_patch)
+            err = {k: float((got[k].cpu() - w).abs().max()) for k, w in want.items()}
+            ok = all(torch.allclose(got[k].cpu(), w, rtol=H4W_RTOL, atol=H4W_ATOL)
+                     for k, w in want.items())
+            fp32_ms = cuda_ms(lambda: model(card_patch), 10)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
+    with torch.no_grad():
+        tf32_ms = cuda_ms(lambda: model(card_patch), 10)
+    if not ok:
+        raise AssertionError(f"Hand4Whole card vs CPU (limit {H4W_ATOL:.0e} + {H4W_RTOL:.0e}"
+                             f"|x|): max abs diff {err}")
+    params = sum(p.numel() for p in model.parameters())
+    log(f"predict_human: {len(pngs)} images at {res}² in {seconds:.3f} s = "
+        f"{len(pngs) / seconds:.4f} images/s (CLI wall clock: weights, SMPL-X npz, PNGs, one "
+        f"patch at a time, SMPL-X forward, pickles), peak device memory {peak:.3f} GB; "
+        f"Hand4Whole at the published widths ({params / 1e6:.1f} M parameters) {fp32_ms:.3f} "
+        f"ms per 512x384 patch in float32, {tf32_ms:.3f} ms with cuDNN's TF32 (CUDA events); "
+        f"card vs CPU, TF32 off: max abs diff {max(err.values()):.3e} (limit {H4W_ATOL:.0e} + "
+        f"{H4W_RTOL:.0e}|x|) [{label}]")
+    return dict(seconds=seconds, images_per_s=len(pngs) / seconds, peak_gb=peak,
+                patch_ms_fp32=fp32_ms, patch_ms_tf32=tf32_ms, card_vs_cpu_max_abs=err,
+                params=params)
+
+
+def lift_phase(npz: str, label: str) -> dict:
+    """Phase 12b: ``cli/generate_3d_hoi_samples --skip segment predict`` on the
+    tree ``write_lift_tree`` writes, with the neural COAP backend; the checks
+    and the stage costs (depth init and its rasterizer, RANSAC, the
+    optimizer's step and idle share, compute_metrics), then the port's
+    ``cli/filter`` on the result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coma_tpu_torch.cli import filter as filter_cli
+    from coma_tpu_torch.cli import generate_3d_hoi_samples as orchestrator
+    from coma_tpu_torch.lifting import depth_init, depth_optimize, metrics, triangulation
+
+    raster_events, ransac_ms, captured = [], [], {}
+    render, mine, optimize = (depth_init.render_silhouettes_batch,
+                              triangulation.mine_ransac_inliers,
+                              depth_optimize.optimize_depth_batch)
+
+    def timed_render(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = render(*args, **kwargs)
+        end.record()
+        raster_events.append((start, end))
+        return out
+
+    def timed_mine(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mine(*args, **kwargs)
+        torch.cuda.synchronize()
+        ransac_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def captured_optimize(**kwargs):
+        captured.update(kwargs)
+        return optimize(**kwargs)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="lift_", dir=SCRATCH) as tmp:
+        tree = write_lift_tree(tmp, npz, np.random.default_rng(SEED + 11))
+        expected = expected_candidates(tree)
+        depth_init.render_silhouettes_batch = timed_render
+        triangulation.mine_ransac_inliers = timed_mine
+        depth_optimize.optimize_depth_batch = captured_optimize
+        os.chdir(tmp)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = orchestrator.main([
+                "--skip", "segment", "predict", "--device", DEVICE, "--asset_obj_pth",
+                tree["obj"], "--smplx_model_path", npz, "--coap_ckpt", tree["coap"]["path"],
+                "--collision_backend", "coap", "--num_epoch", str(LIFT_EPOCHS)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            stats = filter_cli.main([])
+        finally:
+            os.chdir(cwd)
+            depth_init.render_silhouettes_batch = render
+            triangulation.mine_ransac_inliers = mine
+            depth_optimize.optimize_depth_batch = optimize
+        stages = {s: {Path(p).parts[-4]: pickle.load(open(p, "rb")) for p in sorted(
+            Path(tmp, "results", "generation", s).rglob("*.pickle"))}
+            for s in ("human_before_opt", "human_after_opt", "human_sample")}
+        result = out["optimize"]["result"]
+
+        # the checks
+        views = [v["view"] for v in tree["views"]]
+        before, after, samples = (stages[s] for s in ("human_before_opt", "human_after_opt",
+                                                      "human_sample"))
+        for name, s in (("before", before), ("after", after), ("sample", samples)):
+            if sorted(s) != views or any(isinstance(x, str) for x in s.values()):
+                raise AssertionError(f"stage 2 {name}: {[(k, type(x).__name__)
+                                                         for k, x in s.items()]}")
+        picked = [before[v]["idx"] for v in views]
+        nearest = [e["nearest"] for e in expected]
+        if picked != nearest:
+            raise AssertionError(f"depth init picked candidates {picked}, the ones nearest the "
+                                 f"true depth are {nearest}")
+        err = lambda v, s: float(np.linalg.norm(s[v]["verts"] - tree["body"], axis=1).mean())
+        err_before = np.array([err(v, before) for v in views])
+        err_after = np.array([err(v, after) for v in views])
+        hist = result.history.cpu().numpy()
+        if not (np.isfinite(hist).all() and hist[-1].sum() < hist[0].sum()
+                and err_after.mean() < err_before.mean()):
+            raise AssertionError(f"depth optimisation: loss {hist[0].sum()} -> {hist[-1].sum()}"
+                                 f", mean vertex error {err_before.mean()} -> "
+                                 f"{err_after.mean()} m")
+        ious = [samples[v]["IoU"] for v in views]
+        ratios = [samples[v]["interscetion_ratio"] for v in views]
+        if not (min(ious) >= 0.9 and all(np.isfinite(ratios))) \
+                or stats["leftover"] != len(views):
+            raise AssertionError(f"compute_metrics: IoU {ious}, interscetion_ratio {ratios}; "
+                                 f"filter {stats}")
+
+        # the costs
+        torch.cuda.synchronize()
+        raster_ms = sum(s.elapsed_time(e) for s, e in raster_events)
+        n = len(views)
+        init_ms = out["seconds"]["init"] * 1e3
+        kwargs = dict(captured)
+        ms = []
+        for steps in LIFT_TIMED_STEPS:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            optimize(**dict(kwargs, num_epochs=steps))
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        step_ms = (ms[1] - ms[0]) / (LIFT_TIMED_STEPS[1] - LIFT_TIMED_STEPS[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            optimize(**dict(kwargs, num_epochs=LIFT_PROFILED_STEPS))
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        if not busy_ms > 0:
+            raise AssertionError("the profiler saw no device time in the depth optimisation")
+        ops_per_step = sum(e.count for e in events) / LIFT_PROFILED_STEPS
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+        hv = torch.as_tensor(np.float32(after[views[0]]["verts"]), device=DEVICE)
+        hf = torch.as_tensor(np.int64(tree["faces"]), device=DEVICE)
+        av = torch.as_tensor(np.float32(tree["views"][0]["world_asset"]), device=DEVICE)
+        af = torch.as_tensor(tree["asset_faces"], device=DEVICE)
+        fine_ms = cuda_ms(lambda: metrics.intersection_volume_ratio(hv, hf, av, af,
+                                                                    resolution=128), 1)
+    refined = out["metrics"]["refined"]
+    log(f"stage 2 lifting, {n} views at {LIFT_RES}² of a {H_FULL}-vertex body and a "
+        f"{len(tree['asset_faces'])}-face asset, neural COAP ({tree['coap']['parts']} parts of up "
+        f"to {tree['coap']['max_part_size']} vertices): generate_3d_hoi_samples {seconds:.3f} s "
+        f"(" + ", ".join(f"{k} {v:.3f} s" for k, v in out["seconds"].items()) + f"), peak device "
+        f"memory {peak:.3f} GB; depth init {init_ms / n:.3f} ms per sample, the rasterizer "
+        f"{raster_ms / n:.3f} ms of it ({raster_ms / init_ms:.4f}, CUDA events around the "
+        f"candidates' render); RANSAC {np.mean(ransac_ms):.3f} ms per sample ({len(ransac_ms)} "
+        f"calls, 7 candidate views); depth optimisation {step_ms:.3f} ms per step for the batch "
+        f"of {n} (CUDA events, {LIFT_TIMED_STEPS[1]} - {LIFT_TIMED_STEPS[0]} steps), "
+        f"{LIFT_PROFILED_STEPS} steps under the profiler: {window_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle {1 - busy_ms / window_ms:.4f}, {ops_per_step:.0f} device "
+        f"operations per step; compute_metrics {out['seconds']['metrics'] * 1e3 / n:.3f} ms per "
+        f"sample, {refined} of {n} refined at 128³ (one 128³ ratio alone: {fine_ms:.3f} ms) "
+        f"[{label}]")
+    log("stage 2 depth optimisation, device time by kernel over "
+        f"{LIFT_PROFILED_STEPS} steps: " + "; ".join(
+            f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms ({e.count})" for e in top))
+    residual = [round(float(e["candidates"][e["nearest"]]), 4) for e in expected]
+    log(f"stage 2 checks: depth init picked candidate {picked} (the nearest to the true depth "
+        f"in every view; residual {residual} m), mean vertex error {err_before.mean():.4f} m -> {err_after.mean():.4f} m after "
+        f"{LIFT_EPOCHS} steps, loss {hist[0].sum():.4f} -> {hist[-1].sum():.4f}; IoU "
+        f"{min(ious):.4f}-{max(ious):.4f}, interscetion_ratio {max(ratios):.4f}; cli/filter "
+        f"kept {stats['leftover']} of {n}")
+    return dict(seconds=seconds, stage_seconds=out["seconds"], peak_gb=peak,
+                init_ms_per_sample=init_ms / n, raster_ms_per_sample=raster_ms / n,
+                raster_share=raster_ms / init_ms, ransac_ms=float(np.mean(ransac_ms)),
+                step_ms=step_ms, idle_share=1 - busy_ms / window_ms,
+                device_ops_per_step=ops_per_step,
+                metrics_ms_per_sample=out["seconds"]["metrics"] * 1e3 / n, refined=refined,
+                fine_ratio_ms=fine_ms, picked=picked, err_before=float(err_before.mean()),
+                err_after=float(err_after.mean()), filter=stats)
+
+
+def stage2_phase(images_dir: str, npz: str, label: str) -> dict:
+    """Phase 12: 12a then 12b, every kernel's counter from 0: stage 2 runs
+    none of K1, K2, K3."""
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+
+    contact_kernel.launches = occupancy_kernel.launches = attention.launches = 0
+    runs = dict(predict=predict_phase(images_dir, npz, label), lift=lift_phase(npz, label))
+    launches = {"contact_splat": contact_kernel.launches,
+                "occupancy_hits": occupancy_kernel.launches,
+                "flash_attention": attention.launches}
+    if any(launches.values()):
+        raise AssertionError(f"stage 2 launched a kernel: {launches}")
+    log(f"launches in stage 2: {launches}")
+    return dict(runs, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
@@ -2083,17 +2576,18 @@ def main() -> int:
         write_inpaint_tree(tmp, np.random.default_rng(SEED + 2))
         sam_runs = sam_phase(tmp, label, inpaint_seconds)
         pointrend_runs = pointrend_phase(tmp, label, inpaint_seconds)
-        try:
-            segment_human_phase(phase6_images, label)
-        finally:
-            shutil.rmtree(phase6_images, ignore_errors=True)
+        segment_human_phase(phase6_images, label)
         video_run = step_video_phase(tmp, label, inpaint_seconds)
 
-    # phase 7: the HOI-reconstruction application
     try:
+        # phase 7: the HOI-reconstruction application
         optimized = optimize_phase(opt_files, label)
+        # phase 12: stage 2 on phase 6's images and phase 4b's npz, every
+        # kernel's counter from 0
+        stage2 = stage2_phase(phase6_images, opt_files["npz"], label)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(phase6_images, ignore_errors=True)
     app_launches = {k: [r["launches"][k] for r in optimized["runs"].values()]
                     for k in ("contact_splat", "occupancy_hits", "flash_attention")}
 
@@ -2108,7 +2602,8 @@ def main() -> int:
              bound_by=k1_main["bound_by"], library_ms=None, shape=k1_main["shape"], shapes=k1,
              launches_learn_coma=learned["launches"]["contact_splat"],
              launches_per_rank=per_rank["contact_splat"],
-             launches_optimize=app_launches["contact_splat"]),
+             launches_optimize=app_launches["contact_splat"],
+             launches_stage2=stage2["launches"]["contact_splat"]),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -2118,7 +2613,8 @@ def main() -> int:
              touched_share=k2["touched_share"], shape=k2["shape"], shapes=[k2, k2_iid],
              launches_learn_coma=learned["launches"]["occupancy_hits"],
              launches_per_rank=per_rank["occupancy_hits"],
-             launches_optimize=app_launches["occupancy_hits"]),
+             launches_optimize=app_launches["occupancy_hits"],
+             launches_stage2=stage2["launches"]["occupancy_hits"]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -2138,7 +2634,8 @@ def main() -> int:
              launches_pointrend={m: r["launches"] for m, r in pointrend_runs.items()
                                  if "launches" in r},
              launches_step_video=video_run["launches"],
-             launches_optimize=app_launches["flash_attention"]),
+             launches_optimize=app_launches["flash_attention"],
+             launches_stage2=stage2["launches"]["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

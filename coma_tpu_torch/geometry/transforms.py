@@ -1,10 +1,12 @@
 """Vector transform primitives (PyTorch).
 
 Counterpart of ``coma_tpu/geometry/transforms.py``: ``normalize_vectors``
-for the extraction, ``rodrigues`` and ``skew`` for SMPL-X's LBS.
+for the extraction, ``rodrigues`` and ``skew`` for SMPL-X's LBS, ``rot6d_to_rotmat`` for
+Hand4Whole and the host-side ``rigid_align_np`` for the depth optimizer.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -50,3 +52,29 @@ def rodrigues(rotvec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     KK = (K[..., :, :, None] * K[..., None, :, :]).sum(dim=-2)
     eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
     return eye + A * K + B * KK
+
+
+def rot6d_to_rotmat(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Continuous 6D rotations (..., 6) -> rotation matrices (..., 3, 3):
+    Gram-Schmidt of ``x[..., :3]`` and ``x[..., 3:6]``, the columns b1, b2,
+    b1 × b2 (Hand4Whole's RotationNet; not VPoser's column layout, which is
+    ``models/vposer.rot6d_decode``)."""
+    a1, a2 = x[..., :3], x[..., 3:6]
+    b1 = normalize_vectors(a1, eps)
+    b2 = normalize_vectors(a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1, eps)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rigid_align_np(src, dst):
+    """Least-squares rigid transform (Kabsch) on the host: R, t (float32)
+    with dst ≈ src @ R.T + t, correspondence by index."""
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    sc, dc = src.mean(axis=0), dst.mean(axis=0)
+    H = (src - sc).T @ (dst - dc)
+    U, _, Vt = np.linalg.svd(H)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))])
+    R = Vt.T @ D @ U.T
+    t = dc - R @ sc
+    return R.astype(np.float32), t.astype(np.float32)

@@ -232,11 +232,13 @@ def coap_occupancy_world(
     frames), padded-box gate, neural occupancy, max over parts. (Q,)."""
     frames = bone_local_frames(rel_transforms, rest_joints, partition.part_joint)
     # local = R_inv (x - (t + d)): fold -R_inv d into the frames' translation
-    shift = torch.zeros_like(frames)
-    shift[:, :3, 3] = -torch.einsum("kij,j->ki", frames[:, :3, :3], translation)
-    frames = frames + shift
+    shift = -torch.einsum("kij,j->ki", frames[:, :3, :3], translation)       # (K, 3)
+    frames = frames + F.pad(shift[:, :, None], (3, 0, 0, 1))              # into column 3
     ids = torch.as_tensor(partition.part_vertex_ids, device=verts_world.device)
-    part_pts = verts_world[ids]                                          # (K, M, 3)
+    # index_select, not advanced indexing: its backward is an index_add, where
+    # the sorting backward of advanced indexing serialises the repeated ids
+    # that pad every part
+    part_pts = verts_world.index_select(0, ids.reshape(-1)).reshape(ids.shape + (3,))  # (K, M, 3)
     homo = torch.cat([part_pts, torch.ones_like(part_pts[..., :1])], dim=-1)
     local_parts = torch.einsum("kij,kmj->kmi", frames, homo)[..., :3]
     query_local = to_part_local(query_points, frames)

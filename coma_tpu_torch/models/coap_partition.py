@@ -102,8 +102,11 @@ def bone_local_frames(
     idx = torch.as_tensor(part_joint, device=rel_transforms.device)
     K = len(part_joint)
     T = rel_transforms[idx]
-    offset = torch.eye(4, dtype=T.dtype, device=T.device).repeat(K, 1, 1)
-    offset[:, :3, 3] = rest_joints[idx]
+    # [I | rest joint] built without writing into a tensor, so the function
+    # also runs under torch.func.vmap
+    eye = torch.eye(4, 3, dtype=T.dtype, device=T.device).expand(K, 4, 3)
+    column = torch.cat([rest_joints[idx], torch.ones_like(rest_joints[idx][:, :1])], dim=1)
+    offset = torch.cat([eye, column[:, :, None]], dim=2)
     world = T @ offset
     return _homogeneous_inverse(world[:, :3, :3], world[:, :3, 3])
 

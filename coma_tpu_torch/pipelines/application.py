@@ -28,6 +28,7 @@ from coma_tpu_torch.geometry.transforms import normalize_vectors
 from coma_tpu_torch.models.coap import capsule_occupancy, collision_loss, sample_scene_points_bbox
 from coma_tpu_torch.models.smplx import SMPLXModel, smplx_forward
 from coma_tpu_torch.models.vposer import VPoserDecoder, l2_prior, smplify_angle_prior
+from coma_tpu_torch.optim import OptaxAdam
 
 
 def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -79,32 +80,6 @@ class HOIOptResult:
     faces: np.ndarray
     losses: Dict[str, float]
     loss_history: Optional[np.ndarray] = None   # (num_iters,) total loss before each step
-
-
-class OptaxAdam:
-    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) over a dict
-    of tensors, updated in place with optax's operations in optax's order."""
-
-    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.count = 0
-
-    @torch.no_grad()
-    def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor]) -> None:
-        self.count += 1
-        dt = next(iter(params.values())).dtype
-        c1 = 1 - torch.tensor(self.b1, dtype=dt) ** self.count
-        c2 = 1 - torch.tensor(self.b2, dtype=dt) ** self.count
-        for k, p in params.items():
-            g = grads[k]
-            self.mu[k] = (1 - self.b1) * g + self.b1 * self.mu[k]
-            self.nu[k] = (1 - self.b2) * (g * g) + self.b2 * self.nu[k]
-            mu_hat = self.mu[k] / c1.to(p.device)
-            nu_hat = self.nu[k] / c2.to(p.device)
-            p.add_(-self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps)))
 
 
 @dataclasses.dataclass

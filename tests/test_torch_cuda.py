@@ -397,3 +397,86 @@ def test_fixed_point_nms_equals_the_loop_on_the_card(K, seed):
         for j in range(5):
             assert torch.equal(keep[i, j], pointrend.greedy_nms_loop(boxes[i, j], scores[i, j],
                                                                      0.7)), (i, j)
+
+
+# ---------------------------------------------------------------------------
+# stage 2 (3D lifting) on the card against the CPU: plain PyTorch, no kernel
+# ---------------------------------------------------------------------------
+
+def uv_sphere(rings: int, around: int, radius: float):
+    """A closed UV sphere: (rings * around + 2 vertices, faces)."""
+    theta = np.linspace(0, np.pi, rings + 2)[1:-1]
+    phi = np.linspace(0, 2 * np.pi, around, endpoint=False)
+    verts = np.stack([np.outer(np.sin(theta), np.cos(phi)), np.outer(np.sin(theta), np.sin(phi)),
+                      np.outer(np.cos(theta), np.ones(around))], -1).reshape(-1, 3) * radius
+    verts = np.concatenate([verts, [[0, 0, radius], [0, 0, -radius]]])
+    i, j = np.meshgrid(np.arange(rings - 1), np.arange(around), indexing="ij")
+    a, b = i * around + j, i * around + (j + 1) % around
+    faces = [np.stack([a, b, b + around], -1).reshape(-1, 3),
+             np.stack([a, b + around, a + around], -1).reshape(-1, 3),
+             np.stack([np.full(around, len(verts) - 2), np.arange(around),
+                       (np.arange(around) + 1) % around], -1),
+             np.stack([np.full(around, len(verts) - 1), (rings - 1) * around
+                       + (np.arange(around) + 1) % around, (rings - 1) * around
+                       + np.arange(around)], -1)]
+    return np.float32(verts), np.concatenate(faces)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,rings,around", [(64, 8, 12), (512, 100, 100)])
+def test_rasterizer_on_the_card_matches_the_cpu(res, rings, around):
+    """A sphere (pixel-sized triangles at 512², the patch route) and a random
+    occluder (large triangles, the dense route) at ``res``². On the same
+    pixel-space triangles the card's masks equal the CPU's and its z-buffer
+    is finite at the same pixels, within 1e-4 + 1e-6 |z| (the elementwise
+    arithmetic is IEEE on both). Through the whole render of five occluded
+    candidates (the projection is a matrix product, summed otherwise on the
+    card) at most 1e-3 of the pixels may differ."""
+    need_card()
+    from coma_tpu_torch.lifting import cameras, rasterizer
+
+    rng = np.random.default_rng(res)
+    R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+    cam = {"R": R, "t": R[:, 2] * 3.0, "scale": 2.0, "resolution": (res, res)}
+    verts, faces = uv_sphere(rings, around, 0.4)
+    occ_v = np.float32(rng.normal(size=(60, 3)) * 0.5)
+    occ_f = rng.integers(0, 60, size=(40, 3))
+    tri = cameras.project_points(cameras.OrthoCamera.from_pickle(cam, "cpu"), torch.as_tensor(
+        np.concatenate([verts, occ_v])))[torch.as_tensor(np.concatenate([faces,
+                                                                         occ_f + len(verts)]))]
+    for fn in (rasterizer.rasterize_depth, rasterizer.rasterize_silhouette):
+        t = tri if fn is rasterizer.rasterize_depth else tri[..., :2]
+        want, got = fn(t, res, res), fn(t.cuda(), res, res).cpu()
+        if fn is rasterizer.rasterize_silhouette:
+            assert want.any() and torch.equal(got, want)
+            continue
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        torch.testing.assert_close(got[fin], want[fin], atol=1e-4, rtol=1e-6)
+    cand = verts[None] + np.float32(rng.normal(size=(5, 1, 3)) * 0.2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        c = cameras.OrthoCamera.from_pickle(cam, dev)
+        out[dev] = rasterizer.render_silhouettes_batch(
+            c, torch.as_tensor(cand, device=dev), torch.as_tensor(faces, device=dev),
+            occluder_verts=torch.as_tensor(occ_v, device=dev),
+            occluder_faces=torch.as_tensor(occ_f, device=dev)).cpu()
+    assert out["cpu"].any()
+    assert (out["cuda"] != out["cpu"]).float().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_hand4whole_regressor_on_the_card_matches_the_cpu(no_tf32):
+    """The seeded Hand4Whole at the published widths, one 512x384 patch:
+    every output within 1e-3 + 1e-3 |x| of the CPU's (float32 on both)."""
+    need_card()
+    from coma_tpu_torch.models.hand4whole import Hand4Whole
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    model = init_flax_default_(Hand4Whole(), torch.Generator().manual_seed(0)).eval()
+    img = torch.from_numpy(np.float32(np.random.default_rng(5).uniform(size=(1, 3, 512, 384))))
+    with torch.no_grad():
+        want = model(img)
+        got = model.cuda()(img.cuda())
+    for k, w in want.items():
+        torch.testing.assert_close(got[k].cpu(), w, atol=1e-3, rtol=1e-3, msg=k)

@@ -44,6 +44,15 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.models.mask_predictors, coma_tpu_torch.config.segmentation\n"
         "import coma_tpu_torch.cli.segment_human, coma_tpu_torch.visualization.video\n"
         "import coma_tpu_torch.utils.gif\n"
+        "import coma_tpu_torch.lifting.cameras, coma_tpu_torch.lifting.rasterizer\n"
+        "import coma_tpu_torch.lifting.depth_init, coma_tpu_torch.lifting.triangulation\n"
+        "import coma_tpu_torch.lifting.depth_optimize, coma_tpu_torch.lifting.metrics\n"
+        "import coma_tpu_torch.ops.collision, coma_tpu_torch.models.resnet\n"
+        "import coma_tpu_torch.models.hand4whole, coma_tpu_torch.pipelines.mocap\n"
+        "import coma_tpu_torch.pipelines.postprocess, coma_tpu_torch.pipelines.asset_world\n"
+        "import coma_tpu_torch.optim, coma_tpu_torch.cli.predict_human\n"
+        "import coma_tpu_torch.cli.initialize_depth, coma_tpu_torch.cli.optimize_depth\n"
+        "import coma_tpu_torch.cli.compute_metrics, coma_tpu_torch.cli.generate_3d_hoi_samples\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -52,6 +61,8 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.optimize' in sys.modules\n"
         "assert 'coma_tpu_torch.models.diffusion.weights' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.segment_human' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.generate_3d_hoi_samples' in sys.modules\n"
+        "assert 'coma_tpu_torch.lifting.rasterizer' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -61,7 +72,8 @@ def test_import_in_fresh_interpreter_loads_no_jax():
 
 def test_no_module_of_the_port_imports_jax_or_coma_tpu():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "tools", "profile_inpaint_torch.py")]
+             os.path.join(REPO, "tools", "profile_inpaint_torch.py"),
+             os.path.join(REPO, "tools", "stage2_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
