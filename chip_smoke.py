@@ -170,6 +170,30 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    compute_metrics' ms per sample and refinements, one 128³ ratio's ms,
    peak memory.
 
+13. Stage 1 end to end, every kernel's counter from 0: ``cli/
+   generate_2d_hoi_images`` on a synthetic textured chair written here (seat,
+   back and four legs, 20,736 faces; a ``map_Kd`` material with a 512² PNG, a
+   Kd-only one, the legs without UVs) under the registered Chair id, at
+   ``render_objects``' defaults and the Chair camera config (8 views at 512²,
+   stride 0.1, bbox (0.6, 0.6, 1.1), AO 8, specular 0.25, sky environment,
+   ACES tonemap), ``select_mask`` at the Chair band [0.8, 0.9] (what it kept
+   per view is printed), ``generate_prompts`` from the registered prompts,
+   then ``inpaint`` on one batch of 4 (the first two views with a kept mask,
+   one prompt, both viewpoint texts, one image each; the pickles trimmed to
+   that). Checks: 8 renders, segs and camera pickles; each seg equal to
+   ``render_silhouette`` of its camera; view 0's PNG equal to the card's
+   render, the asset rendered alone exactly white where it does not cover
+   (the ground quad covers every pixel of the CLI's renders) and covering
+   the seg; view 0 rendered on the CPU from the card's triangles: coverage
+   and material equal, RGB within 1e-4 on 99.9% of values and 0.15
+   everywhere; view 0's candidate masks equal on the card, on the CPU and
+   in the PNGs; K3 1644 launches, all on the tensor-core kernel, K1 and K2
+   none; the images finite and in [0, 1]. Printed: ms per view of
+   ``render_textured`` (CUDA events) split into the attribute pass, the
+   shadow pass, the 8 AO passes and the rest (shading), the silhouette's
+   ms, the count of candidate masks and the fill's ms, the seconds spent
+   writing PNGs, each stage's wall clock, images/s and peak memory.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -1996,19 +2020,13 @@ MARKER_OFFSET = 0.08   # m: the asset vertex nearest every view's pelvis ray, of
 RING = dict(r_in=0.46, r_out=0.52, z0=0.25, z1=0.6, around=128, rows=8)
 
 
-def euler_xyz_to_matrix(rx: float, ry: float, rz: float) -> np.ndarray:
-    """Blender 'XYZ' euler -> rotation matrix (R = Rz Ry Rx)."""
-    cx, sx, cy, sy, cz, sz = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry), np.cos(rz), np.sin(rz)
-    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
-    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
-    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
-    return Rz @ Ry @ Rx
-
-
 def camera_ring(asset_world: np.ndarray) -> list:
     """``render_objects``' camera pickles: ``LIFT_VIEWS`` orthographic views
     on a 10 m ring at ``LIFT_ELEVATION``°, azimuth 2πi/n, ortho scale = the
-    asset's largest extent x ortho_scale x 2, no perturbation."""
+    asset's largest extent x ortho_scale x 2, no perturbation (R and t in
+    float64, as a pickle of the reference holds them)."""
+    from coma_tpu_torch.pipelines.rendering import euler_xyz_to_matrix
+
     lengths = asset_world.max(0) - asset_world.min(0)
     scale = float(lengths.max()) * LIFT_ORTHO_SCALE * 2
     elev = np.deg2rad(LIFT_ELEVATION)
@@ -2445,6 +2463,353 @@ def stage2_phase(images_dir: str, npz: str, label: str) -> dict:
     return dict(runs, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: stage 1 end to end (render_objects -> select_mask -> prompts -> inpaint)
+# ---------------------------------------------------------------------------
+
+STAGE1_SC, STAGE1_CAT = "Chair", "Lounge Chair / Cafe Chair / Office Chair"
+STAGE1_ASSET = "0a5a346c-cc3b-4280-b358-ccd1c4d8a865"   # registered: prompts, camera config
+STAGE1_SPLITS = (24, 12)       # quads per box side: seat and back, legs (20,736 triangles)
+STAGE1_VIEWS, STAGE1_RES = 8, 512
+STAGE1_RGB_ATOL, STAGE1_RGB_SHARE, STAGE1_RGB_MAX = 1e-4, 1e-3, 0.15   # the CPU tests'
+
+
+def chair_box(lo, hi, k: int):
+    """An axis-aligned box whose six sides are split into k x k quads:
+    (vertices, quads facing out, per-vertex UVs running 0..1 over a side)."""
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    verts, quads, uvs = [], [], []
+    g = np.linspace(0.0, 1.0, k + 1)
+    for axis in range(3):
+        for side in (0, 1):
+            a, b = (axis + 1) % 3, (axis + 2) % 3
+            base = len(verts)
+            for i in g:
+                for j in g:
+                    p = np.empty(3)
+                    p[axis] = (lo, hi)[side][axis]
+                    p[a] = lo[a] + i * (hi[a] - lo[a])
+                    p[b] = lo[b] + j * (hi[b] - lo[b])
+                    verts.append(p)
+                    uvs.append((i, j))
+            for i in range(k):
+                for j in range(k):
+                    q = base + i * (k + 1) + j
+                    quad = (q, q + k + 1, q + k + 2, q + 1)
+                    quads.append(quad if side else quad[::-1])
+    return verts, quads, uvs
+
+
+def write_chair(root: str, rng) -> str:
+    """A synthetic chair (OBJ axes, y up): a 50 x 50 cm seat at 43-48 cm, a
+    back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
+    material (a 512² RGB PNG written by the port's writer), the legs a
+    Kd-only material and carry no UVs. Returns the OBJ's path."""
+    from coma_tpu_torch.utils.png import write_png
+
+    yy, xx = np.mgrid[:512, :512] / 512
+    tex = np.stack([0.55 + 0.25 * np.sin(40 * xx), 0.35 + 0.15 * np.sin(25 * yy),
+                    np.full_like(xx, 0.25)], -1) + rng.uniform(0, 0.1, (512, 512, 3))
+    write_png(f"{root}/fabric.png", np.uint8(np.clip(tex, 0, 1) * 255))
+    with open(f"{root}/chair.mtl", "w") as fh:
+        fh.write("newmtl fabric\nKd 0.6 0.4 0.3\nmap_Kd fabric.png\n"
+                 "newmtl metal\nKd 0.3 0.3 0.32\n")
+    big, leg = STAGE1_SPLITS
+    parts = [("fabric", chair_box((-0.25, 0.43, -0.25), (0.25, 0.48, 0.25), big)),
+             ("fabric", chair_box((-0.25, 0.48, -0.25), (0.25, 0.95, -0.2), big))]
+    parts += [("metal", chair_box((x, 0.0, z), (x + 0.04, 0.43, z + 0.04), leg))
+              for x in (-0.23, 0.19) for z in (-0.23, 0.19)]
+    vlines, tlines, flines, n, current = [], [], [], 0, None
+    for mat, (verts, quads, uvs) in parts:
+        vlines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+        if mat != current:
+            flines.append(f"usemtl {mat}")
+            current = mat
+        if mat == "fabric":
+            t0 = len(tlines)
+            tlines += [f"vt {u:.6f} {v:.6f}" for u, v in uvs]
+            flines += ["f " + " ".join(f"{n + i + 1}/{t0 + i + 1}" for i in q) for q in quads]
+        else:
+            flines += ["f " + " ".join(str(n + i + 1) for i in q) for q in quads]
+        n += len(verts)
+    path = f"{root}/chair.obj"
+    with open(path, "w") as fh:
+        fh.write("\n".join(["mtllib chair.mtl"] + vlines + tlines + flines) + "\n")
+    return path
+
+
+def stage1_render_kwargs(camera) -> dict:
+    """``render_textured``'s options as ``cli/render_objects`` passes them at
+    its defaults (AO 8, specular 0.25, sky environment, tonemap)."""
+    from coma_tpu_torch.lifting.rasterizer import make_sky_env
+
+    return dict(ao_samples=8, light_samples=1, light_cone_deg=5.0, tonemap=True, gi_samples=0,
+                specular=0.25, roughness=0.35, env_map=make_sky_env(device=camera.R.device),
+                view_dir=tuple((-camera.front).cpu().numpy().astype(np.float32).tolist()))
+
+
+def stage1_scene(camera, verts_world, mesh):
+    from coma_tpu_torch.pipelines.rendering import textured_scene
+
+    scene = textured_scene(camera, verts_world, mesh)
+    return scene, stage1_render_kwargs(camera)
+
+
+def render_scene(scene, kw, res, ground=True):
+    from coma_tpu_torch.lifting.rasterizer import render_textured
+
+    cut = None if ground else -2           # the ground quad is the last two triangles
+    return render_textured(scene["tri_px"][:cut], scene["tri_uv"][:cut], scene["tri_mat"][:cut],
+                           scene["tri_n"][:cut], scene["textures"], res, res,
+                           tri_w=scene["tri_w"][:cut], shadow_casters=scene["casters"], **kw)
+
+
+def run_stage(name: str, argv: list) -> float:
+    """One stage through ``cli/generate_2d_hoi_images`` (the others skipped);
+    its wall clock, ending in a synchronise."""
+    from coma_tpu_torch.cli import generate_2d_hoi_images as orchestrator
+
+    stages = ("render", "select_mask", "prompts", "inpaint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orchestrator.main(["--skip", *[s for s in stages if s != name], *argv])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def stage1_timings(camera, verts_world, mesh, label: str) -> dict:
+    """Per view at 512² on the card (CUDA events, after a warm-up): the
+    textured render split into its attribute pass, shadow pass, 8 AO passes
+    and the rest (shading), the silhouette, and the candidate masks."""
+    from coma_tpu_torch.geometry import polygon
+    from coma_tpu_torch.lifting import rasterizer as R
+    from coma_tpu_torch.pipelines.rendering import candidate_mask_grid, candidate_quads
+
+    scene, kw = stage1_scene(camera, verts_world, mesh)
+    res = STAGE1_RES
+    attrs = lambda: R.rasterize_attributes(scene["tri_px"], scene["tri_uv"], scene["tri_mat"],
+                                           scene["tri_n"], res, res, tri_aux=scene["tri_w"])
+    pos_img = attrs()[4]
+    light = torch.tensor((0.25, 0.15, 0.95), device=DEVICE)
+    light = light / torch.linalg.norm(light)
+    dirs = R.cosine_hemisphere_dirs(8, device=DEVICE)
+    out = dict(
+        triangles=int(scene["tri_px"].shape[0]),
+        attributes_ms=cuda_ms(attrs, reps=5),
+        shadow_ms=cuda_ms(lambda: R._directional_visibility(
+            scene["casters"], pos_img, light[None], 512, 2.0, 3, R.CHUNK), reps=5),
+        ao_ms=cuda_ms(lambda: R._directional_visibility(
+            scene["casters"], pos_img, dirs, 256, 2.0, 1, R.CHUNK), reps=5),
+        render_ms=cuda_ms(lambda: render_scene(scene, kw, res), reps=5),
+    )
+    out["shading_ms"] = out["render_ms"] - out["attributes_ms"] - out["shadow_ms"] - out["ao_ms"]
+    verts_t = torch.as_tensor(np.float32(verts_world), device=DEVICE)
+    faces_t = torch.as_tensor(mesh.faces, device=DEVICE)
+    out["silhouette_ms"] = cuda_ms(lambda: R.render_silhouette(camera, verts_t, faces_t), reps=5)
+    cfg = dict(bbox_size=(0.6, 0.6, 1.1), stride_x=0.1, stride_y=0.1, azimuth_z=np.pi / 2)
+    bounds = (verts_world.min(axis=0), verts_world.max(axis=0))
+    quads = candidate_quads(camera, bounds, **cfg)
+    hulls, counts = polygon.pad_hulls([polygon.convex_hull(q) for q in quads])
+    hulls, counts = torch.as_tensor(hulls, device=DEVICE), torch.as_tensor(counts, device=DEVICE)
+    out["masks"] = len(quads)
+    out["fill_ms"] = cuda_ms(lambda: polygon.fill_convex_polygons(hulls, counts, res, res), reps=5)
+    out["mask_grid_ms"] = cuda_ms(lambda: candidate_mask_grid(camera, bounds, **cfg), reps=5)
+    log(f"stage 1, one view at {res}² ({out['triangles']} triangles with the ground): "
+        f"render_textured {out['render_ms']:.3f} ms = attribute pass "
+        f"{out['attributes_ms']:.3f} + shadow pass {out['shadow_ms']:.3f} + 8 AO passes "
+        f"{out['ao_ms']:.3f} + shading {out['shading_ms']:.3f}; silhouette "
+        f"{out['silhouette_ms']:.3f} ms; {out['masks']} candidate masks: fill "
+        f"{out['fill_ms']:.3f} ms, the grid with its host hulls {out['mask_grid_ms']:.3f} ms "
+        f"(CUDA events) [{label}]")
+    return out
+
+
+def stage1_phase(label: str) -> dict:
+    """Phase 13: ``cli/generate_2d_hoi_images`` on a synthetic textured chair
+    at ``render_objects``' defaults and the Chair camera config, every
+    kernel's counter from 0, then the checks."""
+    from coma_tpu_torch.cli import render_objects as cli_render
+    from coma_tpu_torch.geometry.mesh import load_obj_textured
+    from coma_tpu_torch.lifting import rasterizer as R
+    from coma_tpu_torch.lifting.cameras import OrthoCamera
+    from coma_tpu_torch.models.diffusion.pipeline import AdaptiveMaskInpaintPipeline
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+    from coma_tpu_torch.pipelines.rendering import candidate_mask_grid
+    from coma_tpu_torch.utils.png import read_png
+
+    root = tempfile.mkdtemp(prefix="stage1_", dir=SCRATCH)
+    obj = write_chair(root, np.random.default_rng(SEED + 5))
+    argv = ["--obj_pth", obj, "--supercategory", STAGE1_SC, "--category", STAGE1_CAT,
+            "--asset_id", STAGE1_ASSET, "--resolution", str(STAGE1_RES), str(STAGE1_RES),
+            "--device", DEVICE, "--random_weights",
+            "--num_img_per_combination", "1", "--batch_size", str(INPAINT_IMAGES)]
+    contact_kernel.launches = occupancy_kernel.launches = attention.launches = 0
+    for src in attention.source_launches:
+        attention.source_launches[src] = 0
+    png_seconds = [0.0]
+    write_png = cli_render.write_png
+
+    def timed_write(path, image):
+        t0 = time.perf_counter()
+        write_png(path, image)
+        png_seconds[0] += time.perf_counter() - t0
+
+    outputs, generate = [], AdaptiveMaskInpaintPipeline.generate
+
+    def kept(self, *args, **kwargs):     # the float images, for the range check
+        out = generate(self, *args, **kwargs)
+        outputs.append((out[0] if isinstance(out, tuple) else out).float().cpu())
+        return out
+
+    cwd = os.getcwd()
+    cli_render.write_png = timed_write
+    AdaptiveMaskInpaintPipeline.generate = kept
+    seconds, peak = {}, {}
+    try:
+        os.chdir(root)
+        for stage in ("render", "select_mask", "prompts"):
+            torch.cuda.reset_peak_memory_stats()
+            seconds[stage] = run_stage(stage, argv)
+            peak[stage] = torch.cuda.max_memory_allocated() / 1e9
+        g = f"{root}/results/generation"
+        base = f"{STAGE1_SC}/{STAGE1_CAT.replace('/', ':')}/{STAGE1_ASSET}"
+        kept_ids = {}
+        for p in sorted(glob_paths(f"{g}/valid_masks/{base}", "*.pickle")):
+            with open(p, "rb") as fh:
+                kept_ids[Path(p).stem] = pickle.load(fh)["valid_mask_ids"]
+        log("stage 1: the Chair band [0.8, 0.9] kept, per view: " + ", ".join(
+            f"{v} {len(ids)}" for v, ids in kept_ids.items()))
+        chosen = [v for v, ids in kept_ids.items() if ids][:2]
+        if len(chosen) < 2:
+            raise AssertionError(f"fewer than two views kept a mask: {kept_ids}")
+        for v, ids in kept_ids.items():
+            with open(f"{g}/valid_masks/{base}/{v}.pickle", "rb") as fh:
+                d = pickle.load(fh)
+            d["valid_mask_ids"] = ids[:1] if v in chosen else []
+            with open(f"{g}/valid_masks/{base}/{v}.pickle", "wb") as fh:
+                pickle.dump(d, fh)
+        with open(f"{g}/prompts/{base}/prompts.pickle", "rb") as fh:
+            prompts = pickle.load(fh)
+        prompts["prompts"] = prompts["prompts"][:1]
+        with open(f"{g}/prompts/{base}/prompts.pickle", "wb") as fh:
+            pickle.dump(prompts, fh)
+        torch.cuda.reset_peak_memory_stats()
+        seconds["inpaint"] = run_stage("inpaint", argv)
+        peak["inpaint"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        os.chdir(cwd)
+        cli_render.write_png = write_png
+        AdaptiveMaskInpaintPipeline.generate = generate
+    launches = {"contact_splat": contact_kernel.launches,
+                "occupancy_hits": occupancy_kernel.launches,
+                "flash_attention": attention.launches}
+    by_source = dict(attention.source_launches)
+
+    # the files, and each seg against the silhouette of its camera
+    counts = {d: len(glob_paths(f"{g}/{d}/{base}", f"*.{ext}"))
+              for d, ext in (("renders", "png"), ("asset_segs", "png"), ("cameras", "pickle"))}
+    if set(counts.values()) != {STAGE1_VIEWS}:
+        raise AssertionError(f"stage 1 wrote {counts}, expected {STAGE1_VIEWS} of each")
+    mesh = load_obj_textured(obj)
+    verts_world = mesh.vertices @ cli_render.OBJ_TO_WORLD.T
+    verts_world = verts_world - np.array([0.0, 0.0, verts_world[:, 2].min()])
+    verts_t = torch.as_tensor(np.float32(verts_world), device=DEVICE)
+    faces_t = torch.as_tensor(mesh.faces, device=DEVICE)
+    cameras = []
+    for v in range(STAGE1_VIEWS):
+        view = f"view:{v:05d}"
+        with open(f"{g}/cameras/{base}/{view}.pickle", "rb") as fh:
+            camera = OrthoCamera.from_pickle(pickle.load(fh), device=DEVICE)
+        cameras.append(camera)
+        seg = read_png(f"{g}/asset_segs/{base}/{view}.png")[..., 0]
+        want = R.render_silhouette(camera, verts_t, faces_t).cpu().numpy().astype(np.uint8) * 255
+        if not np.array_equal(seg, want):
+            raise AssertionError(f"{view}: the seg differs from render_silhouette at "
+                                 f"{int((seg != want).sum())} pixels")
+
+    # view 0: the PNG is the card's render; the card against the CPU
+    camera = cameras[0]
+    scene, kw = stage1_scene(camera, verts_world, mesh)
+    rgb, covered = render_scene(scene, kw, STAGE1_RES)
+    png = read_png(f"{g}/renders/{base}/view:00000.png")
+    if not np.array_equal((rgb * 255).to(torch.uint8).cpu().numpy(), png):
+        raise AssertionError("the render PNG is not the card's render_textured")
+    alone, alone_cov = render_scene(scene, kw, STAGE1_RES, ground=False)
+    seg0 = read_png(f"{g}/asset_segs/{base}/view:00000.png")[..., 0] > 0
+    if not (alone[~alone_cov] == 1.0).all() or not np.array_equal(alone_cov.cpu().numpy(), seg0):
+        raise AssertionError("the asset alone: background not exactly white, or its coverage "
+                             "is not the seg")
+    # the CPU renders the card's scene: the projection is a matrix product,
+    # summed in another order by cuBLAS, so it is held on its own
+    cpu_cam = OrthoCamera(R=camera.R.cpu(), t=camera.t.cpu(), scale=camera.scale,
+                          resolution=camera.resolution)
+    projected, cpu_kw = stage1_scene(cpu_cam, verts_world, mesh)
+    # (the asset's triangles: the ground's corners lie 1e4 m out, where a
+    # float32 pixel coordinate's last bit is 0.06 px)
+    projection_err = float((projected["tri_px"][:-2] - scene["tri_px"][:-2].cpu()).abs().max())
+    cpu_scene = {k: v.cpu() for k, v in scene.items()}
+    t0 = time.perf_counter()
+    cpu_rgb, cpu_cov = render_scene(cpu_scene, cpu_kw, STAGE1_RES)
+    cpu_render_s = time.perf_counter() - t0
+    attrs = [R.rasterize_attributes(s["tri_px"], s["tri_uv"], s["tri_mat"], s["tri_n"],
+                                    STAGE1_RES, STAGE1_RES, tri_aux=s["tri_w"])
+             for s in (scene, cpu_scene)]
+    if not (torch.equal(torch.isfinite(attrs[0][0]).cpu(), torch.isfinite(attrs[1][0]))
+            and torch.equal(attrs[0][2].cpu(), attrs[1][2])
+            and torch.equal(covered.cpu(), cpu_cov)):
+        raise AssertionError("view 0: coverage or material differ between the card and the CPU")
+    diff = (rgb.cpu() - cpu_rgb).abs()
+    beyond = int((diff > STAGE1_RGB_ATOL).sum())
+    if beyond > STAGE1_RGB_SHARE * diff.numel() or float(diff.max()) > STAGE1_RGB_MAX:
+        raise AssertionError(f"view 0 RGB: {beyond} values beyond {STAGE1_RGB_ATOL} of "
+                             f"{diff.numel()}, max {float(diff.max()):.3e}")
+    cfg = dict(bbox_size=(0.6, 0.6, 1.1), stride_x=0.1, stride_y=0.1, azimuth_z=np.pi / 2)
+    bounds = (verts_world.min(axis=0), verts_world.max(axis=0))
+    masks = candidate_mask_grid(camera, bounds, **cfg)
+    cpu_masks = candidate_mask_grid(cpu_cam, bounds, **cfg)
+    mask_pngs = sorted(glob_paths(f"{g}/asset_masks/{base}/view:00000", "*.png"))
+    written = np.stack([read_png(p)[..., 0] for p in mask_pngs])
+    if not torch.equal(masks.cpu(), cpu_masks) or not np.array_equal(written, cpu_masks.numpy()):
+        raise AssertionError("view 0: candidate masks differ between the card, the CPU and "
+                             "the PNGs")
+
+    # the inpainting batch: K3 only, on the tensor-core kernel
+    if launches["flash_attention"] != K3_LAUNCHES_PER_BATCH \
+            or by_source["flash_attention_sm90"] != K3_LAUNCHES_PER_BATCH \
+            or launches["contact_splat"] or launches["occupancy_hits"]:
+        raise AssertionError(f"stage 1 launches {launches} ({by_source}); expected K3 "
+                             f"{K3_LAUNCHES_PER_BATCH}, all bf16, and no K1 or K2")
+    pngs = glob_paths(f"{g}/inpaintings", "**/*.png")
+    if len(pngs) != INPAINT_IMAGES or len(outputs) != 1:
+        raise AssertionError(f"inpaint wrote {len(pngs)} images in {len(outputs)} batches")
+    out = outputs[0]
+    if out.shape != (INPAINT_IMAGES, 3, INPAINT_RES, INPAINT_RES) or not torch.isfinite(out).all() \
+            or out.min() < 0 or out.max() > 1:
+        raise AssertionError(f"stage 1 images: shape {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    timings = stage1_timings(camera, verts_world, mesh, label)
+    log(f"stage 1 through cli/generate_2d_hoi_images ({mesh.faces.shape[0]} faces, "
+        f"{STAGE1_VIEWS} views at {STAGE1_RES}²): render {seconds['render']:.3f} s (of it "
+        f"{png_seconds[0]:.3f} s writing PNGs: {STAGE1_VIEWS} renders, {STAGE1_VIEWS} segs, "
+        f"{STAGE1_VIEWS} x {masks.shape[0]} masks), select_mask {seconds['select_mask']:.3f} s, "
+        f"generate_prompts {seconds['prompts']:.3f} s, inpaint {seconds['inpaint']:.3f} s = "
+        f"{INPAINT_IMAGES / seconds['inpaint']:.4f} images/s (views {', '.join(chosen)}); peak "
+        f"device memory " + ", ".join(f"{k} {v:.3f} GB" for k, v in peak.items())
+        + f"; view 0 on the card vs the CPU: the asset's projection within {projection_err:.3e} "
+        f"px; on "
+        f"the card's triangles coverage and material equal, RGB {beyond} values beyond "
+        f"{STAGE1_RGB_ATOL} of {diff.numel()}, max {float(diff.max()):.3e} (the CPU's render "
+        f"{cpu_render_s:.3f} s); masks equal; launches {launches} ({by_source}) [{label}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=seconds, peak_gb=peak, png_seconds=png_seconds[0], kept=kept_ids,
+                launches=launches, by_source=by_source, rgb_beyond=beyond,
+                rgb_max_err=float(diff.max()), projection_err=projection_err, **timings)
+
+
+def glob_paths(root: str, pattern: str) -> list:
+    return [str(p) for p in Path(root).glob(pattern)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
@@ -2579,6 +2944,9 @@ def main() -> int:
         segment_human_phase(phase6_images, label)
         video_run = step_video_phase(tmp, label, inpaint_seconds)
 
+    # phase 13: stage 1 end to end, every kernel's counter from 0
+    stage1 = stage1_phase(label)
+
     try:
         # phase 7: the HOI-reconstruction application
         optimized = optimize_phase(opt_files, label)
@@ -2603,7 +2971,8 @@ def main() -> int:
              launches_learn_coma=learned["launches"]["contact_splat"],
              launches_per_rank=per_rank["contact_splat"],
              launches_optimize=app_launches["contact_splat"],
-             launches_stage2=stage2["launches"]["contact_splat"]),
+             launches_stage2=stage2["launches"]["contact_splat"],
+             launches_stage1=stage1["launches"]["contact_splat"]),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -2614,7 +2983,8 @@ def main() -> int:
              launches_learn_coma=learned["launches"]["occupancy_hits"],
              launches_per_rank=per_rank["occupancy_hits"],
              launches_optimize=app_launches["occupancy_hits"],
-             launches_stage2=stage2["launches"]["occupancy_hits"]),
+             launches_stage2=stage2["launches"]["occupancy_hits"],
+             launches_stage1=stage1["launches"]["occupancy_hits"]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -2635,7 +3005,9 @@ def main() -> int:
                                  if "launches" in r},
              launches_step_video=video_run["launches"],
              launches_optimize=app_launches["flash_attention"],
-             launches_stage2=stage2["launches"]["flash_attention"]),
+             launches_stage2=stage2["launches"]["flash_attention"],
+             launches_stage1=stage1["launches"]["flash_attention"],
+             launches_stage1_by_source=stage1["by_source"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

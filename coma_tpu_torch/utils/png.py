@@ -1,10 +1,13 @@
-"""A minimal PNG reader and writer: 8-bit gray, gray+alpha, RGB and RGBA,
-non-interlaced, all five filter types; zlib does the rest.
+"""A minimal PNG reader and writer; zlib does the rest.
 
-The inpaint CLI reads renders and masks and writes its images with it, so
-the port needs no imaging library. :func:`to_rgb` and :func:`to_gray` are
-PIL's ``convert("RGB")`` and ``convert("L")`` for these modes (alpha is
-dropped, not composited; gray is ITU-R 601-2 luma in PIL's fixed point).
+The writer takes 8-bit gray, gray+alpha, RGB and RGBA. The reader also takes
+palette images (bit depths 1 to 8) and 16-bit and low-bit gray ones,
+non-interlaced, all five filter types. The CLIs read renders, masks and
+texture maps and write their images with it, so the port needs no imaging
+library. :func:`read_png` returns what PIL holds for the file's mode, and
+:func:`to_rgb` and :func:`to_gray` are PIL's ``convert("RGB")`` and
+``convert("L")`` of it (alpha is dropped, not composited; gray is ITU-R 601-2
+luma in PIL's fixed point).
 """
 from __future__ import annotations
 
@@ -92,13 +95,23 @@ def _unfilter_row(ftype: int, row: np.ndarray, prior: np.ndarray, bpp: int) -> n
     return np.array(out, np.uint8)
 
 
+def _unpack_bits(rows: np.ndarray, depth: int, count: int) -> np.ndarray:
+    """Samples of ``depth`` < 8 bits, packed high bits first, -> uint8 (H, count)."""
+    bits = np.unpackbits(rows, axis=1)[:, : count * depth]
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits.reshape(rows.shape[0], count, depth) * weights).sum(-1).astype(np.uint8)
+
+
 def read_png(path: str) -> np.ndarray:
-    """uint8 (H, W, C): C = 1 gray, 2 gray+alpha, 3 RGB, 4 RGBA."""
+    """uint8 (H, W, C): C = 1 gray, 2 gray+alpha, 3 RGB (palette images
+    expanded through PLTE, tRNS ignored), 4 RGBA. 16-bit samples keep their
+    high byte, except 16-bit gray, which PIL saturates at 255; 1-, 2- and
+    4-bit gray is scaled to 0..255."""
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = len(_SIGNATURE), None, []
+    pos, header, idat, palette = len(_SIGNATURE), None, [], None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -109,6 +122,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -116,19 +131,47 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"{path}: only 8-bit gray/RGB(A), non-interlaced PNGs are read "
+    paletted = ctype == 3
+    C = 1 if paletted else _CHANNELS.get(ctype)
+    allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if C is None or depth not in allowed or interlace != 0:
+        raise ValueError(f"{path}: only non-interlaced gray, RGB(A) and palette PNGs are read "
                          f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
-    C = _CHANNELS[ctype]
-    stride = W * C
+    if paletted and palette is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
+    stride = (W * C * depth + 7) // 8
+    bpp = max(1, C * depth // 8)            # the filters' byte distance
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != H * (stride + 1):
         raise ValueError(f"{path}: image data has {raw.size} bytes, expected {H * (stride + 1)}")
     raw = raw.reshape(H, stride + 1)
-    out = np.empty((H, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(H):
-        prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, C)
+    kinds = raw[:, 0]
+    if stride % bpp == 0 and np.isin(kinds, (0, 1)).all():
+        # None and Sub filter each row on its own: all rows at once (the
+        # port's writer uses Sub)
+        sub = np.cumsum(raw[:, 1:].reshape(H, -1, bpp), axis=1, dtype=np.uint8)  # wraps mod 256
+        out = sub.reshape(H, stride) if (kinds == 1).all() else np.where(
+            (kinds == 1)[:, None], sub.reshape(H, stride), raw[:, 1:])
+    else:
+        out = np.empty((H, stride), np.uint8)
+        prior = np.zeros(stride, np.uint8)
+        for y in range(H):
+            prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, bpp)
+    if depth == 16:
+        samples = out.reshape(H, W * C, 2)
+        if ctype == 0:                      # PIL's I;16 -> L / RGB saturates
+            wide = samples[..., 0].astype(np.uint16) << 8 | samples[..., 1]
+            out = np.minimum(wide, 255).astype(np.uint8)
+        else:
+            out = samples[..., 0]
+    elif depth < 8:
+        out = _unpack_bits(out, depth, W * C)
+        if not paletted:
+            out = out * np.uint8(255 // ((1 << depth) - 1))
+    if paletted:
+        if out.max(initial=0) >= len(palette):
+            raise ValueError(f"{path}: palette index beyond the {len(palette)} PLTE entries")
+        return palette[out.reshape(H, W)]
     return out.reshape(H, W, C)
 
 

@@ -480,3 +480,66 @@ def test_hand4whole_regressor_on_the_card_matches_the_cpu(no_tf32):
         got = model.cuda()(img.cuda())
     for k, w in want.items():
         torch.testing.assert_close(got[k].cpu(), w, atol=1e-3, rtol=1e-3, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", ["shadow_ao_sky_specular_tonemap", "soft_light_gi"])
+def test_render_textured_on_the_card_matches_the_cpu(options):
+    """A textured sphere (two materials, bilinear textures) over a ground
+    quad at 128²: coverage and material equal, RGB within 1e-4 on at least
+    99.9% of values and within 0.15 everywhere (the CPU tests' tolerance; the
+    products with the light frame are multiply-adds on both devices, so a
+    shadow-map tap flips only where their rounding does)."""
+    need_card()
+    from coma_tpu_torch.lifting import rasterizer
+
+    rng = np.random.default_rng(11)
+    verts, faces = uv_sphere(24, 32, 0.5)
+    verts = verts + np.float32([0.0, 0.0, 0.7])
+    ground = np.float32([[-2, -2, 0], [2, -2, 0], [2, 2, 0], [-2, 2, 0]])
+    tri_w = np.concatenate([verts[faces], ground[[[0, 1, 2], [0, 2, 3]]]])
+    n = np.cross(tri_w[:, 1] - tri_w[:, 0], tri_w[:, 2] - tri_w[:, 0])
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    res = 128
+    tri_px = np.concatenate([(tri_w[..., :2] + 2.0) / 4.0 * res, -tri_w[..., 2:]], -1)
+    T = len(tri_w)
+    inputs = dict(tri_px=tri_px, tri_uv=rng.uniform(-1, 2, size=(T, 3, 2)),
+                  tri_mat=np.arange(T) % 3, tri_n=n,
+                  textures=rng.uniform(size=(3, 16, 16, 3)), tri_w=tri_w,
+                  shadow_casters=tri_w[: len(faces)])
+    if options == "shadow_ao_sky_specular_tonemap":
+        kw = dict(ao_samples=8, specular=0.25, tonemap=True)
+    else:
+        kw = dict(light_samples=4, light_cone_deg=8.0, gi_samples=8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t = {k: torch.as_tensor(np.asarray(v, np.int64 if k == "tri_mat" else np.float32),
+                                device=dev) for k, v in inputs.items()}
+        env = {"env_map": rasterizer.make_sky_env(device=dev)} if "ao_samples" in kw else {}
+        rgb, cov = rasterizer.render_textured(height=res, width=res, flip_y=False,
+                                              light_dir=(0.4, 0.1, 1.0), **t, **kw, **env)
+        attrs = rasterizer.rasterize_attributes(t["tri_px"], t["tri_uv"], t["tri_mat"],
+                                                t["tri_n"], res, res, flip_y=False)
+        out[dev] = [rgb.cpu(), cov.cpu(), attrs[2].cpu()]
+    assert torch.equal(out["cuda"][1], out["cpu"][1]) and out["cpu"][1].any()
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    diff = (out["cuda"][0] - out["cpu"][0]).abs()
+    assert (diff > 1e-4).float().mean() <= 1e-3 and diff.max() <= 0.15
+
+
+@pytest.mark.cuda
+def test_candidate_mask_fill_on_the_card_matches_the_cpu():
+    """OpenCV's convex fill at 512² on 400 seeded quads that reach past the
+    image on every side, and on degenerate hulls: the card's masks equal the
+    CPU's (integer and double arithmetic on both)."""
+    need_card()
+    from coma_tpu_torch.geometry import polygon
+
+    rng = np.random.default_rng(12)
+    quads = rng.integers(-200, 712, size=(400, 4, 2))
+    quads[:4] = [[[5, 5]] * 4, [[0, 0], [0, 0], [30, 30], [60, 60]],
+                 [[-50, 100], [600, 100], [600, 100], [-50, 100]],
+                 [[100, -9], [100, 900], [100, 900], [100, -9]]]
+    want = polygon.fill_convex_hulls(quads, 512, 512, "cpu")
+    got = polygon.fill_convex_hulls(quads, 512, 512, "cuda").cpu()
+    assert want.any() and torch.equal(got, want)

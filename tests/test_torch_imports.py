@@ -1,5 +1,5 @@
 """The port imports neither JAX nor ``coma_tpu``, nor Flax, optax,
-``safetensors`` or PIL (the card machine has none).
+``safetensors``, PIL, OpenCV or matplotlib (the card machine has none).
 
 The in-process check proves nothing (``tests/conftest.py`` imports JAX), so
 the package and its CLIs are imported in a fresh interpreter; an AST scan
@@ -11,7 +11,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax", "safetensors", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "coma_tpu", "flax", "optax", "safetensors", "PIL", "cv2",
+             "matplotlib")
 
 
 def _forbidden(name: str) -> bool:
@@ -53,6 +54,11 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.optim, coma_tpu_torch.cli.predict_human\n"
         "import coma_tpu_torch.cli.initialize_depth, coma_tpu_torch.cli.optimize_depth\n"
         "import coma_tpu_torch.cli.compute_metrics, coma_tpu_torch.cli.generate_3d_hoi_samples\n"
+        "import coma_tpu_torch.utils.resize, coma_tpu_torch.geometry.polygon\n"
+        "import coma_tpu_torch.pipelines.rendering, coma_tpu_torch.pipelines.mask_select\n"
+        "import coma_tpu_torch.pipelines.canonicalize_assets, coma_tpu_torch.cli.render_objects\n"
+        "import coma_tpu_torch.cli.select_mask, coma_tpu_torch.cli.generate_prompts\n"
+        "import coma_tpu_torch.cli.generate_2d_hoi_images\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -63,6 +69,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.segment_human' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.generate_3d_hoi_samples' in sys.modules\n"
         "assert 'coma_tpu_torch.lifting.rasterizer' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.generate_2d_hoi_images' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -73,10 +80,16 @@ def test_import_in_fresh_interpreter_loads_no_jax():
 def test_no_module_of_the_port_imports_jax_or_coma_tpu():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "profile_inpaint_torch.py"),
-             os.path.join(REPO, "tools", "stage2_torch.py")]
+             os.path.join(REPO, "tools", "stage2_torch.py"),
+             os.path.join(REPO, "tools", "stage1_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    for name in ("utils/resize.py", "geometry/polygon.py", "pipelines/rendering.py",
+                 "pipelines/mask_select.py", "pipelines/canonicalize_assets.py",
+                 "cli/render_objects.py", "cli/select_mask.py", "cli/generate_prompts.py",
+                 "cli/generate_2d_hoi_images.py"):
+        assert os.path.join(REPO, "coma_tpu_torch", name) in files, name
     offenders = []
     for path in files:
         with open(path) as fh:

@@ -6,6 +6,8 @@ reads what the port writes, the port reads what PIL writes (PIL chooses its
 own filters), and ``to_rgb``/``to_gray`` equal PIL's ``convert``.
 """
 import io
+import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -59,10 +61,17 @@ def test_write_png_and_errors(tmp_path):
     with pytest.raises(TypeError):
         png.encode_png(img.astype(np.uint16))
     buf = io.BytesIO()
-    Image.fromarray(img).convert("P").save(buf, format="PNG")   # palette: not read
+    Image.fromarray(img).convert("P").save(buf, format="PNG")   # palette: read as PIL does
     (tmp_path / "p.png").write_bytes(buf.getvalue())
+    with Image.open(tmp_path / "p.png") as im:
+        np.testing.assert_array_equal(png.to_rgb(png.read_png(str(tmp_path / "p.png"))),
+                                      np.asarray(im.convert("RGB")))
+    interlaced = bytearray(png.encode_png(img))                # Adam7: not read
+    interlaced[28] = 1
+    interlaced[29:33] = struct.pack(">I", zlib.crc32(bytes(interlaced[12:29])) & 0xFFFFFFFF)
+    (tmp_path / "i.png").write_bytes(bytes(interlaced))
     with pytest.raises(ValueError, match="colour type"):
-        png.read_png(str(tmp_path / "p.png"))
+        png.read_png(str(tmp_path / "i.png"))
     bad = bytearray(png.encode_png(img))
     bad[40] ^= 0xFF
     (tmp_path / "bad.png").write_bytes(bytes(bad))
