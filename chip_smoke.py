@@ -194,6 +194,42 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ms, the count of candidate masks and the fill's ms, the seconds spent
    writing PNGs, each stage's wall clock, images/s and peak memory.
 
+14. The rest of item 14, every kernel's counter set to 0 before each part
+   and read after. (a) Evaluation: a BEHAVE-shaped sequence of 64 frames
+   written from the seed (the phase 3 body posed per frame as the fits'
+   verts/faces pickles; per frame the backpack's ``lowres_center``,
+   ``raw2normal`` and fit pickles; the downsamples at ``quant:full``: 750
+   human indices, 2048 raw object points with normals), read through
+   ``pipelines/behave_eval.BehaveSequence`` and prepared by
+   ``prepare_affordance_extraction_inputs_for_behave`` into
+   ``pipelines/extract.aggregate_samples_streaming``: the ground-truth state
+   (H 750, O 2048, N 250; K1 2 launches, K2 and K3 none), held against the
+   plain version on the card over all 64 frames (K1's limit, 1e-5 + 1e-4
+   |plain|; the CPU route, ~94 s a frame at these widths, is held against
+   ``coma_tpu`` by the CPU tests); ``cli/evaluate`` of
+   it against itself (SIM 1, MAE 0 within 1e-6) and against the state of a
+   sequence from another seed (finite, SIM < 1). Printed: the host's prep
+   ms per frame, the aggregation's and evaluate's seconds, peak memory.
+   (b) ``cli/visualize human`` (phase 4's human contact on phase 4b's star
+   pose: the PLY's colours the product's jet colours), ``object``,
+   ``occupancy --mode volume`` (512², 192 steps, phase 4b's backpack
+   downsample composited) and ``--mode slices``; the volume render on the
+   card against the CPU (within 1e-4 on 99.9% of values, 1e-2 at most);
+   ``render_contact_scene`` at 512x384 of phase 12's posed body and a sphere
+   2 cm from it with its contact spheres; every image finite in [0, 1]; no
+   kernel launched. Printed: ms per volume render and per contact scene
+   (CUDA events), peak memory. (c) ``cli/train_segmenter`` at its defaults
+   (``PersonSegmenter()``, batch 64 at 128², both domains, corruption with
+   the numpy JPEG, a pool of 48) cut to ``--steps 40 --eval_batches 2
+   --log_every 10``: the loss finite and the mean of the last 10 steps below
+   step 1's, the npz loaded by the port's loader segmenting 4 images, one
+   AdamW step from seeded weights on 8 images card against CPU with TF32
+   off (loss and every parameter whose gradient is at least 1e-5 within
+   1e-4; the others, whose Adam step takes the sign of a near-zero
+   gradient, within 2.2 lr); no kernel launched. Printed: ms per step (CUDA
+   events), the wait on the producer queue, the pool's seconds, both IoUs,
+   peak memory. ``python3 tools/item14_torch.py`` runs phase 14 alone.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -654,17 +690,22 @@ def check_product(visualize_type: str, path: str, n: int) -> str:
     return f"shape {field.shape}, max {field.max()}"
 
 
-def check_products(paths, contact_pickle, occupancy_pickle, out_dir):
+def check_products(paths, contact_pickle, occupancy_pickle, out_dir) -> dict:
+    """Infer and check the four products; returns the paths of the human
+    contact, object contact and occupancy products."""
+    products = {}
     for vt, key in (("aggr-human-contact", "qual:backpack_human_contact"),
                     ("orientation", "qual:backpack_orientation")):
         path = infer(paths, contact_pickle, vt, key, "180", out_dir)
         log(f"inference {vt}: {check_product(vt, path, H_FULL)}")
+        products.setdefault("human_contact", path)
     ply = infer(paths, contact_pickle, "aggr-object-contact", "qual:backpack_object_contact",
                 "180", out_dir)
     log(f"inference aggr-object-contact: {check_product('aggr-object-contact', ply, 180)}")
     occ = infer(paths, occupancy_pickle, "occupancy", "qual:backpack_occupancy", str(OCC_O),
                 out_dir)
     log(f"inference occupancy: {check_product('occupancy', occ, 0)}")
+    return dict(products, object_contact=ply, occupancy=occ)
 
 
 # ---------------------------------------------------------------------------
@@ -2806,6 +2847,436 @@ def stage1_phase(label: str) -> dict:
                 rgb_max_err=float(diff.max()), projection_err=projection_err, **timings)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: BEHAVE ground-truth evaluation, visualize, train_segmenter
+# ---------------------------------------------------------------------------
+
+EVAL_KEY, EVAL_H, EVAL_O = "quant:full", 750, 2048   # quant:full's widths
+BEHAVE_FRAMES = 64
+EVAL_SIM_ATOL = 1e-6
+VOLUME_ATOL, VOLUME_SHARE, VOLUME_MAX = 1e-4, 1e-3, 1e-2
+SCENE_SIZE = (512, 384)     # the Kinect camera at the CLI's resolution
+TRAIN_CUTS = ["--steps", "40", "--eval_batches", "2", "--log_every", "10"]
+TRAIN_CHECK_BATCH, TRAIN_CHECK_LR = 8, 3e-4
+TRAIN_ATOL, TRAIN_GRAD_FLOOR = 1e-4, 1e-5
+
+
+def kernel_counts() -> dict:
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+
+    return {"contact_splat": contact_kernel.launches,
+            "occupancy_hits": occupancy_kernel.launches,
+            "flash_attention": attention.launches}
+
+
+def reset_kernel_counts() -> None:
+    from coma_tpu_torch.ops import attention, contact_kernel, occupancy_kernel
+
+    contact_kernel.launches = occupancy_kernel.launches = attention.launches = 0
+    for src in attention.source_launches:
+        attention.source_launches[src] = 0
+
+
+def small_rotation(rng, scale: float) -> np.ndarray:
+    from coma_tpu_torch.geometry.transforms import rodrigues
+
+    return rodrigues(torch.tensor(rng.normal(size=3) * scale)).numpy()
+
+
+def write_behave_frames(root: str, rng) -> dict:
+    """A BEHAVE sequence of ``BEHAVE_FRAMES`` frames at quant:full's widths:
+    per frame the posed 10475-vertex body as the fit's verts/faces pickle,
+    the backpack's ``lowres_center``, ``raw2normal`` and fit (angle, trans)
+    pickles; the human downsample (750 indices) and the object's (2048 raw
+    points with normals from the phase 3 backpack)."""
+    verts, faces = human_template()
+    seq = f"{root}/Date01_Sub01_backpack"
+    os.makedirs(seq)
+    with open(f"{seq}/info.json", "w") as fh:
+        json.dump(dict(cat="backpack", gender="male", kinects=[0, 1, 2, 3]), fh)
+    obj_verts, obj_normals = backpack(rng, 2000)
+    raw_pts, raw_normals = backpack(rng, EVAL_O)
+    human_meta = dict(downsample_indices=np.sort(rng.choice(H_FULL, EVAL_H, replace=False)),
+                      N=EVAL_H)
+    obj_meta = dict(obj_vertices_original=obj_verts, obj_vertex_normals_original=obj_normals,
+                    downsampled_pcd_points_raw=raw_pts, downsampled_pcd_normal_raw=raw_normals,
+                    N_raw=EVAL_O)
+
+    def dump(path, payload):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as fh:
+            pickle.dump(payload, fh)
+
+    for k in range(BEHAVE_FRAMES):
+        frame = f"{seq}/t{k // 30:04d}.{k % 30:03d}"
+        rot = small_rotation(rng, 0.02)
+        shift = rng.normal(scale=0.005, size=3)
+        dump(f"{frame}/person/fit01/person_fit_mesh.pickle",
+             dict(verts=verts @ rot.T + shift + rng.normal(scale=0.002, size=verts.shape),
+                  faces=faces))
+        R = small_rotation(rng, 0.02)
+        t = rng.normal(scale=0.005, size=3)
+        center = rng.normal(scale=0.005, size=3)
+        fit = f"{frame}/backpack/fit01"
+        dump(f"{fit}/lowres_center.pickle", dict(obj_lowres_center=center))
+        dump(f"{fit}/raw2normal.pickle", dict(R_raw2normal=R, t_raw2normal=t))
+        # the fit follows the body's shift, within a few mm
+        dump(f"{fit}/backpack_fit.pkl", dict(angle=rng.normal(scale=0.01, size=3),
+                                             trans=shift + rng.normal(scale=0.003, size=3)))
+    return dict(seq=seq, human_meta=human_meta, obj_meta=obj_meta)
+
+
+def behave_prep(data: dict):
+    """The frames of ``data``'s sequence (read through the port's reader) and
+    the prep of one frame into the canonical frame."""
+    from coma_tpu_torch.config.hyperparams import get_hyperparams
+    from coma_tpu_torch.pipelines.behave_eval import (
+        BehaveSequence, prepare_affordance_extraction_inputs_for_behave)
+
+    reader = BehaveSequence(data["seq"])
+    frames = list(range(len(reader)))
+    hp = get_hyperparams(EVAL_KEY)
+
+    def prep(idx):
+        fit = os.path.dirname(reader.objfit_param_file(idx, "fit01"))
+        return prepare_affordance_extraction_inputs_for_behave(
+            human_mesh_pth=f"{reader.frame_folder(idx)}/person/fit01/person_fit_mesh.pickle",
+            human_mesh_pth_type="pickle", human_downsample_metadata=data["human_meta"],
+            object_downsample_metadata=data["obj_meta"],
+            human_use_downsample_pcd_raw=hp["human_use_downsample_pcd_raw"],
+            object_use_downsample_pcd_raw=hp["object_use_downsample_pcd_raw"],
+            lowres_center_pth=f"{fit}/lowres_center.pickle",
+            raw2normal_pth=f"{fit}/raw2normal.pickle",
+            obj_param_pth=reader.objfit_param_file(idx, "fit01"), eps=hp["eps"])
+
+    return frames, prep
+
+
+def eval_state(device):
+    from coma_tpu_torch.affordance.state import init_coma_state
+    from coma_tpu_torch.config.hyperparams import get_hyperparams
+
+    hp = get_hyperparams(EVAL_KEY)
+    return init_coma_state(EVAL_H, EVAL_O, hp["normal_res"], hp["spatial_grid_size"],
+                           hp["spatial_grid_thres"], hp["normal_gaussian_sigma"],
+                           hp["principle_vec"], hp["sub_principle_vec"], hp["eps"],
+                           device=device)
+
+
+def gt_state(data: dict):
+    """``aggregate_samples_streaming`` over the prepped frames: the
+    ground-truth state (K1 on the card, one launch per 32 frames)."""
+    from coma_tpu_torch.pipelines.extract import aggregate_samples_streaming
+
+    frames, prep = behave_prep(data)
+    return aggregate_samples_streaming(eval_state(DEVICE), frames, prep, occupancy=False,
+                                       batch_size=SLAB)
+
+
+K1_FIELDS = ("prob_grid_canon_human_wrt_obj", "prob_grid_canon_obj_wrt_human",
+             "contact_dist_expectation_grid_nom", "contact_dist_expectation_grid_denom",
+             "significant_contact_count", "used_count")
+
+
+def state_err(kern, plain, what: str) -> float:
+    worst = 0.0
+    for f in K1_FIELDS:
+        k, p = getattr(kern, f), getattr(plain, f).to(getattr(kern, f).device)
+        err = (k - p).abs()
+        if not torch.isfinite(k).all() or bool((err > K1_ATOL + K1_RTOL * p.abs()).any()):
+            raise AssertionError(f"evaluation: {what}: {f} differs by {float(err.max()):.3e} "
+                                 f"(limit {K1_ATOL:.0e} + {K1_RTOL:.0e} |plain|)")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def evaluate_phase(root: str, label: str) -> dict:
+    """14a: the ground-truth state of a BEHAVE-shaped sequence through the
+    library (K1 launches counted from 0), held against the plain version on
+    the card; ``cli/evaluate`` of it against itself and against a perturbed
+    one."""
+    from coma_tpu_torch.affordance.contact import contact_update_batch
+    from coma_tpu_torch.affordance.io import save_coma_state
+    from coma_tpu_torch.cli import evaluate
+
+    data = write_behave_frames(f"{root}/gt", np.random.default_rng(SEED + 12))
+    other = write_behave_frames(f"{root}/other", np.random.default_rng(SEED + 13))
+    frames, prep = behave_prep(data)
+    t0 = time.perf_counter()
+    prepped = [prep(i) for i in frames]
+    prep_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    perturbed, _ = gt_state(other)
+    save_coma_state(perturbed, f"{root}/other.pickle")
+    del perturbed
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    state, n = gt_state(data)
+    torch.cuda.synchronize()
+    aggregate_s = time.perf_counter() - t0
+    gt_pickle = f"{root}/gt.pickle"
+    save_coma_state(state, gt_pickle)
+    metrics, eval_s = {}, []
+    for name, pred in (("self", gt_pickle), ("perturbed", f"{root}/other.pickle")):
+        t0 = time.perf_counter()
+        evaluate.main(["--pred_coma", pred, "--gt_coma", gt_pickle, "--out_json",
+                       f"{root}/{name}.json", "--device", DEVICE])
+        eval_s.append(time.perf_counter() - t0)
+        with open(f"{root}/{name}.json") as fh:
+            metrics[name] = json.load(fh)
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if n != BEHAVE_FRAMES or launches != {"contact_splat": -(-BEHAVE_FRAMES // SLAB),
+                                          "occupancy_hits": 0, "flash_attention": 0}:
+        raise AssertionError(f"evaluation: {n} frames, launches {launches}")
+    for key, m in metrics["self"].items():
+        if abs(m["sim"] - 1.0) > EVAL_SIM_ATOL or abs(m["mae"]) > EVAL_SIM_ATOL:
+            raise AssertionError(f"evaluate against itself: {key} {m}")
+    for key, m in metrics["perturbed"].items():
+        if not (np.isfinite([m["sim"], m["mae"]]).all() and m["sim"] < 1.0):
+            raise AssertionError(f"evaluate against the perturbed state: {key} {m}")
+
+    # the plain version over all frames, on the card: the CPU route takes ~94 s a
+    # frame at these widths (tests/test_torch_behave_eval.py holds it at small ones)
+    stack = {f: torch.from_numpy(np.stack([d[f] for d in prepped])).to(DEVICE)
+             for f in ("human_verts", "human_normals", "obj_verts", "obj_normals")}
+    plain = contact_update_batch(eval_state(DEVICE), stack["human_verts"],
+                                 stack["human_normals"], stack["obj_verts"], stack["obj_normals"])
+    card_err = state_err(state, plain, "K1 against the plain version on the card")
+    del plain, state
+    torch.cuda.empty_cache()
+    log(f"evaluation ({EVAL_KEY}, H={EVAL_H} O={EVAL_O} N=250, {BEHAVE_FRAMES} frames): host "
+        f"prep {prep_ms:.3f} ms per frame, aggregation {aggregate_s:.3f} s (prep and K1), "
+        f"evaluate {eval_s[0]:.3f} s / {eval_s[1]:.3f} s (self / perturbed), peak device memory "
+        f"{peak_gb:.3f} GB; K1 vs its plain version on the card max abs {card_err:.3e}; "
+        f"SIM/MAE self "
+        f"{json.dumps(metrics['self'])}, perturbed {json.dumps(metrics['perturbed'])}; "
+        f"launches {launches} [{label}]")
+    return dict(launches=launches, prep_ms_per_frame=prep_ms, aggregate_s=aggregate_s,
+                evaluate_s=eval_s, peak_gb=peak_gb, k1_vs_plain_max_abs=card_err,
+                metrics=metrics)
+
+
+def read_ply_mesh_colors(path: str) -> np.ndarray:
+    """The (V, 3) uint8 vertex colours of a binary PLY mesh as
+    ``save_vertex_colored_mesh`` writes it."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    head, body = data.split(b"end_header\n", 1)
+    n_v = int(head.split(b"element vertex ")[1].split(b"\n")[0])
+    rec = np.frombuffer(body[:27 * n_v], np.dtype([("xyz", "<f8", 3), ("rgb", "u1", 3)]))
+    return rec["rgb"]
+
+
+def check_image(img: np.ndarray, what: str) -> None:
+    if not (np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0):
+        raise AssertionError(f"{what}: not finite in [0, 1]")
+
+
+def contact_scene_inputs(npz: str):
+    """Phase 12's posed body in the Kinect colour frame (3 m in front), its
+    part labels from the skinning weights, and a 10 cm sphere 2 cm from its
+    side at the pelvis."""
+    from coma_tpu_torch.visualization.contact_viz import part_labels_from_lbs, uv_sphere
+
+    _, body, joints, faces = seeded_body(npz, np.random.default_rng(SEED + 11))
+    pelvis = joints[0]
+    near = body[np.argmax(body[:, 0] - 10 * np.abs(body[:, 2] - pelvis[2]))]
+    out = near - pelvis
+    out[2] = 0.0
+    out /= np.linalg.norm(out)
+    sphere = uv_sphere(near + out * (0.02 + 0.1), 0.1, 16, 24)
+
+    def to_cam(v):
+        v = np.asarray(v, np.float64) - [pelvis[0], pelvis[1], 0.85]
+        return np.stack([v[:, 0], v[:, 2], 3.0 + v[:, 1]], -1)
+
+    labels = part_labels_from_lbs(np.load(npz)["weights"])
+    return [(to_cam(body), np.asarray(faces)), (to_cam(sphere[0]), sphere[1])], labels
+
+
+def visualize_phase(products: dict, star_pickle: str, obj_pickle: str, npz: str, out: str,
+                    label: str) -> dict:
+    """14b: ``cli/visualize`` on phase 4's products, the volume render on
+    the card against the CPU, and a contact scene (counters from 0)."""
+    from coma_tpu_torch.cli import visualize
+    from coma_tpu_torch.utils.colormap import jet_rgb
+    from coma_tpu_torch.utils.png import read_png
+    from coma_tpu_torch.visualization.contact_viz import (PART_NAMES, get_contact_spheres,
+                                                         render_contact_scene)
+    from coma_tpu_torch.visualization.volume import save_occupancy_volume_render
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    seconds = {}
+    runs = (("human", ["human", "--affordance_npy", products["human_contact"], "--smplx_star_pth",
+                       star_pickle, "--out", f"{out}/human"]),
+            ("object", ["object", "--ply", products["object_contact"], "--out",
+                        f"{out}/object.png"]),
+            ("volume", ["occupancy", "--occupancy_npy", products["occupancy"],
+                        "--asset_downsample_pth", obj_pickle, "--out", f"{out}/volume.png"]),
+            ("slices", ["occupancy", "--mode", "slices", "--occupancy_npy",
+                        products["occupancy"], "--out", f"{out}/slices.png"]))
+    for name, argv in runs:
+        t0 = time.perf_counter()
+        visualize.main(argv + ["--device", DEVICE])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    meshes, labels = contact_scene_inputs(npz)
+    spheres = get_contact_spheres(meshes[0][0], labels, meshes[1][0], meshes[1][1])
+    if not spheres:
+        raise AssertionError("contact scene: no contact sphere 2 cm from the body")
+    scene_ms = cuda_ms(lambda: render_contact_scene(meshes, image_size=SCENE_SIZE,
+                                                    viz_contact=True, part_labels=labels,
+                                                    device=DEVICE), reps=3)
+    scene = render_contact_scene(meshes, image_size=SCENE_SIZE, viz_contact=True,
+                                 part_labels=labels, device=DEVICE)
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        raise AssertionError(f"visualize launched a kernel: {launches}")
+
+    weights = np.load(products["human_contact"]).astype(np.float64)
+    weights = (weights - weights.min()) / max(weights.max() - weights.min(), 1e-12)
+    want = np.clip(np.round(jet_rgb(weights) * 255), 0, 255).astype(np.uint8)
+    if not np.array_equal(read_ply_mesh_colors(f"{out}/human.ply"), want):
+        raise AssertionError("visualize human: the PLY's colours are not the product's")
+    for name in ("human.png", "object.png", "volume.png", "slices.png"):
+        check_image(read_png(f"{out}/{name}") / 255.0, name)
+    check_image(scene, "contact scene")
+    if scene.shape != (SCENE_SIZE[1], SCENE_SIZE[0], 3) or not (scene < 0.99).any():
+        raise AssertionError(f"contact scene: shape {scene.shape} or nothing drawn")
+
+    info = np.load(products["occupancy"], allow_pickle=True).item()
+    with open(obj_pickle, "rb") as fh:
+        d = pickle.load(fh)
+    verts = np.asarray(d["obj_vertices_original"], np.float32)
+    mesh = (verts - verts[0][None], np.asarray(d["obj_faces_original"], np.int64))
+    kw = dict(mesh=mesh, voxel_size=float(info["spatial_grid_metadata"]["voxel_size"]))
+    card = save_occupancy_volume_render(None, info["prob_field"], device=DEVICE, **kw)
+    t0 = time.perf_counter()
+    cpu = save_occupancy_volume_render(None, info["prob_field"], device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    check_image(card, "volume render")
+    diff = np.abs(card - cpu)
+    share = float((diff > VOLUME_ATOL).mean())
+    if share > VOLUME_SHARE or diff.max() > VOLUME_MAX:
+        raise AssertionError(f"volume render card vs CPU: {share:.2e} of values beyond "
+                             f"{VOLUME_ATOL:.0e}, max {diff.max():.3e}")
+    field = torch.as_tensor(info["prob_field"], device=DEVICE)
+    from coma_tpu_torch.visualization.volume import render_occupancy_volume
+
+    volume_ms = cuda_ms(lambda: render_occupancy_volume(field), reps=3)
+    log(f"visualize: human {seconds['human']:.3f} s, object {seconds['object']:.3f} s, volume "
+        f"{seconds['volume']:.3f} s, slices {seconds['slices']:.3f} s (CLI wall clocks); "
+        f"volume render 512², 192 steps, R={field.shape[0]}: {volume_ms:.3f} ms (CUDA events), "
+        f"card vs CPU max {diff.max():.3e}, {share:.2e} of values beyond {VOLUME_ATOL:.0e} "
+        f"(CPU {cpu_s:.1f} s); contact scene {SCENE_SIZE[0]}x{SCENE_SIZE[1]} with contact "
+        f"spheres ({', '.join(PART_NAMES[p] for p in sorted(spheres))}): {scene_ms:.3f} ms; peak device memory {peak_gb:.3f} GB; launches {launches} "
+        f"[{label}]")
+    return dict(launches=launches, cli_seconds=seconds, volume_ms=volume_ms,
+                volume_max_abs=float(diff.max()), volume_share_beyond=share,
+                contact_scene_ms=scene_ms, peak_gb=peak_gb)
+
+
+def train_step_card_vs_cpu() -> dict:
+    """One AdamW step of the segmenter from seeded weights on a fixed batch
+    (8 images at 128², corrupted), card against CPU with TF32 off: the loss
+    within 1e-4, every parameter whose CPU gradient is at least 1e-5 within
+    1e-4, the rest within 2.2 lr (Adam's first step scales each gradient by
+    its own size, so near-zero gradients take any sign)."""
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.models.segmentation import PersonSegmenter
+    from coma_tpu_torch.models.segmentation_train import SegTrainer
+    from coma_tpu_torch.models.synthetic_person import person_batch_domain
+
+    imgs, masks = person_batch_domain(np.random.default_rng(SEED + 14), TRAIN_CHECK_BATCH, 128,
+                                      corrupt=True, device="cpu")
+    out = {}
+    with NoTF32():
+        for dev in ("cpu", DEVICE):
+            model = init_flax_default_(PersonSegmenter(), torch.Generator().manual_seed(SEED))
+            trainer = SegTrainer(model.to(dev), TRAIN_CHECK_LR, weight_decay=1e-4)
+            loss = trainer.step(torch.as_tensor(imgs, device=dev),
+                                torch.as_tensor(masks, device=dev))
+            out[dev] = (float(loss), {k: (p.detach().cpu(), p.grad.detach().cpu())
+                                      for k, p in model.named_parameters()})
+    loss_err = abs(out[DEVICE][0] - out["cpu"][0])
+    worst_sure, worst_all = 0.0, 0.0
+    for k, (p_cpu, g_cpu) in out["cpu"][1].items():
+        err = (out[DEVICE][1][k][0] - p_cpu).abs()
+        sure = g_cpu.abs() >= TRAIN_GRAD_FLOOR
+        worst_sure = max(worst_sure, float(err[sure].max()) if sure.any() else 0.0)
+        worst_all = max(worst_all, float(err.max()))
+    if loss_err > TRAIN_ATOL or worst_sure > TRAIN_ATOL or worst_all > 2.2 * TRAIN_CHECK_LR:
+        raise AssertionError(f"training step card vs CPU: loss {loss_err:.3e}, parameters "
+                             f"{worst_sure:.3e} (|grad| >= {TRAIN_GRAD_FLOOR:.0e}), "
+                             f"{worst_all:.3e} (all)")
+    return dict(loss_err=loss_err, param_err=worst_sure, param_err_all=worst_all)
+
+
+def train_phase(out: str, label: str) -> dict:
+    """14c: ``cli/train_segmenter`` at its defaults cut to 40 steps (counters
+    from 0), its checkpoint loaded and run, one step card against CPU."""
+    from coma_tpu_torch.cli import train_segmenter
+    from coma_tpu_torch.models.flax_params import load_flax_params
+    from coma_tpu_torch.models.segmentation import PersonSegmenter, make_person_segment_fn
+    from coma_tpu_torch.models.synthetic_person import person_batch
+    from coma_tpu_torch.utils.checkpoint import load_params
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    summary = train_segmenter.main(TRAIN_CUTS + ["--out", f"{out}/person_segmenter.npz",
+                                                 "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(launches.values()):
+        raise AssertionError(f"train_segmenter launched a kernel: {launches}")
+    losses = np.asarray(summary["losses"])
+    if not np.isfinite(losses).all() or not losses[-10:].mean() < losses[0]:
+        raise AssertionError(f"train_segmenter: losses {losses.tolist()}")
+    model = load_flax_params(PersonSegmenter(device=DEVICE), load_params(summary["out"])).eval()
+    images = torch.as_tensor(person_batch(np.random.default_rng(SEED + 15), 4, 128)[0],
+                             device=DEVICE).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        masks = make_person_segment_fn(model)(images)
+    if masks.shape != (4, 128, 128) or not torch.isfinite(masks).all():
+        raise AssertionError(f"the trained checkpoint: masks {tuple(masks.shape)}")
+    check = train_step_card_vs_cpu()
+    step_ms, waits = np.asarray(summary["step_ms"]), np.asarray(summary["queue_wait_s"])
+    log(f"train_segmenter (batch 64 at 128², both domains, corruption on, pool 48; "
+        f"{' '.join(TRAIN_CUTS)}): {seconds:.3f} s; step {np.median(step_ms):.3f} ms median "
+        f"(min {step_ms.min():.3f}, max {step_ms.max():.3f}; CUDA events), waiting on the "
+        f"producer {waits[1:].mean() * 1e3:.3f} ms per step after the first "
+        f"({waits.sum():.3f} s in all), background pool {summary['pool_seconds']:.3f} s; loss "
+        f"{losses[0]:.4f} -> {losses[-10:].mean():.4f} (mean of the last 10); held-out IoU "
+        f"{summary['iou']:.4f}, cross-domain {summary['cross_domain_iou']:.4f}; the checkpoint "
+        f"segments 4 images, {float(masks.mean()):.3f} of the pixels person; one step card vs "
+        f"CPU: loss {check['loss_err']:.3e}, parameters {check['param_err']:.3e} (all "
+        f"{check['param_err_all']:.3e}); peak device memory {peak_gb:.3f} GB; launches "
+        f"{launches} [{label}]")
+    return dict(launches=launches, seconds=seconds, step_ms_median=float(np.median(step_ms)),
+                queue_wait_ms_per_step=float(waits[1:].mean() * 1e3),
+                pool_seconds=summary["pool_seconds"], iou=summary["iou"],
+                cross_domain_iou=summary["cross_domain_iou"], peak_gb=peak_gb, **check)
+
+
+def phase14(products: dict, star_pickle: str, obj_pickle: str, npz: str, label: str) -> dict:
+    with tempfile.TemporaryDirectory(prefix="phase14_", dir=SCRATCH) as tmp:
+        os.makedirs(f"{tmp}/visualize")
+        return dict(evaluate=evaluate_phase(tmp, label),
+                    visualize=visualize_phase(products, star_pickle, obj_pickle, npz,
+                                              f"{tmp}/visualize", label),
+                    train_segmenter=train_phase(tmp, label))
+
+
 def glob_paths(root: str, pattern: str) -> list:
     return [str(p) for p in Path(root).glob(pattern)]
 
@@ -2877,9 +3348,12 @@ def main() -> int:
             raise AssertionError(f"a kernel of the path never launched: {launches}")
         log(f"launches on the extraction path: {launches}")
 
-        # phase 4: inference for all four products
-        check_products(paths, single["qual:backpack_human_contact"]["path"],
-                       single["qual:backpack_occupancy"]["path"], f"{tmp}/output")
+        # phase 4: inference for all four products (three kept for phase 14)
+        products = check_products(paths, single["qual:backpack_human_contact"]["path"],
+                                  single["qual:backpack_occupancy"]["path"], f"{tmp}/output")
+        viz_keep = tempfile.mkdtemp(prefix="visualize_", dir=SCRATCH)
+        for k, path in products.items():
+            products[k] = shutil.copy(path, viz_keep)
 
         # phase 4b: learn_coma through the CLI (K1/K2 counters from 0), then
         # phase 3's extractions on two ranks against phase 3's pickles
@@ -2888,6 +3362,7 @@ def main() -> int:
             write_learn_tree(learn_tmp, np.random.default_rng(SEED + 3))
             learned = learn_coma(learn_tmp, label)
             opt_files = optimize_inputs(learn_tmp, keep)
+            star_pickle = shutil.copy(f"{learn_tmp}/constants/mesh/smplx_star.pickle", viz_keep)
         for run in single.values():
             run["single_path"] = run["path"] + ".one_rank"
             os.replace(run["path"], run["single_path"])
@@ -2953,11 +3428,19 @@ def main() -> int:
         # phase 12: stage 2 on phase 6's images and phase 4b's npz, every
         # kernel's counter from 0
         stage2 = stage2_phase(phase6_images, opt_files["npz"], label)
+        # phase 14: evaluation, visualize and train_segmenter, every
+        # kernel's counter from 0 before each
+        item14 = phase14(products, star_pickle, opt_files["obj"], opt_files["npz"], label)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(phase6_images, ignore_errors=True)
+        shutil.rmtree(viz_keep, ignore_errors=True)
     app_launches = {k: [r["launches"][k] for r in optimized["runs"].values()]
                     for k in ("contact_splat", "occupancy_hits", "flash_attention")}
+
+    def item14_launches(kernel: str) -> dict:
+        return {f"launches_{part}": item14[part]["launches"][kernel]
+                for part in ("evaluate", "visualize", "train_segmenter")}
 
     k1_main = k1[0]
     kernels = [
@@ -2972,7 +3455,8 @@ def main() -> int:
              launches_per_rank=per_rank["contact_splat"],
              launches_optimize=app_launches["contact_splat"],
              launches_stage2=stage2["launches"]["contact_splat"],
-             launches_stage1=stage1["launches"]["contact_splat"]),
+             launches_stage1=stage1["launches"]["contact_splat"],
+             **item14_launches("contact_splat")),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -2984,7 +3468,8 @@ def main() -> int:
              launches_per_rank=per_rank["occupancy_hits"],
              launches_optimize=app_launches["occupancy_hits"],
              launches_stage2=stage2["launches"]["occupancy_hits"],
-             launches_stage1=stage1["launches"]["occupancy_hits"]),
+             launches_stage1=stage1["launches"]["occupancy_hits"],
+             **item14_launches("occupancy_hits")),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -3007,7 +3492,8 @@ def main() -> int:
              launches_optimize=app_launches["flash_attention"],
              launches_stage2=stage2["launches"]["flash_attention"],
              launches_stage1=stage1["launches"]["flash_attention"],
-             launches_stage1_by_source=stage1["by_source"]),
+             launches_stage1_by_source=stage1["by_source"],
+             **item14_launches("flash_attention")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -66,6 +66,34 @@ def load_flax_params(module: nn.Module, variables: Mapping) -> nn.Module:
 
 
 @torch.no_grad()
+def flax_tree(module: nn.Module) -> Dict:
+    """``module``'s parameters as the Flax params tree ``{"params": {...}}``
+    of numpy arrays (the inverse of :func:`flax_to_state_dict` for Dense,
+    Conv and norm layers): a Conv weight (O, I, kh, kw) becomes the kernel
+    (kh, kw, I, O), a Dense weight (O, I) the kernel (I, O), a norm's weight
+    its ``scale``."""
+    from coma_tpu_torch.models.layers import Conv, Dense, GroupNorm, LayerNorm
+
+    tree: Dict = {}
+    for mod_name, sub in module.named_modules():
+        for name, p in sub.named_parameters(recurse=False):
+            arr = p.detach().cpu().numpy()
+            if name == "weight" and isinstance(sub, (Conv, nn.Conv2d)):
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif name == "weight" and isinstance(sub, (Dense, nn.Linear)):
+                name, arr = "kernel", arr.T
+            elif name == "weight" and isinstance(sub, (GroupNorm, LayerNorm, nn.LayerNorm)):
+                name = "scale"
+            elif name == "weight":
+                raise ValueError(f"{mod_name}: no Flax name for a {type(sub).__name__} weight")
+            node = tree
+            for part in mod_name.split(".") if mod_name else ():
+                node = node.setdefault(part, {})
+            node[name] = np.ascontiguousarray(arr)
+    return {"params": tree}
+
+
+@torch.no_grad()
 def load_state_strict(module: nn.Module, given: Mapping[str, np.ndarray]) -> nn.Module:
     """Copy numpy arrays keyed by ``module``'s state-dict names into it; a
     missing or unused key, or a shape that does not fit, raises."""

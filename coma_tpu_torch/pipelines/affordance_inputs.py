@@ -28,9 +28,28 @@ def prepare_affordance_extraction_inputs(
     scaler_range=None,
     camera_pth: Optional[str] = None,
     human_params_pth: Optional[str] = None,
+    object_mesh_for_check_pth: Optional[str] = None,
 ) -> Optional[Dict[str, np.ndarray]]:
     """Returns the (downsampled) human/object verts+normals for one sample,
-    or None if the sample is rejected by the scale filter."""
+    or None if the sample is rejected by the scale filter.
+
+    ``object_mesh_for_check_pth``: redundant-load cross-check — re-load the
+    object OBJ and assert verts/faces match the downsample pickle
+    (reference: ``utils/coma.py:694-699``)."""
+    if object_mesh_for_check_pth is not None:
+        from coma_tpu_torch.geometry.mesh import load_obj
+
+        check = load_obj(object_mesh_for_check_pth)
+        np.testing.assert_allclose(
+            np.asarray(check.vertices, np.float64),
+            np.asarray(object_downsample_metadata["obj_vertices_original"], np.float64),
+            atol=1e-6,
+            err_msg="object OBJ does not match the downsample pickle",
+        )
+        assert np.array_equal(
+            np.asarray(check.faces),
+            np.asarray(object_downsample_metadata["obj_faces_original"]),
+        ), "object faces do not match the downsample pickle"
     human_data = load_pickle(human_mesh_pth)
     human_verts_orig = np.asarray(human_data["verts"], dtype=np.float64)
     human_faces_orig = np.asarray(human_data["faces"], dtype=np.int64)

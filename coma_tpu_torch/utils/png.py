@@ -107,6 +107,19 @@ def read_png(path: str) -> np.ndarray:
     expanded through PLTE, tRNS ignored), 4 RGBA. 16-bit samples keep their
     high byte, except 16-bit gray, which PIL saturates at 255; 1-, 2- and
     4-bit gray is scaled to 0..255."""
+    return _read(path, wide_gray=False)
+
+
+def read_png_gray16(path: str) -> np.ndarray:
+    """A gray PNG as ``np.asarray(PIL.Image.open(path))`` gives it: (H, W)
+    uint16 at bit depth 16 (a Kinect depth map in mm), uint8 at 8."""
+    image = _read(path, wide_gray=True)
+    if image.ndim != 3 or image.shape[-1] != 1:
+        raise ValueError(f"{path}: not a one-channel gray PNG")
+    return image[..., 0]
+
+
+def _read(path: str, wide_gray: bool) -> np.ndarray:
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(_SIGNATURE):
@@ -161,7 +174,7 @@ def read_png(path: str) -> np.ndarray:
         samples = out.reshape(H, W * C, 2)
         if ctype == 0:                      # PIL's I;16 -> L / RGB saturates
             wide = samples[..., 0].astype(np.uint16) << 8 | samples[..., 1]
-            out = np.minimum(wide, 255).astype(np.uint8)
+            out = wide if wide_gray else np.minimum(wide, 255).astype(np.uint8)
         else:
             out = samples[..., 0]
     elif depth < 8:

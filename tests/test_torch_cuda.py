@@ -543,3 +543,56 @@ def test_candidate_mask_fill_on_the_card_matches_the_cpu():
     want = polygon.fill_convex_hulls(quads, 512, 512, "cpu")
     got = polygon.fill_convex_hulls(quads, 512, 512, "cuda").cpu()
     assert want.any() and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the visualization and training slice on the card against the CPU (no
+# kernel of the repo: plain PyTorch)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_volume_render_on_the_card_matches_the_cpu():
+    """The occupancy volume render at 128², 48 steps, with a mesh pass:
+    within 1e-4 on 99.9% of values and 1e-2 everywhere (the march's
+    exponentials and the trilinear taps round differently on the card)."""
+    need_card()
+    from coma_tpu_torch.visualization.contact_viz import uv_sphere
+    from coma_tpu_torch.visualization.volume import save_occupancy_volume_render
+
+    rng = np.random.default_rng(13)
+    field = rng.uniform(size=(20, 20, 20)).astype(np.float32) ** 4
+    mesh = uv_sphere(np.array([1.0, -2.0, 0.5]), 5.0, 8, 12)
+    kw = dict(mesh=mesh, resolution=128, num_steps=48)
+    cpu = save_occupancy_volume_render(None, field, device="cpu", **kw)
+    card = save_occupancy_volume_render(None, field, device="cuda", **kw)
+    diff = np.abs(card - cpu)
+    assert (diff > 1e-4).mean() <= 1e-3 and diff.max() <= 1e-2
+
+
+@pytest.mark.cuda
+def test_segmenter_training_step_on_the_card_matches_the_cpu(no_tf32):
+    """One AdamW step of the person segmenter from the same seeded weights
+    and batch (32², batch 2, lr 3e-4): the loss and every parameter whose
+    CPU gradient is at least 1e-5 within 1e-4; the rest within 2.2 lr (Adam's
+    first step divides a gradient by its own size, so a near-zero gradient
+    may take either sign on the two devices)."""
+    need_card()
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.models.segmentation import PersonSegmenter
+    from coma_tpu_torch.models.segmentation_train import SegTrainer
+    from coma_tpu_torch.models.synthetic_person import person_batch
+
+    lr = 3e-4
+    imgs, masks = person_batch(np.random.default_rng(14), 2, 32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = init_flax_default_(PersonSegmenter(), torch.Generator().manual_seed(0)).to(dev)
+        trainer = SegTrainer(model, lr, weight_decay=1e-4)
+        loss = trainer.step(torch.as_tensor(imgs, device=dev), torch.as_tensor(masks, device=dev))
+        out[dev] = (float(loss), {k: (p.detach().cpu(), p.grad.detach().cpu())
+                                  for k, p in model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
+    for k, (p, g) in out["cpu"][1].items():
+        err = (out["cuda"][1][k][0] - p).abs()
+        assert float(torch.where(g.abs() >= 1e-5, err, torch.zeros_like(err)).max()) <= 1e-4, k
+        assert float(err.max()) <= 2.2 * lr, k

@@ -59,6 +59,14 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.pipelines.canonicalize_assets, coma_tpu_torch.cli.render_objects\n"
         "import coma_tpu_torch.cli.select_mask, coma_tpu_torch.cli.generate_prompts\n"
         "import coma_tpu_torch.cli.generate_2d_hoi_images\n"
+        "import coma_tpu_torch.cli.evaluate, coma_tpu_torch.cli.visualize\n"
+        "import coma_tpu_torch.cli.train_segmenter, coma_tpu_torch.pipelines.behave_eval\n"
+        "import coma_tpu_torch.visualization.viz, coma_tpu_torch.visualization.volume\n"
+        "import coma_tpu_torch.visualization.contact_viz, coma_tpu_torch.geometry.correspondence\n"
+        "import coma_tpu_torch.models.synthetic_person, coma_tpu_torch.models.segmentation_train\n"
+        "import coma_tpu_torch.config.filtering, coma_tpu_torch.utils.ids\n"
+        "import coma_tpu_torch.utils.profiling, coma_tpu_torch.utils.jpeg\n"
+        "import coma_tpu_torch.__main__\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -70,6 +78,8 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.generate_3d_hoi_samples' in sys.modules\n"
         "assert 'coma_tpu_torch.lifting.rasterizer' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.generate_2d_hoi_images' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.train_segmenter' in sys.modules\n"
+        "assert 'coma_tpu_torch.visualization.volume' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -81,14 +91,20 @@ def test_no_module_of_the_port_imports_jax_or_coma_tpu():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "profile_inpaint_torch.py"),
              os.path.join(REPO, "tools", "stage2_torch.py"),
-             os.path.join(REPO, "tools", "stage1_torch.py")]
+             os.path.join(REPO, "tools", "stage1_torch.py"),
+             os.path.join(REPO, "tools", "item14_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for name in ("utils/resize.py", "geometry/polygon.py", "pipelines/rendering.py",
                  "pipelines/mask_select.py", "pipelines/canonicalize_assets.py",
                  "cli/render_objects.py", "cli/select_mask.py", "cli/generate_prompts.py",
-                 "cli/generate_2d_hoi_images.py"):
+                 "cli/generate_2d_hoi_images.py", "cli/evaluate.py", "cli/visualize.py",
+                 "cli/train_segmenter.py", "pipelines/behave_eval.py", "visualization/viz.py",
+                 "visualization/volume.py", "visualization/contact_viz.py",
+                 "geometry/correspondence.py", "models/synthetic_person.py",
+                 "models/segmentation_train.py", "config/filtering.py", "utils/ids.py",
+                 "utils/profiling.py", "utils/jpeg.py", "__main__.py"):
         assert os.path.join(REPO, "coma_tpu_torch", name) in files, name
     offenders = []
     for path in files:
