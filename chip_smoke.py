@@ -230,6 +230,33 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    events), the wait on the producer queue, the pool's seconds, both IoUs,
    peak memory. ``python3 tools/item14_torch.py`` runs phase 14 alone.
 
+15. Multi-rank and checkpoint modules, every kernel's counter set to 0 just
+   before each part's path and read just after, per rank. (a) ``cli/inpaint
+   --mesh 2`` at phase 6's configuration (SD-1.x at 512², 50 DDIM steps,
+   mode p, bf16, seeded weights) and tree at ``--batch_size 2``: two gloo
+   ranks on card 0 (torchrun's variables), and two NCCL ranks, a card each,
+   where the machine has two (COMA_* variables); whole batches go to the
+   ranks in turn, one each. Against it, the one-process run at
+   ``--batch_size 2``. Every PNG equal to the one-process run's (else the
+   largest difference is printed and the phase fails); each rank launches
+   K3 1644 times, all on the bf16 kernel. Printed: each rank's wall clock
+   and peak memory, the one-process wall clock. (b)
+   ``parallel/sharding.sharded_contact_aggregate_2d``: 64 seeded samples at
+   ``quant:full`` (H 750, O 2048, N 250, sigma 0.2) on 4 gloo ranks on card
+   0 as 2 data x 2 model, each rank holding 375 rows of the grids (1.5 GB);
+   the slices gathered on rank 0 within K1's 1e-5 + 1e-4 |plain| of one
+   process's plain ``contact_update_batch`` of the same samples on the card,
+   ``used_count`` 64; every rank launches K1. Printed: each rank's
+   aggregation seconds, all-reduce ms and bytes (its data group only). (c)
+   A weights root of seeded stand-ins in the published layouts (a Lightning
+   COAP ``.ckpt`` at ``COAPConfig()``'s widths, a VPoser snapshot, phase
+   4b's SMPL-X npz): ``cli/convert_weights --all`` exits 0 with each of
+   them ``loaded``; the ``.ckpt`` through ``cli/optimize_depth.load_coap``:
+   occupancy on the card within 1e-5 of the CPU's (TF32 off) and within
+   1e-6 of the same weights from a Flax ``.npz``; no kernel launched.
+   ``python3 tools/phase15_torch.py`` runs phase 15 alone. The rank
+   processes run this file's ``rank_main``.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -869,10 +896,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def extract_on_ranks(paths, key: str, backend: str, world: int, style: str, label: str):
-    """``cli/extract_coma --multihost`` in ``world`` processes (launch
-    variables of ``style``: torchrun's or COMA_*); returns (wall clock of the
-    processes, each rank's report)."""
+def spawn_ranks(world: int, style: str, argv: list, report_key: str, cwd: str = REPO):
+    """``python argv`` in ``world`` processes with the launch variables of
+    ``style`` (torchrun's or COMA_*); returns (wall clock of the processes,
+    each rank's ``{report_key: ...}`` line, in rank order)."""
     port = free_port()
     procs = []
     for rank in range(world):
@@ -883,12 +910,9 @@ def extract_on_ranks(paths, key: str, backend: str, world: int, style: str, labe
         else:
             env.update(COMA_COORDINATOR=f"localhost:{port}", COMA_NUM_PROCESSES=str(world),
                        COMA_PROCESS_ID=str(rank))
-        cmd = [sys.executable, "-m", "coma_tpu_torch.cli.extract_coma", "--multihost",
-               "--dist_backend", backend, "--device", DEVICE,
-               "--human_sample_dir", f"{paths['tree'].root}/generation/human_sample",
-               "--constants_mesh_dir", paths["constants"], "--hyperparams_key", key]
-        procs.append(subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
+        procs.append(subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
     t0 = time.perf_counter()
     try:
         outs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
@@ -899,16 +923,26 @@ def extract_on_ranks(paths, key: str, backend: str, world: int, style: str, labe
                 p.wait()
     seconds = time.perf_counter() - t0
     if any(p.returncode != 0 for p in procs):
-        raise AssertionError(f"{world} ranks ({backend}) {key} failed:\n" + "\n".join(
+        raise AssertionError(f"{world} ranks of {argv[:3]} failed:\n" + "\n".join(
             o[-3000:] for o in outs))
     reports = []
     for out in outs:
-        lines = [json.loads(l)["extract_rank"] for l in out.splitlines()
-                 if l.startswith('{"extract_rank"')]
+        lines = [json.loads(l)[report_key] for l in out.splitlines()
+                 if l.startswith('{"%s"' % report_key)]
         if len(lines) != 1:
             raise AssertionError(f"a rank printed {len(lines)} reports:\n{out[-3000:]}")
         reports.append(lines[0])
     return seconds, sorted(reports, key=lambda r: r["rank"])
+
+
+def extract_on_ranks(paths, key: str, backend: str, world: int, style: str, label: str):
+    """``cli/extract_coma --multihost`` in ``world`` processes (launch
+    variables of ``style``: torchrun's or COMA_*); returns (wall clock of the
+    processes, each rank's report)."""
+    return spawn_ranks(world, style, [
+        "-m", "coma_tpu_torch.cli.extract_coma", "--multihost", "--dist_backend", backend,
+        "--device", DEVICE, "--human_sample_dir", f"{paths['tree'].root}/generation/human_sample",
+        "--constants_mesh_dir", paths["constants"], "--hyperparams_key", key], "extract_rank")
 
 
 def compare_rank_pickle(key: str, got_path: str, want_path: str) -> dict:
@@ -1455,7 +1489,7 @@ def sam_phase(root: str, label: str, p_seconds: float) -> dict:
     for mode in cli.SAM_MODES:      # each parses and passes the CLI's checks
         args = cli.build_parser().parse_args(["--random_weights", "--adaptive_mask_model_type",
                                               mode])
-        cli.check_ported(args)
+        cli.check_args(args)
     runs = {}
     for mode in ("ps_ae", "s_ab_ae"):
         fresh_outputs(root)
@@ -2952,12 +2986,13 @@ def behave_prep(data: dict):
     return frames, prep
 
 
-def eval_state(device):
+def eval_state(device, H: int = EVAL_H, O: int = EVAL_O):
+    """A fresh state at ``quant:full``'s hyperparameters."""
     from coma_tpu_torch.affordance.state import init_coma_state
     from coma_tpu_torch.config.hyperparams import get_hyperparams
 
     hp = get_hyperparams(EVAL_KEY)
-    return init_coma_state(EVAL_H, EVAL_O, hp["normal_res"], hp["spatial_grid_size"],
+    return init_coma_state(H, O, hp["normal_res"], hp["spatial_grid_size"],
                            hp["spatial_grid_thres"], hp["normal_gaussian_sigma"],
                            hp["principle_vec"], hp["sub_principle_vec"], hp["eps"],
                            device=device)
@@ -2984,7 +3019,7 @@ def state_err(kern, plain, what: str) -> float:
         k, p = getattr(kern, f), getattr(plain, f).to(getattr(kern, f).device)
         err = (k - p).abs()
         if not torch.isfinite(k).all() or bool((err > K1_ATOL + K1_RTOL * p.abs()).any()):
-            raise AssertionError(f"evaluation: {what}: {f} differs by {float(err.max()):.3e} "
+            raise AssertionError(f"{what}: {f} differs by {float(err.max()):.3e} "
                                  f"(limit {K1_ATOL:.0e} + {K1_RTOL:.0e} |plain|)")
         worst = max(worst, float(err.max()))
     return worst
@@ -3045,7 +3080,7 @@ def evaluate_phase(root: str, label: str) -> dict:
              for f in ("human_verts", "human_normals", "obj_verts", "obj_normals")}
     plain = contact_update_batch(eval_state(DEVICE), stack["human_verts"],
                                  stack["human_normals"], stack["obj_verts"], stack["obj_normals"])
-    card_err = state_err(state, plain, "K1 against the plain version on the card")
+    card_err = state_err(state, plain, "evaluation: K1 against the plain version on the card")
     del plain, state
     torch.cuda.empty_cache()
     log(f"evaluation ({EVAL_KEY}, H={EVAL_H} O={EVAL_O} N=250, {BEHAVE_FRAMES} frames): host "
@@ -3277,6 +3312,309 @@ def phase14(products: dict, star_pickle: str, obj_pickle: str, npz: str, label: 
                     train_segmenter=train_phase(tmp, label))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: --mesh inpainting over ranks (K3), the 2-D aggregation (K1), the
+# weights-readiness check
+# ---------------------------------------------------------------------------
+
+MESH_BATCH = 2                       # phase 6's 4 images as 2 batches, one per rank
+MESH_FLAGS = ("--random_weights",)   # phase 6's configuration
+AGG_SAMPLES, AGG_GRID = 64, (2, 2)   # the 2-D aggregation: samples, (n_data, n_model)
+COAP_CPU_ATOL, COAP_NPZ_ATOL = 1e-5, 1e-6
+RANK_REPORT = "phase15_rank"
+
+
+def rank_main(argv: list) -> int:
+    """One rank of phase 15, in a process of its own (``python -c "import
+    chip_smoke; ..." TASK ...``): ``inpaint ARGS`` runs ``cli/inpaint`` with
+    ARGS, ``aggregate_2d IN DEVICE`` the 2-D aggregation of IN's samples.
+    Prints one ``{"phase15_rank": ...}`` line with the rank's kernel
+    launches (its counters from 0 just before the path) and wall clock."""
+    from coma_tpu_torch.parallel.distributed import launch_config
+
+    task, *args = argv
+    rank = launch_config()[2]
+    t0 = time.perf_counter()
+    if task == "inpaint":
+        from coma_tpu_torch.cli import inpaint as cli
+        from coma_tpu_torch.ops import attention
+
+        reset_kernel_counts()
+        cli.main(args)
+        report = dict(launches=kernel_counts(), by_source=dict(attention.source_launches))
+    else:
+        report = aggregate_2d_rank(*args)
+    if torch.cuda.is_available():
+        report["peak_device_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    print(json.dumps({RANK_REPORT: dict(report, rank=rank,
+                                        seconds=time.perf_counter() - t0)}), flush=True)
+    return 0
+
+
+def png_outputs(root: str) -> dict:
+    base = Path(root, "results", "generation", "inpaintings")
+    return {str(p.relative_to(base)): p.read_bytes() for p in sorted(base.rglob("*.png"))}
+
+
+def largest_png_difference(got: dict, want: dict) -> int:
+    from coma_tpu_torch.utils.png import read_png
+
+    worst = 0
+    with tempfile.TemporaryDirectory(dir=SCRATCH) as tmp:
+        for name in want:
+            for which, data in (("got", got[name]), ("want", want[name])):
+                Path(tmp, which).write_bytes(data)
+            diff = np.abs(read_png(f"{tmp}/got").astype(int) - read_png(f"{tmp}/want"))
+            worst = max(worst, int(diff.max()))
+    return worst
+
+
+def mesh_inpaint_phase(label: str) -> dict:
+    """(a) ``cli/inpaint --mesh 2`` at phase 6's configuration (full width,
+    512², 50 steps, mode p, bf16) at ``--batch_size 2`` on two ranks, one
+    batch each: under gloo on card 0 (torchrun's variables), and under NCCL
+    with a card per rank where the machine has two (COMA_* variables).
+    Against it, the one-process run at ``--batch_size 2`` in this process.
+    Every PNG equal; each rank launches K3 1644 times, all on the bf16
+    kernel."""
+    from coma_tpu_torch.cli import inpaint as cli
+    from coma_tpu_torch.ops import attention
+
+    argv = [*MESH_FLAGS, "--device", DEVICE, "--num_img_per_combination", "2",
+            "--batch_size", str(MESH_BATCH)]
+    runs = [("gloo", "torchrun")] + ([("nccl", "coma")] if torch.cuda.device_count() >= 2
+                                     else [])
+    if len(runs) == 1:
+        log(f"--mesh 2 under NCCL: skipped, {torch.cuda.device_count()} card(s) on this "
+            f"machine [{label}]")
+    with tempfile.TemporaryDirectory(prefix="mesh_", dir=SCRATCH) as tmp:
+        one, mesh = f"{tmp}/one", f"{tmp}/mesh"
+        for root in (one, mesh):
+            write_inpaint_tree(root, np.random.default_rng(SEED + 2))
+        reset_kernel_counts()
+        cwd = os.getcwd()
+        os.chdir(one)
+        try:
+            t0 = time.perf_counter()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            one_seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        one_launches, one_by_source = kernel_counts(), dict(attention.source_launches)
+        want = png_outputs(one)
+        if len(want) != INPAINT_IMAGES:
+            raise AssertionError(f"the one-process run wrote {len(want)} images")
+        results = []
+        for backend, style in runs:
+            fresh_outputs(mesh)
+            seconds, ranks = spawn_ranks(2, style, [
+                "-c", "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1:]))",
+                "inpaint", *argv, "--mesh", "2", "--dist_backend", backend], RANK_REPORT,
+                cwd=mesh)
+            check_mesh_launches(ranks, INPAINT_IMAGES // MESH_BATCH // 2)
+            got = png_outputs(mesh)
+            if got.keys() != want.keys():
+                raise AssertionError(f"--mesh 2 ({backend}) wrote {sorted(got)}, the one-process "
+                                     f"run {sorted(want)}")
+            differing = [k for k in want if got[k] != want[k]]
+            if differing:
+                raise AssertionError(
+                    f"--mesh 2 ({backend}): {len(differing)} of {len(want)} PNGs differ from the "
+                    f"one-process run's, by up to {largest_png_difference(got, want)} of 255")
+            log(f"--mesh 2 ({backend}, {style} variables), {INPAINT_IMAGES} images at "
+                f"{INPAINT_RES}², --batch_size {MESH_BATCH}: processes {seconds:.3f} s; "
+                + "; ".join(f"rank {r['rank']} {r['seconds']:.3f} s, K3 launches "
+                            f"{r['launches']['flash_attention']} ({r['by_source']}), peak "
+                            f"{r.get('peak_device_gb')} GB" for r in ranks)
+                + f"; the one-process run {one_seconds:.3f} s, K3 launches "
+                f"{one_launches['flash_attention']} ({one_by_source}); every PNG equal [{label}]")
+            results.append(dict(backend=backend, seconds=seconds, ranks=ranks))
+    return dict(one_seconds=one_seconds, one_launches=one_launches, runs=results)
+
+
+def check_mesh_launches(ranks: list, batches_per_rank: int) -> None:
+    want = K3_LAUNCHES_PER_BATCH * batches_per_rank
+    for r in ranks:
+        if r["launches"]["flash_attention"] != want \
+                or r["by_source"]["flash_attention_sm90"] != want:
+            raise AssertionError(f"--mesh rank {r['rank']}: K3 launches {r['launches']} "
+                                 f"({r['by_source']}), expected {want}, all bf16")
+
+
+def aggregate_2d_rank(inp: str, device: str) -> dict:
+    """One rank of the 2-D aggregation: its H slice of a fresh ``quant:full``
+    state, its sample shard through ``sharded_contact_aggregate_2d`` (K1 on
+    the card), the slices gathered on rank 0, which holds them against a
+    one-process ``contact_update_batch`` of all the samples."""
+    from coma_tpu_torch.affordance.contact import contact_update_batch
+    from coma_tpu_torch.parallel import distributed, sharding
+
+    ctx = distributed.initialize("gloo", device)
+    try:
+        with np.load(inp) as f:
+            samples = [torch.from_numpy(f[k]).to(ctx.device) for k in ("hv", "hn", "ov", "on")]
+        H, O = samples[0].shape[1], samples[2].shape[1]
+        grid = sharding.grid_2d(ctx, *AGG_GRID)
+        state = sharding.shard_state_over_h(eval_state(ctx.device, H, O), grid.model,
+                                            grid.n_model)
+        distributed.sync(ctx.device)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        sharding.sharded_contact_aggregate_2d(state, *samples, grid)
+        distributed.sync(ctx.device)
+        report = dict(launches=kernel_counts(), aggregate_seconds=time.perf_counter() - t0,
+                      data=grid.data, model=grid.model, rows=state.human_res,
+                      allreduce_ms=ctx.allreduce_ms, allreduce_bytes=ctx.allreduce_bytes)
+        full = sharding.gather_over_h(state, grid)
+        if ctx.is_root:
+            del state
+            plain = contact_update_batch(eval_state(ctx.device, H, O), *samples)
+            report["max_abs_err"] = state_err(full, plain, "the 2-D aggregation against one "
+                                                           "process's plain version")
+            report["used_count"] = float(full.used_count)
+        return report
+    finally:
+        distributed.shutdown(ctx)
+
+
+def aggregate_2d_phase(label: str) -> dict:
+    """(b) 64 seeded samples at ``quant:full`` (H 750, O 2048, N 250, σ 0.2)
+    on 4 gloo ranks on card 0 as 2 data x 2 model: each rank holds 375 rows
+    of the grids (1.5 GB) and launches K1 on its 32 samples; rank 0's
+    gathered state within K1's limit of the one-process plain version, a
+    ``used_count`` of 64."""
+    with tempfile.TemporaryDirectory(prefix="agg2d_", dir=SCRATCH) as tmp:
+        samples = contact_inputs(np.random.default_rng(SEED + 15), AGG_SAMPLES, EVAL_H, EVAL_O)
+        np.savez(f"{tmp}/samples.npz", **{k: v.cpu().numpy()
+                                          for k, v in zip(("hv", "hn", "ov", "on"), samples)})
+        del samples
+        seconds, ranks = spawn_ranks(AGG_GRID[0] * AGG_GRID[1], "torchrun", [
+            "-c", "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1:]))",
+            "aggregate_2d", f"{tmp}/samples.npz", DEVICE], RANK_REPORT)
+    check_aggregate_launches(ranks)
+    root = ranks[0]
+    if root["used_count"] != AGG_SAMPLES:
+        raise AssertionError(f"the 2-D aggregation counted {root['used_count']} samples")
+    log(f"2-D aggregation, {AGG_SAMPLES} samples at {EVAL_KEY} (H {EVAL_H}, O {EVAL_O}, N 250) "
+        f"on {len(ranks)} gloo ranks on card 0 as {AGG_GRID[0]} data x {AGG_GRID[1]} model: "
+        f"processes {seconds:.3f} s; gathered state within {root['max_abs_err']:.3e} of one "
+        f"process's plain version (limit {K1_ATOL:.0e} + {K1_RTOL:.0e} |plain|), used_count "
+        f"{root['used_count']:.0f}; " + "; ".join(
+            f"rank {r['rank']} (data {r['data']}, model {r['model']}, {r['rows']} rows): K1 "
+            f"launches {r['launches']['contact_splat']}, aggregation {r['aggregate_seconds']:.3f}"
+            f" s, all-reduce {r['allreduce_ms']:.3f} ms for {r['allreduce_bytes']} bytes, peak "
+            f"{r.get('peak_device_gb')} GB" for r in ranks) + f" [{label}]")
+    return dict(seconds=seconds, ranks=ranks)
+
+
+def check_aggregate_launches(ranks: list) -> None:
+    for r in ranks:
+        if r["launches"]["contact_splat"] < 1 or r["launches"]["occupancy_hits"] \
+                or r["launches"]["flash_attention"]:
+            raise AssertionError(f"2-D aggregation rank {r['rank']}: launches {r['launches']}")
+
+
+def write_coap_ckpt(path: str, num_parts: int, seed: int) -> None:
+    """A seeded COAP checkpoint in the published Lightning layout at
+    ``COAPConfig()``'s widths: the state dict under ``state_dict``, its keys
+    behind ``model.``, a body-model buffer beside them."""
+    from coma_tpu_torch.models.coap import COAPConfig, COAPOccupancy
+    from coma_tpu_torch.models.layers import init_flax_default_
+
+    model = init_flax_default_(COAPOccupancy(COAPConfig(num_parts=num_parts)),
+                               torch.Generator().manual_seed(seed))
+    sd = {f"model.{k}": v for k, v in model.state_dict().items()}
+    sd["model.smpl_body.v_template"] = torch.zeros(H_FULL, 3)
+    torch.save({"epoch": 0, "global_step": 0, "state_dict": sd,
+                "hyper_parameters": {"num_parts": num_parts}}, path)
+
+
+def weights_phase(label: str) -> dict:
+    """(c) A weights root of seeded stand-ins in the published layouts (a
+    Lightning COAP ``.ckpt``, a VPoser snapshot, phase 4b's SMPL-X npz):
+    ``cli/convert_weights --all`` reports each ``loaded`` and exits 0; the
+    ``.ckpt`` through ``cli/optimize_depth.load_coap``: its occupancy on the
+    card within 1e-5 of the CPU's and within 1e-6 of the same weights from a
+    Flax ``.npz``. No kernel runs."""
+    from argparse import Namespace
+
+    from coma_tpu_torch.cli import convert_weights, optimize_depth
+    from coma_tpu_torch.models.coap_partition import build_partition
+    from coma_tpu_torch.models.flax_params import flax_tree
+    from coma_tpu_torch.models.smplx import SMPLXModel
+    from coma_tpu_torch.utils.checkpoint import save_params
+
+    with tempfile.TemporaryDirectory(prefix="weights_", dir=SCRATCH) as root:
+        rng = np.random.default_rng(SEED + 15)
+        for d in ("coap", "vposer", "smplx"):
+            os.makedirs(f"{root}/{d}")
+        npz = f"{root}/smplx/SMPLX_NEUTRAL.npz"
+        write_smplx_npz(npz, rng)
+        body = SMPLXModel.from_npz(npz, device="cpu")
+        K = build_partition(body.lbs_weights.numpy(), body.parents).num_parts
+        ckpt = f"{root}/coap/coap_smplx_neutral.ckpt"
+        write_coap_ckpt(ckpt, K, SEED + 15)
+        write_vposer_snapshot(f"{root}/vposer/TR00_E096.pt", SEED + 15)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        try:
+            convert_weights.main(["--all", "--weights_root", root, "--report",
+                                  f"{root}/report.json"])
+            code = 0
+        except SystemExit as done:
+            code = done.code
+        seconds = time.perf_counter() - t0
+        with open(f"{root}/report.json") as f:
+            report = json.load(f)
+        loaded = sorted(k for k, v in report.items() if v["status"] == "loaded")
+        if code != 0 or loaded != ["coap_smplx_neutral", "smplx_neutral", "vposer"]:
+            raise AssertionError(f"convert_weights --all: exit {code}, loaded {loaded}: "
+                                 f"{ {k: v['status'] for k, v in report.items()} }")
+        card, part, _ = optimize_depth.load_coap(Namespace(coap_ckpt=ckpt, smplx_model_path=npz),
+                                                 torch.device(DEVICE))
+        cpu = optimize_depth.load_coap(Namespace(coap_ckpt=ckpt, smplx_model_path=npz),
+                                       torch.device("cpu"))[0]
+        flax_npz = f"{root}/coap.npz"
+        save_params(flax_tree(cpu), flax_npz)
+        from_npz = optimize_depth.load_coap(Namespace(coap_ckpt=flax_npz, smplx_model_path=npz),
+                                            torch.device(DEVICE))[0]
+        parts = torch.from_numpy(np.float32(rng.normal(size=(K, 64, 3)) * 0.1))
+        query = torch.from_numpy(np.float32(rng.normal(size=(K, 4096, 3)) * 0.1))
+        inside = torch.from_numpy(np.float32(rng.uniform(size=(K, 4096)) > 0.3))
+        with torch.no_grad(), NoTF32():
+            want = cpu(parts, query, inside)
+            on_card = [m(parts.to(DEVICE), query.to(DEVICE), inside.to(DEVICE)).cpu()
+                       for m in (card, from_npz)]
+        cpu_err = float((on_card[0] - want).abs().max())
+        npz_err = float((on_card[0] - on_card[1]).abs().max())
+        launches = kernel_counts()
+        if cpu_err > COAP_CPU_ATOL or npz_err > COAP_NPZ_ATOL or any(launches.values()) \
+                or not 0 < float(want.max()) <= 1:
+            raise AssertionError(f"COAP from its checkpoint: card vs CPU {cpu_err:.3e} (limit "
+                                 f"{COAP_CPU_ATOL}), vs the Flax npz {npz_err:.3e} (limit "
+                                 f"{COAP_NPZ_ATOL}), launches {launches}")
+    log(f"weights readiness: convert_weights --all {seconds:.3f} s, loaded {loaded} (the other "
+        f"{len(report) - len(loaded)} entries missing), exit {code}; COAP's Lightning .ckpt "
+        f"({K} parts) through load_coap: occupancy card vs CPU {cpu_err:.3e} (limit "
+        f"{COAP_CPU_ATOL}, TF32 off), vs the Flax npz {npz_err:.3e} (limit {COAP_NPZ_ATOL}); "
+        f"launches {launches} [{label}]")
+    return dict(seconds=seconds, loaded=loaded, cpu_err=cpu_err, npz_err=npz_err,
+                launches=launches)
+
+
+def phase15(label: str) -> dict:
+    """Phase 15: (a) ``--mesh`` inpainting, (b) the 2-D aggregation, (c) the
+    weights-readiness check."""
+    t0 = time.perf_counter()
+    out = dict(mesh=mesh_inpaint_phase(label), aggregate_2d=aggregate_2d_phase(label),
+               weights=weights_phase(label))
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s [{label}]")
+    return out
+
+
+
+
 def glob_paths(root: str, pattern: str) -> list:
     return [str(p) for p in Path(root).glob(pattern)]
 
@@ -3431,6 +3769,8 @@ def main() -> int:
         # phase 14: evaluation, visualize and train_segmenter, every
         # kernel's counter from 0 before each
         item14 = phase14(products, star_pickle, opt_files["obj"], opt_files["npz"], label)
+        # phase 15: --mesh inpainting, the 2-D aggregation, the weights' readiness
+        p15 = phase15(label)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(phase6_images, ignore_errors=True)
@@ -3441,6 +3781,15 @@ def main() -> int:
     def item14_launches(kernel: str) -> dict:
         return {f"launches_{part}": item14[part]["launches"][kernel]
                 for part in ("evaluate", "visualize", "train_segmenter")}
+
+    def phase15_launches(kernel: str) -> dict:
+        """Per rank for --mesh (each run) and the 2-D aggregation; the
+        weights' check."""
+        return dict(
+            launches_mesh_inpaint=[r["launches"][kernel] for run in p15["mesh"]["runs"]
+                                   for r in run["ranks"]],
+            launches_aggregate_2d=[r["launches"][kernel] for r in p15["aggregate_2d"]["ranks"]],
+            launches_weights=p15["weights"]["launches"][kernel])
 
     k1_main = k1[0]
     kernels = [
@@ -3456,7 +3805,7 @@ def main() -> int:
              launches_optimize=app_launches["contact_splat"],
              launches_stage2=stage2["launches"]["contact_splat"],
              launches_stage1=stage1["launches"]["contact_splat"],
-             **item14_launches("contact_splat")),
+             **item14_launches("contact_splat"), **phase15_launches("contact_splat")),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -3469,7 +3818,7 @@ def main() -> int:
              launches_optimize=app_launches["occupancy_hits"],
              launches_stage2=stage2["launches"]["occupancy_hits"],
              launches_stage1=stage1["launches"]["occupancy_hits"],
-             **item14_launches("occupancy_hits")),
+             **item14_launches("occupancy_hits"), **phase15_launches("occupancy_hits")),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -3493,7 +3842,7 @@ def main() -> int:
              launches_stage2=stage2["launches"]["flash_attention"],
              launches_stage1=stage1["launches"]["flash_attention"],
              launches_stage1_by_source=stage1["by_source"],
-             **item14_launches("flash_attention")),
+             **item14_launches("flash_attention"), **phase15_launches("flash_attention")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -25,8 +25,15 @@ The five SAM modes (``ps``, ``ps_ae``, ``s_pdb_ae``, ``s_db_ae``,
 official ``.pth`` or a Flax ``.npz``); as in ``coma_tpu`` they share one
 in-loop route. With ``--random_weights`` both segmenters take seeded random
 weights; a weights path that does not exist raises. ``--save_step_video``
-writes a ``.steps.gif`` beside each batch's first image. ``--mesh`` is not
-ported yet and raises ``SystemExit`` naming its ROADMAP item.
+writes a ``.steps.gif`` beside each batch's first image.
+
+``--mesh N`` runs on N ranks, one process each, launched with torchrun's
+variables or ``COMA_COORDINATOR``/``COMA_NUM_PROCESSES``/``COMA_PROCESS_ID``
+(``parallel/flagship.py``): whole batches go round-robin to the ranks, so
+every image equals the one-process run's. ``--dist_backend nccl`` takes one
+card per rank; ``gloo`` lets ranks share a card, or run on the CPU. Each
+rank writes its own images; a launch of another size than ``--mesh`` asks
+for raises.
 """
 from __future__ import annotations
 
@@ -62,6 +69,8 @@ from coma_tpu_torch.models.diffusion.pipeline import (
     choose_crop_latent,
 )
 from coma_tpu_torch.models.segmentation import SEGMENTER_CHECKPOINT
+from coma_tpu_torch.parallel import distributed
+from coma_tpu_torch.parallel.flagship import rank_batches, resolve_mesh
 from coma_tpu_torch.utils.png import read_png, to_gray, to_rgb, write_png
 
 SAM_MODES = ("ps", "ps_ae", "s_pdb_ae", "s_db_ae", "s_ab_ae")
@@ -102,19 +111,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--guidance_scale", type=float, default=7.5)
     parser.add_argument("--num_img_per_combination", type=int, default=NUM_IMG_PER_COMBINATION)
     parser.add_argument("--batch_size", type=int, default=16)
-    parser.add_argument("--mesh", type=str, default=None)
+    parser.add_argument("--mesh", type=str, default=None,
+                        help="'all' or N: the number of ranks this launch has")
+    parser.add_argument("--dist_backend", choices=distributed.BACKENDS, default="nccl",
+                        help="with --mesh: nccl (one card per rank) or gloo")
     parser.add_argument("--save_step_video", action="store_true")
     parser.add_argument("--negative_prompt", type=str,
                         default="worst quality, normal quality, low quality, bad anatomy, artifacts, blurry")
     return parser
 
 
-def check_ported(args) -> None:
-    """``SystemExit`` for a flag of ``coma_tpu``'s CLI the port lacks, and for
-    weights that are neither given nor asked to be random."""
-    if args.mesh is not None:
-        raise SystemExit("coma_tpu_torch.cli.inpaint: --mesh waits for ROADMAP Queue 1 "
-                         "item 13d (multi-GPU inpainting)")
+def check_args(args) -> None:
+    """``SystemExit`` for weights that are neither given nor asked to be
+    random, or that do not exist, and for a bad ``--provoke_crop``."""
     if args.weights_dir and not os.path.isdir(args.weights_dir):
         raise SystemExit(f"--weights_dir {args.weights_dir} does not exist (there is no "
                          "fallback to random weights)")
@@ -383,42 +392,56 @@ def load_batch(chunk, res: int):
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    check_args(args)
+    n_ranks = resolve_mesh(args.mesh)
     seed_everything(args.seed)
-    device = resolve_device(args.device)
+    if n_ranks > 1:
+        ctx = distributed.initialize(args.dist_backend, args.device)
+    else:
+        ctx = distributed.DistContext(0, 1, 0, None, resolve_device(args.device))
+    try:
+        run(args, ctx)
+    finally:
+        distributed.shutdown(ctx)
 
+
+def run(args, ctx: distributed.DistContext) -> None:
+    """This rank's batches of the work list, then a barrier."""
+    device = ctx.device
     work = shard_worklist(build_worklist(args), args.parallel_idx, args.parallel_num)
     if not work:
         print("[inpaint] nothing to do")
         return
     pipe, encode_prompts, res = build_pipeline(args, device)
 
-    for i in range(0, len(work), args.batch_size):
+    for i in rank_batches(len(work), args.batch_size, ctx.rank, ctx.world_size):
         chunk = work[i : i + args.batch_size]
         imgs, masks = load_batch(chunk, res)
-        ctx = encode_prompts([w["prompt"] for w in chunk])
+        ctx_emb = encode_prompts([w["prompt"] for w in chunk])
         neg = encode_prompts([args.negative_prompt] * len(chunk))
         crop = provoke_crop_for(args, masks.numpy(), pipe.config.vae_scale)
-        run = pipe if not crop else AdaptiveMaskInpaintPipeline(
+        run_pipe = pipe if not crop else AdaptiveMaskInpaintPipeline(
             pipe.unet_fn, pipe.vae_encode_fn, pipe.vae_decode_fn, pipe.segment_fn,
             dataclasses.replace(pipe.config, provoke_crop_latent=crop), pipe.vae_scaling)
         # the batch's seed: the global seed and the first item's inpaint_id
         gen = torch.Generator(device).manual_seed(args.seed * 1_000_003 + chunk[0]["inpaint_id"])
-        out = run.generate(imgs.to(device), masks.to(device), ctx, neg, noise=TorchNoise(gen),
-                           return_intermediates=args.save_step_video)
+        out = run_pipe.generate(imgs.to(device), masks.to(device), ctx_emb, neg,
+                                noise=TorchNoise(gen), return_intermediates=args.save_step_video)
         if args.save_step_video:
             from coma_tpu_torch.visualization.video import write_adaptive_mask_video
 
             out, inter = out
             gif = chunk[0]["out"].rsplit(".", 1)[0] + ".steps.gif"
             os.makedirs(os.path.dirname(gif), exist_ok=True)
-            write_adaptive_mask_video(inter, run.vae_decode_fn, gif, sample=0,
+            write_adaptive_mask_video(inter, run_pipe.vae_decode_fn, gif, sample=0,
                                       every=max(1, args.default_ddim_steps // 16))
         out_np = (out.permute(0, 2, 3, 1).float().cpu().numpy() * 255).astype(np.uint8)
         for w, img in zip(chunk, out_np):
             os.makedirs(os.path.dirname(w["out"]), exist_ok=True)
             write_png(w["out"], img)
-        print(f"[inpaint] {min(i + args.batch_size, len(work))}/{len(work)}")
+        if ctx.is_root:
+            print(f"[inpaint] {min(i + args.batch_size, len(work))}/{len(work)}")
+    distributed.barrier(ctx)
 
 
 if __name__ == "__main__":

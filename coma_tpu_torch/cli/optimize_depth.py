@@ -59,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="auto = neural COAP when --coap_ckpt and --smplx_model_path "
                              "resolve, else the capsule backend")
     parser.add_argument("--coap_ckpt", type=str, default="pre-trained/coap/coap.npz",
-                        help="COAP params in the Flax layout (.npz)")
+                        help="COAP's published checkpoint (.ckpt/.pt) or its params in "
+                             "the Flax layout (.npz)")
     parser.add_argument("--smplx_model_path", type=str, default="",
                         help="SMPLX_NEUTRAL.npz (poses COAP's bone frames)")
     parser.add_argument("--asset_obj_pth", type=str,
@@ -94,8 +95,10 @@ def resolve_backend(args) -> str:
 
 
 def load_coap(args, device):
-    """(occupancy module, partition, SMPL-X model) of the neural backend."""
-    from coma_tpu_torch.models.coap import COAPConfig, COAPOccupancy
+    """(occupancy module, partition, SMPL-X model) of the neural backend.
+    ``--coap_ckpt`` is the published checkpoint (``.ckpt``/``.pt``, read by
+    its own keys) or a Flax ``.npz``; its parts must be the partition's."""
+    from coma_tpu_torch.models.coap import COAPConfig, COAPOccupancy, load_coap_checkpoint
     from coma_tpu_torch.models.coap_partition import build_partition
     from coma_tpu_torch.models.flax_params import load_flax_params
     from coma_tpu_torch.models.smplx import SMPLXModel
@@ -103,8 +106,14 @@ def load_coap(args, device):
 
     smplx_model = SMPLXModel.from_npz(args.smplx_model_path, device=device)
     partition = build_partition(smplx_model.lbs_weights.cpu().numpy(), smplx_model.parents)
-    occ = COAPOccupancy(COAPConfig(num_parts=partition.num_parts))
-    load_flax_params(occ, load_params(args.coap_ckpt))
+    if args.coap_ckpt.endswith(".npz"):
+        occ = COAPOccupancy(COAPConfig(num_parts=partition.num_parts))
+        load_flax_params(occ, load_params(args.coap_ckpt))
+    else:
+        occ = load_coap_checkpoint(args.coap_ckpt)
+        if occ.config.num_parts != partition.num_parts:
+            raise ValueError(f"{args.coap_ckpt} holds {occ.config.num_parts} parts, the body "
+                             f"model's partition {partition.num_parts}")
     return occ.to(device).eval(), partition, smplx_model
 
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``coma_tpu/geometry/transforms.py``: ``normalize_vectors``
 for the extraction, ``rodrigues`` and ``skew`` for SMPL-X's LBS, ``rot6d_to_rotmat`` for
-Hand4Whole and the host-side ``rigid_align_np`` for the depth optimizer.
+Hand4Whole, ``quat_to_rotmat``, and the host-side ``rigid_align_np`` for the depth optimizer.
 """
 from __future__ import annotations
 
@@ -52,6 +52,27 @@ def rodrigues(rotvec: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     KK = (K[..., :, :, None] * K[..., None, :, :]).sum(dim=-2)
     eye = torch.eye(3, dtype=rotvec.dtype, device=rotvec.device)
     return eye + A * K + B * KK
+
+
+def quat_to_rotmat(quat: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Quaternions ``(..., 4)`` (w, x, y, z) -> rotation matrices ``(..., 3, 3)``
+    (``coma_tpu/geometry/transforms.py:65``; reference
+    ``utils/transformations.py:quat_to_rotmat``). A zero quaternion gives the
+    identity."""
+    quat = quat / torch.clamp(torch.linalg.norm(quat, dim=-1, keepdim=True), min=eps)
+    w, x, y, z = quat.unbind(-1)
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - z * w)
+    r02 = 2 * (x * z + y * w)
+    r10 = 2 * (x * y + z * w)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - x * w)
+    r20 = 2 * (x * z - y * w)
+    r21 = 2 * (y * z + x * w)
+    r22 = 1 - 2 * (x * x + y * y)
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1),
+                        torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
 
 
 def rot6d_to_rotmat(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

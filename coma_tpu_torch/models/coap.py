@@ -7,9 +7,10 @@ Two occupancy backends:
 
 - :class:`COAPOccupancy`, the neural architecture (``ResnetPointnet`` part
   encoders and ``ImplicitNet`` decoders of ``imports/coap/modules.py``) for
-  the published checkpoint. Submodules carry ``coma_tpu``'s Flax names
-  (``encoder.block_0.fc_0``, ``decoder.lin3``, ...), so
-  ``models/flax_params.py`` maps its params across.
+  the published checkpoint, which :func:`load_coap_checkpoint` reads by its
+  own keys. Submodules carry ``coma_tpu``'s Flax names
+  (``encoder.block_0.fc_0``, ``decoder.lin3``, ...), the published file's
+  too, so ``models/flax_params.py`` maps a Flax tree across as well.
 - :func:`capsule_occupancy`, a weight-free capsule field around the posed
   bones, σ(κ(r − d)), 0.5 on the capsule surface. ``coma_tpu`` loops over the
   bones in Python; here the distance to every bone is one batched
@@ -19,7 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+import pickle
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +34,7 @@ from coma_tpu_torch.models.coap_partition import (
     part_bbox_gate,
     to_part_local,
 )
+from coma_tpu_torch.models.flax_params import load_state_strict
 from coma_tpu_torch.models.layers import Dense
 
 # --------------------------------------------------------------------------
@@ -168,6 +171,66 @@ class COAPOccupancy(nn.Module):
         raw = self.decoder(torch.cat([query_local, z], dim=-1))[..., 0]    # (K, Q)
         occ = torch.sigmoid(-raw) * inside_bbox
         return occ.amax(dim=0)
+
+
+# the sub-trees of the published checkpoint that COAPOccupancy holds
+COAP_TREES = ("encoder.", "query_encoder.", "decoder.")
+_ANCHOR = "query_encoder.lin0.weight"
+
+
+def coap_state_dict(ckpt: Mapping) -> Tuple[Dict[str, np.ndarray], int]:
+    """A published COAP checkpoint (``coap.py:606-620``; a Lightning
+    ``.ckpt`` or a bare state dict) -> (the state dict of
+    :class:`COAPOccupancy`, its number of parts).
+
+    The state dict is the first of ``network``, ``state_dict``, ``model``
+    that holds one (``coma_tpu``'s ``convert_weights._torch_load`` order),
+    else ``ckpt`` itself; a ``module.`` prefix is stripped. The prefix in
+    front of ``query_encoder.lin0.weight`` (``model.``, ``coap.`` or none)
+    is read from the keys, and the encoder, query-encoder and decoder keys
+    under it are taken; the rest of the file (a body model, an optimizer)
+    is not. The layers are torch's (O, I), as the port's ``Dense``. The
+    parts are read from the query encoder's width (:func:`coap_parts`)."""
+    for key in ("network", "state_dict", "model"):
+        if isinstance(ckpt.get(key), Mapping):
+            ckpt = ckpt[key]
+            break
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in ckpt.items()}
+    prefixes = [k[: -len(_ANCHOR)] for k in sd if k.endswith(_ANCHOR)
+                and (k == _ANCHOR or k[: -len(_ANCHOR)].endswith("."))]
+    if len(prefixes) != 1:
+        raise KeyError(f"COAP checkpoint: {len(prefixes)} keys end in {_ANCHOR} "
+                       f"({prefixes}); expected one model")
+    prefix = prefixes[0]
+    out = {}
+    for key, value in sd.items():
+        name = key[len(prefix):]
+        if key.startswith(prefix) and name.startswith(COAP_TREES):
+            out[name] = (value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor)
+                         else np.asarray(value, np.float32))
+    return out, coap_parts(out)
+
+
+def coap_parts(sd: Mapping[str, np.ndarray]) -> int:
+    """The part count a COAP state dict declares: the query encoder's input
+    width less 3 (the local query) + 1 (inside the box) + the code width."""
+    return int(np.shape(sd[_ANCHOR])[1]) - 4 - COAPConfig().code_dim
+
+
+def load_coap_checkpoint(path: str) -> COAPOccupancy:
+    """The published checkpoint -> :class:`COAPOccupancy` on the CPU, its
+    parts read from the file, loaded strictly over the three sub-trees.
+    The file is read with ``torch.load(weights_only=True)``; one that needs
+    more (objects beyond tensors and plain containers) raises."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as exc:
+        raise ValueError(
+            f"{path}: torch.load(weights_only=True) refuses it ({exc}); the port reads "
+            "tensors and plain containers only: save the checkpoint's state_dict alone "
+            "with torch.save and pass that file") from exc
+    sd, num_parts = coap_state_dict(ckpt)
+    return load_state_strict(COAPOccupancy(COAPConfig(num_parts=num_parts)), sd)
 
 
 # --------------------------------------------------------------------------

@@ -111,3 +111,13 @@ class ResNet(nn.Module):
         for name in self.blocks:
             x = getattr(self, name)(x)
         return x
+
+
+def resnet50() -> ResNet:
+    """ResNet-50: bottleneck blocks (3, 4, 6, 3), 2048 features."""
+    return ResNet(stage_sizes=(3, 4, 6, 3), bottleneck=True)
+
+
+def resnet18() -> ResNet:
+    """ResNet-18: basic blocks (2, 2, 2, 2), 512 features."""
+    return ResNet(stage_sizes=(2, 2, 2, 2), bottleneck=False)

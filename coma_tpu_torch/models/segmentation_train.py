@@ -5,12 +5,13 @@ depends on a pretrained detectron2 PointRend checkpoint
 (``src/generation/segment_human.py:24``, weights external); the in-tree
 :class:`~coma_tpu_torch.models.segmentation.PersonSegmenter` is a U-Net with
 the same role, trained here under autograd with ``optax.adamw``'s arithmetic
-(``optim.OptaxAdam`` with weight decay and a schedule). One process, one
-device: ``coma_tpu``'s data-parallel step over a mesh is not ported.
+(``optim.OptaxAdam`` with weight decay and a schedule). ``make_step(ctx)``
+is ``coma_tpu``'s data-parallel step over a mesh, on the ranks of
+``parallel/distributed.py``.
 """
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from coma_tpu_torch.models.segmentation import PersonSegmenter
 from coma_tpu_torch.optim import OptaxAdam
+from coma_tpu_torch.parallel import distributed
 
 
 def bce_dice_loss(logits: torch.Tensor, masks: torch.Tensor, dice_weight: float = 1.0):
@@ -67,6 +69,42 @@ class SegTrainer:
         loss.backward()
         self.opt.step(self.params, {k: p.grad for k, p in self.params.items()})
         return loss.detach()
+
+    def make_step(self, ctx: Optional[distributed.DistContext] = None):
+        """The train step ``(images, masks) -> loss`` on the global batch.
+        Without ``ctx``, or on one rank, it is :meth:`step`. On several ranks
+        (``coma_tpu``'s ``make_step(mesh)``, the batch placed ``P("data")``):
+        each rank takes its contiguous shard, the loss and the gradients are
+        averaged over the ranks by one all-reduce, and every rank takes the
+        same AdamW step. That is the one-device step on the whole batch,
+        because the loss is a mean of per-image terms and the model
+        normalises each image alone (GroupNorm). A batch the ranks do not
+        divide raises."""
+        if ctx is None or ctx.world_size == 1:
+            return self.step
+
+        def step(images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+            B = images.shape[0]
+            if B % ctx.world_size:
+                raise ValueError(f"a batch of {B} does not divide over {ctx.world_size} ranks")
+            n = B // ctx.world_size
+            mine = slice(ctx.rank * n, (ctx.rank + 1) * n)
+            self.model.train()
+            for p in self.params.values():
+                p.grad = None
+            loss = self.loss_fn(images[mine], masks[mine])
+            loss.backward()
+            grads = [p.grad for p in self.params.values()]
+            flat = torch.cat([loss.detach().reshape(1)] + [g.reshape(-1) for g in grads])
+            distributed.allreduce_(flat, ctx).div_(ctx.world_size)
+            at = 1
+            for g in grads:
+                g.copy_(flat[at : at + g.numel()].view_as(g))
+                at += g.numel()
+            self.opt.step(self.params, {k: p.grad for k, p in self.params.items()})
+            return flat[0]
+
+        return step
 
     @torch.no_grad()
     def iou(self, images: torch.Tensor, masks: torch.Tensor, threshold: float = 0.5):

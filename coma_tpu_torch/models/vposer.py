@@ -16,7 +16,7 @@ One deliberate divergence: :func:`matrot_to_aa` has the value of
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,6 +176,25 @@ def l2_prior(x: torch.Tensor) -> torch.Tensor:
 SNAPSHOT_PREFIX = "bodyprior_"
 
 
+def vposer_state_dict(snapshot: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A torch VPoser ``state_dict`` (or a dict holding one under
+    ``"state_dict"``) -> float32 arrays by the decoder's and encoder's own
+    names (``dec_*``, ``enc_*``: the ``bodyprior_`` prefix dropped, batch
+    norm's ``num_batches_tracked`` too). Any other key raises."""
+    sd = snapshot.get("state_dict", snapshot) if isinstance(snapshot, Mapping) else snapshot
+    ours = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        name = key[len(SNAPSHOT_PREFIX):]
+        if not key.startswith(SNAPSHOT_PREFIX) or name[:4] not in ("dec_", "enc_"):
+            raise KeyError(f"VPoser snapshot: unused key {key}")
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu()
+        ours[name] = np.asarray(value, dtype=np.float32)
+    return ours
+
+
 @torch.no_grad()
 def load_vposer_snapshot(
     snapshot: Mapping[str, object],
@@ -186,15 +205,7 @@ def load_vposer_snapshot(
     ``"state_dict"``) -> (encoder, decoder) in eval mode. The decoder's keys
     are required; the encoder is ``None`` when the snapshot has none of its
     keys. A key of either half that is missing or unused raises."""
-    sd = snapshot.get("state_dict", snapshot) if isinstance(snapshot, Mapping) else snapshot
-    ours = {}
-    for key, value in sd.items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        name = key[len(SNAPSHOT_PREFIX):]
-        if not key.startswith(SNAPSHOT_PREFIX) or name[:4] not in ("dec_", "enc_"):
-            raise KeyError(f"VPoser snapshot: unused key {key}")
-        ours[name] = torch.as_tensor(np.asarray(value), dtype=torch.float32)
+    ours = {k: torch.as_tensor(v) for k, v in vposer_state_dict(snapshot).items()}
 
     def load(module, prefix):
         given = {k: v for k, v in ours.items() if k.startswith(prefix)}

@@ -142,35 +142,53 @@ def process_shard_worklist(items: Sequence, rank: int, world_size: int) -> list:
     return list(items[rank * sub : (rank + 1) * sub])
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def allreduce_(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place. NCCL and CPU tensors reduce where
-    they are; a card tensor under gloo goes through host copies of at most
-    :data:`GLOO_CHUNK` elements."""
-    if ctx.world_size == 1:
-        return t
+def _flat_op(t: torch.Tensor, ctx: DistContext, op, write_back: bool = True) -> torch.Tensor:
+    """``op`` on ``t`` viewed flat: in place under NCCL or on the CPU, and for
+    a card tensor under gloo through host copies of at most
+    :data:`GLOO_CHUNK` elements (copied back unless ``write_back`` is off)."""
     flat = t.view(-1)
     if ctx.backend == "nccl" or t.device.type == "cpu":
-        dist.all_reduce(flat)
-    else:
-        for start in range(0, flat.numel(), GLOO_CHUNK):
-            part = flat[start : start + GLOO_CHUNK]
-            host = part.cpu()
-            dist.all_reduce(host)
+        op(flat)
+        return t
+    for start in range(0, flat.numel(), GLOO_CHUNK):
+        part = flat[start : start + GLOO_CHUNK]
+        host = part.cpu()
+        op(host)
+        if write_back:
             part.copy_(host)
     return t
 
 
-def allreduce_state(state, ctx: DistContext):
+def allreduce_(t: torch.Tensor, ctx: DistContext,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """Sum ``t`` over the ranks (of ``group``, else all), in place."""
+    if ctx.world_size == 1:
+        return t
+    return _flat_op(t, ctx, lambda x: dist.all_reduce(x, group=group))
+
+
+def send(t: torch.Tensor, dst: int, ctx: DistContext) -> None:
+    """Send ``t`` to rank ``dst``, which takes it with :func:`recv_`."""
+    _flat_op(t, ctx, lambda x: dist.send(x, dst), write_back=False)
+
+
+def recv_(t: torch.Tensor, src: int, ctx: DistContext) -> torch.Tensor:
+    """Receive into ``t``, in place, what rank ``src`` sent with :func:`send`."""
+    return _flat_op(t, ctx, lambda x: dist.recv(x, src))
+
+
+def allreduce_state(state, ctx: DistContext, group: Optional[dist.ProcessGroup] = None):
     """Sum the additive accumulators of a ComA or occupancy state over the
-    ranks, in place, and combine the occupancy anchor. Each rank must hold
-    only its own contribution (the carried state on one rank, zeros on the
-    others: :func:`zero_contribution`), or the carried state is counted once
-    per rank.
+    ranks (over ``group`` only, for a ComA state, when given), in place, and
+    combine the occupancy anchor. Each rank must hold only its own
+    contribution (the carried state on one rank, zeros on the others:
+    :func:`zero_contribution`), or the carried state is counted once per
+    rank.
 
     The anchor is the last valid sample's object vertex, so it is taken from
     the highest rank that holds one (a rank that saw no valid sample holds
@@ -180,15 +198,17 @@ def allreduce_state(state, ctx: DistContext):
     non-NaN value; NaN only if every rank has NaN). Returns ``state``."""
     if ctx.world_size == 1:
         return state
-    _sync(state.device)
+    if group is not None and hasattr(state, "anchor_vert"):
+        raise ValueError("the occupancy anchor is combined over all ranks, not a group")
+    sync(state.device)
     t0 = time.perf_counter()
     for name in ADDITIVE_FIELDS[type(state).__name__]:
         t = getattr(state, name)
-        allreduce_(t, ctx)
+        allreduce_(t, ctx, group)
         ctx.allreduce_bytes += t.numel() * t.element_size()
     if hasattr(state, "anchor_vert"):
         state.anchor_vert = _combine_anchor(state.anchor_vert, ctx)
-    _sync(state.device)
+    sync(state.device)
     ctx.allreduce_ms += (time.perf_counter() - t0) * 1e3
     return state
 
@@ -209,12 +229,13 @@ def _combine_anchor(anchor: torch.Tensor, ctx: DistContext) -> torch.Tensor:
     return table[int(set_ranks[-1]), :3].to(anchor.device, anchor.dtype)
 
 
-def zero_contribution(state, ctx: DistContext):
-    """Make a non-root rank's state a zero contribution, in place: its
-    additive accumulators 0 and its anchor unset, so that after
-    :func:`allreduce_state` the carried state (kept on rank 0) counts once.
-    Returns ``state``."""
-    if ctx.rank != 0:
+def zero_contribution(state, keep: bool):
+    """Unless ``keep`` (true on the one rank of a reduction that carries the
+    state), make ``state`` a zero contribution, in place: its additive
+    accumulators 0 and its anchor unset, so that after
+    :func:`allreduce_state` the carried state counts once. Returns
+    ``state``."""
+    if not keep:
         for name in ADDITIVE_FIELDS[type(state).__name__]:
             getattr(state, name).zero_()
         if hasattr(state, "anchor_vert"):
@@ -228,7 +249,7 @@ def allreduce_count(n: int, ctx: DistContext) -> int:
     rank arrives, so its time is this rank's wait (``ctx.wait_ms``)."""
     if ctx.world_size == 1:
         return n
-    _sync(ctx.device)
+    sync(ctx.device)
     t0 = time.perf_counter()
     coll = ctx.device if ctx.backend == "nccl" else torch.device("cpu")
     t = torch.tensor([float(n)], dtype=torch.float64, device=coll)

@@ -129,7 +129,7 @@ def aggregate_shards(
     samples over all ranks), the same on every rank.
     """
     shard = process_shard_worklist(sorted(keys), ctx.rank, ctx.world_size)
-    zero_contribution(state, ctx)
+    zero_contribution(state, keep=ctx.rank == 0)
     state, n = aggregate_samples_streaming(
         state, shard, prepare_fn, occupancy, batch_size=batch_size, num_workers=num_workers
     )

@@ -13,6 +13,7 @@ import torch
 
 from coma_tpu_torch.affordance import contact, occupancy, state
 from coma_tpu_torch.ops import contact_kernel, occupancy_kernel
+from tests.torch_mesh_ranks import REPO, spawn_command
 
 FIELDS = (
     "prob_grid_canon_human_wrt_obj",
@@ -353,27 +354,110 @@ def test_sam_forward_on_the_card_matches_the_cpu(no_tf32, img_size):
         torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
 
 
+# The subdivision's picks, card against CPU on the same masks: a point that
+# one side picks and the other does not lies at most PICK_GAP below the other
+# side's cutoff uncertainty (the masks agree within ~6e-5, so a near-tie
+# moves a point by about twice that), and at most PICK_DIFF of a ROI's 784
+# points differ. Measured on an H100: the same picks in every round.
+PICK_GAP = 1e-3
+PICK_DIFF = 8
+
+
+class SubdivisionPicks:
+    """Within ``with``, each subdivision round of ``point_rend_masks`` logs
+    its uncertainty map and its own picks; given ``replay`` (another run's
+    log), the round refines that run's picks instead of its own. Patches
+    ``pointrend.topk``, which ``point_rend_masks`` calls only to pick."""
+
+    def __init__(self, replay=None):
+        self.rounds, self.replay = [], replay
+
+    def __enter__(self):
+        from coma_tpu_torch.models import pointrend
+
+        self.module, self.topk = pointrend, pointrend.topk
+
+        def pick(x, k):
+            vals, idx = self.topk(x, k)
+            self.rounds.append((x.cpu(), idx.cpu()))
+            if self.replay is not None:
+                idx = self.replay.rounds[len(self.rounds) - 1][1].to(idx.device)
+            return vals, idx
+
+        pointrend.topk = pick
+        return self
+
+    def __exit__(self, *exc):
+        self.module.topk = self.topk
+
+
 @pytest.mark.cuda
 def test_pointrend_forward_on_the_card_matches_the_cpu(no_tf32):
     """The seeded detector at the ``--tiny`` config on a 64x96 input: the
-    same valid slots and classes, boxes within 1e-2 px, mask logits within
-    1e-2 (float32 through 50 layers on either side)."""
+    same valid slots and classes, boxes within 1e-2 px; then the mask head
+    on the card's detections, the CPU refining the card's points in each
+    subdivision round: every point-head output and the mask logits within
+    1e-2 + 1e-3·|x| (float32 through 50 layers on either side).
+
+    The mask head is held on the card's boxes because the logits follow the
+    box: the FPN maps agree to ~3e-6 of their size (up to 440 at this
+    input), the seeded box regression's large deltas carry that to 0.019 px
+    in the proposals and 0.0099 px in the detections, and the coarse logits
+    then move by up to 0.055 (the maps' slope under the sampled points), so
+    each device's own boxes give logits 0.17 apart (and picks that differ
+    in one ROI: 4 of 784 points at 112², 21 at 224²). On the card's boxes,
+    in each subdivision round the CPU picks its own points on its masks
+    and then refines the card's: a point picked on one side only must lie
+    within ``PICK_GAP`` of the other side's cutoff (its 784th largest
+    uncertainty), and at most ``PICK_DIFF`` of a ROI's points may differ."""
     need_card()
+    import copy
+
     from coma_tpu_torch.models import pointrend
     from coma_tpu_torch.models.layers import init_flax_default_
 
     cfg = pointrend.PointRendConfig(max_detections=4, test_size=64, pre_nms_topk=64,
                                     post_nms_topk=32, box_candidates=32, box_score_thresh=0.0)
     model = init_flax_default_(pointrend.PointRendModel(cfg), torch.Generator().manual_seed(2))
+    model.eval()
+    card = copy.deepcopy(model).cuda()
     image = torch.from_numpy(np.float32(np.random.default_rng(3).normal(size=(2, 3, 64, 96)) * 50))
+    heads = {}
+    for name, m in (("card", card), ("cpu", model)):
+        heads[name] = []
+        m.point_head.register_forward_hook(lambda mod, a, out, log=heads[name]:
+                                           log.append(out.cpu()))
     with torch.no_grad():
-        want = model.eval()(image)
-        got = {k: v.cpu() for k, v in model.cuda()(image.cuda()).items()}
+        want = model(image)
+        p2_cpu = pointrend._channels_last(model.features(image)["p2"])
+        hw = tuple(image.shape[-2:])           # the card's forward, stage by stage
+        fpn = card.features(image.cuda())
+        det = card.detect(fpn, *card.rpn(fpn, hw), hw)
+        with SubdivisionPicks() as card_picks:
+            det["mask_logits"] = card.point_rend_masks(pointrend._channels_last(fpn["p2"]),
+                                                       det["boxes"], det["classes"])
+        got = {k: v.cpu() for k, v in det.items()}
+        heads["cpu"].clear()
+        with SubdivisionPicks(replay=card_picks) as cpu_picks:
+            replayed = model.point_rend_masks(p2_cpu, got["boxes"], got["classes"])
     assert want["valid"].any()
     assert torch.equal(got["valid"], want["valid"]) and torch.equal(got["classes"],
                                                                    want["classes"])
     torch.testing.assert_close(got["boxes"], want["boxes"], atol=1e-2, rtol=0)
-    torch.testing.assert_close(got["mask_logits"], want["mask_logits"], atol=1e-2, rtol=1e-3)
+    assert len(heads["card"]) == len(heads["cpu"]) == 1 + cfg.subdivision_steps
+    for c, p in zip(heads["card"], heads["cpu"]):
+        torch.testing.assert_close(c, p, atol=1e-2, rtol=1e-3)
+    torch.testing.assert_close(got["mask_logits"], replayed, atol=1e-2, rtol=1e-3)
+    assert len(card_picks.rounds) == len(cpu_picks.rounds) == 3     # at 56², 112², 224²
+    for side, card_round, cpu_round in zip((56, 112, 224), card_picks.rounds, cpu_picks.rounds):
+        for (x, mine), (_, other) in ((card_round, cpu_round), (cpu_round, card_round)):
+            chosen = lambda idx: torch.zeros_like(x, dtype=torch.bool).scatter(-1, idx, True)
+            only = chosen(other) & ~chosen(mine)
+            gap = x.gather(-1, mine[..., -1:]) - x      # below this side's cutoff
+            worst = float(gap[only].max()) if only.any() else 0.0
+            print(f"PointRend subdivision at {side}²: {int(only.sum(-1).max())} of "
+                  f"{mine.shape[-1]} picks differ in a ROI, {worst:.3e} below the cutoff")
+            assert int(only.sum(-1).max()) <= PICK_DIFF and worst <= PICK_GAP, (side, worst)
 
 
 @pytest.mark.cuda
@@ -596,3 +680,59 @@ def test_segmenter_training_step_on_the_card_matches_the_cpu(no_tf32):
         err = (out["cuda"][1][k][0] - p).abs()
         assert float(torch.where(g.abs() >= 1e-5, err, torch.zeros_like(err)).max()) <= 1e-4, k
         assert float(err.max()) <= 2.2 * lr, k
+
+
+# ---------------------------------------------------------------------------
+# ranks sharing the card under gloo: --mesh inpainting (K3) and the 2-D
+# aggregation (K1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_mesh_inpaint_on_two_ranks_of_the_card_writes_the_one_process_pngs(tmp_path):
+    """``--mesh 2 --dist_backend gloo`` with both ranks on card 0 against one
+    process on the card (``--tiny --random_weights``, 4 items at
+    ``--batch_size 2``): every PNG byte-equal."""
+    need_card()
+    import chip_smoke
+
+    runs = {}
+    for name, world, extra in (("one", 1, []), ("mesh", 2, ["--mesh", "2"])):
+        root = tmp_path / name
+        chip_smoke.write_inpaint_tree(str(root), np.random.default_rng(2))
+        argv = ["-m", "coma_tpu_torch.cli.inpaint", "--tiny", "--random_weights",
+                "--num_img_per_combination", "2", "--batch_size", "2",
+                "--dist_backend", "gloo", *extra]
+        spawn_command(world, argv, "torchrun" if world > 1 else None, cwd=root, timeout=300)
+        base = root / "results" / "generation" / "inpaintings"
+        runs[name] = {str(p.relative_to(base)): p.read_bytes() for p in base.rglob("*.png")}
+    assert len(runs["one"]) == 4 and runs["mesh"] == runs["one"]
+
+
+@pytest.mark.cuda
+def test_aggregate_2d_on_four_ranks_of_the_card_matches_plain(tmp_path):
+    """``sharded_contact_aggregate_2d`` on 4 gloo ranks on card 0 (2 data x 2
+    model; 11 samples, one padded slot, a zero normal), K1 on every rank,
+    gathered on rank 0, against the plain ``contact_update_batch`` of the
+    samples on the card: K1's rtol 1e-4 / atol 1e-5."""
+    need_card()
+    rng = np.random.default_rng(5)
+    B, H, O, N, params = 11, 40, 37, 250, (0.07, 0.24, 0.25)
+    hv, ov = rng.normal(size=(B, H, 3)) * 0.3, rng.normal(size=(B, O, 3)) * 0.3
+    hn, on = unit(rng.normal(size=(B, H, 3))), unit(rng.normal(size=(B, O, 3)))
+    hn[:, 0] = 0.0
+    valid = np.float32([1] * 9 + [0, 1])
+    arrays = dict(hv=np.float32(hv), hn=np.float32(hn), ov=np.float32(ov), on=np.float32(on))
+    np.savez(tmp_path / "in.npz", hon=np.int64([H, O, N]), params=np.float64(params),
+             valid=valid, **arrays)
+    ranks = f"{REPO}/tests/torch_mesh_ranks.py"
+    reports = spawn_command(4, [ranks, "aggregate_2d", tmp_path / "in.npz", tmp_path / "out.npz",
+                                2, 2, "cuda"], "torchrun", cwd=tmp_path, timeout=300)
+    assert all(r[0]["rank"]["launches"] >= 1 for r in reports)
+    plain = state.init_coma_state(H, O, N, *params, device="cuda")
+    contact.contact_update_batch(plain, *(cuda(arrays[k]) for k in ("hv", "hn", "ov", "on")),
+                                 valid=cuda(valid))
+    with np.load(tmp_path / "out.npz") as got:
+        for f in FIELDS:
+            torch.testing.assert_close(torch.from_numpy(got[f]), getattr(plain, f).cpu(),
+                                       rtol=1e-4, atol=1e-5)
+        assert float(got["used_count"]) == 10.0

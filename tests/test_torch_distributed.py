@@ -19,7 +19,6 @@ import json
 import os
 import pickle
 import shutil
-import socket
 import subprocess
 import sys
 import textwrap
@@ -48,53 +47,20 @@ from coma_tpu_torch.parallel.distributed import ADDITIVE_FIELDS, process_shard_w
 from coma_tpu_torch.pipelines.extract import run_affordance_extraction as t_extract
 from tests import test_torch_distributed_ranks as W
 from tests.test_geometry import CUBE_F, CUBE_V
+from tests.torch_mesh_ranks import TIMEOUT_S, free_port, spawn_command
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS = os.path.join(REPO, "tests", "test_torch_distributed_ranks.py")
 TOL = dict(rtol=2e-5, atol=1e-6)
-TIMEOUT_S = 120
 SC, CAT, ASSET = "BEHAVE", "backpack", "behave_asset"
 PROMPT = "a person carrying a backpack"
 N_SAMPLES = 13
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def spawn(world, args, style):
-    """``world`` worker processes with ``style`` launch variables; returns
-    each rank's JSON lines. Kills them all past the timeout."""
-    port = free_port()
-    procs = []
-    for rank in range(world):
-        # one thread a rank: the samples are tiny, and the test shares the host
-        env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
-                    "COMA_COORDINATOR", "COMA_NUM_PROCESSES", "COMA_PROCESS_ID"):
-            env.pop(var, None)
-        if style == "coma":
-            env.update(COMA_COORDINATOR=f"localhost:{port}", COMA_NUM_PROCESSES=str(world),
-                       COMA_PROCESS_ID=str(rank))
-        else:
-            env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        procs.append(subprocess.Popen([sys.executable, RANKS, *map(str, args)], env=env,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    try:
-        outs = [p.communicate(timeout=TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n\n".join(outs)
-    lines = []
-    for out in outs:
-        lines.append([json.loads(l) for l in out.splitlines() if l.startswith("{")])
-    return lines
+    """``world`` processes of this file's rank script with ``style`` launch
+    variables; returns each rank's JSON lines."""
+    return spawn_command(world, [RANKS, *map(str, args)], style)
 
 
 @pytest.mark.parametrize("world", range(1, 9))

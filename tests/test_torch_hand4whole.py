@@ -167,6 +167,21 @@ def test_resnet_matches(bottleneck, stages, size):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("factory,size", [("resnet50", 64), ("resnet18", 48)])
+def test_resnet_factories_match(factory, size):
+    """``resnet50`` / ``resnet18`` at their published depths: Flax parameters
+    carried across, features within 1e-4."""
+    x = np.float32(np.random.default_rng(5).uniform(size=(1, size, size, 3)))
+    jm = getattr(j_resnet, factory)()
+    variables = init_flax(jm, jnp.asarray(x), seed=5)
+    want = np.asarray(jm.apply(variables, jnp.asarray(x)))
+    tm = load_flax_params(getattr(t_resnet, factory)(), variables).eval()
+    with torch.no_grad():
+        got = tm(nchw(x)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape and got.shape[-1] == tm.feat_dim == jm.feat_dim
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_heads_match():
     """PositionNet, BoxNet (its deconvolutions double H exactly), both
     RotationNets and the FaceRegressor on the published feature shapes."""

@@ -67,6 +67,11 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.config.filtering, coma_tpu_torch.utils.ids\n"
         "import coma_tpu_torch.utils.profiling, coma_tpu_torch.utils.jpeg\n"
         "import coma_tpu_torch.__main__\n"
+        "import coma_tpu_torch.parallel, coma_tpu_torch.parallel.flagship\n"
+        "import coma_tpu_torch.parallel.sharding, coma_tpu_torch.geometry.transforms\n"
+        "import coma_tpu_torch.models.weights_readiness, coma_tpu_torch.cli.convert_weights\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
+        "import phase15_torch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -80,6 +85,9 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.generate_2d_hoi_images' in sys.modules\n"
         "assert 'coma_tpu_torch.cli.train_segmenter' in sys.modules\n"
         "assert 'coma_tpu_torch.visualization.volume' in sys.modules\n"
+        "assert 'coma_tpu_torch.parallel.sharding' in sys.modules\n"
+        "assert 'coma_tpu_torch.cli.convert_weights' in sys.modules\n"
+        "assert 'chip_smoke' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -92,7 +100,8 @@ def test_no_module_of_the_port_imports_jax_or_coma_tpu():
              os.path.join(REPO, "tools", "profile_inpaint_torch.py"),
              os.path.join(REPO, "tools", "stage2_torch.py"),
              os.path.join(REPO, "tools", "stage1_torch.py"),
-             os.path.join(REPO, "tools", "item14_torch.py")]
+             os.path.join(REPO, "tools", "item14_torch.py"),
+             os.path.join(REPO, "tools", "phase15_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -104,7 +113,9 @@ def test_no_module_of_the_port_imports_jax_or_coma_tpu():
                  "visualization/volume.py", "visualization/contact_viz.py",
                  "geometry/correspondence.py", "models/synthetic_person.py",
                  "models/segmentation_train.py", "config/filtering.py", "utils/ids.py",
-                 "utils/profiling.py", "utils/jpeg.py", "__main__.py"):
+                 "utils/profiling.py", "utils/jpeg.py", "__main__.py", "parallel/flagship.py",
+                 "parallel/sharding.py", "models/weights_readiness.py",
+                 "cli/convert_weights.py"):
         assert os.path.join(REPO, "coma_tpu_torch", name) in files, name
     offenders = []
     for path in files:

@@ -388,13 +388,14 @@ def test_worklist_matches_coma_tpu(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--adaptive_mask_model_type", "ps", "--sam_weights", "missing.pth"],
     ["--person_segmenter", "pointrend", "--pointrend_weights", "missing.npz"],
-    ["--save_step_video", "--mesh", "2"], ["--mesh", "all"], [],
+    ["--save_step_video", "--mesh", "2"], ["--mesh", "4", "--dist_backend", "gloo"], [],
 ])
 def test_cli_refuses_what_is_not_ported(flags):
-    """``--mesh`` is the one flag still to port; a weights file that does not
-    exist, or no weights at all, raises too (no fallback to random weights)."""
+    """``--mesh N`` in a launch of fewer than N ranks raises (it does not run
+    one process); a weights file that does not exist, or no weights at all,
+    raises too (no fallback to random weights)."""
     argv = ["--device", "cpu", "--tiny"] + (flags or []) + (["--random_weights"] if flags else [])
-    with pytest.raises(SystemExit, match="ROADMAP|random_weights|does not exist"):
+    with pytest.raises(SystemExit, match="this launch has 1 rank|random_weights|does not exist"):
         t_cli.main(argv)
 
 

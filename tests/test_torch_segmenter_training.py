@@ -12,13 +12,29 @@ rest, 1.8% of the elements here, carry gradients that the two frameworks'
 float32 convolutions give up to 8.9e-7 apart; Adam's first step divides each
 gradient by its own magnitude, so there the updates may differ by up to
 2·lr. They are held to that bound: within 2.2 × the summed learning rates.
+``SegTrainer.make_step`` on 2 gloo ranks (``tests/torch_mesh_ranks.py``),
+global batch 4, against ``coma_tpu``'s ``make_step(mesh)`` on a 2-device
+mesh: the losses within 1e-5 at each of 3 steps, of ``coma_tpu`` and of
+the port's one-process step on the whole batch (3.0e-6 apart after three
+steps with 8 threads: the convolutions' float32 sums follow the thread
+count); the parameters where the first gradient is >= 1e-5 within 1e-4
+after the first step (measured: 1.4e-7) and within 1e-3 after the third
+(measured: 1.855e-4), every parameter within 2.2 × the summed learning
+rates after both. The third step's limit is wider than the one-process
+case's 1e-4 because at this batch later gradients of some sure elements
+come near 0, where Adam's division makes the step follow the frameworks'
+float32 convolutions (the one-process port on the whole batch is 9.3e-4
+from ``coma_tpu`` there with four threads; it is held on its losses only).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from coma_tpu.models.segmentation import PersonSegmenter as JSeg
 from coma_tpu.models.segmentation_train import SegTrainer as JTrainer
@@ -33,7 +49,9 @@ from coma_tpu_torch.models.segmentation_train import SegTrainer as TTrainer
 from coma_tpu_torch.models.segmentation_train import bce_dice_loss as t_loss
 from coma_tpu_torch.models.segmentation_train import synthetic_person_batch as t_synth
 from coma_tpu_torch.optim import OptaxAdam, warmup_cosine_decay_schedule
+from coma_tpu_torch.parallel.distributed import DistContext
 from coma_tpu_torch.utils import checkpoint as t_ckpt
+from tests.torch_mesh_ranks import REPO, spawn_command
 
 SCHEDULE = (1e-3, 3e-3, 2, 10, 1e-4)     # init, peak, warmup, decay, end: lr > 0 from step 1
 
@@ -112,6 +130,51 @@ def test_seg_trainer_matches_after_1_and_3_steps():
     np.testing.assert_allclose(
         float(trainer.iou(torch.as_tensor(imgs), torch.as_tensor(masks))),
         float(j_trainer.iou(state["params"], jnp.asarray(imgs), jnp.asarray(masks))), atol=1e-3)
+
+
+def test_make_step_over_two_ranks_matches_coma_tpus_mesh(tmp_path):
+    j_trainer = JTrainer(JSeg(), optax.adamw(optax.warmup_cosine_decay_schedule(*SCHEDULE),
+                                             weight_decay=1e-4))
+    state = j_trainer.init(jax.random.PRNGKey(0), (32, 32))
+    model = load_flax_params(TSeg(), jax.tree.map(np.asarray, state["params"]))
+    rng = np.random.default_rng(5)
+    batches = [person_batch(rng, 4, 32) for _ in range(3)]
+    np.savez(tmp_path / "in.npz", images=np.stack([b[0] for b in batches]),
+             masks=np.stack([b[1] for b in batches]),
+             **{f"p.{k}": v.numpy() for k, v in model.state_dict().items()})
+    ranks = os.path.join(REPO, "tests", "torch_mesh_ranks.py")
+    reports = spawn_command(2, [ranks, "seg_step", tmp_path / "in.npz", tmp_path / "out.npz"],
+                            "torchrun")
+    assert reports[0][0]["rank"]["losses"] == reports[1][0]["rank"]["losses"]
+    first_grad = jax.grad(j_trainer.loss_fn)(state["params"], *map(jnp.asarray, batches[0]))
+    sure = [np.abs(np.asarray(g)) >= 1e-5 for g in jax.tree.leaves(first_grad)]
+    step = j_trainer.make_step(Mesh(np.array(jax.devices()[:2]), ("data",)))
+    one = TTrainer(load_flax_params(TSeg(), jax.tree.map(np.asarray, state["params"])),
+                   warmup_cosine_decay_schedule(*SCHEDULE), weight_decay=1e-4)
+    lr_sum = 0.0
+    with np.load(tmp_path / "out.npz") as got:
+        for i, (imgs, masks) in enumerate(batches):
+            state, j_l = step(state, jnp.asarray(imgs), jnp.asarray(masks))
+            o_l = one.step(torch.as_tensor(imgs), torch.as_tensor(masks))
+            lr_sum += warmup_cosine_decay_schedule(*SCHEDULE)(i)
+            np.testing.assert_allclose(got["losses"][i], float(j_l), rtol=0, atol=1e-5)
+            np.testing.assert_allclose(got["losses"][i], float(o_l), rtol=0, atol=1e-5)
+            if i in (0, 2):
+                model.load_state_dict({k: torch.from_numpy(got[f"step{i}.{k}"])
+                                       for k in model.state_dict()})
+                want = jax.tree.leaves(jax.tree.map(np.asarray, state["params"]))
+                for g, w, s in zip(jax.tree.leaves(flax_tree(model)), want, sure):
+                    np.testing.assert_allclose(g[s], w[s], rtol=0, atol=1e-4 if i == 0 else 1e-3)
+                    assert np.abs(g - w).max() <= 2.2 * lr_sum
+
+
+def test_make_step_refuses_a_batch_the_ranks_do_not_divide():
+    trainer = TTrainer(TSeg(), 1e-3)
+    assert trainer.make_step(None) == trainer.step
+    step = trainer.make_step(DistContext(0, 2, 0, "gloo", torch.device("cpu")))
+    imgs, masks = person_batch(np.random.default_rng(6), 3, 32)
+    with pytest.raises(ValueError, match="a batch of 3 does not divide over 2 ranks"):
+        step(torch.as_tensor(imgs), torch.as_tensor(masks))
 
 
 def test_synthetic_person_batch_equal():
