@@ -257,6 +257,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    ``python3 tools/phase15_torch.py`` runs phase 15 alone. The rank
    processes run this file's ``rank_main``.
 
+16. The images ``coma_tpu`` reads through PIL. (a) Every fixture of
+   ``tests/data/images/`` (written by Pillow from seeds: baseline 4:2:0,
+   4:2:2 and 4:4:4 JPEGs at q 30/75/95, grayscale, odd sizes, optimised
+   tables, restart intervals, progressive colour and grayscale, EXIF/ICC/COM
+   segments, Adam7 RGB and palette PNGs, a 512² progressive texture, a
+   2048 x 1536 BEHAVE colour frame and person mask) through the native
+   decoder (``coma_tpu_torch/native/src/jpeg_decode.cpp``, built with ``g++``;
+   the phase fails if it does not build or load): the RGB and L arrays'
+   SHA-256 equal to Pillow's in the manifest, the CMYK file refused naming
+   itself. The BEHAVE frame's decode, median of 5, split into entropy and
+   reconstruction ms (host), beside the plain decoder's (Python entropy,
+   numpy reconstruction; equal coefficients and pixels) and the Python
+   entropy decoder on the 512² texture. (b) A BEHAVE-shaped sequence of 2
+   frames whose k0-k3 colour frames and person masks are the 2048 x 1536
+   JPEGs: ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image
+   equal to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512²
+   JPEG as its ``map_Kd``, through ``cli/generate_2d_hoi_images`` at 384²
+   with phase 13's checks (view 0 on the card against the CPU, K3 1644
+   launches, all bf16, K1 and K2 none, counters from 0); the fabric layer is
+   the decoded JPEG bilinearly resized; the inpainting's inputs (384² renders
+   and masks) equal the host's ``read_image`` and PIL's bicubic resize to
+   512². ``python3 tools/phase16_torch.py`` runs phase 16 alone.
+
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
 phase 6c's crop, (4, 1, c², c², 512) for the bucket c the crop takes.
@@ -2575,19 +2598,25 @@ def chair_box(lo, hi, k: int):
     return verts, quads, uvs
 
 
-def write_chair(root: str, rng) -> str:
+def write_chair(root: str, rng, texture: str = None) -> str:
     """A synthetic chair (OBJ axes, y up): a 50 x 50 cm seat at 43-48 cm, a
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
-    material (a 512² RGB PNG written by the port's writer), the legs a
-    Kd-only material and carry no UVs. Returns the OBJ's path."""
+    material (a 512² RGB PNG written by the port's writer, or a copy of the
+    image file ``texture``), the legs a Kd-only material and carry no UVs.
+    Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
-    yy, xx = np.mgrid[:512, :512] / 512
-    tex = np.stack([0.55 + 0.25 * np.sin(40 * xx), 0.35 + 0.15 * np.sin(25 * yy),
-                    np.full_like(xx, 0.25)], -1) + rng.uniform(0, 0.1, (512, 512, 3))
-    write_png(f"{root}/fabric.png", np.uint8(np.clip(tex, 0, 1) * 255))
+    if texture is None:
+        yy, xx = np.mgrid[:512, :512] / 512
+        tex = np.stack([0.55 + 0.25 * np.sin(40 * xx), 0.35 + 0.15 * np.sin(25 * yy),
+                        np.full_like(xx, 0.25)], -1) + rng.uniform(0, 0.1, (512, 512, 3))
+        map_kd = "fabric.png"
+        write_png(f"{root}/{map_kd}", np.uint8(np.clip(tex, 0, 1) * 255))
+    else:
+        map_kd = "fabric" + os.path.splitext(texture)[1]
+        shutil.copy(texture, f"{root}/{map_kd}")
     with open(f"{root}/chair.mtl", "w") as fh:
-        fh.write("newmtl fabric\nKd 0.6 0.4 0.3\nmap_Kd fabric.png\n"
+        fh.write(f"newmtl fabric\nKd 0.6 0.4 0.3\nmap_Kd {map_kd}\n"
                  "newmtl metal\nKd 0.3 0.3 0.32\n")
     big, leg = STAGE1_SPLITS
     parts = [("fabric", chair_box((-0.25, 0.43, -0.25), (0.25, 0.48, 0.25), big)),
@@ -2699,10 +2728,15 @@ def stage1_timings(camera, verts_world, mesh, label: str) -> dict:
     return out
 
 
-def stage1_phase(label: str) -> dict:
+def stage1_phase(label: str, texture: str = None, res: int = STAGE1_RES, timings: bool = True,
+                 check=None) -> dict:
     """Phase 13: ``cli/generate_2d_hoi_images`` on a synthetic textured chair
     at ``render_objects``' defaults and the Chair camera config, every
-    kernel's counter from 0, then the checks."""
+    kernel's counter from 0, then the checks. Phase 16 passes a JPEG
+    ``texture``, renders at ``res``, skips the per-view ``timings`` and adds
+    ``check(obj, mesh, batches)`` (``batches``: each ``cli/inpaint.load_batch``
+    call's chunk, images and masks)."""
+    from coma_tpu_torch.cli import inpaint as cli_inpaint
     from coma_tpu_torch.cli import render_objects as cli_render
     from coma_tpu_torch.geometry.mesh import load_obj_textured
     from coma_tpu_torch.lifting import rasterizer as R
@@ -2713,9 +2747,9 @@ def stage1_phase(label: str) -> dict:
     from coma_tpu_torch.utils.png import read_png
 
     root = tempfile.mkdtemp(prefix="stage1_", dir=SCRATCH)
-    obj = write_chair(root, np.random.default_rng(SEED + 5))
+    obj = write_chair(root, np.random.default_rng(SEED + 5), texture)
     argv = ["--obj_pth", obj, "--supercategory", STAGE1_SC, "--category", STAGE1_CAT,
-            "--asset_id", STAGE1_ASSET, "--resolution", str(STAGE1_RES), str(STAGE1_RES),
+            "--asset_id", STAGE1_ASSET, "--resolution", str(res), str(res),
             "--device", DEVICE, "--random_weights",
             "--num_img_per_combination", "1", "--batch_size", str(INPAINT_IMAGES)]
     contact_kernel.launches = occupancy_kernel.launches = attention.launches = 0
@@ -2730,14 +2764,21 @@ def stage1_phase(label: str) -> dict:
         png_seconds[0] += time.perf_counter() - t0
 
     outputs, generate = [], AdaptiveMaskInpaintPipeline.generate
+    batches, load_batch = [], cli_inpaint.load_batch
 
     def kept(self, *args, **kwargs):     # the float images, for the range check
         out = generate(self, *args, **kwargs)
         outputs.append((out[0] if isinstance(out, tuple) else out).float().cpu())
         return out
 
+    def recorded(chunk, size):           # the inpainting's inputs
+        imgs, masks = load_batch(chunk, size)
+        batches.append((chunk, imgs, masks))
+        return imgs, masks
+
     cwd = os.getcwd()
     cli_render.write_png = timed_write
+    cli_inpaint.load_batch = recorded
     AdaptiveMaskInpaintPipeline.generate = kept
     seconds, peak = {}, {}
     try:
@@ -2774,6 +2815,7 @@ def stage1_phase(label: str) -> dict:
     finally:
         os.chdir(cwd)
         cli_render.write_png = write_png
+        cli_inpaint.load_batch = load_batch
         AdaptiveMaskInpaintPipeline.generate = generate
     launches = {"contact_splat": contact_kernel.launches,
                 "occupancy_hits": occupancy_kernel.launches,
@@ -2805,11 +2847,11 @@ def stage1_phase(label: str) -> dict:
     # view 0: the PNG is the card's render; the card against the CPU
     camera = cameras[0]
     scene, kw = stage1_scene(camera, verts_world, mesh)
-    rgb, covered = render_scene(scene, kw, STAGE1_RES)
+    rgb, covered = render_scene(scene, kw, res)
     png = read_png(f"{g}/renders/{base}/view:00000.png")
     if not np.array_equal((rgb * 255).to(torch.uint8).cpu().numpy(), png):
         raise AssertionError("the render PNG is not the card's render_textured")
-    alone, alone_cov = render_scene(scene, kw, STAGE1_RES, ground=False)
+    alone, alone_cov = render_scene(scene, kw, res, ground=False)
     seg0 = read_png(f"{g}/asset_segs/{base}/view:00000.png")[..., 0] > 0
     if not (alone[~alone_cov] == 1.0).all() or not np.array_equal(alone_cov.cpu().numpy(), seg0):
         raise AssertionError("the asset alone: background not exactly white, or its coverage "
@@ -2824,10 +2866,10 @@ def stage1_phase(label: str) -> dict:
     projection_err = float((projected["tri_px"][:-2] - scene["tri_px"][:-2].cpu()).abs().max())
     cpu_scene = {k: v.cpu() for k, v in scene.items()}
     t0 = time.perf_counter()
-    cpu_rgb, cpu_cov = render_scene(cpu_scene, cpu_kw, STAGE1_RES)
+    cpu_rgb, cpu_cov = render_scene(cpu_scene, cpu_kw, res)
     cpu_render_s = time.perf_counter() - t0
     attrs = [R.rasterize_attributes(s["tri_px"], s["tri_uv"], s["tri_mat"], s["tri_n"],
-                                    STAGE1_RES, STAGE1_RES, tri_aux=s["tri_w"])
+                                    res, res, tri_aux=s["tri_w"])
              for s in (scene, cpu_scene)]
     if not (torch.equal(torch.isfinite(attrs[0][0]).cpu(), torch.isfinite(attrs[1][0]))
             and torch.equal(attrs[0][2].cpu(), attrs[1][2])
@@ -2862,9 +2904,11 @@ def stage1_phase(label: str) -> dict:
             or out.min() < 0 or out.max() > 1:
         raise AssertionError(f"stage 1 images: shape {tuple(out.shape)}, finite "
                              f"{bool(torch.isfinite(out).all())}")
-    timings = stage1_timings(camera, verts_world, mesh, label)
+    timings = stage1_timings(camera, verts_world, mesh, label) if timings else {}
+    if check is not None:
+        check(obj, mesh, batches)
     log(f"stage 1 through cli/generate_2d_hoi_images ({mesh.faces.shape[0]} faces, "
-        f"{STAGE1_VIEWS} views at {STAGE1_RES}²): render {seconds['render']:.3f} s (of it "
+        f"{STAGE1_VIEWS} views at {res}², texture {os.path.basename(texture or 'fabric.png')}): render {seconds['render']:.3f} s (of it "
         f"{png_seconds[0]:.3f} s writing PNGs: {STAGE1_VIEWS} renders, {STAGE1_VIEWS} segs, "
         f"{STAGE1_VIEWS} x {masks.shape[0]} masks), select_mask {seconds['select_mask']:.3f} s, "
         f"generate_prompts {seconds['prompts']:.3f} s, inpaint {seconds['inpaint']:.3f} s = "
@@ -3613,6 +3657,218 @@ def phase15(label: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the images coma_tpu reads through PIL: the JPEG decoder, the BEHAVE
+# reader on JPEG frames, a JPEG-textured asset through stage 1 into K3
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
+BEHAVE_COLOR = "behave_color_2048x1536.jpg"
+BEHAVE_MASK = "behave_mask_2048x1536.jpg"
+FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
+BEHAVE_JPEG_FRAMES = 2
+DECODE_REPS = 5
+PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
+
+
+def image_manifest() -> dict:
+    """The committed fixtures' Pillow hashes, by file name."""
+    with open(os.path.join(IMAGE_FIXTURES, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    return {e["file"]: e for e in manifest["files"]}
+
+
+def image_sha(image: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+
+
+def decode_phase(label: str) -> dict:
+    """(a) Every fixture through the native decoder against Pillow's hashes;
+    the BEHAVE frame's decode timed (entropy and reconstruction, median of
+    5) beside the plain decoder's (Python entropy, numpy reconstruction),
+    and the Python entropy decoder on the 512² texture."""
+    import statistics
+
+    from coma_tpu_torch.utils import jpeg
+    from coma_tpu_torch.utils.image_io import read_image
+    from coma_tpu_torch.utils.png import to_gray, to_rgb
+
+    if not jpeg.native_available():
+        raise AssertionError("the native JPEG decoder (coma_tpu_torch/native/src/jpeg_decode.cpp) "
+                             "did not build or load")
+    manifest = image_manifest()
+    equal, refused = [], []
+    for name, entry in manifest.items():
+        path = os.path.join(IMAGE_FIXTURES, name)
+        if entry.get("raises"):
+            try:
+                read_image(path)
+            except ValueError as err:
+                if name not in str(err):
+                    raise AssertionError(f"{name}: refused without naming the file: {err}")
+                refused.append(name)
+                continue
+            raise AssertionError(f"{name}: decoded, but the decoder must refuse it")
+        if name.endswith(".jpg"):
+            with open(path, "rb") as fh:
+                image = jpeg.decode_jpeg(fh.read(), path, native=True)
+        else:
+            image = read_image(path)
+        for mode, convert in (("RGB", to_rgb), ("L", to_gray)):
+            if image_sha(convert(image)) != entry["sha256"][mode]:
+                raise AssertionError(f"{name}: {mode} differs from Pillow's")
+        equal.append(name)
+
+    def coefficients_equal(a, b) -> bool:
+        return all(np.array_equal(x, y) for x, y in zip(a.coef, b.coef))
+
+    with open(os.path.join(IMAGE_FIXTURES, BEHAVE_COLOR), "rb") as fh:
+        data = fh.read()
+    entropy_ms, recon_ms = [], []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        frame = jpeg.decode_coefficients(data, BEHAVE_COLOR, native=True)
+        t1 = time.perf_counter()
+        image = jpeg.reconstruct(frame, native=True)
+        entropy_ms.append((t1 - t0) * 1e3)
+        recon_ms.append((time.perf_counter() - t1) * 1e3)
+    t0 = time.perf_counter()
+    plain = jpeg.decode_coefficients(data, BEHAVE_COLOR, native=False)
+    t1 = time.perf_counter()
+    plain_image = jpeg.reconstruct(plain, native=False)
+    plain_entropy_s, plain_recon_s = t1 - t0, time.perf_counter() - t1
+    if not coefficients_equal(plain, frame) or not np.array_equal(plain_image, image):
+        raise AssertionError(f"{BEHAVE_COLOR}: the plain and native decoders differ")
+    with open(os.path.join(IMAGE_FIXTURES, FABRIC_JPEG), "rb") as fh:
+        fabric = fh.read()
+    t0 = time.perf_counter()
+    fabric_plain = jpeg.decode_coefficients(fabric, FABRIC_JPEG, native=False)
+    fabric_python_s = time.perf_counter() - t0
+    if not coefficients_equal(fabric_plain, jpeg.decode_coefficients(fabric, FABRIC_JPEG,
+                                                                     native=True)):
+        raise AssertionError(f"{FABRIC_JPEG}: the plain and native entropy decoders differ")
+    out = dict(equal=len(equal), refused=refused, bytes=len(data),
+               entropy_ms=statistics.median(entropy_ms), reconstruct_ms=statistics.median(recon_ms),
+               entropy_ms_all=entropy_ms, reconstruct_ms_all=recon_ms,
+               plain_entropy_s=plain_entropy_s, plain_reconstruct_s=plain_recon_s,
+               fabric_python_entropy_s=fabric_python_s)
+    log(f"phase 16a: {len(equal)} fixtures through the native decoder equal to Pillow's hashes "
+        f"(RGB and L), {refused} refused naming the file; {BEHAVE_COLOR} ({len(data)} bytes), "
+        f"median of {DECODE_REPS} native decodes: entropy {out['entropy_ms']:.3f} ms, "
+        f"reconstruction {out['reconstruct_ms']:.3f} ms (host); the plain decoder: Python "
+        f"entropy {plain_entropy_s:.3f} s, numpy reconstruction {plain_recon_s:.3f} s, equal "
+        f"coefficients and pixels; Python entropy on {FABRIC_JPEG} (512², progressive) "
+        f"{fabric_python_s:.3f} s [{label}]")
+    return out
+
+
+def behave_jpeg_phase(label: str) -> dict:
+    """(b) A BEHAVE-shaped sequence whose k0-k3 colour frames and person masks
+    are the committed 2048 x 1536 JPEGs, read through ``BehaveSequence``:
+    ``__getitem__`` and ``get_person_mask`` against Pillow's hashes."""
+    from coma_tpu_torch.pipelines.behave_eval import BehaveSequence
+    from coma_tpu_torch.utils.png import write_png
+
+    manifest = image_manifest()
+    root = tempfile.mkdtemp(prefix="behave_jpeg_", dir=SCRATCH)
+    try:
+        seq = f"{root}/Date03_Sub04_chairwood"
+        os.makedirs(seq)
+        with open(f"{seq}/info.json", "w") as fh:
+            json.dump(dict(cat="chairwood", gender="male", kinects=[0, 1, 2, 3]), fh)
+        for k in range(BEHAVE_JPEG_FRAMES):
+            frame = f"{seq}/t{k:04d}.000"
+            os.makedirs(frame)
+            for kid in range(4):
+                shutil.copy(os.path.join(IMAGE_FIXTURES, BEHAVE_COLOR), f"{frame}/k{kid}.color.jpg")
+                shutil.copy(os.path.join(IMAGE_FIXTURES, BEHAVE_MASK),
+                            f"{frame}/k{kid}.person_mask.jpg")
+                write_png(f"{frame}/k{kid}.depth.png", np.zeros((576, 640), np.uint8))
+        reader = BehaveSequence(seq)
+        want_mask = reader.get_mask(0, 0, "person", ret_bool=False)
+        if image_sha(want_mask) != manifest[BEHAVE_MASK]["sha256"]["L"]:
+            raise AssertionError(f"{BEHAVE_MASK}: get_mask differs from Pillow's convert('L')")
+        seconds = []
+        for idx in range(len(reader)):
+            t0 = time.perf_counter()
+            colors, depths = reader[idx]
+            masks = reader.get_person_mask(idx)
+            seconds.append(time.perf_counter() - t0)
+            if len(colors) != 4 or len(masks) != 4:
+                raise AssertionError(f"frame {idx}: {len(colors)} colours, {len(masks)} masks")
+            for c in colors:
+                if image_sha(c) != manifest[BEHAVE_COLOR]["sha256"]["RGB"]:
+                    raise AssertionError(f"frame {idx}: a colour frame differs from Pillow's")
+            for m in masks:
+                if m.dtype != np.bool_ or not np.array_equal(m, want_mask > 127):
+                    raise AssertionError(f"frame {idx}: a person mask differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ms = [x * 1e3 for x in seconds]
+    log(f"phase 16b: BehaveSequence on {len(ms)} frames of 4 kinects (2048 x 1536 JPEG colour "
+        f"frames and person masks): __getitem__ + get_person_mask "
+        f"{', '.join(f'{x:.3f}' for x in ms)} ms a frame (host), every image equal to "
+        f"Pillow's hash [{label}]")
+    return dict(frame_ms=ms)
+
+
+def jpeg_asset_phase(label: str) -> dict:
+    """(c) Phase 13's chair with its fabric texture the committed progressive
+    JPEG, through ``cli/generate_2d_hoi_images`` at ``PHASE16_RES``² (so
+    ``inpaint`` resizes to 512²) into one batch of 4 on K3, with phase 13's
+    checks; the texture layer and the inpainting's inputs against the host's
+    ``read_image`` and PIL's resizes."""
+    from coma_tpu_torch.utils.image_io import read_image
+    from coma_tpu_torch.utils.resize import resize_bicubic, resize_bilinear
+
+    texture = os.path.join(IMAGE_FIXTURES, FABRIC_JPEG)
+    manifest = image_manifest()
+
+    def check(obj, mesh, batches):
+        decoded = read_image(texture, "RGB")
+        if image_sha(decoded) != manifest[FABRIC_JPEG]["sha256"]["RGB"]:
+            raise AssertionError(f"{FABRIC_JPEG}: differs from Pillow's")
+        layer = resize_bilinear(decoded, mesh.textures.shape[1:3][::-1]).astype(np.float32) / 255
+        if not any(np.array_equal(t, layer) for t in mesh.textures):
+            raise AssertionError("the chair's fabric layer is not the decoded JPEG texture")
+        if len(batches) != 1:
+            raise AssertionError(f"inpaint loaded {len(batches)} batches")
+        chunk, imgs, masks = batches[0]
+        root = os.path.dirname(obj)              # the CLI's paths are relative to it
+        for w, img, mask in zip(chunk, imgs, masks):
+            render = read_image(os.path.join(root, w["render"]), "RGB")
+            if render.shape != (PHASE16_RES, PHASE16_RES, 3):
+                raise AssertionError(f"{w['render']}: shape {render.shape}")
+            want = resize_bicubic(render, (INPAINT_RES, INPAINT_RES)).astype(np.float32)
+            want_mask = resize_bicubic(read_image(os.path.join(root, w["mask"]), "L"),
+                                       (INPAINT_RES, INPAINT_RES))
+            if not (np.array_equal(img.permute(1, 2, 0).numpy(), want / 127.5 - 1.0)
+                    and np.array_equal(mask.numpy(), np.float32(want_mask > 127))):
+                raise AssertionError(f"{w['render']}: the inpainting's inputs are not the "
+                                     "host's read_image and PIL's bicubic resize")
+
+    out = stage1_phase(label, texture=texture, res=PHASE16_RES, timings=False, check=check)
+    log(f"phase 16c: the JPEG-textured chair ({FABRIC_JPEG}) at {PHASE16_RES}², resized to "
+        f"{INPAINT_RES}² for inpainting: launches {out['launches']} ({out['by_source']}) "
+        f"[{label}]")
+    return out
+
+
+def phase16(label: str) -> dict:
+    """Phase 16: (a) the decoder against Pillow's hashes, (b) the BEHAVE
+    reader on JPEG frames, (c) a JPEG-textured asset through stage 1 into K3,
+    every kernel's counter from 0 before (c)'s path and read after it."""
+    t0 = time.perf_counter()
+    out = dict(decode=decode_phase(label), behave=behave_jpeg_phase(label),
+               stage1=jpeg_asset_phase(label))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16: {out['seconds']:.1f} s [{label}]")
+    return out
+
+
+
 
 
 def glob_paths(root: str, pattern: str) -> list:
@@ -3771,6 +4027,8 @@ def main() -> int:
         item14 = phase14(products, star_pickle, opt_files["obj"], opt_files["npz"], label)
         # phase 15: --mesh inpainting, the 2-D aggregation, the weights' readiness
         p15 = phase15(label)
+        # phase 16: JPEG and interlaced-PNG reading, a JPEG-textured asset into K3
+        p16 = phase16(label)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(phase6_images, ignore_errors=True)
@@ -3805,7 +4063,8 @@ def main() -> int:
              launches_optimize=app_launches["contact_splat"],
              launches_stage2=stage2["launches"]["contact_splat"],
              launches_stage1=stage1["launches"]["contact_splat"],
-             **item14_launches("contact_splat"), **phase15_launches("contact_splat")),
+             **item14_launches("contact_splat"), **phase15_launches("contact_splat"),
+             launches_phase16=p16["stage1"]["launches"]["contact_splat"]),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -3818,7 +4077,8 @@ def main() -> int:
              launches_optimize=app_launches["occupancy_hits"],
              launches_stage2=stage2["launches"]["occupancy_hits"],
              launches_stage1=stage1["launches"]["occupancy_hits"],
-             **item14_launches("occupancy_hits"), **phase15_launches("occupancy_hits")),
+             **item14_launches("occupancy_hits"), **phase15_launches("occupancy_hits"),
+             launches_phase16=p16["stage1"]["launches"]["occupancy_hits"]),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
@@ -3842,7 +4102,8 @@ def main() -> int:
              launches_stage2=stage2["launches"]["flash_attention"],
              launches_stage1=stage1["launches"]["flash_attention"],
              launches_stage1_by_source=stage1["by_source"],
-             **item14_launches("flash_attention"), **phase15_launches("flash_attention")),
+             **item14_launches("flash_attention"), **phase15_launches("flash_attention"),
+             launches_phase16=p16["stage1"]["launches"]["flash_attention"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -35,7 +35,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__)
     add_common_flags(parser)
     parser.add_argument("--prompts", type=str, nargs="+")
+    # the reference's flags, accepted and unused, as in coma_tpu
+    parser.add_argument("--camera_dir", type=str, default="results/generation/cameras")
+    parser.add_argument("--human_params_dir", type=str, default="results/generation/human_preds")
+    parser.add_argument("--asset_downsample_dir", type=str,
+                        default="results/coma/asset_downsample")
+    parser.add_argument("--human_postfilter_dir", type=str,
+                        default="results/coma/human_postfilterings")
     parser.add_argument("--human_sample_dir", type=str, default="results/generation/human_sample")
+    parser.add_argument("--coma_save_dir", type=str, default="results/coma/extracted_coma")
+    parser.add_argument("--affordance_save_dir", type=str, default="results/coma/affordance")
+    parser.add_argument("--smplx_canon_obj_pth", type=str,
+                        default="./constants/mesh/smplx_star.obj")
+    # the reference's static sharding flags: accepted; --multihost shards here
+    parser.add_argument("--parallel_num", type=int, default=1)
+    parser.add_argument("--parallel_idx", type=int, default=0)
     parser.add_argument("--constants_mesh_dir", type=str, default="./constants/mesh")
     parser.add_argument(
         "--hyperparams_key",

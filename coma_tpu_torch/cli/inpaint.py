@@ -46,7 +46,6 @@ import zlib
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from coma_tpu_torch.cli._common import (
     add_common_flags,
@@ -71,7 +70,9 @@ from coma_tpu_torch.models.diffusion.pipeline import (
 from coma_tpu_torch.models.segmentation import SEGMENTER_CHECKPOINT
 from coma_tpu_torch.parallel import distributed
 from coma_tpu_torch.parallel.flagship import rank_batches, resolve_mesh
-from coma_tpu_torch.utils.png import read_png, to_gray, to_rgb, write_png
+from coma_tpu_torch.utils.image_io import read_image
+from coma_tpu_torch.utils.png import write_png
+from coma_tpu_torch.utils.resize import resize_bicubic
 
 SAM_MODES = ("ps", "ps_ae", "s_pdb_ae", "s_db_ae", "s_ab_ae")
 
@@ -369,23 +370,13 @@ def provoke_crop_for(args, masks: np.ndarray, vae_scale: int) -> int:
     return crop
 
 
-def _resize(images: np.ndarray, res: int) -> np.ndarray:
-    """uint8 (N, H, W, C) -> float (N, res, res, C) in [0, 255]. PIL's default
-    ``resize`` filter is bicubic with a = -0.5; PyTorch's bicubic uses
-    a = -0.75, so a render not already at ``res`` differs slightly."""
-    x = torch.from_numpy(images).permute(0, 3, 1, 2).float()
-    if x.shape[-2:] != (res, res):
-        x = F.interpolate(x, size=(res, res), mode="bicubic", align_corners=False,
-                          antialias=True).round().clamp(0, 255)
-    return x.permute(0, 2, 3, 1).numpy()
-
-
 def load_batch(chunk, res: int):
-    """Renders (B, 3, res, res) in [-1, 1] and masks (B, res, res) in {0, 1}."""
-    imgs = np.stack([_resize(to_rgb(read_png(w["render"]))[None], res)[0] for w in chunk])
-    masks = np.stack([_resize(to_gray(read_png(w["mask"]))[None, :, :, None], res)[0, :, :, 0]
-                      for w in chunk])
-    imgs = torch.from_numpy(np.float32(imgs / 127.5 - 1.0)).permute(0, 3, 1, 2)
+    """Renders (B, 3, res, res) in [-1, 1] and masks (B, res, res) in {0, 1}:
+    ``coma_tpu``'s ``Image.open(p).convert(mode).resize((res, res))``, PIL's
+    bicubic resize (a = -0.5) reproduced to the bit."""
+    imgs = np.stack([resize_bicubic(read_image(w["render"], "RGB"), (res, res)) for w in chunk])
+    masks = np.stack([resize_bicubic(read_image(w["mask"], "L"), (res, res)) for w in chunk])
+    imgs = torch.from_numpy(np.float32(imgs) / 127.5 - 1.0).permute(0, 3, 1, 2)
     masks = torch.from_numpy(np.float32(masks > 127))
     return imgs, masks
 

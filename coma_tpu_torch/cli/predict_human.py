@@ -104,7 +104,7 @@ def build_worklist(args) -> list:
 
 
 def main(argv=None) -> dict:
-    from coma_tpu_torch.utils.png import read_png, to_rgb
+    from coma_tpu_torch.utils.image_io import read_image
 
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)
@@ -124,7 +124,7 @@ def main(argv=None) -> dict:
         if len(person_idx) >= 2:
             payload = MORE_THAN_2_HUMANS
         elif len(person_idx) == 1:
-            image = to_rgb(read_png(img_pth))
+            image = read_image(img_pth, "RGB")
             bbox_xywh = bbox_xyxy_to_xywh(seg["pred_boxes"][person_idx[0]])
             outs = regressor.regress(image, [bbox_xywh])
             if outs:

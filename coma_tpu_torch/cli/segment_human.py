@@ -37,7 +37,7 @@ from coma_tpu_torch.cli._common import (
 from coma_tpu_torch.config.segmentation import run_mode_supported
 from coma_tpu_torch.device import resolve_device
 from coma_tpu_torch.models.segmentation import SEGMENTER_CHECKPOINT
-from coma_tpu_torch.utils.png import read_png, to_rgb
+from coma_tpu_torch.utils.image_io import read_image
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,7 +156,7 @@ def main(argv=None) -> None:
 
     for i in range(0, len(work), args.batch_size):
         chunk = work[i: i + args.batch_size]
-        imgs = np.stack([to_rgb(read_png(p)).astype(np.float32) / 255.0 for p, _ in chunk])
+        imgs = np.stack([read_image(p, "RGB").astype(np.float32) / 255.0 for p, _ in chunk])
         if predictor is not None:
             per_image = [predictor(im) for im in imgs]
         else:

@@ -1,6 +1,6 @@
 """CLI: candidate-mask selection (reference: ``src/generation/select_mask.py``;
-counterpart of ``coma_tpu/cli/select_mask.py``). PNGs are read with
-:mod:`coma_tpu_torch.utils.png` (PIL's ``L``); each view's masks are counted
+counterpart of ``coma_tpu/cli/select_mask.py``). Images are read with
+:func:`coma_tpu_torch.utils.image_io.read_image` (PIL's ``L``); each view's masks are counted
 against its segmentation in one pass on ``--device``."""
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from coma_tpu_torch.config.assets import CATEGORY2MASK_FILTER_CONFIG
 from coma_tpu_torch.core.paths import unflatten
 from coma_tpu_torch.device import resolve_device
 from coma_tpu_torch.pipelines.mask_select import save_valid_mask_ids, select_valid_masks
-from coma_tpu_torch.utils.png import read_png, to_gray
+from coma_tpu_torch.utils.image_io import read_image
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,13 +52,13 @@ def main(argv=None) -> None:
         if args.skip_done and os.path.exists(save_pth):
             continue
 
-        seg = to_gray(read_png(f"{args.asset_seg_dir}/{sc_str}/{cat_str}/{asset_id}/{view_id}.png"))
+        seg = read_image(f"{args.asset_seg_dir}/{sc_str}/{cat_str}/{asset_id}/{view_id}.png", "L")
         if (seg > 0).sum() == 0:
             continue
 
         mask_pths = sorted(
             _glob.glob(f"{args.asset_mask_dir}/{sc_str}/{cat_str}/{asset_id}/{view_id}/*.png"))
-        masks = np.stack([to_gray(read_png(p)) for p in mask_pths]) if mask_pths \
+        masks = np.stack([read_image(p, "L") for p in mask_pths]) if mask_pths \
             else np.zeros((0,) + seg.shape, np.uint8)
         band = CATEGORY2MASK_FILTER_CONFIG.get(supercategory, {}).get(category, {})
         valid_indices = select_valid_masks(

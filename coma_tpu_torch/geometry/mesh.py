@@ -6,11 +6,11 @@ A copy of ``coma_tpu/geometry/mesh.py``:
   index-based downsampling depends on it; reference
   ``utils/load_3d.py:load_obj_as_o3d_preserving_face_order``).
 - :func:`load_obj_textured` adds UVs, per-face materials and one texture
-  layer per material for the textured renderer; ``map_Kd`` PNGs are read
-  with :mod:`coma_tpu_torch.utils.png` and resized as PIL's bilinear resize
-  does (the card has no PIL). A texture the PNG reader cannot decode (a
-  JPEG, say) keeps the material's Kd layer with a printed warning, where
-  ``coma_tpu`` decodes it through PIL.
+  layer per material for the textured renderer; ``map_Kd`` PNGs and JPEGs
+  are read with :func:`coma_tpu_torch.utils.image_io.read_image` (PIL's
+  pixels) and resized as PIL's bilinear resize does (the card has no PIL).
+  A texture the reader refuses keeps the material's Kd layer with a printed
+  warning, as ``coma_tpu`` keeps it for a file PIL refuses.
 - vertex normal = normalized sum of the incident *unnormalized* face cross
   products (area-weighted); isolated vertices keep a zero normal (Open3D's
   ``TriangleMesh.compute_vertex_normals``).
@@ -24,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from coma_tpu_torch.utils.png import read_png, to_rgb
+from coma_tpu_torch.utils.image_io import read_image
 from coma_tpu_torch.utils.resize import resize_bilinear
 
 
@@ -115,7 +115,7 @@ def _parse_mtl(path: str, tex_size: int) -> dict:
             elif tok[0] == "map_Kd" and cur is not None:
                 tex_pth = os.path.join(base, line.split(None, 1)[1].strip())
                 try:
-                    image = to_rgb(read_png(tex_pth))
+                    image = read_image(tex_pth, "RGB")
                 except OSError:
                     continue                      # missing: keep Kd, as coma_tpu does
                 except (ValueError, zlib.error) as err:

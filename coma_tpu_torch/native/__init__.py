@@ -1,10 +1,12 @@
-"""Native (C++) host code for the offline prep stages, loaded with ctypes.
+"""Native (C++) host code, loaded with ctypes.
 
 A copy of ``coma_tpu/native`` (``src/coma_native.cpp`` unchanged): Yuksel's
 weighted sample elimination behind poisson-disk downsampling, and a
-ray-parity point-in-mesh test. This is host code, not a device kernel.
+ray-parity point-in-mesh test. ``src/jpeg_decode.cpp`` is the JPEG decoder's
+native half (``utils/jpeg.py`` loads it). This is host code, not a device
+kernel.
 
-The source is compiled with ``g++`` at first use into
+Each source is compiled with ``g++`` at first use into
 ``coma_tpu_torch/_build/`` (ignored by git), named by a hash of the source
 and the flags, written to a per-process temporary file and renamed into
 place, so concurrent processes never load a half-written library. Each
@@ -20,61 +22,74 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "src" / "coma_native.cpp"
+_SRC_DIR = Path(__file__).resolve().parent / "src"
+_SRC = _SRC_DIR / "coma_native.cpp"
+JPEG_DECODE_SRC = _SRC_DIR / "jpeg_decode.cpp"    # utils/jpeg.py loads it
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # the flags of coma_tpu's build: the same arithmetic (contractions included)
 # gives the same elimination order, hence the same indices
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
-_lib: Optional[ctypes.CDLL] = None
-_load_attempted = False
+_libs: dict = {}          # source path -> its loaded library, or None without a toolchain
 _lock = threading.Lock()
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libcoma_native-{digest}.so"
+def library_path(src: Path = _SRC) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def _build() -> Path:
-    out = library_path()
+def build_library(src: Path = _SRC) -> Path:
+    """Compile ``src`` into ``BUILD_DIR`` unless its library is there; its
+    path. Raises ``OSError`` or ``subprocess.SubprocessError`` without a
+    working ``g++``."""
+    out = library_path(src)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *CXX_FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
     return out
 
 
-def _build_and_load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_attempted
+def load_library(src: Path, declare: Callable[[ctypes.CDLL], None]) -> Optional[ctypes.CDLL]:
+    """``src`` built and loaded once per process, ``declare`` having set its
+    functions' ``argtypes`` and ``restype``; None where it does not build or
+    load (no toolchain), and then the caller's fallback runs."""
     with _lock:
-        if _lib is not None or _load_attempted:
-            return _lib
-        _load_attempted = True
-        try:
-            lib = ctypes.CDLL(str(_build()))
-        except (OSError, subprocess.SubprocessError):
-            return None   # no toolchain or no loadable library: the fallback runs
-        lib.poisson_eliminate.restype = ctypes.c_int
-        lib.poisson_eliminate.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
-            ctypes.c_double, ctypes.POINTER(ctypes.c_uint8),
-        ]
-        lib.points_inside_mesh.restype = None
-        lib.points_inside_mesh.argtypes = [
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_uint8),
-        ]
-        _lib = lib
-        return _lib
+        if src not in _libs:
+            try:
+                lib = ctypes.CDLL(str(build_library(src)))
+            except (OSError, subprocess.SubprocessError):
+                lib = None
+            else:
+                declare(lib)
+            _libs[src] = lib
+        return _libs[src]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.poisson_eliminate.restype = ctypes.c_int
+    lib.poisson_eliminate.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.points_inside_mesh.restype = None
+    lib.points_inside_mesh.argtypes = [
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+
+
+def _build_and_load() -> Optional[ctypes.CDLL]:
+    return load_library(_SRC, _declare)
 
 
 def available() -> bool:

@@ -34,7 +34,8 @@ from coma_tpu_torch.affordance.evaluation import quant_metrics
 from coma_tpu_torch.affordance.io import load_pickle
 from coma_tpu_torch.geometry.mesh import compute_vertex_normals, normalize_rows
 from coma_tpu_torch.geometry.transforms import rodrigues
-from coma_tpu_torch.utils.png import read_png, read_png_gray16, to_gray, to_rgb
+from coma_tpu_torch.utils.image_io import read_image
+from coma_tpu_torch.utils.png import read_png_gray16
 
 
 @dataclasses.dataclass
@@ -387,10 +388,10 @@ class BehaveSequence:
         return [self.frame_index(t) for t in frame_times]
 
     def get_color_image(self, idx: int, kid: int) -> np.ndarray:
-        """(H, W, 3) uint8. A PNG frame is read; BEHAVE's JPEG frames raise
-        (the port has no JPEG decoder)."""
+        """(H, W, 3) uint8, PIL's ``convert("RGB")`` of the JPEG (BEHAVE's)
+        or PNG frame."""
         pth = os.path.join(self.frame_folder(idx), f"k{kid}.color.{self.ext}")
-        return to_rgb(_read_image(pth))
+        return read_image(pth, "RGB")
 
     def get_depth_image(self, idx: int, kid: int) -> np.ndarray:
         """uint16 depth in mm (``k{kid}.depth.png``)."""
@@ -544,7 +545,7 @@ class BehaveSequence:
         pth = self.get_mask_file(idx, kid, cat)
         if not os.path.isfile(pth):
             return None
-        mask = to_gray(_read_image(pth))
+        mask = read_image(pth, "L")
         return mask > 127 if ret_bool else mask
 
     def get_person_mask(self, idx: int, kids=None, ret_bool: bool = True):
@@ -582,17 +583,6 @@ class BehaveSequence:
         kinect calibration (depth holes NOT filled; compose with
         ``calib.interpolate_depth`` when needed)."""
         return calib.dmap2pc(self.get_depth_image(idx, kid))
-
-
-def _read_image(path: str) -> np.ndarray:
-    """(H, W, C) uint8 of a PNG; any other format raises, naming the file."""
-    with open(path, "rb") as fh:
-        magic = fh.read(8)
-    if magic != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(
-            f"{path}: only PNG images are read (the port has no JPEG decoder; "
-            "convert BEHAVE's colour frames to PNG first)")
-    return read_png(path)
 
 
 def sequence_background_depth(empty_seq: str, kid: int,

@@ -2,7 +2,7 @@
 
 The writer takes 8-bit gray, gray+alpha, RGB and RGBA. The reader also takes
 palette images (bit depths 1 to 8) and 16-bit and low-bit gray ones,
-non-interlaced, all five filter types. The CLIs read renders, masks and
+non-interlaced or Adam7-interlaced, all five filter types. The CLIs read renders, masks and
 texture maps and write their images with it, so the port needs no imaging
 library. :func:`read_png` returns what PIL holds for the file's mode, and
 :func:`to_rgb` and :func:`to_gray` are PIL's ``convert("RGB")`` and
@@ -121,9 +121,50 @@ def read_png_gray16(path: str) -> np.ndarray:
 
 def _read(path: str, wide_gray: bool) -> np.ndarray:
     with open(path, "rb") as fh:
-        data = fh.read()
+        return decode_png(fh.read(), path, wide_gray)
+
+
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _unfilter(raw: np.ndarray, stride: int, bpp: int, name: str) -> np.ndarray:
+    """(h, 1 + stride) filtered scanlines -> (h, stride) bytes."""
+    h = raw.shape[0]
+    kinds = raw[:, 0]
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"{name}: unknown PNG filter type {kinds.max()}")
+    if stride % bpp == 0 and np.isin(kinds, (0, 1)).all():
+        # None and Sub filter each row on its own: all rows at once (the
+        # port's writer uses Sub)
+        sub = np.cumsum(raw[:, 1:].reshape(h, -1, bpp), axis=1, dtype=np.uint8)  # wraps mod 256
+        return sub.reshape(h, stride) if (kinds == 1).all() else np.where(
+            (kinds == 1)[:, None], sub.reshape(h, stride), raw[:, 1:])
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, bpp)
+    return out
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered (h, stride) bytes -> (h, width * channels) samples: uint16
+    at depth 16, the raw level or palette index below 8."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows.reshape(h, width * channels, 2).astype(np.uint16)
+        return pairs[..., 0] << 8 | pairs[..., 1]
+    if depth < 8:
+        return _unpack_bits(rows, depth, width * channels)
+    return rows
+
+
+def decode_png(data: bytes, name: str = "<bytes>", wide_gray: bool = False) -> np.ndarray:
+    """PNG bytes -> :func:`read_png`'s array (:func:`read_png_gray16`'s
+    samples with ``wide_gray``); ``name`` names the file in errors."""
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     pos, header, idat, palette = len(_SIGNATURE), None, [], None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
@@ -131,7 +172,7 @@ def _read(path: str, wide_gray: bool) -> np.ndarray:
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
+            raise ValueError(f"{name}: bad CRC in chunk {kind!r}")
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -142,48 +183,44 @@ def _read(path: str, wide_gray: bool) -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError(f"{name}: no IHDR chunk")
     W, H, depth, ctype, _, _, interlace = header
     paletted = ctype == 3
     C = 1 if paletted else _CHANNELS.get(ctype)
     allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
-    if C is None or depth not in allowed or interlace != 0:
-        raise ValueError(f"{path}: only non-interlaced gray, RGB(A) and palette PNGs are read "
+    if C is None or depth not in allowed or interlace not in (0, 1):
+        raise ValueError(f"{name}: only gray, RGB(A) and palette PNGs are read "
                          f"(bit depth {depth}, colour type {ctype}, interlace {interlace})")
     if paletted and palette is None:
-        raise ValueError(f"{path}: palette image without a PLTE chunk")
-    stride = (W * C * depth + 7) // 8
+        raise ValueError(f"{name}: palette image without a PLTE chunk")
     bpp = max(1, C * depth // 8)            # the filters' byte distance
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != H * (stride + 1):
-        raise ValueError(f"{path}: image data has {raw.size} bytes, expected {H * (stride + 1)}")
-    raw = raw.reshape(H, stride + 1)
-    kinds = raw[:, 0]
-    if stride % bpp == 0 and np.isin(kinds, (0, 1)).all():
-        # None and Sub filter each row on its own: all rows at once (the
-        # port's writer uses Sub)
-        sub = np.cumsum(raw[:, 1:].reshape(H, -1, bpp), axis=1, dtype=np.uint8)  # wraps mod 256
-        out = sub.reshape(H, stride) if (kinds == 1).all() else np.where(
-            (kinds == 1)[:, None], sub.reshape(H, stride), raw[:, 1:])
-    else:
-        out = np.empty((H, stride), np.uint8)
-        prior = np.zeros(stride, np.uint8)
-        for y in range(H):
-            prior = out[y] = _unfilter_row(int(raw[y, 0]), raw[y, 1:], prior, bpp)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.empty((H, W * C), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue                        # an empty pass has no scanlines
+        stride = (w * C * depth + 7) // 8
+        if raw.size < pos + h * (stride + 1):
+            raise ValueError(f"{name}: image data has {raw.size} bytes, expected at least "
+                             f"{pos + h * (stride + 1)}")
+        rows = _unfilter(raw[pos:pos + h * (stride + 1)].reshape(h, stride + 1), stride, bpp, name)
+        pos += h * (stride + 1)
+        out.reshape(H, W, C)[y0::dy, x0::dx] = _samples(rows, w, C, depth).reshape(h, w, C)
+    if pos != raw.size:
+        raise ValueError(f"{name}: image data has {raw.size} bytes, expected {pos}")
     if depth == 16:
-        samples = out.reshape(H, W * C, 2)
         if ctype == 0:                      # PIL's I;16 -> L / RGB saturates
-            wide = samples[..., 0].astype(np.uint16) << 8 | samples[..., 1]
-            out = wide if wide_gray else np.minimum(wide, 255).astype(np.uint8)
+            out = out if wide_gray else np.minimum(out, 255).astype(np.uint8)
         else:
-            out = samples[..., 0]
-    elif depth < 8:
-        out = _unpack_bits(out, depth, W * C)
-        if not paletted:
-            out = out * np.uint8(255 // ((1 << depth) - 1))
+            out = (out >> 8).astype(np.uint8)
+    elif depth < 8 and not paletted:
+        out = out * np.uint8(255 // ((1 << depth) - 1))
     if paletted:
         if out.max(initial=0) >= len(palette):
-            raise ValueError(f"{path}: palette index beyond the {len(palette)} PLTE entries")
+            raise ValueError(f"{name}: palette index beyond the {len(palette)} PLTE entries")
         return palette[out.reshape(H, W)]
     return out.reshape(H, W, C)
 

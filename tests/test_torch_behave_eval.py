@@ -7,8 +7,8 @@ it float64); the ground-truth ComA state built by
 ``pipelines/extract.aggregate_samples_streaming`` through K1's plain
 version within rtol 2e-5 / atol 1e-6; SIM/MAE and ``cli/evaluate``'s JSON
 within 1e-6; the calibration's numpy and scipy math within 1e-9. The reader
-surface mirrors ``tests/test_behave_eval.py`` with PNG colour frames and
-masks (the port has no JPEG decoder: a JPEG frame raises, naming the file).
+surface mirrors ``tests/test_behave_eval.py``; colour frames and masks are
+read from PNG and from JPEG (BEHAVE's format) equal to ``coma_tpu``'s PIL.
 """
 import json
 import pickle
@@ -338,16 +338,37 @@ def test_behave_sequence_reader_matches(tmp_path, rng):
 
 
 def test_jpeg_colour_frame_raises_naming_the_file(tmp_path, rng):
+    """BEHAVE's JPEG colour frames and person masks read equal to
+    ``coma_tpu``'s (PIL); only a JPEG the port's decoder refuses (CMYK)
+    raises, naming the file."""
     seq = write_sequence(tmp_path, rng, "jpg")
-    reader = T.BehaveSequence(str(seq))
-    with pytest.raises(ValueError, match=r"k1\.color\.jpg.*JPEG"):
-        reader.get_color_image(0, 1)
-    assert reader.get_depth_image(0, 0).dtype == np.uint16   # depth stays readable
+    yy, xx = np.mgrid[:24, :40]
+    for frame in sorted(p for p in seq.iterdir() if p.is_dir()):
+        for kid in range(2):
+            blob = (yy - rng.uniform(6, 18)) ** 2 + (xx - rng.uniform(10, 30)) ** 2 < 60
+            Image.fromarray(np.uint8(blob) * 255).save(frame / f"k{kid}.person_mask.jpg")
+    t, j = T.BehaveSequence(str(seq)), J.BehaveSequence(str(seq))
+    assert t.ext == j.ext == "jpg"
+    for idx in range(3):
+        for kid in range(2):
+            np.testing.assert_array_equal(t.get_color_image(idx, kid), j.get_color_image(idx, kid))
+            for ret_bool in (True, False):
+                got = t.get_mask(idx, kid, "person", ret_bool)
+                want = j.get_mask(idx, kid, "person", ret_bool)
+                assert got.dtype == want.dtype
+                np.testing.assert_array_equal(got, want)
+    for got, want in zip(t.get_person_mask(1), j.get_person_mask(1)):
+        np.testing.assert_array_equal(got, want)
+    Image.fromarray(rng.integers(0, 255, size=(8, 8, 3), dtype=np.uint8)).convert("CMYK").save(
+        seq / t.frames[0] / "k1.color.jpg")
+    with pytest.raises(ValueError, match=r"k1\.color\.jpg.*CMYK"):
+        t.get_color_image(0, 1)
+    assert t.get_depth_image(0, 0).dtype == np.uint16   # depth stays readable
 
 
 def test_frame_data_reader_surface_matches(tmp_path, rng):
-    """``tests/test_behave_eval.py``'s surface test, masks as PNG (a JPEG
-    mask raises in the port), held against ``coma_tpu``'s reader."""
+    """``tests/test_behave_eval.py``'s surface test, masks as PNG, held
+    against ``coma_tpu``'s reader (JPEG masks: the test above)."""
     seq = tmp_path / "Date01_Sub01_backpack"
     seq.mkdir()
     json.dump(dict(cat="backpack", gender="male", kinects=[0, 1], beta=[0.0] * 10,

@@ -736,3 +736,95 @@ def test_aggregate_2d_on_four_ranks_of_the_card_matches_plain(tmp_path):
             torch.testing.assert_close(torch.from_numpy(got[f]), getattr(plain, f).cpu(),
                                        rtol=1e-4, atol=1e-5)
         assert float(got["used_count"]) == 10.0
+
+
+def _fixture_manifest():
+    import json
+    import os
+
+    root = os.path.join(REPO, "tests", "data", "images")
+    with open(os.path.join(root, "manifest.json")) as fh:
+        return root, {e["file"]: e for e in json.load(fh)["files"]}
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+@pytest.mark.cuda
+def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
+    """Every committed fixture, the 512² and 2048 x 1536 ones included,
+    through the native decoder (built with the card machine's g++) against
+    the Pillow hashes of the manifest; the CMYK file is refused."""
+    need_card()
+    from coma_tpu_torch.utils import jpeg
+    from coma_tpu_torch.utils.image_io import read_image
+    from coma_tpu_torch.utils.png import to_gray, to_rgb
+
+    assert jpeg.native_available()
+    root, manifest = _fixture_manifest()
+    for name, entry in manifest.items():
+        path = f"{root}/{name}"
+        if entry.get("raises"):
+            with pytest.raises(ValueError, match=name):
+                read_image(path)
+            continue
+        if name.endswith(".jpg"):
+            with open(path, "rb") as fh:
+                image = jpeg.decode_jpeg(fh.read(), name, native=True)
+        else:
+            image = read_image(path)
+        assert _sha(to_rgb(image)) == entry["sha256"]["RGB"], name
+        assert _sha(to_gray(image)) == entry["sha256"]["L"], name
+
+
+@pytest.mark.cuda
+def test_routed_readers_on_the_card_machine_read_jpegs(tmp_path):
+    """The readers that ``coma_tpu`` runs through PIL, on JPEG inputs: the
+    BEHAVE reader's colour frames and masks, a JPEG ``map_Kd`` and
+    ``cli/inpaint``'s resized inputs, against the fixtures' Pillow hashes and
+    the host's own decode and PIL-equal resizes."""
+    need_card()
+    import json
+    import shutil
+
+    from coma_tpu_torch.cli import inpaint as cli_inpaint
+    from coma_tpu_torch.geometry.mesh import load_obj_textured
+    from coma_tpu_torch.pipelines.behave_eval import BehaveSequence
+    from coma_tpu_torch.utils.image_io import read_image
+    from coma_tpu_torch.utils.resize import resize_bicubic, resize_bilinear
+
+    root, manifest = _fixture_manifest()
+    seq = tmp_path / "Date01_Sub01_chairwood"
+    (seq / "t0001.000").mkdir(parents=True)
+    (seq / "info.json").write_text(json.dumps(dict(cat="chairwood", kinects=[0, 1])))
+    for kid in range(2):
+        shutil.copy(f"{root}/behave_color_2048x1536.jpg", seq / "t0001.000" / f"k{kid}.color.jpg")
+        shutil.copy(f"{root}/behave_mask_2048x1536.jpg",
+                    seq / "t0001.000" / f"k{kid}.person_mask.jpg")
+    reader = BehaveSequence(str(seq))
+    for kid in range(2):
+        assert _sha(reader.get_color_image(0, kid)) == \
+            manifest["behave_color_2048x1536.jpg"]["sha256"]["RGB"]
+        mask = reader.get_mask(0, kid, "person", ret_bool=False)
+        assert _sha(mask) == manifest["behave_mask_2048x1536.jpg"]["sha256"]["L"]
+        np.testing.assert_array_equal(reader.get_mask(0, kid), mask > 127)
+
+    shutil.copy(f"{root}/fabric_512.jpg", tmp_path / "fabric.jpg")
+    (tmp_path / "m.mtl").write_text("newmtl f\nKd 0.1 0.2 0.3\nmap_Kd fabric.jpg\n")
+    (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
+                                    "usemtl f\nf 1/1 2/1 3/1\n")
+    decoded = read_image(str(tmp_path / "fabric.jpg"), "RGB")
+    assert _sha(decoded) == manifest["fabric_512.jpg"]["sha256"]["RGB"]
+    mesh = load_obj_textured(str(tmp_path / "a.obj"), tex_size=256)
+    np.testing.assert_array_equal(mesh.textures[1],
+                                  resize_bilinear(decoded, (256, 256)).astype(np.float32) / 255)
+
+    w = dict(render=f"{root}/baseline_444_q95.jpg", mask=f"{root}/behave_mask_2048x1536.jpg")
+    imgs, masks = cli_inpaint.load_batch([w], 512)
+    want = resize_bicubic(read_image(w["render"], "RGB"), (512, 512)).astype(np.float32)
+    np.testing.assert_array_equal(imgs[0].permute(1, 2, 0).numpy(), want / 127.5 - 1.0)
+    want_mask = resize_bicubic(read_image(w["mask"], "L"), (512, 512)) > 127
+    np.testing.assert_array_equal(masks[0].numpy(), np.float32(want_mask))

@@ -120,3 +120,37 @@ def test_cuda_request_without_card_raises(results_tree, monkeypatch):
         t_extract(HYPER, "qual:test", results_root="results", device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         t_cli_extract.main(["--hyperparams_key", "qual:backpack_human_contact"])
+
+
+def _flag_argv(action) -> list:
+    """A command line that sets one of ``coma_tpu``'s extract_coma options."""
+    flag = action.option_strings[-1]
+    if action.nargs == 0:
+        return [flag]
+    if action.choices:
+        return [flag, str(list(action.choices)[0])]
+    value = action.default if action.default not in (None, []) else "1"
+    return [flag] + ([str(value)] if action.nargs in (None, 1) else [str(value), "2"])
+
+
+def _reference_options():
+    from coma_tpu.cli import extract_coma as j_cli
+
+    return [a for a in j_cli.build_parser()._actions if a.option_strings
+            and "--help" not in a.option_strings]
+
+
+@pytest.mark.parametrize("action", _reference_options(),
+                         ids=[a.option_strings[-1] for a in _reference_options()])
+def test_parser_accepts_every_coma_tpu_flag(action):
+    """Every flag ``coma_tpu.cli.extract_coma`` accepts parses in the port,
+    with ``coma_tpu``'s default (the seven reference-only directory flags are
+    accepted and unused in both)."""
+    required = ["--hyperparams_key", "qual:backpack_human_contact"]
+    argv = _flag_argv(action)
+    args = t_cli_extract.build_parser().parse_args(
+        argv + (required if action.dest != "hyperparams_key" else []))
+    assert hasattr(args, action.dest)
+    defaults = t_cli_extract.build_parser().parse_args(required)
+    assert getattr(defaults, action.dest) == (action.default if action.dest != "hyperparams_key"
+                                              else "qual:backpack_human_contact")

@@ -1,0 +1,284 @@
+"""The port's image reading against Pillow and ``coma_tpu``.
+
+``coma_tpu`` opens every image with PIL; the port reads them with
+``utils/image_io.read_image`` (its own JPEG decoder, ``utils/jpeg.py``, and
+PNG reader, ``utils/png.py``). Held here, bit for bit, with no tolerance:
+
+- the committed fixtures of ``tests/data/images/`` (``tools/make_image_fixtures.py``
+  writes them) against the Pillow hashes of their manifest and against Pillow
+  at test time; seeded images written by Pillow at test time (every sampling,
+  quality, progressive, optimised tables, restart intervals, grayscale, odd
+  sizes, EXIF/ICC/COM segments); Adam7-interlaced PNGs;
+- the plain (Python entropy decoder, numpy reconstruction) and native (C++)
+  decoders: equal coefficients and equal pixels;
+- PIL's bicubic resize (``utils/resize.resize_bicubic``) and ``cli/inpaint``'s
+  and ``cli/select_mask``'s inputs against ``coma_tpu``'s own lines;
+- the refusals: CMYK, arithmetic, lossless and 12-bit JPEGs, other sampling
+  factors and other formats raise a ``ValueError`` naming the file.
+
+Images stay at 128² or smaller, except the resize's inputs. The 512² and
+2048 x 1536 fixtures are decoded on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py`` phase 16).
+"""
+import hashlib
+import io
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from coma_tpu_torch.cli import inpaint as t_inpaint
+from coma_tpu_torch.utils import jpeg
+from coma_tpu_torch.utils.image_io import read_image
+from coma_tpu_torch.utils.resize import resize_bicubic
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "data", "images")
+sys.path.insert(0, os.path.join(REPO, "tools"))
+from make_image_fixtures import adam7_png, seeded_rgb  # noqa: E402
+
+with open(os.path.join(FIXTURES, "manifest.json")) as _fh:
+    MANIFEST = json.load(_fh)
+SMALL = [e for e in MANIFEST["files"] if e["shape"][0] * e["shape"][1] <= 128 * 128]
+
+
+def sha(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def pillow(data: bytes, mode: str) -> np.ndarray:
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert(mode))
+
+
+def jpeg_bytes(image: np.ndarray, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def need_gpp():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the native entropy decoder cannot be built")
+
+
+def test_manifest_is_small_and_covers_every_kind():
+    assert sum(e["bytes"] for e in MANIFEST["files"]) <= 1_000_000
+    kinds = " ".join(e["kind"] for e in MANIFEST["files"])
+    for word in ("baseline 420", "baseline 422", "baseline 444", "q30", "q75", "q95",
+                 "grayscale", "odd size", "optimize", "restart", "progressive 4:2:0",
+                 "progressive grayscale", "EXIF", "CMYK", "Adam7 RGB", "Adam7 palette",
+                 "BEHAVE colour", "BEHAVE person mask"):
+        assert word in kinds, word
+    big = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("behave")]
+    assert big == [[1536, 2048], [1536, 2048]]
+
+
+@pytest.mark.parametrize("entry", SMALL, ids=[e["file"] for e in SMALL])
+def test_fixture_equals_pillow(entry):
+    path = os.path.join(FIXTURES, entry["file"])
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if entry.get("raises"):
+        with pytest.raises(ValueError, match=rf"{entry['file']}.*CMYK"):
+            read_image(path)
+        return
+    for mode in ("RGB", "L"):
+        got = read_image(path, mode)
+        assert got.dtype == np.uint8
+        assert sha(got) == entry["sha256"][mode]
+        np.testing.assert_array_equal(got, pillow(data, mode))
+    own = read_image(path)
+    assert own.shape[:2] == tuple(entry["shape"][:2])
+    assert own.shape[2] == {"RGB": 3, "L": 1, "P": 3}[entry["mode"]]
+
+
+SEEDED = [
+    ("420_q30", (64, 64), dict(quality=30)),
+    ("420_q90", (50, 70), dict(quality=90)),
+    ("422_q55", (40, 56), dict(quality=55, subsampling=1)),
+    ("444_q85", (33, 47), dict(quality=85, subsampling=0)),
+    ("q100", (24, 24), dict(quality=100)),
+    ("q1", (24, 40), dict(quality=1)),
+    ("optimize", (48, 64), dict(quality=70, optimize=True)),
+    ("restart_blocks", (48, 64), dict(quality=70, restart_marker_blocks=3)),
+    ("restart_rows", (48, 64), dict(quality=70, restart_marker_rows=1, subsampling=1)),
+    ("progressive_420", (61, 77), dict(quality=75, progressive=True)),
+    ("progressive_422", (40, 40), dict(quality=95, progressive=True, subsampling=1)),
+    ("progressive_444", (40, 40), dict(quality=60, progressive=True, subsampling=0)),
+    ("progressive_restart", (48, 64), dict(quality=75, progressive=True,
+                                           restart_marker_blocks=2)),
+    ("tiny_1x1", (1, 1), dict(quality=75)),
+    ("narrow_3x2", (3, 2), dict(quality=75)),
+    ("narrow_5x4", (5, 4), dict(quality=75, subsampling=1)),
+    ("tall_128x9", (128, 9), dict(quality=75)),
+]
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["plain", "native"])
+@pytest.mark.parametrize("gray", [False, True], ids=["rgb", "gray"])
+@pytest.mark.parametrize("name,shape,kw", SEEDED, ids=[s[0] for s in SEEDED])
+def test_seeded_jpeg_equals_pillow(name, shape, kw, gray, native):
+    if native:
+        need_gpp()
+    image = seeded_rgb(shape, seed=sum(shape) + len(name))
+    data = jpeg_bytes(image[..., 1] if gray else image, **kw)
+    got = jpeg.decode_jpeg(data, name, native=native)
+    assert got.shape == shape + ((1,) if gray else (3,))
+    np.testing.assert_array_equal(got[..., 0] if gray else got, pillow(data, "L" if gray else "RGB"))
+
+
+def test_noise_and_metadata_jpegs_equal_pillow():
+    """Full-range noise (large coefficients, long codes) and a file with
+    EXIF, ICC and COM segments before the frame."""
+    rng = np.random.default_rng(11)
+    noise = rng.integers(0, 256, (45, 67, 3), dtype=np.uint8)
+    for kw in (dict(quality=98), dict(quality=90, progressive=True, subsampling=0)):
+        data = jpeg_bytes(noise, **kw)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data), pillow(data, "RGB"))
+    exif = Image.Exif()
+    exif[0x0112] = 3
+    data = jpeg_bytes(noise, quality=80, exif=exif.tobytes(), icc_profile=b"icc" * 300,
+                      comment=b"a comment")
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data), pillow(data, "RGB"))
+
+
+@pytest.mark.parametrize("kw", [dict(quality=75), dict(quality=40, subsampling=1),
+                                dict(quality=90, subsampling=0, restart_marker_blocks=4),
+                                dict(quality=80, progressive=True),
+                                dict(quality=60, progressive=True, optimize=True,
+                                     restart_marker_rows=1)],
+                         ids=["420", "422", "444_restart", "progressive", "progressive_opt"])
+def test_plain_and_native_entropy_decoders_agree(kw):
+    """The same quantised coefficients and pixels; the native library is
+    built with g++ (skipped only where there is none)."""
+    need_gpp()
+    assert jpeg.native_available()
+    for gray in (False, True):
+        image = seeded_rgb((56, 72), seed=5)
+        data = jpeg_bytes(image[..., 0] if gray else image,
+                          **{k: v for k, v in kw.items() if not (gray and k == "subsampling")})
+        plain = jpeg.decode_coefficients(data, native=False)
+        native = jpeg.decode_coefficients(data, native=True)
+        assert len(plain.coef) == len(native.coef) == (1 if gray else 3)
+        for a, b in zip(plain.coef, native.coef):
+            assert a.dtype == b.dtype == np.int16 and np.abs(a).sum() > 0
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(jpeg.reconstruct(native, native=True),
+                                      jpeg.reconstruct(plain, native=False))
+
+
+def test_plain_and_native_agree_on_every_small_fixture():
+    need_gpp()
+    for entry in SMALL:
+        if not entry["file"].endswith(".jpg") or entry.get("raises"):
+            continue
+        with open(os.path.join(FIXTURES, entry["file"]), "rb") as fh:
+            data = fh.read()
+        plain = jpeg.decode_coefficients(data, entry["file"], native=False)
+        native = jpeg.decode_coefficients(data, entry["file"], native=True)
+        for a, b in zip(plain.coef, native.coef):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(jpeg.reconstruct(native, native=True),
+                                      jpeg.reconstruct(plain, native=False))
+
+
+def patched(data: bytes, marker: int, offset: int, value: int) -> bytes:
+    """``data`` with byte ``offset`` of the first ``marker`` segment's body
+    set to ``value`` (offset -1: the marker code itself)."""
+    pos = data.index(bytes([0xFF, marker]))
+    out = bytearray(data)
+    if offset < 0:
+        out[pos + 1] = value
+    else:
+        out[pos + 4 + offset] = value
+    return bytes(out)
+
+
+@pytest.mark.parametrize("what,edit,match", [
+    ("arithmetic", (0xC0, -1, 0xC9), "arithmetic"),
+    ("arithmetic_progressive", (0xC0, -1, 0xCA), "arithmetic"),
+    ("lossless", (0xC0, -1, 0xC3), "lossless"),
+    ("hierarchical", (0xC0, -1, 0xC5), "hierarchical"),
+    ("12-bit", (0xC0, 0, 12), "12-bit"),
+    ("h1v2", (0xC0, 7, 0x12), "sampling factors"),
+    ("h4v1", (0xC0, 7, 0x41), "sampling factors"),
+])
+def test_unsupported_jpegs_raise_naming_the_file(tmp_path, what, edit, match):
+    path = tmp_path / f"{what}.jpg"
+    path.write_bytes(patched(jpeg_bytes(seeded_rgb((16, 16), 1), quality=75), *edit))
+    with pytest.raises(ValueError, match=rf"{what}\.jpg.*{match}"):
+        read_image(str(path), "RGB")
+
+
+def test_other_files_raise_naming_the_file(tmp_path):
+    for name, data in (("a.gif", b"GIF89a" + bytes(20)), ("b.txt", b"hello"),
+                       ("c.jpg", jpeg_bytes(seeded_rgb((16, 16), 2))[:300])):
+        (tmp_path / name).write_bytes(data)
+        with pytest.raises(ValueError, match=name.replace(".", r"\.")):
+            read_image(str(tmp_path / name))
+    with pytest.raises(ValueError, match="mode"):
+        read_image(str(tmp_path / "a.gif"), "RGBA")
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (7, 9), (29, 37), (64, 48)])
+def test_interlaced_pngs_equal_pillow(tmp_path, shape):
+    rng = np.random.default_rng(shape[0])
+    cases = {"rgb": adam7_png(seeded_rgb(shape, 3), 2)}
+    for depth in (1, 2, 4, 8):
+        palette = rng.integers(0, 256, (1 << depth, 3))
+        idx = rng.integers(0, 1 << depth, shape + (1,)).astype(np.uint8)
+        cases[f"p{depth}"] = adam7_png(idx, 3, depth=depth, palette=palette)
+    for name, data in cases.items():
+        path = tmp_path / f"{name}.png"
+        path.write_bytes(data)
+        for mode in ("RGB", "L"):
+            np.testing.assert_array_equal(read_image(str(path), mode), pillow(data, mode))
+
+
+@pytest.mark.parametrize("shape", [(384, 384), (480, 640), (500, 300)])
+def test_resize_bicubic_equals_pillow_and_coma_tpu(tmp_path, shape):
+    """``resize_bicubic`` against ``Image.resize((512, 512))`` (Pillow's
+    default, BICUBIC), and ``cli/inpaint.load_batch`` against ``coma_tpu``'s
+    own lines on a render and a mask of that size."""
+    rng = np.random.default_rng(shape[1])
+    render = seeded_rgb(shape, 7)
+    mask = np.zeros(shape, np.uint8)
+    mask[shape[0] // 5:4 * shape[0] // 5, shape[1] // 4:3 * shape[1] // 4] = 255
+    mask[rng.uniform(size=shape) < 0.02] ^= 255
+    for image in (render, mask):
+        for size in ((512, 512), (64, 64)):
+            np.testing.assert_array_equal(resize_bicubic(image, size),
+                                          np.asarray(Image.fromarray(image).resize(size)))
+    Image.fromarray(render).save(tmp_path / "r.png")
+    Image.fromarray(mask).save(tmp_path / "m.jpg", quality=90)     # a JPEG under the mask
+    w = dict(render=str(tmp_path / "r.png"), mask=str(tmp_path / "m.jpg"))
+    imgs, masks = t_inpaint.load_batch([w], 512)
+    # coma_tpu/cli/inpaint.py's lines
+    want_img = np.asarray(Image.open(w["render"]).convert("RGB").resize((512, 512)),
+                          np.float32) / 127.5 - 1.0
+    want_mask = (np.asarray(Image.open(w["mask"]).convert("L").resize((512, 512))) > 127) \
+        .astype(np.float32)
+    np.testing.assert_array_equal(imgs[0].permute(1, 2, 0).numpy(), want_img)
+    np.testing.assert_array_equal(masks[0].numpy(), want_mask)
+
+
+def test_select_mask_and_predict_inputs_equal_coma_tpu(tmp_path):
+    """``select_mask`` reads ``convert("L")``, ``segment_human`` and
+    ``predict_human`` ``convert("RGB")``: the same arrays from JPEG data
+    (under a .png name, as PIL opens by content) and from PNGs."""
+    rgb = seeded_rgb((40, 56), 9)
+    files = {"a.png": lambda p: Image.fromarray(rgb).save(p),
+             "b.png": lambda p: Image.fromarray(rgb).save(p, "JPEG", quality=70),
+             "c.jpg": lambda p: Image.fromarray(rgb[..., 2]).save(p, quality=85),
+             "d.png": lambda p: Image.fromarray(rgb).convert("P").save(p)}
+    for name, write in files.items():
+        write(str(tmp_path / name))
+        for mode in ("L", "RGB"):
+            with Image.open(tmp_path / name) as im:
+                np.testing.assert_array_equal(read_image(str(tmp_path / name), mode),
+                                              np.asarray(im.convert(mode)))

@@ -66,11 +66,13 @@ def test_write_png_and_errors(tmp_path):
     with Image.open(tmp_path / "p.png") as im:
         np.testing.assert_array_equal(png.to_rgb(png.read_png(str(tmp_path / "p.png"))),
                                       np.asarray(im.convert("RGB")))
-    interlaced = bytearray(png.encode_png(img))                # Adam7: not read
+    # the interlace flag set on non-interlaced data: the Adam7 passes need
+    # other scanlines, so the data is refused
+    interlaced = bytearray(png.encode_png(img))
     interlaced[28] = 1
     interlaced[29:33] = struct.pack(">I", zlib.crc32(bytes(interlaced[12:29])) & 0xFFFFFFFF)
     (tmp_path / "i.png").write_bytes(bytes(interlaced))
-    with pytest.raises(ValueError, match="colour type"):
+    with pytest.raises(ValueError, match=r"i\.png: (image data|unknown PNG filter)"):
         png.read_png(str(tmp_path / "i.png"))
     bad = bytearray(png.encode_png(img))
     bad[40] ^= 0xFF

@@ -109,9 +109,15 @@ def test_png_reader_matches_pil(tmp_path, name, data):
 
 
 def test_png_reader_refuses_interlaced(tmp_path):
+    """Adam7 is read as PIL reads it (a 1x1 image is one pass of one
+    scanline); an unknown interlace method is refused, naming the file."""
     path = str(tmp_path / "interlaced.png")
     with open(path, "wb") as fh:
-        fh.write(_png_bytes([b"\x00"], 1, 1, 8, 0, interlace=1))
+        fh.write(_png_bytes([b"\x07"], 1, 1, 8, 0, interlace=1))
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(read_png(path)[..., 0], np.asarray(im))
+    with open(path, "wb") as fh:
+        fh.write(_png_bytes([b"\x07"], 1, 1, 8, 0, interlace=2))
     with pytest.raises(ValueError, match="interlaced.png"):
         read_png(path)
 
@@ -193,16 +199,31 @@ def test_load_obj_textured_matches(tmp_path, capsys):
 
 
 def test_load_obj_textured_keeps_kd_for_a_jpeg(tmp_path, capsys):
-    """``coma_tpu`` decodes a JPEG ``map_Kd`` through PIL; the port keeps
-    the material's Kd layer and names the file (a logged divergence)."""
-    Image.fromarray(np.full((8, 8, 3), 200, np.uint8)).save(str(tmp_path / "t.jpg"))
-    (tmp_path / "m.mtl").write_text("newmtl j\nKd 0.1 0.9 0.2\nmap_Kd t.jpg\n")
+    """A JPEG ``map_Kd`` (baseline and progressive) decodes and resizes to
+    ``coma_tpu``'s layer through PIL, bit for bit; only a JPEG the port's
+    decoder refuses (CMYK) keeps the material's Kd layer, naming the file
+    (``coma_tpu`` decodes that one)."""
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[:24, :40]
+    tex = np.stack([120 + 90 * np.sin(xx / 4 + c) * np.cos(yy / 3) for c in range(3)], -1)
+    tex = np.uint8(np.clip(tex + rng.normal(0, 10, tex.shape), 0, 255))
+    Image.fromarray(tex).save(str(tmp_path / "t.jpg"), quality=80)
+    Image.fromarray(tex[::-1]).save(str(tmp_path / "p.jpg"), quality=90, progressive=True)
+    Image.fromarray(tex).convert("CMYK").save(str(tmp_path / "c.jpg"))
+    (tmp_path / "m.mtl").write_text("newmtl j\nKd 0.5 0.5 0.5\nmap_Kd t.jpg\n"
+                                    "newmtl p\nmap_Kd p.jpg\n"
+                                    "newmtl c\nKd 0.1 0.9 0.2\nmap_Kd c.jpg\n")
     (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
-                                    "usemtl j\nf 1/1 2/1 3/1\n")
-    got = t_mesh.load_obj_textured(str(tmp_path / "a.obj"), tex_size=4)
-    np.testing.assert_allclose(got.textures[1], np.broadcast_to([0.1, 0.9, 0.2], (4, 4, 3)),
+                                    "usemtl j\nf 1/1 2/1 3/1\nusemtl p\nf 1/1 2/1 3/1\n"
+                                    "usemtl c\nf 1/1 2/1 3/1\n")
+    got = t_mesh.load_obj_textured(str(tmp_path / "a.obj"), tex_size=16)
+    want = j_load_obj_textured(str(tmp_path / "a.obj"), tex_size=16)
+    np.testing.assert_array_equal(got.face_material, want.face_material)
+    np.testing.assert_array_equal(got.textures[:3], want.textures[:3])   # grey, j, p
+    np.testing.assert_allclose(got.textures[3], np.broadcast_to([0.1, 0.9, 0.2], (16, 16, 3)),
                                atol=1e-7)
-    assert "t.jpg" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "c.jpg" in out and "t.jpg" not in out and "p.jpg" not in out
 
 
 # -------------------------------------------------------------- rasterizer
