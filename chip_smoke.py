@@ -138,10 +138,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and with ``--segmenter pointrend`` (``PointRendConfig()``) on phase 9's
    stand-in as a Flax-layout ``.npz``: the pickles' keys, dtypes and shapes;
    images/s.
-11. ``--save_step_video`` on phase 6's batch: the GIF decoded by the numpy
-   decoder here (``decode_gif``) must hold ⌈50/3⌉ = 17 frames of 512x1024
-   that equal ``compose_step_frames``' output quantised to the GIF's
-   palette; K3 launches 1645 (the video's one VAE decode of the 17 x̂0);
+11. ``--save_step_video`` on phase 6's batch: the GIF decoded by the port's
+   reader (``decode_gif``) must hold the ⌈50/3⌉ = 17 frames of 512x1024 of
+   ``compose_step_frames``' output, each quantised as PIL's writer does
+   (``utils/gif.pil_frames``); K3 launches 1645 (the video's one VAE decode of the 17 x̂0);
    the video's cost beside phase 6's wall clock.
 
 12. Stage 2, 3D HOI lifting, with every kernel's counter set to 0 before
@@ -258,27 +258,35 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    processes run this file's ``rank_main``.
 
 16. The images ``coma_tpu`` reads through PIL. (a) Every fixture of
-   ``tests/data/images/`` (written by Pillow from seeds: baseline 4:2:0,
-   4:2:2 and 4:4:4 JPEGs at q 30/75/95, grayscale, odd sizes, optimised
-   tables, restart intervals, progressive colour and grayscale, EXIF/ICC/COM
-   segments, Adam7 RGB and palette PNGs, a 512² progressive texture, a
-   2048 x 1536 BEHAVE colour frame and person mask) through the native
-   decoder (``coma_tpu_torch/native/src/jpeg_decode.cpp``, built with ``g++``;
-   the phase fails if it does not build or load): the RGB and L arrays'
-   SHA-256 equal to Pillow's in the manifest, the CMYK file refused naming
-   itself. The BEHAVE frame's decode, median of 5, split into entropy and
+   ``tests/data/images/`` (written from seeds by Pillow, by libjpeg-turbo's
+   compressor and by ``tools/make_image_fixtures.py``'s writers: baseline,
+   progressive, arithmetic (SOF9/SOF10, DAC), lossless (SOF3) and
+   block-smoothed JPEGs in every sampling, gray, RGB, CMYK and YCCK; Adam7
+   PNGs; BMP, TGA, PBM/PGM/PPM, TIFF and GIF files of every kind the readers
+   take; the 2048 x 1536 BEHAVE frames and atlas) through ``read_image``
+   with the native decoder and codecs (``native/src/{jpeg_decode,
+   image_codecs}.cpp``, built with ``g++``; the phase fails if they do not
+   build or load): the SHA-256 of modes None, RGB and L equal to Pillow's in
+   the manifest, and each file Pillow refuses refused naming itself. The
+   BEHAVE frame's decode, median of 5, split into entropy and
    reconstruction ms (host), beside the plain decoder's (Python entropy,
-   numpy reconstruction; equal coefficients and pixels) and the Python
-   entropy decoder on the 512² texture. (b) A BEHAVE-shaped sequence of 2
-   frames whose k0-k3 colour frames and person masks are the 2048 x 1536
-   JPEGs: ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image
-   equal to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512²
-   JPEG as its ``map_Kd``, through ``cli/generate_2d_hoi_images`` at 384²
-   with phase 13's checks (view 0 on the card against the CPU, K3 1644
-   launches, all bf16, K1 and K2 none, counters from 0); the fabric layer is
-   the decoded JPEG bilinearly resized; the inpainting's inputs (384² renders
-   and masks) equal the host's ``read_image`` and PIL's bicubic resize to
-   512². ``python3 tools/phase16_torch.py`` runs phase 16 alone.
+   numpy reconstruction; equal coefficients and pixels), the Python entropy
+   decoder on the 512² texture, and the host decode ms (median of 5) of the
+   2048 x 1536 atlas as TGA, TIFF-LZW, SOF9 and block-smoothed progressive
+   JPEG. (b) A BEHAVE-shaped sequence of 2 frames whose k0-k3 colour frames
+   and person masks are the 2048 x 1536 JPEGs: ``BehaveSequence.__getitem__``
+   and ``get_person_mask``, every image equal to Pillow's hash; ms per frame.
+   (c) Phase 13's chair with the 512² JPEG as its seat's ``map_Kd`` and an
+   arithmetic JPEG, a TGA, a BMP, a TIFF-LZW and a CMYK JPEG on its back and
+   legs, through ``cli/generate_2d_hoi_images`` at 384² with phase 13's
+   checks (view 0 on the card against the CPU, K3 1644 launches, all bf16,
+   K1 and K2 none, counters from 0); each layer is its decoded texture
+   bilinearly resized; the inpainting's inputs (384² renders and masks) equal
+   the host's ``read_image`` and PIL's bicubic resize to 512². (d) The seeded
+   step video (17 frames of 512 x 256) through ``utils/gif.write_gif``, read
+   back by the port's GIF reader: every frame, duration and the loop equal
+   to Pillow's decoding of ``coma_tpu``'s PIL-written file (the manifest's
+   hash). ``python3 tools/phase16_torch.py`` runs phase 16 alone.
 
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
@@ -1752,99 +1760,20 @@ def segment_human_phase(inpaint_dir: str, label: str) -> dict:
 # Phase 11: the step video's GIF, decoded with numpy
 # ---------------------------------------------------------------------------
 
-def lzw_decode(data: bytes, min_code_size: int) -> bytes:
-    """GIF's variable-width LZW (codes least-significant bit first)."""
-    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
-    out = bytearray()
-    table, prev, size = None, None, min_code_size + 1
-    buf = nbits = i = 0
-    while True:
-        while nbits < size and i < len(data):
-            buf |= data[i] << nbits
-            nbits += 8
-            i += 1
-        if nbits < size:
-            break
-        code = buf & ((1 << size) - 1)
-        buf >>= size
-        nbits -= size
-        if code == clear:
-            table = [bytes([c]) for c in range(clear)] + [b"", b""]
-            prev, size = None, min_code_size + 1
-            continue
-        if code == end:
-            break
-        if prev is None:
-            entry = table[code]
-        else:
-            entry = table[code] if code < len(table) else table[prev] + table[prev][:1]
-            if len(table) < 4096:
-                table.append(table[prev] + entry[:1])
-        out += entry
-        prev = code
-        if len(table) == (1 << size) and size < 12:
-            size += 1
-    return bytes(out)
-
-
 def decode_gif(data: bytes):
-    """GIF89a bytes -> (frames (S, H, W, 3) uint8, delays in 1/100 s, loop
-    count); full-frame, non-interlaced images over a global or local palette."""
-    if data[:6] not in (b"GIF89a", b"GIF87a"):
-        raise AssertionError(f"not a GIF: {data[:6]!r}")
-    le16 = lambda at: int.from_bytes(data[at:at + 2], "little")
-    W, H, flags = le16(6), le16(8), data[10]
-    pos, palette = 13, None
-    if flags & 0x80:
-        n = 2 << (flags & 7)
-        palette = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
-        pos += 3 * n
+    """GIF bytes -> (frames (S, H, W, 3) uint8 as PIL shows them, delays in
+    1/100 s, loop count), through the port's reader (``utils/gif_reader.py``)."""
+    from coma_tpu_torch.utils.gif_reader import decode_gif_frames
 
-    def sub_blocks(at):
-        chunks = []
-        while data[at]:
-            chunks.append(data[at + 1:at + 1 + data[at]])
-            at += 1 + data[at]
-        return chunks, at + 1
-
-    frames, delays, loop = [], [], None
-    canvas = np.zeros((H, W, 3), np.uint8)
-    while data[pos] != 0x3B:
-        kind = data[pos]
-        if kind == 0x21:
-            label = data[pos + 1]
-            blocks, pos = sub_blocks(pos + 2)
-            if label == 0xF9:
-                delays.append(int.from_bytes(blocks[0][1:3], "little"))
-            elif label == 0xFF and blocks[0] == b"NETSCAPE2.0":
-                loop = int.from_bytes(blocks[1][1:3], "little")
-        elif kind == 0x2C:
-            x, y, w, h, fl = le16(pos + 1), le16(pos + 3), le16(pos + 5), le16(pos + 7), data[pos + 9]
-            pos += 10
-            pal = palette
-            if fl & 0x80:
-                n = 2 << (fl & 7)
-                pal = np.frombuffer(data[pos:pos + 3 * n], np.uint8).reshape(n, 3)
-                pos += 3 * n
-            if fl & 0x40:
-                raise AssertionError("interlaced GIF frames are not decoded here")
-            min_code_size = data[pos]
-            blocks, pos = sub_blocks(pos + 1)
-            idx = np.frombuffer(lzw_decode(b"".join(blocks), min_code_size), np.uint8)
-            if idx.size != w * h:
-                raise AssertionError(f"GIF frame {len(frames)}: {idx.size} pixels, want {w * h}")
-            canvas[y:y + h, x:x + w] = pal[idx.reshape(h, w)]
-            frames.append(canvas.copy())
-        else:
-            raise AssertionError(f"GIF block 0x{kind:02x} at byte {pos}")
-    return np.stack(frames), delays, loop
+    frames, durations, loop = decode_gif_frames(data, "step video")
+    return frames, [d // 10 for d in durations], loop
 
 
 def step_video_phase(root: str, label: str, p_seconds: float) -> dict:
     """Phase 11: phase 6's batch with ``--save_step_video``: the GIF decoded
     here against the frames the CLI composed, and what the video costs."""
     from coma_tpu_torch.ops import attention
-    from coma_tpu_torch.utils.gif import quantize
+    from coma_tpu_torch.utils.gif import pil_frames
     from coma_tpu_torch.visualization import video
 
     composed, write_seconds = [], []
@@ -1877,19 +1806,22 @@ def step_video_phase(root: str, label: str, p_seconds: float) -> dict:
     frames, delays, loop = decode_gif(data)
     decode_s = time.perf_counter() - t0
     want_shape = (-(-50 // 3), INPAINT_RES, 2 * INPAINT_RES, 3)
-    palette, indices = quantize(composed[0])
-    if frames.shape != want_shape or composed[0].shape != want_shape or loop != 0 \
-            or not np.array_equal(frames, palette[indices]):
-        raise AssertionError(f"step video: frames {frames.shape} (want {want_shape}), loop "
-                             f"{loop}, equal to the quantised composed frames "
-                             f"{np.array_equal(frames, palette[indices])}")
+    kept = pil_frames(composed[0])
+    quantised = np.stack([palette[indices] for palette, indices, _ in kept])
+    if composed[0].shape != want_shape or frames.shape != quantised.shape or loop != 0 \
+            or not np.array_equal(frames, quantised):
+        raise AssertionError(f"step video: frames {frames.shape} (composed {composed[0].shape}, "
+                             f"want {want_shape}), loop {loop}, equal to PIL's per-frame "
+                             f"quantisation {np.array_equal(frames, quantised)}")
     # one more attention than phase 6: the video's single VAE decode of the 17 x̂0
     if attention.launches != K3_LAUNCHES_PER_BATCH + 1:
         raise AssertionError(f"step video run: K3 launched {attention.launches} times")
-    quant_err = float(np.abs(frames.astype(np.int16) - composed[0]).mean())
+    quant_err = float(np.abs(frames.astype(np.int16) - composed[0]).mean()) \
+        if frames.shape == composed[0].shape else float("nan")
     log(f"--save_step_video: {gifs[0].name}, {len(data)} bytes, {frames.shape[0]} frames of "
         f"{frames.shape[2]}x{frames.shape[1]}, delay {delays[0]} cs, loop {loop}; decoded here "
-        f"({decode_s:.3f} s) equal to the palette-quantised composed frames (mean |d| to them "
+        f"({decode_s:.3f} s) equal to PIL's per-frame median cut of the composed frames (mean |d| "
+        f"to them "
         f"{quant_err:.3f} of 255); compose + encode + write {write_seconds[0]:.3f} s; the run "
         f"{seconds:.3f} s against phase 6's {p_seconds:.3f} s; K3 launches {attention.launches} "
         f"(phase 6's + 1: the video's VAE decode) [{label}]")
@@ -2598,12 +2530,14 @@ def chair_box(lo, hi, k: int):
     return verts, quads, uvs
 
 
-def write_chair(root: str, rng, texture: str = None) -> str:
+def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) -> str:
     """A synthetic chair (OBJ axes, y up): a 50 x 50 cm seat at 43-48 cm, a
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    Returns the OBJ's path."""
+    ``part_textures`` (up to five image files) give the back and then each
+    leg a material, UVs and a ``map_Kd`` of their own. Returns the OBJ's
+    path."""
     from coma_tpu_torch.utils.png import write_png
 
     if texture is None:
@@ -2615,21 +2549,27 @@ def write_chair(root: str, rng, texture: str = None) -> str:
     else:
         map_kd = "fabric" + os.path.splitext(texture)[1]
         shutil.copy(texture, f"{root}/{map_kd}")
+    mtl = f"newmtl fabric\nKd 0.6 0.4 0.3\nmap_Kd {map_kd}\nnewmtl metal\nKd 0.3 0.3 0.32\n"
+    for k, path in enumerate(part_textures):
+        name = f"part{k}" + os.path.splitext(path)[1]
+        shutil.copy(path, f"{root}/{name}")
+        mtl += f"newmtl part{k}\nKd 0.2 0.5 0.7\nmap_Kd {name}\n"
     with open(f"{root}/chair.mtl", "w") as fh:
-        fh.write(f"newmtl fabric\nKd 0.6 0.4 0.3\nmap_Kd {map_kd}\n"
-                 "newmtl metal\nKd 0.3 0.3 0.32\n")
+        fh.write(mtl)
     big, leg = STAGE1_SPLITS
     parts = [("fabric", chair_box((-0.25, 0.43, -0.25), (0.25, 0.48, 0.25), big)),
              ("fabric", chair_box((-0.25, 0.48, -0.25), (0.25, 0.95, -0.2), big))]
     parts += [("metal", chair_box((x, 0.0, z), (x + 0.04, 0.43, z + 0.04), leg))
               for x in (-0.23, 0.19) for z in (-0.23, 0.19)]
+    for k in range(len(part_textures)):
+        parts[1 + k] = (f"part{k}", parts[1 + k][1])
     vlines, tlines, flines, n, current = [], [], [], 0, None
     for mat, (verts, quads, uvs) in parts:
         vlines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
         if mat != current:
             flines.append(f"usemtl {mat}")
             current = mat
-        if mat == "fabric":
+        if mat != "metal":
             t0 = len(tlines)
             tlines += [f"vt {u:.6f} {v:.6f}" for u, v in uvs]
             flines += ["f " + " ".join(f"{n + i + 1}/{t0 + i + 1}" for i in q) for q in quads]
@@ -2729,13 +2669,14 @@ def stage1_timings(camera, verts_world, mesh, label: str) -> dict:
 
 
 def stage1_phase(label: str, texture: str = None, res: int = STAGE1_RES, timings: bool = True,
-                 check=None) -> dict:
+                 check=None, part_textures: tuple = ()) -> dict:
     """Phase 13: ``cli/generate_2d_hoi_images`` on a synthetic textured chair
     at ``render_objects``' defaults and the Chair camera config, every
     kernel's counter from 0, then the checks. Phase 16 passes a JPEG
-    ``texture``, renders at ``res``, skips the per-view ``timings`` and adds
-    ``check(obj, mesh, batches)`` (``batches``: each ``cli/inpaint.load_batch``
-    call's chunk, images and masks)."""
+    ``texture`` and ``part_textures`` of other formats, renders at ``res``,
+    skips the per-view ``timings`` and adds ``check(obj, mesh, batches)``
+    (``batches``: each ``cli/inpaint.load_batch`` call's chunk, images and
+    masks)."""
     from coma_tpu_torch.cli import inpaint as cli_inpaint
     from coma_tpu_torch.cli import render_objects as cli_render
     from coma_tpu_torch.geometry.mesh import load_obj_textured
@@ -2747,7 +2688,7 @@ def stage1_phase(label: str, texture: str = None, res: int = STAGE1_RES, timings
     from coma_tpu_torch.utils.png import read_png
 
     root = tempfile.mkdtemp(prefix="stage1_", dir=SCRATCH)
-    obj = write_chair(root, np.random.default_rng(SEED + 5), texture)
+    obj = write_chair(root, np.random.default_rng(SEED + 5), texture, part_textures)
     argv = ["--obj_pth", obj, "--supercategory", STAGE1_SC, "--category", STAGE1_CAT,
             "--asset_id", STAGE1_ASSET, "--resolution", str(res), str(res),
             "--device", DEVICE, "--random_weights",
@@ -3666,41 +3607,58 @@ IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
 BEHAVE_COLOR = "behave_color_2048x1536.jpg"
 BEHAVE_MASK = "behave_mask_2048x1536.jpg"
 FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
+# the chair's back and legs in phase 16c: TGA, BMP, TIFF-LZW, CMYK and arithmetic JPEG
+PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
+                 "cmyk_libjpeg.jpg")
+# the 2048 x 1536 files whose host decode phase 16a times
+TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
+                 "atlas_arith_2048x1536.jpg", "atlas_smoothed_2048x1536.jpg")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
 
 
 def image_manifest() -> dict:
-    """The committed fixtures' Pillow hashes, by file name."""
+    """The committed fixtures' Pillow hashes, by file name (and the seeded
+    step video's under ``step_video``)."""
     with open(os.path.join(IMAGE_FIXTURES, "manifest.json")) as fh:
         manifest = json.load(fh)
-    return {e["file"]: e for e in manifest["files"]}
+    return dict({e["file"]: e for e in manifest["files"]}, step_video=manifest["step_video"])
 
 
 def image_sha(image: np.ndarray) -> str:
+    """SHA-256 of an array's values (a bool array as 0/1 bytes), as the
+    fixture tool hashes Pillow's arrays."""
     import hashlib
 
-    return hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+    a = np.asarray(image)
+    return hashlib.sha256(np.ascontiguousarray(a.astype(np.uint8) if a.dtype == bool else a)
+                          .tobytes()).hexdigest()
 
 
 def decode_phase(label: str) -> dict:
-    """(a) Every fixture through the native decoder against Pillow's hashes;
-    the BEHAVE frame's decode timed (entropy and reconstruction, median of
-    5) beside the plain decoder's (Python entropy, numpy reconstruction),
-    and the Python entropy decoder on the 512² texture."""
+    """(a) Every fixture through ``read_image`` (the native JPEG decoder and
+    codecs) against Pillow's hashes for modes None, RGB and L, the refused
+    ones refused naming the file; the BEHAVE frame's decode timed (entropy
+    and reconstruction, median of 5) beside the plain decoder's (Python
+    entropy, numpy reconstruction), the Python entropy decoder on the 512²
+    texture, and the host decode of the 2048 x 1536 TGA, TIFF-LZW, SOF9 and
+    block-smoothed progressive JPEG (median of 5)."""
     import statistics
 
+    from coma_tpu_torch.native import codecs
     from coma_tpu_torch.utils import jpeg
-    from coma_tpu_torch.utils.image_io import read_image
-    from coma_tpu_torch.utils.png import to_gray, to_rgb
+    from coma_tpu_torch.utils.image_io import decode_image, read_image
+    from coma_tpu_torch.utils.modes import to_mode
 
-    if not jpeg.native_available():
-        raise AssertionError("the native JPEG decoder (coma_tpu_torch/native/src/jpeg_decode.cpp) "
-                             "did not build or load")
+    if not jpeg.native_available() or not codecs.available():
+        raise AssertionError("the native JPEG decoder (native/src/jpeg_decode.cpp) or image "
+                             "codecs (native/src/image_codecs.cpp) did not build or load")
     manifest = image_manifest()
     equal, refused = [], []
     for name, entry in manifest.items():
+        if name == "step_video":
+            continue
         path = os.path.join(IMAGE_FIXTURES, name)
         if entry.get("raises"):
             try:
@@ -3710,15 +3668,18 @@ def decode_phase(label: str) -> dict:
                     raise AssertionError(f"{name}: refused without naming the file: {err}")
                 refused.append(name)
                 continue
-            raise AssertionError(f"{name}: decoded, but the decoder must refuse it")
+            raise AssertionError(f"{name}: decoded, but Pillow refuses it")
         if name.endswith(".jpg"):
             with open(path, "rb") as fh:
-                image = jpeg.decode_jpeg(fh.read(), path, native=True)
-        else:
+                pixels = jpeg.decode_jpeg(fh.read(), path, native=True)
             image = read_image(path)
-        for mode, convert in (("RGB", to_rgb), ("L", to_gray)):
-            if image_sha(convert(image)) != entry["sha256"][mode]:
-                raise AssertionError(f"{name}: {mode} differs from Pillow's")
+            if not np.array_equal(pixels[..., 0] if pixels.shape[-1] == 1 else pixels, image):
+                raise AssertionError(f"{name}: read_image is not the native decoder's")
+        with open(path, "rb") as fh:
+            decoded = decode_image(fh.read(), path)
+        for mode in (None, "RGB", "L"):
+            if image_sha(to_mode(decoded, mode)) != entry["sha256"][str(mode)]:
+                raise AssertionError(f"{name}: mode {mode} differs from Pillow's")
         equal.append(name)
 
     def coefficients_equal(a, b) -> bool:
@@ -3749,18 +3710,34 @@ def decode_phase(label: str) -> dict:
     if not coefficients_equal(fabric_plain, jpeg.decode_coefficients(fabric, FABRIC_JPEG,
                                                                      native=True)):
         raise AssertionError(f"{FABRIC_JPEG}: the plain and native entropy decoders differ")
+    timed = {}
+    for name in TIMED_DECODES:
+        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
+            blob = fh.read()
+        ms = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            decoded = decode_image(blob, name)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if image_sha(decoded.pixels) != manifest[name]["sha256"]["None"]:
+            raise AssertionError(f"{name}: differs from Pillow's")
+        timed[name] = dict(median_ms=statistics.median(ms), all_ms=ms, bytes=len(blob))
     out = dict(equal=len(equal), refused=refused, bytes=len(data),
                entropy_ms=statistics.median(entropy_ms), reconstruct_ms=statistics.median(recon_ms),
                entropy_ms_all=entropy_ms, reconstruct_ms_all=recon_ms,
                plain_entropy_s=plain_entropy_s, plain_reconstruct_s=plain_recon_s,
-               fabric_python_entropy_s=fabric_python_s)
-    log(f"phase 16a: {len(equal)} fixtures through the native decoder equal to Pillow's hashes "
-        f"(RGB and L), {refused} refused naming the file; {BEHAVE_COLOR} ({len(data)} bytes), "
-        f"median of {DECODE_REPS} native decodes: entropy {out['entropy_ms']:.3f} ms, "
-        f"reconstruction {out['reconstruct_ms']:.3f} ms (host); the plain decoder: Python "
-        f"entropy {plain_entropy_s:.3f} s, numpy reconstruction {plain_recon_s:.3f} s, equal "
+               fabric_python_entropy_s=fabric_python_s, timed_decodes=timed)
+    log(f"phase 16a: {len(equal)} fixtures through read_image (native decoder and codecs) equal "
+        f"to Pillow's hashes (modes None, RGB and L), {len(refused)} refused naming the file as "
+        f"Pillow refuses them; {BEHAVE_COLOR} ({len(data)} bytes), median of {DECODE_REPS} "
+        f"native decodes: entropy {out['entropy_ms']:.3f} ms, reconstruction "
+        f"{out['reconstruct_ms']:.3f} ms (host); the plain decoder: Python entropy "
+        f"{plain_entropy_s:.3f} s, numpy reconstruction {plain_recon_s:.3f} s, equal "
         f"coefficients and pixels; Python entropy on {FABRIC_JPEG} (512², progressive) "
         f"{fabric_python_s:.3f} s [{label}]")
+    log("phase 16a: host decode of the 2048 x 1536 atlas through read_image, median of "
+        f"{DECODE_REPS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['median_ms']:.3f} ms"
+                                       for n, t in timed.items()) + f" [{label}]")
     return out
 
 
@@ -3816,23 +3793,28 @@ def behave_jpeg_phase(label: str) -> dict:
 
 def jpeg_asset_phase(label: str) -> dict:
     """(c) Phase 13's chair with its fabric texture the committed progressive
-    JPEG, through ``cli/generate_2d_hoi_images`` at ``PHASE16_RES``² (so
-    ``inpaint`` resizes to 512²) into one batch of 4 on K3, with phase 13's
-    checks; the texture layer and the inpainting's inputs against the host's
-    ``read_image`` and PIL's resizes."""
+    JPEG, its back an arithmetic JPEG and its legs TGA, BMP, TIFF-LZW and
+    CMYK JPEG textures, through ``cli/generate_2d_hoi_images`` at
+    ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
+    K3, with phase 13's checks; every texture layer and the inpainting's
+    inputs against the host's ``read_image`` and PIL's resizes."""
     from coma_tpu_torch.utils.image_io import read_image
     from coma_tpu_torch.utils.resize import resize_bicubic, resize_bilinear
 
     texture = os.path.join(IMAGE_FIXTURES, FABRIC_JPEG)
+    parts = tuple(os.path.join(IMAGE_FIXTURES, n) for n in PART_TEXTURES)
     manifest = image_manifest()
 
     def check(obj, mesh, batches):
-        decoded = read_image(texture, "RGB")
-        if image_sha(decoded) != manifest[FABRIC_JPEG]["sha256"]["RGB"]:
-            raise AssertionError(f"{FABRIC_JPEG}: differs from Pillow's")
-        layer = resize_bilinear(decoded, mesh.textures.shape[1:3][::-1]).astype(np.float32) / 255
-        if not any(np.array_equal(t, layer) for t in mesh.textures):
-            raise AssertionError("the chair's fabric layer is not the decoded JPEG texture")
+        for k, path in enumerate((texture,) + parts):
+            name = os.path.basename(path)
+            decoded = read_image(path, "RGB")
+            if image_sha(decoded) != manifest[name]["sha256"]["RGB"]:
+                raise AssertionError(f"{name}: differs from Pillow's")
+            layer = resize_bilinear(decoded, mesh.textures.shape[1:3][::-1]).astype(
+                np.float32) / 255
+            if not np.array_equal(mesh.textures[1 + k], layer):      # in order of use
+                raise AssertionError(f"the chair's layer of {name} is not the decoded texture")
         if len(batches) != 1:
             raise AssertionError(f"inpaint loaded {len(batches)} batches")
         chunk, imgs, masks = batches[0]
@@ -3849,26 +3831,61 @@ def jpeg_asset_phase(label: str) -> dict:
                 raise AssertionError(f"{w['render']}: the inpainting's inputs are not the "
                                      "host's read_image and PIL's bicubic resize")
 
-    out = stage1_phase(label, texture=texture, res=PHASE16_RES, timings=False, check=check)
-    log(f"phase 16c: the JPEG-textured chair ({FABRIC_JPEG}) at {PHASE16_RES}², resized to "
-        f"{INPAINT_RES}² for inpainting: launches {out['launches']} ({out['by_source']}) "
-        f"[{label}]")
+    out = stage1_phase(label, texture=texture, res=PHASE16_RES, timings=False, check=check,
+                       part_textures=parts)
+    log(f"phase 16c: the chair textured with {FABRIC_JPEG} and {', '.join(PART_TEXTURES)} at "
+        f"{PHASE16_RES}², resized to {INPAINT_RES}² for inpainting: launches {out['launches']} "
+        f"({out['by_source']}) [{label}]")
     return out
+
+
+def step_video_seeded_phase(label: str) -> dict:
+    """(d) The seeded step-video frames (``tools/make_image_fixtures.py``'s
+    ``step_video_frames``) through ``utils/gif.write_gif``, read back with the
+    port's GIF reader: every frame against the hash of Pillow's decoding of
+    ``coma_tpu``'s PIL-written file, with its durations and loop."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_image_fixtures import step_video_frames
+
+    from coma_tpu_torch.utils.gif import write_gif
+    from coma_tpu_torch.utils.gif_reader import decode_gif_frames
+
+    entry = image_manifest()["step_video"]
+    frames = step_video_frames(*(entry[k] for k in ("frames", "height", "width", "seed")))
+    path = os.path.join(SCRATCH, "seeded.steps.gif")
+    t0 = time.perf_counter()
+    write_gif(frames, path)
+    write_s = time.perf_counter() - t0
+    with open(path, "rb") as fh:
+        data = fh.read()
+    os.remove(path)
+    t0 = time.perf_counter()
+    decoded, durations, loop = decode_gif_frames(data, path)
+    read_s = time.perf_counter() - t0
+    if list(decoded.shape) != entry["decoded_shape"] or image_sha(decoded) != entry["sha256"] \
+            or durations != entry["durations"] or loop != entry["loop"]:
+        raise AssertionError(f"seeded step video: decoded {decoded.shape}, durations "
+                             f"{durations[:3]}..., loop {loop}: not Pillow's decoding of "
+                             "coma_tpu's GIF")
+    log(f"phase 16d: the seeded step video ({frames.shape[0]} frames of {frames.shape[2]}x"
+        f"{frames.shape[1]}) written as PIL writes it ({write_s:.3f} s, {len(data)} bytes) and "
+        f"read back by the port's reader ({read_s:.3f} s): equal to Pillow's decoding of "
+        f"coma_tpu's GIF [{label}]")
+    return dict(write_s=write_s, read_s=read_s, bytes=len(data))
 
 
 def phase16(label: str) -> dict:
-    """Phase 16: (a) the decoder against Pillow's hashes, (b) the BEHAVE
-    reader on JPEG frames, (c) a JPEG-textured asset through stage 1 into K3,
-    every kernel's counter from 0 before (c)'s path and read after it."""
+    """Phase 16: (a) every image fixture against Pillow's hashes and the host
+    decode times, (b) the BEHAVE reader on JPEG frames, (c) an asset textured
+    in six formats through stage 1 into K3, every kernel's counter from 0
+    before (c)'s path and read after it, (d) the step-video GIF as PIL
+    writes it."""
     t0 = time.perf_counter()
     out = dict(decode=decode_phase(label), behave=behave_jpeg_phase(label),
-               stage1=jpeg_asset_phase(label))
+               stage1=jpeg_asset_phase(label), step_video=step_video_seeded_phase(label))
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 16: {out['seconds']:.1f} s [{label}]")
     return out
-
-
-
 
 
 def glob_paths(root: str, pattern: str) -> list:
@@ -4027,7 +4044,7 @@ def main() -> int:
         item14 = phase14(products, star_pickle, opt_files["obj"], opt_files["npz"], label)
         # phase 15: --mesh inpainting, the 2-D aggregation, the weights' readiness
         p15 = phase15(label)
-        # phase 16: JPEG and interlaced-PNG reading, a JPEG-textured asset into K3
+        # phase 16: every image format read through PIL, a six-format asset into K3, the GIF
         p16 = phase16(label)
     finally:
         shutil.rmtree(keep, ignore_errors=True)

@@ -35,7 +35,6 @@ from coma_tpu_torch.affordance.io import load_pickle
 from coma_tpu_torch.geometry.mesh import compute_vertex_normals, normalize_rows
 from coma_tpu_torch.geometry.transforms import rodrigues
 from coma_tpu_torch.utils.image_io import read_image
-from coma_tpu_torch.utils.png import read_png_gray16
 
 
 @dataclasses.dataclass
@@ -394,9 +393,9 @@ class BehaveSequence:
         return read_image(pth, "RGB")
 
     def get_depth_image(self, idx: int, kid: int) -> np.ndarray:
-        """uint16 depth in mm (``k{kid}.depth.png``)."""
+        """uint16 depth in mm (``k{kid}.depth.png``): PIL's array of the file."""
         pth = os.path.join(self.frame_folder(idx), f"k{kid}.depth.png")
-        return read_png_gray16(pth)
+        return read_image(pth)
 
     def objfit_param_file(self, idx: int, save_name: str) -> str:
         name = self.seq_info.get_obj_name(convert=True)
@@ -593,7 +592,7 @@ def sequence_background_depth(empty_seq: str, kid: int,
     for frame in sorted(os.listdir(empty_seq))[start:]:
         pth = os.path.join(empty_seq, frame, f"k{kid}.depth.png")
         if os.path.isfile(pth):
-            depths.append(read_png_gray16(pth).astype(np.float64))
+            depths.append(read_image(pth).astype(np.float64))
     return np.stack(depths, axis=-1).mean(axis=-1)
 
 

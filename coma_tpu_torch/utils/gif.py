@@ -1,63 +1,219 @@
-"""Write animated GIF89a files with numpy alone (the card machine has no PIL).
+"""Write animated GIF89a files as PIL writes them, with numpy alone (the card
+machine has no PIL).
 
-Counterpart of the PIL call in ``coma_tpu/visualization/video.py:53-62``:
-frames share one global 256-colour palette, each frame is LZW-coded, a
-Netscape block makes the animation loop forever (``loop=0``), and every
-frame waits ``max(1, int(1000 / fps))`` ms, written in the format's
-hundredths of a second as PIL writes it (``int(ms / 10)``).
+Counterpart of the PIL call in ``coma_tpu/visualization/video.py:53-62``
+(``save_all=True, duration=max(1, int(1000 / fps)), loop=0``). PIL's GIF
+writer converts each RGB frame on its own with
+``convert("P", palette=ADAPTIVE)``, libImaging's median-cut ``quantize(256)``
+(``Quant.c``), drops a frame whose colours equal the previous frame's
+(adding its duration to that frame) and stores each delay as
+``int(ms / 10)`` hundredths of a second. :func:`quantize` reproduces the
+median cut, value for value:
 
-The palette is exact when the frames hold at most 256 colours. Otherwise it
-is a median cut of the frames' colour histogram at 5 bits per channel,
-each box's colour the mean of the pixels in it, and a pixel takes the
-palette entry nearest its 5-bit cell's mean colour.
+- the pixel hash: colours are counted at ``scale`` bits dropped, the least
+  scale that leaves at most 65536 distinct ones (libImaging's hash of
+  ``(r, g, b) >> scale`` has no collisions, so its table order never
+  matters);
+- the boxes: a heap of boxes by pixel count (``QuantHeap.c``, ties as its
+  sift resolves them), each split on the axis of largest extent weighted
+  77, 150, 29 at the colour where the running count first passes half, the
+  boxes of volume one set aside, 255 splits at most;
+- the palette: each box's mean colour over the frame's pixels,
+  ``int(0.5 + sum / count)``, in the tree's left-to-right order;
+- the mapping: each colour starts at its box's entry and takes the nearest
+  entry (squared RGB distance, the first in the box entry's stable
+  distance order on a tie) among those within four times that distance of
+  the box's entry.
+
+Each kept frame is written whole with its own 256-entry palette (the first
+as the global table), LZW-coded; a Netscape block makes it loop forever.
+Decoded by PIL, the frames equal those it decodes from ``coma_tpu``'s file;
+``utils/gif_reader.py`` reads them back.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
-MAX_CODE = 4096   # GIF's 12-bit LZW table
+MAX_CODE = 4096            # GIF's 12-bit LZW table
+MAX_HASH_ENTRIES = 65536   # libImaging's pixel hash before it drops a bit
+_WEIGHTS = (77, 150, 29)   # split-axis weights of Quant.c's split()
 
 
-def _median_cut(colors: np.ndarray, weights: np.ndarray, n: int) -> list:
-    """Split the weighted colours (K, 3) into at most ``n`` boxes of indices."""
-    boxes = [np.arange(len(colors))]
-    while len(boxes) < n:
-        spans = [np.ptp(colors[b], axis=0).max() if len(b) > 1 else -1 for b in boxes]
-        i = int(np.argmax(spans))
-        if spans[i] <= 0:
+class _Box:
+    __slots__ = ("entries", "count", "volume", "left", "right")
+
+    def __init__(self, entries: np.ndarray, count: int):
+        self.entries, self.count = entries, count
+        self.volume, self.left, self.right = 0, None, None
+
+
+class _Heap:
+    """``QuantHeap.c``: a 1-based binary max-heap by pixel count whose sifts
+    resolve ties exactly as libImaging's."""
+
+    def __init__(self):
+        self.heap = [None]
+
+    def add(self, box: _Box) -> None:
+        self.heap.append(box)
+        k = len(self.heap) - 1
+        while k != 1:
+            if box.count - self.heap[k // 2].count <= 0:
+                break
+            self.heap[k] = self.heap[k // 2]
+            k >>= 1
+        self.heap[k] = box
+
+    def remove(self):
+        h = self.heap
+        if len(h) == 1:
+            return None
+        top, v = h[1], h.pop()
+        n = len(h) - 1
+        if n == 0:
+            return top
+        k = 1
+        while k * 2 <= n:
+            child = k * 2
+            if child < n and h[child].count - h[child + 1].count < 0:
+                child += 1
+            if v.count - h[child].count > 0:
+                break
+            h[k] = h[child]
+            k = child
+        h[k] = v
+        return top
+
+
+def _volume(box: _Box, values: np.ndarray) -> int:
+    if not box.volume:
+        v = values[box.entries]
+        box.volume = int(np.prod(v.max(0).astype(np.int64) - v.min(0) + 1))
+    return box.volume
+
+
+def _split(box: _Box, values: np.ndarray, counts: np.ndarray) -> None:
+    """``split``/``splitlists``: the higher part of the chosen axis goes
+    left, up to and including the colour where the running count first
+    exceeds half the box's; if that leaves nothing right, the box's lowest
+    colour goes right."""
+    v = values[box.entries]
+    extent = (v.max(0).astype(np.int64) - v.min(0)) * _WEIGHTS
+    axis = 0
+    for i in (1, 2):
+        if extent[axis] < extent[i]:
+            axis = i
+    column = v[:, axis]
+    order = np.argsort(-column.astype(np.int64), kind="stable")
+    running = np.cumsum(counts[box.entries][order])
+    cross = int(np.argmax(running * 2 > box.count)) if running[-1] * 2 > box.count \
+        else len(order) - 1
+    left = column >= column[order[cross]]
+    if left.all():
+        left = column != column.min()
+    box.left = _Box(box.entries[left], int(counts[box.entries[left]].sum()))
+    box.right = _Box(box.entries[~left], int(counts[box.entries[~left]].sum()))
+
+
+def _leaves(box: _Box) -> List[_Box]:
+    if box.left is None:
+        return [box]
+    return _leaves(box.left) + _leaves(box.right)
+
+
+def quantize(frame: np.ndarray, colours: int = 256) -> Tuple[np.ndarray, np.ndarray]:
+    """(H, W, 3) uint8 -> (palette (n, 3) uint8, indices (H, W) uint8):
+    libImaging's median cut, as ``Image.convert("P", palette=ADAPTIVE)``."""
+    px = np.asarray(frame, np.uint8).reshape(-1, 3).astype(np.int64)
+    N = len(px)
+    for scale in range(9):
+        s = px >> scale
+        keys, entry_of = np.unique(s[:, 0] << 16 | s[:, 1] << 8 | s[:, 2], return_inverse=True)
+        if len(keys) <= MAX_HASH_ENTRIES:
             break
-        box = boxes.pop(i)
-        axis = int(np.argmax(np.ptp(colors[box], axis=0)))
-        order = box[np.argsort(colors[box, axis], kind="stable")]
-        cum = np.cumsum(weights[order])
-        cut = int(np.clip(np.searchsorted(cum, cum[-1] / 2), 0, len(order) - 2)) + 1
-        boxes += [order[:cut], order[cut:]]
-    return boxes
+    counts = np.bincount(entry_of, minlength=len(keys)).astype(np.int64)
+    values = np.stack([keys >> 16, (keys >> 8) & 255, keys & 255], 1)
+    root = _Box(np.arange(len(keys)), N)
+    heap = _Heap()
+    heap.add(root)
+    for _ in range(colours - 1):
+        box = heap.remove()
+        while box is not None and _volume(box, values) == 1:
+            box = heap.remove()
+        if box is None:
+            break
+        _split(box, values, counts)
+        heap.add(box.left)
+        heap.add(box.right)
+    leaves = _leaves(root)
+    box_of_entry = np.zeros(len(keys), np.int64)
+    for b, leaf in enumerate(leaves):
+        box_of_entry[leaf.entries] = b
+    box_of_pixel = box_of_entry[entry_of]
+    n = len(leaves)
+    total = np.bincount(box_of_pixel, minlength=n).astype(np.float64)
+    palette = np.stack([(0.5 + np.bincount(box_of_pixel, px[:, c], minlength=n) / total)
+                        .astype(np.int64) for c in range(3)], 1)
+    return palette.astype(np.uint8), _map_pixels(px, box_of_pixel, palette).reshape(
+        frame.shape[:2])
 
 
-def quantize(frames: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(S, H, W, 3) uint8 -> (palette (256, 3) uint8, indices (S, H, W) uint8)."""
-    rgb = frames.reshape(-1, 3).astype(np.int64)
-    packed = (rgb[:, 0] << 16) | (rgb[:, 1] << 8) | rgb[:, 2]
-    uniq, inverse = np.unique(packed, return_inverse=True)
-    palette = np.zeros((256, 3), np.uint8)
-    if len(uniq) <= 256:
-        palette[:len(uniq)] = np.stack([uniq >> 16, (uniq >> 8) & 255, uniq & 255], 1)
-        return palette, inverse.reshape(frames.shape[:-1]).astype(np.uint8)
-    cell = ((rgb[:, 0] >> 3) << 10) | ((rgb[:, 1] >> 3) << 5) | (rgb[:, 2] >> 3)
-    count = np.bincount(cell, minlength=1 << 15).astype(np.float64)
-    sums = np.stack([np.bincount(cell, rgb[:, c], minlength=1 << 15) for c in range(3)], 1)
-    occupied = np.flatnonzero(count)
-    means = sums[occupied] / count[occupied, None]
-    for k, box in enumerate(_median_cut(means, count[occupied], 256)):
-        w = count[occupied][box]
-        palette[k] = np.round((means[box] * w[:, None]).sum(0) / w.sum())
-    d = ((means[:, None, :] - palette[None].astype(np.float64)) ** 2).sum(-1)
-    lut = np.zeros(1 << 15, np.uint8)
-    lut[occupied] = np.argmin(d, axis=1)
-    return palette, lut[cell].reshape(frames.shape[:-1])
+def _map_pixels(px: np.ndarray, box_of_pixel: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """``map_image_pixels_from_median_box``: each distinct colour's entry,
+    box by box (the candidates of a box's colours are a prefix of its
+    entry's distance order)."""
+    packed = px[:, 0] << 16 | px[:, 1] << 8 | px[:, 2]
+    colours, first, inverse = np.unique(packed, return_index=True, return_inverse=True)
+    rgb, box = px[first], box_of_pixel[first]
+    between = ((palette[:, None, :] - palette[None, :, :]) ** 2).sum(-1)     # avgDist
+    order = np.argsort(between, axis=1, kind="stable")                       # qsort's order
+    ordered = np.take_along_axis(between, order, 1)
+    choice = np.empty(len(colours), np.int64)
+    by_box = np.argsort(box, kind="stable")
+    starts = np.searchsorted(box[by_box], np.arange(len(palette) + 1))
+    pal32 = palette.astype(np.int32)
+    for e in range(len(palette)):
+        sel = by_box[starts[e]:starts[e + 1]]
+        if not len(sel):
+            continue
+        c = rgb[sel].astype(np.int32)
+        d0 = ((c - pal32[e]) ** 2).sum(-1)
+        reach = np.searchsorted(ordered[e], 4 * d0, side="right")
+        choice[sel] = e
+        # colours whose reach holds more than their own entry, in groups of
+        # similar reach
+        for bits in range(1, 9):
+            group = np.flatnonzero((reach > 1 << (bits - 1)) & (reach <= 1 << bits))
+            if not len(group):
+                continue
+            m = int(reach[group].max())
+            cand = order[e, :m]
+            dist = ((c[group, None, :] - pal32[cand][None]) ** 2).sum(-1)
+            dist = np.where(ordered[e, :m][None] <= 4 * d0[group, None], dist,
+                            np.iinfo(np.int32).max)
+            best = dist.min(1)
+            pick = cand[np.argmax(dist == best[:, None], axis=1)]
+            choice[sel[group]] = np.where(best < d0[group], pick, e)
+    return choice[inverse].astype(np.uint8)
+
+
+def pil_frames(frames: np.ndarray, fps: int = 8) -> List[Tuple[np.ndarray, np.ndarray, int]]:
+    """The frames PIL's writer keeps: per kept frame (palette (256, 3),
+    indices (H, W), duration in ms), a frame whose colours equal the
+    previous kept frame's merged into it."""
+    duration = max(1, int(1000 / fps))
+    kept: list = []
+    for frame in np.asarray(frames, np.uint8):
+        palette, indices = quantize(frame)
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette
+        if kept and np.array_equal(full[indices], kept[-1][0][kept[-1][1]]):
+            kept[-1][2] += duration
+            continue
+        kept.append([full, indices, duration])
+    return [tuple(k) for k in kept]
 
 
 def lzw_encode(indices: np.ndarray, min_code_size: int = 8) -> bytes:
@@ -112,18 +268,18 @@ def _sub_blocks(data: bytes) -> bytes:
 
 
 def encode_gif(frames: np.ndarray, fps: int = 8) -> bytes:
-    """(S, H, W, 3) uint8 frames -> the bytes of a looping GIF89a."""
-    frames = np.asarray(frames, np.uint8)
-    S, H, W, _ = frames.shape
-    palette, indices = quantize(frames)
-    delay_cs = int(max(1, int(1000 / fps)) / 10)
+    """(S, H, W, 3) uint8 frames -> the bytes of a looping GIF89a that PIL
+    decodes to the frames it decodes from its own file of them."""
+    kept = pil_frames(frames, fps)
+    H, W = kept[0][1].shape
     le16 = lambda v: int(v).to_bytes(2, "little")
-    out = bytearray(b"GIF89a" + le16(W) + le16(H) + bytes([0xF7, 0, 0]) + palette.tobytes())
+    out = bytearray(b"GIF89a" + le16(W) + le16(H) + bytes([0xF7, 0, 0]) + kept[0][0].tobytes())
     out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + le16(0) + b"\x00"
-    for s in range(S):
-        out += b"\x21\xf9\x04\x00" + le16(delay_cs) + b"\x00\x00"
-        out += b"\x2c" + le16(0) + le16(0) + le16(W) + le16(H) + b"\x00"
-        out += b"\x08" + _sub_blocks(lzw_encode(indices[s].reshape(-1)))
+    for k, (palette, indices, ms) in enumerate(kept):
+        out += b"\x21\xf9\x04\x00" + le16(int(ms / 10)) + b"\x00\x00"
+        out += b"\x2c" + le16(0) + le16(0) + le16(W) + le16(H)
+        out += b"\x00" if k == 0 else b"\x87" + palette.tobytes()
+        out += b"\x08" + _sub_blocks(lzw_encode(indices.reshape(-1)))
     return bytes(out + b"\x3b")
 
 

@@ -1,0 +1,86 @@
+"""PIL's image modes and its ``convert`` to "RGB" and "L", for the readers.
+
+Every reader of ``utils/`` returns a :class:`Decoded`: the array
+``np.asarray(PIL.Image.open(path))`` gives, with PIL's mode name (and the
+palette of a "P" image). :func:`to_mode` is ``Image.convert(mode)`` of it,
+in PIL's integer arithmetic:
+
+- "L" from colour is ITU-R 601-2 luma, ``(19595 R + 38470 G + 7471 B +
+  2^15) >> 16``; a palette image converts its palette entries (entries past
+  the palette are black);
+- "1" is 0 or 255; "I;16" and "I" are clipped to 0..255; alpha is dropped,
+  not composited;
+- "CMYK" to "RGB" is ``cmyk2rgb``: ``nk - nk C / 255`` with ``nk = 255 - K``,
+  in PIL's ``MULDIV255`` rounding.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+GRAY_MODES = ("1", "L", "LA", "I;16", "I")
+COLOUR_MODES = ("P", "RGB", "RGBA", "CMYK")
+
+
+class Decoded(NamedTuple):
+    pixels: np.ndarray                      # np.asarray(PIL image): (H, W) or (H, W, C)
+    mode: str                               # PIL's mode
+    palette: Optional[np.ndarray] = None    # (N, 3) uint8 RGB, mode "P"
+
+
+def luma(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) -> (...) uint8: PIL's ``L = (19595 R + 38470 G + 7471 B +
+    2^15) >> 16``."""
+    c = rgb.astype(np.uint32)
+    return ((c[..., 0] * 19595 + c[..., 1] * 38470 + c[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """(H, W, 4) -> (H, W, 3) uint8: PIL's ``cmyk2rgb``."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    return np.clip(nk - _muldiv255(c[..., :3], nk), 0, 255).astype(np.uint8)
+
+
+def _gray(img: Decoded) -> np.ndarray:
+    px, mode = img.pixels, img.mode
+    if mode == "1":
+        return px.astype(np.uint8) * np.uint8(255)
+    if mode == "LA":
+        return px[..., 0]
+    if mode in ("I;16", "I"):
+        return np.clip(px, 0, 255).astype(np.uint8)
+    return px
+
+
+def _rgb(img: Decoded) -> np.ndarray:
+    px, mode = img.pixels, img.mode
+    if mode == "P":
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.asarray(img.palette, np.uint8).reshape(-1, 3)[:256]
+        palette[:len(entries)] = entries
+        return palette[px]
+    if mode == "CMYK":
+        return cmyk_to_rgb(px)
+    return px[..., :3]
+
+
+def to_mode(img: Decoded, mode: Optional[str]) -> np.ndarray:
+    """``np.asarray(image.convert(mode))`` for mode "RGB" or "L"; the image's
+    own array for None."""
+    if mode is None:
+        return img.pixels
+    if img.mode not in GRAY_MODES + COLOUR_MODES:
+        raise ValueError(f"PIL mode {img.mode!r} is not converted here")
+    if img.mode in GRAY_MODES:
+        gray = _gray(img)
+        return np.repeat(gray[..., None], 3, axis=-1) if mode == "RGB" else gray
+    rgb = _rgb(img)
+    return rgb if mode == "RGB" else luma(rgb)

@@ -106,22 +106,10 @@ def read_png(path: str) -> np.ndarray:
     """uint8 (H, W, C): C = 1 gray, 2 gray+alpha, 3 RGB (palette images
     expanded through PLTE, tRNS ignored), 4 RGBA. 16-bit samples keep their
     high byte, except 16-bit gray, which PIL saturates at 255; 1-, 2- and
-    4-bit gray is scaled to 0..255."""
-    return _read(path, wide_gray=False)
-
-
-def read_png_gray16(path: str) -> np.ndarray:
-    """A gray PNG as ``np.asarray(PIL.Image.open(path))`` gives it: (H, W)
-    uint16 at bit depth 16 (a Kinect depth map in mm), uint8 at 8."""
-    image = _read(path, wide_gray=True)
-    if image.ndim != 3 or image.shape[-1] != 1:
-        raise ValueError(f"{path}: not a one-channel gray PNG")
-    return image[..., 0]
-
-
-def _read(path: str, wide_gray: bool) -> np.ndarray:
+    4-bit gray is scaled to 0..255. ``utils/image_io.read_image`` gives
+    PIL's own arrays (palette indices, uint16 gray)."""
     with open(path, "rb") as fh:
-        return decode_png(fh.read(), path, wide_gray)
+        return decode_png(fh.read(), path)
 
 
 # Adam7: (first column, first row, column step, row step) of each pass
@@ -160,9 +148,9 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
     return rows
 
 
-def decode_png(data: bytes, name: str = "<bytes>", wide_gray: bool = False) -> np.ndarray:
-    """PNG bytes -> :func:`read_png`'s array (:func:`read_png_gray16`'s
-    samples with ``wide_gray``); ``name`` names the file in errors."""
+def _decode_samples(data: bytes, name: str):
+    """PNG bytes -> (samples (H, W, C): uint16 at depth 16, raw levels or
+    palette indices below 8; bit depth; colour type; PLTE (N, 3) or None)."""
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
     pos, header, idat, palette = len(_SIGNATURE), None, [], None
@@ -211,18 +199,51 @@ def decode_png(data: bytes, name: str = "<bytes>", wide_gray: bool = False) -> n
         out.reshape(H, W, C)[y0::dy, x0::dx] = _samples(rows, w, C, depth).reshape(h, w, C)
     if pos != raw.size:
         raise ValueError(f"{name}: image data has {raw.size} bytes, expected {pos}")
+    if paletted and out.max(initial=0) >= len(palette):
+        raise ValueError(f"{name}: palette index beyond the {len(palette)} PLTE entries")
+    return out.reshape(H, W, C), depth, ctype, palette
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> :func:`read_png`'s array; ``name`` names the file in
+    errors."""
+    out, depth, ctype, palette = _decode_samples(data, name)
     if depth == 16:
         if ctype == 0:                      # PIL's I;16 -> L / RGB saturates
-            out = out if wide_gray else np.minimum(out, 255).astype(np.uint8)
+            out = np.minimum(out, 255).astype(np.uint8)
         else:
             out = (out >> 8).astype(np.uint8)
-    elif depth < 8 and not paletted:
+    elif depth < 8 and ctype != 3:
         out = out * np.uint8(255 // ((1 << depth) - 1))
-    if paletted:
-        if out.max(initial=0) >= len(palette):
-            raise ValueError(f"{name}: palette index beyond the {len(palette)} PLTE entries")
-        return palette[out.reshape(H, W)]
-    return out.reshape(H, W, C)
+    if ctype == 3:
+        return palette[out[..., 0]]
+    return out
+
+
+def decode_png_pil(data: bytes, name: str = "<bytes>"):
+    """PNG bytes -> ``utils.modes.Decoded``: the array and mode PIL holds
+    (``PngImagePlugin._MODES``): gray "1" (bool) at depth 1, "L" at 2-8
+    (scaled to 0..255), "I;16" (uint16) at 16; "RGB"; "P" (indices, with the
+    PLTE); "LA"; "RGBA". 16-bit colour keeps its high byte, and 16-bit gray
+    with alpha becomes "RGBA", as in PIL."""
+    from coma_tpu_torch.utils.modes import Decoded
+
+    out, depth, ctype, palette = _decode_samples(data, name)
+    if ctype == 3:
+        return Decoded(out[..., 0], "P", palette)
+    if ctype == 0:
+        if depth == 1:
+            return Decoded(out[..., 0].astype(bool), "1")
+        if depth == 16:
+            return Decoded(out[..., 0], "I;16")
+        return Decoded(out[..., 0] * np.uint8(255 // ((1 << depth) - 1)), "L")
+    if depth == 16:
+        out = (out >> 8).astype(np.uint8)
+    if ctype == 4:
+        if depth == 16:
+            return Decoded(out[..., [0, 0, 0, 1]], "RGBA")
+        return Decoded(out, "LA")
+    return Decoded(out, "RGB" if ctype == 2 else "RGBA")
 
 
 def to_rgb(image: np.ndarray) -> np.ndarray:

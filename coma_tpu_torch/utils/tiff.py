@@ -1,0 +1,272 @@
+"""TIFF files, first page, as Pillow (with libtiff) reads them.
+
+Strips or tiles, one plane per pixel (planar configuration 1), uncompressed,
+PackBits, LZW or Deflate, with or without horizontal differencing
+(predictor 2). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
+photometric), "L" (2, 4 and 8-bit gray, white-is-zero inverted, scaled to
+0..255), "I;16" (16-bit gray), "LA", "RGB" (with or without one unused
+extra sample), "RGBA" (unassociated alpha, or associated alpha divided out
+as PIL does), "P" (1 to 8 bits, the ColorMap's high bytes) and "CMYK".
+JPEG, CCITT and the other compressions, bit-reversed fill order, separate
+planes, BigTIFF and sample formats other than unsigned integers raise a
+``ValueError`` naming the file.
+
+LZW and PackBits have native twins in ``native/src/image_codecs.cpp``,
+taken where they build; the plain Python versions here are their
+references.
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+
+from coma_tpu_torch.utils.modes import Decoded
+
+_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2), 9: ("i", 4)}
+_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
+            7: "JPEG", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
+            50001: "WebP"}
+_COMPRESSIONS = (1, 5, 8, 32946, 32773)        # none, LZW, Deflate (twice), PackBits
+
+
+def lzw_decode_python(data: bytes, cap: int) -> bytes:
+    """TIFF's LZW (libtiff's ``LZWDecode``): 9- to 12-bit codes, most
+    significant bit first, the width growing one code before the table
+    fills 2^width, 256 clearing and 257 ending. At most ``cap`` bytes."""
+    if data[:2] == b"\x00\x01":
+        raise ValueError("old-style (LSB-first) TIFF LZW is not read")
+    padded = data + bytes(3)
+    total = len(data) * 8
+    table: list = [bytes([i]) for i in range(256)] + [b"", b""]
+    width, pos, prev = 9, 0, None
+    out = bytearray()
+    while pos + width <= total and len(out) < cap:
+        i = pos >> 3
+        code = ((padded[i] << 16 | padded[i + 1] << 8 | padded[i + 2]) >> (24 - width - (pos & 7))) \
+            & ((1 << width) - 1)
+        pos += width
+        if code == 256:
+            table = table[:258]
+            width, prev = 9, None
+            continue
+        if code == 257:
+            break
+        if prev is None:
+            if code >= 256:
+                raise ValueError("an LZW code that is not in the table (corrupt data)")
+            entry = table[code]
+        elif code < len(table):
+            entry = table[code]
+            if len(table) < 4096:
+                table.append(prev + entry[:1])
+        elif code == len(table) and len(table) < 4096:
+            entry = prev + prev[:1]
+            table.append(entry)
+        else:
+            raise ValueError("an LZW code that is not in the table (corrupt data)")
+        if len(table) + 1 >= 1 << width and width < 12:
+            width += 1
+        out += entry
+        prev = entry
+    return bytes(out[:cap])
+
+
+def packbits_decode_python(data: bytes, cap: int) -> bytes:
+    """PackBits: a header n in 0..127 copies n + 1 bytes, -1..-127 repeats
+    the next byte 1 - n times, -128 does nothing. At most ``cap`` bytes."""
+    out, pos, n = bytearray(), 0, len(data)
+    while pos < n and len(out) < cap:
+        h = data[pos] - 256 if data[pos] > 127 else data[pos]
+        pos += 1
+        if h >= 0:
+            out += data[pos:pos + h + 1]
+            pos += h + 1
+        elif h != -128 and pos < n:
+            out += data[pos:pos + 1] * (1 - h)
+            pos += 1
+    return bytes(out[:cap])
+
+
+def _decompress(chunk: bytes, compression: int, cap: int, native) -> bytes:
+    from coma_tpu_torch.native import codecs
+
+    if native is None:
+        native = codecs.available()
+    if compression == 1:
+        return chunk[:cap]
+    if compression in (8, 32946):
+        return zlib.decompress(chunk)[:cap]
+    if compression == 5:
+        if chunk[:2] == b"\x00\x01":
+            raise ValueError("old-style (LSB-first) TIFF LZW is not read")
+        return codecs.lzw_decode(chunk, 8, True, cap) if native else lzw_decode_python(chunk, cap)
+    return codecs.packbits_decode(chunk, cap) if native else packbits_decode_python(chunk, cap)
+
+
+class _Ifd:
+    """The first image file directory: tag -> tuple of values."""
+
+    def __init__(self, data: bytes, name: str):
+        if data[:4] not in (b"II*\x00", b"MM\x00*"):
+            if data[:4] in (b"II+\x00", b"MM\x00+"):
+                raise ValueError(f"{name}: BigTIFF is not read")
+            raise ValueError(f"{name}: not a TIFF file")
+        self.order = "<" if data[:2] == b"II" else ">"
+        self.data, self.name = data, name
+        at = self._int(4, 4)
+        count = self._int(at, 2)
+        self.tags = {}
+        for k in range(count):
+            e = at + 2 + 12 * k
+            tag, kind, n = self._int(e, 2), self._int(e + 2, 2), self._int(e + 4, 4)
+            if kind not in _TYPES:
+                continue
+            code, size = _TYPES[kind]
+            where = e + 8 if n * size <= 4 else self._int(e + 8, 4)
+            if where + n * size > len(data):
+                raise ValueError(f"{name}: TIFF tag {tag} runs past the end of the file")
+            self.tags[tag] = tuple(np.frombuffer(data, self.order + code, n, where).tolist())
+
+    def _int(self, at: int, n: int) -> int:
+        return int.from_bytes(self.data[at:at + n], "little" if self.order == "<" else "big")
+
+    def get(self, tag: int, default=None):
+        return self.tags.get(tag, default)
+
+
+def _undo_predictor(raw: np.ndarray, width: int, spp: int, bits: int, order: str) -> np.ndarray:
+    """Horizontal differencing undone: each sample plus the one ``spp``
+    before it in the row, modulo 2^bits."""
+    if bits == 8:
+        rows = raw.reshape(raw.shape[0], width, spp)
+        return np.cumsum(rows, axis=1, dtype=np.uint8).reshape(raw.shape)
+    rows = raw.view(order + "u2").reshape(raw.shape[0], width, spp)
+    return np.cumsum(rows, axis=1, dtype=np.uint16).astype(order + "u2").view(np.uint8).reshape(
+        raw.shape)
+
+
+def _mode(photometric: int, bps: tuple, extra: tuple, name: str):
+    """PIL's (mode, rawmode) for the supported subset of ``OPEN_INFO``."""
+    key = (photometric, bps, extra)
+    table = {
+        (0, (1,), ()): ("1", "1;I"), (1, (1,), ()): ("1", "1"),
+        (0, (2,), ()): ("L", "L;2I"), (1, (2,), ()): ("L", "L;2"),
+        (0, (4,), ()): ("L", "L;4I"), (1, (4,), ()): ("L", "L;4"),
+        (0, (8,), ()): ("L", "L;I"), (1, (8,), ()): ("L", "L"),
+        (0, (16,), ()): ("I;16", "I;16"), (1, (16,), ()): ("I;16", "I;16"),
+        (1, (8, 8), (2,)): ("LA", "LA"),
+        (2, (8, 8, 8), ()): ("RGB", "RGB"),
+        (2, (8, 8, 8, 8), ()): ("RGBA", "RGBA"), (2, (8, 8, 8, 8), (0,)): ("RGB", "RGBX"),
+        (2, (8, 8, 8, 8), (1,)): ("RGBA", "RGBa"), (2, (8, 8, 8, 8), (2,)): ("RGBA", "RGBA"),
+        (3, (1,), ()): ("P", "P;1"), (3, (2,), ()): ("P", "P;2"), (3, (4,), ()): ("P", "P;4"),
+        (3, (8,), ()): ("P", "P"),
+        (5, (8, 8, 8, 8), ()): ("CMYK", "CMYK"),
+    }
+    if key not in table:
+        raise ValueError(f"{name}: a TIFF of photometric {photometric}, bits {bps}, extra "
+                         f"samples {extra} is not read")
+    return table[key]
+
+
+def _unpack(raw: np.ndarray, rawmode: str, width: int, order: str) -> np.ndarray:
+    H = raw.shape[0]
+    if rawmode in ("1", "1;I"):
+        bits = np.unpackbits(raw, axis=1)[:, :width].astype(bool)
+        return ~bits if rawmode == "1;I" else bits
+    for low in (2, 4):
+        if rawmode.startswith(f"L;{low}") or rawmode == f"P;{low}":
+            per = 8 // low
+            shifts = np.arange(8 - low, -1, -low, dtype=np.uint8)
+            levels = ((raw[..., None] >> shifts) & ((1 << low) - 1)).reshape(H, -1)[:, :width]
+            if rawmode.startswith("P"):
+                return levels
+            if rawmode.endswith("I"):
+                levels = (1 << low) - 1 - levels
+            return (levels * (255 // ((1 << low) - 1))).astype(np.uint8)
+    if rawmode == "P;1":
+        return np.unpackbits(raw, axis=1)[:, :width]
+    if rawmode in ("L", "P"):
+        return raw[:, :width]
+    if rawmode == "L;I":
+        return 255 - raw[:, :width]
+    if rawmode == "I;16":
+        return raw[:, :2 * width].view(order + "u2").reshape(H, width).astype(np.uint16)
+    n = {"LA": 2, "RGB": 3}.get(rawmode, 4)
+    px = raw[:, :n * width].reshape(H, width, n)
+    if rawmode == "RGBX":
+        return np.ascontiguousarray(px[..., :3])
+    if rawmode == "RGBa":                   # associated alpha divided out, as PIL's unpacker
+        a, c = px[..., 3:].astype(np.int32), px[..., :3].astype(np.int32)
+        rgb = np.where(a == 0, 0, np.minimum(c * 255 // np.maximum(a, 1), 255))
+        return np.concatenate([rgb.astype(np.uint8), px[..., 3:]], -1)
+    return np.ascontiguousarray(px)
+
+
+def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
+    """A TIFF file's first page -> what ``np.asarray(PIL.Image.open(f))``
+    gives, and its mode; a ``ValueError`` naming ``name`` where it is not read."""
+    ifd = _Ifd(data, name)
+    width, height = ifd.get(256, (0,))[0], ifd.get(257, (0,))[0]
+    compression = ifd.get(259, (1,))[0]
+    if compression in _REFUSED:
+        raise ValueError(f"{name}: TIFF with {_REFUSED[compression]} compression is not read")
+    if compression not in _COMPRESSIONS:
+        raise ValueError(f"{name}: TIFF compression {compression} is not read")
+    photometric = ifd.get(262, (0,))[0]
+    spp = ifd.get(277, (1,))[0]
+    bps = tuple(ifd.get(258, (1,)))
+    if len(bps) == 1 and spp > 1:
+        bps = bps * spp
+    extra = tuple(ifd.get(338, ()))
+    if ifd.get(266, (1,))[0] != 1:
+        raise ValueError(f"{name}: TIFF with a bit-reversed fill order is not read")
+    if ifd.get(284, (1,))[0] != 1 and spp > 1:
+        raise ValueError(f"{name}: TIFF with separate colour planes is not read")
+    if any(f != 1 for f in ifd.get(339, (1,))) and not (bps == (8,) and photometric == 1):
+        raise ValueError(f"{name}: TIFF samples other than unsigned integers are not read")
+    mode, rawmode = _mode(photometric, bps, extra, name)
+    predictor = ifd.get(317, (1,))[0]
+    if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
+        raise ValueError(f"{name}: TIFF predictor {predictor} at {bps[0]} bits is not read")
+    bits = sum(bps)
+    tiled = 322 in ifd.tags
+    if tiled:
+        bw, bh = ifd.get(322)[0], ifd.get(323)[0]
+        offsets, counts = ifd.get(324), ifd.get(325)
+    else:
+        bw, bh = width, min(ifd.get(278, (height,))[0], height) or height
+        offsets, counts = ifd.get(273), ifd.get(279)
+    if not width or not height or offsets is None or counts is None:
+        raise ValueError(f"{name}: a TIFF without size or image data")
+    row_bytes = (width * bits + 7) // 8
+    block_row_bytes = (bw * bits + 7) // 8
+    across = -(-width // bw)
+    raw = np.zeros((-(-height // bh) * bh, across * block_row_bytes), np.uint8)
+    for k, (offset, count) in enumerate(zip(offsets, counts)):
+        by, bx = divmod(k, across)
+        if by * bh >= height:
+            break
+        try:
+            block = _decompress(data[offset:offset + count], compression, block_row_bytes * bh,
+                                native)
+        except (ValueError, zlib.error) as err:
+            raise ValueError(f"{name}: {err}") from None
+        rows = len(block) // block_row_bytes
+        piece = np.frombuffer(block[:rows * block_row_bytes], np.uint8).reshape(
+            rows, block_row_bytes)
+        if predictor == 2:
+            piece = _undo_predictor(piece, bw, len(bps), bps[0], ifd.order)
+        raw[by * bh:by * bh + rows, bx * block_row_bytes:(bx + 1) * block_row_bytes] = piece
+    if tiled:
+        if bits % 8:
+            raise ValueError(f"{name}: tiled TIFF below 8 bits a pixel is not read")
+        raw = raw[:, :width * bits // 8]
+    raw = np.ascontiguousarray(raw[:height, :row_bytes])
+    palette = None
+    if mode == "P":
+        cmap = ifd.get(320)
+        if cmap is None:
+            raise ValueError(f"{name}: a palette TIFF without a ColorMap")
+        palette = (np.asarray(cmap, np.int64).reshape(3, -1).T // 256).astype(np.uint8)
+    return Decoded(_unpack(raw, rawmode, width, ifd.order), mode, palette)

@@ -339,8 +339,8 @@ def test_behave_sequence_reader_matches(tmp_path, rng):
 
 def test_jpeg_colour_frame_raises_naming_the_file(tmp_path, rng):
     """BEHAVE's JPEG colour frames and person masks read equal to
-    ``coma_tpu``'s (PIL); only a JPEG the port's decoder refuses (CMYK)
-    raises, naming the file."""
+    ``coma_tpu``'s (PIL), a CMYK frame included; only a JPEG PIL refuses too
+    (12-bit samples) raises, naming the file."""
     seq = write_sequence(tmp_path, rng, "jpg")
     yy, xx = np.mgrid[:24, :40]
     for frame in sorted(p for p in seq.iterdir() if p.is_dir()):
@@ -361,9 +361,16 @@ def test_jpeg_colour_frame_raises_naming_the_file(tmp_path, rng):
         np.testing.assert_array_equal(got, want)
     Image.fromarray(rng.integers(0, 255, size=(8, 8, 3), dtype=np.uint8)).convert("CMYK").save(
         seq / t.frames[0] / "k1.color.jpg")
-    with pytest.raises(ValueError, match=r"k1\.color\.jpg.*CMYK"):
+    np.testing.assert_array_equal(t.get_color_image(0, 1), j.get_color_image(0, 1))
+    data = bytearray((seq / t.frames[0] / "k0.color.jpg").read_bytes())
+    data[data.index(b"\xff\xc0") + 4] = 12                    # SOF0 precision 12
+    (seq / t.frames[0] / "k1.color.jpg").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=r"k1\.color\.jpg.*12-bit"):
         t.get_color_image(0, 1)
+    with pytest.raises(OSError):
+        j.get_color_image(0, 1)
     assert t.get_depth_image(0, 0).dtype == np.uint16   # depth stays readable
+    np.testing.assert_array_equal(t.get_depth_image(0, 0), j.get_depth_image(0, 0))
 
 
 def test_frame_data_reader_surface_matches(tmp_path, rng):

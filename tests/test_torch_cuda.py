@@ -748,22 +748,27 @@ def _fixture_manifest():
 
 
 def _sha(a) -> str:
+    """The manifest's hash: an array's values, a bool array as 0/1 bytes."""
     import hashlib
 
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    a = np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a.astype(np.uint8) if a.dtype == bool else a)
+                          .tobytes()).hexdigest()
 
 
 @pytest.mark.cuda
 def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
     """Every committed fixture, the 512² and 2048 x 1536 ones included,
-    through the native decoder (built with the card machine's g++) against
-    the Pillow hashes of the manifest; the CMYK file is refused."""
+    through ``read_image`` with the native JPEG decoder and image codecs
+    (built with the card machine's g++) against the Pillow hashes of the
+    manifest for modes None, RGB and L; each file Pillow refuses is refused
+    naming itself."""
     need_card()
+    from coma_tpu_torch.native import codecs
     from coma_tpu_torch.utils import jpeg
     from coma_tpu_torch.utils.image_io import read_image
-    from coma_tpu_torch.utils.png import to_gray, to_rgb
 
-    assert jpeg.native_available()
+    assert jpeg.native_available() and codecs.available()
     root, manifest = _fixture_manifest()
     for name, entry in manifest.items():
         path = f"{root}/{name}"
@@ -771,13 +776,8 @@ def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
             with pytest.raises(ValueError, match=name):
                 read_image(path)
             continue
-        if name.endswith(".jpg"):
-            with open(path, "rb") as fh:
-                image = jpeg.decode_jpeg(fh.read(), name, native=True)
-        else:
-            image = read_image(path)
-        assert _sha(to_rgb(image)) == entry["sha256"]["RGB"], name
-        assert _sha(to_gray(image)) == entry["sha256"]["L"], name
+        for mode in (None, "RGB", "L"):
+            assert _sha(read_image(path, mode)) == entry["sha256"][str(mode)], (name, mode)
 
 
 @pytest.mark.cuda

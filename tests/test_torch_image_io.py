@@ -1,29 +1,33 @@
 """The port's image reading against Pillow and ``coma_tpu``.
 
 ``coma_tpu`` opens every image with PIL; the port reads them with
-``utils/image_io.read_image`` (its own JPEG decoder, ``utils/jpeg.py``, and
-PNG reader, ``utils/png.py``). Held here, bit for bit, with no tolerance:
+``utils/image_io.read_image`` (its own decoders: ``utils/jpeg.py``,
+``utils/png.py``, ``utils/{bmp,tga,pnm,tiff,gif_reader}.py``). Held here,
+bit for bit, with no tolerance:
 
 - the committed fixtures of ``tests/data/images/`` (``tools/make_image_fixtures.py``
-  writes them) against the Pillow hashes of their manifest and against Pillow
-  at test time; seeded images written by Pillow at test time (every sampling,
-  quality, progressive, optimised tables, restart intervals, grayscale, odd
-  sizes, EXIF/ICC/COM segments); Adam7-interlaced PNGs;
-- the plain (Python entropy decoder, numpy reconstruction) and native (C++)
-  decoders: equal coefficients and equal pixels;
+  writes them) against the Pillow hashes of their manifest, for modes None,
+  RGB and L, and against Pillow at test time; every fixture Pillow refuses,
+  the port refuses naming the file; seeded images written by Pillow at test
+  time (every sampling, quality, progressive, optimised tables, restart
+  intervals, grayscale, odd sizes, EXIF/ICC/COM segments); Adam7-interlaced
+  PNGs;
+- the plain (Python entropy decoders, numpy reconstruction and codecs) and
+  native (C++) paths: equal coefficients and equal pixels on every fixture;
 - PIL's bicubic resize (``utils/resize.resize_bicubic``) and ``cli/inpaint``'s
   and ``cli/select_mask``'s inputs against ``coma_tpu``'s own lines;
-- the refusals: CMYK, arithmetic, lossless and 12-bit JPEGs, other sampling
-  factors and other formats raise a ``ValueError`` naming the file.
+- the refusals: JPEGs libjpeg refuses (hierarchical, arithmetic lossless,
+  12-bit, a DNL height, sampling ratios that are not whole) and files of no
+  format read here raise a ``ValueError`` naming the file, as Pillow raises.
 
 Images stay at 128² or smaller, except the resize's inputs. The 512² and
 2048 x 1536 fixtures are decoded on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phase 16).
+``chip_smoke.py`` phase 16) and by ``tests/test_torch_image_formats.py``.
 """
-import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import sys
 
@@ -32,22 +36,23 @@ import pytest
 from PIL import Image
 
 from coma_tpu_torch.cli import inpaint as t_inpaint
-from coma_tpu_torch.utils import jpeg
-from coma_tpu_torch.utils.image_io import read_image
+from coma_tpu_torch.utils import gif_reader, jpeg, tga, tiff
+from coma_tpu_torch.utils.image_io import decode_image, read_image
 from coma_tpu_torch.utils.resize import resize_bicubic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from make_image_fixtures import adam7_png, seeded_rgb  # noqa: E402
+from make_image_fixtures import adam7_png, array_sha, seeded_rgb  # noqa: E402
 
 with open(os.path.join(FIXTURES, "manifest.json")) as _fh:
     MANIFEST = json.load(_fh)
-SMALL = [e for e in MANIFEST["files"] if e["shape"][0] * e["shape"][1] <= 128 * 128]
+SMALL = [e for e in MANIFEST["files"]
+         if e.get("raises") or e["shape"][0] * e["shape"][1] <= 128 * 128]
 
 
 def sha(a: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+    return array_sha(a)
 
 
 def pillow(data: bytes, mode: str) -> np.ndarray:
@@ -72,20 +77,36 @@ def test_manifest_is_small_and_covers_every_kind():
     for word in ("baseline 420", "baseline 422", "baseline 444", "q30", "q75", "q95",
                  "grayscale", "odd size", "optimize", "restart", "progressive 4:2:0",
                  "progressive grayscale", "EXIF", "CMYK", "Adam7 RGB", "Adam7 palette",
-                 "BEHAVE colour", "BEHAVE person mask"):
+                 "BEHAVE colour", "BEHAVE person mask", "SOF9", "SOF10", "DAC", "4:1:1",
+                 "4:4:0", "mixed sampling", "YCCK", "block smoothing", "DC interpolation",
+                 "lossless (SOF3)", "12-bit", "DNL", "hierarchical", "SOF11", "BMP RLE8",
+                 "BMP RLE4", "BI_BITFIELDS", "top-down", "TGA type 1", "TGA type 2", "TGA type 3",
+                 "TGA type 9", "TGA type 10", "TGA type 11", "P1", "P2", "P3", "P4", "P5", "P6",
+                 "TIFF RGB, LZW", "Deflate", "PackBits", "tiles", "predictor 2", "TIFF palette",
+                 "TIFF 1-bit", "TIFF LA", "TIFF RGBA", "GIF palette", "interlaced",
+                 "transparent", "5 frames", "(refused)"):
         assert word in kinds, word
     big = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("behave")]
     assert big == [[1536, 2048], [1536, 2048]]
+    atlas = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("atlas")]
+    assert atlas == [[1536, 2048]] * 4
+    assert MANIFEST["step_video"]["decoded_shape"] == [17, 256, 512, 3]
 
 
 @pytest.mark.parametrize("entry", SMALL, ids=[e["file"] for e in SMALL])
 def test_fixture_equals_pillow(entry):
+    """Modes None, RGB and L against the manifest's Pillow hashes and Pillow
+    now; a file Pillow refuses, both refuse."""
     path = os.path.join(FIXTURES, entry["file"])
     with open(path, "rb") as fh:
         data = fh.read()
     if entry.get("raises"):
-        with pytest.raises(ValueError, match=rf"{entry['file']}.*CMYK"):
+        with pytest.raises(ValueError, match=re.escape(entry["file"])):
             read_image(path)
+        with pytest.raises((OSError, SyntaxError, ValueError)):
+            with Image.open(path) as im:
+                im.load()
+                np.asarray(im)
         return
     for mode in ("RGB", "L"):
         got = read_image(path, mode)
@@ -93,8 +114,11 @@ def test_fixture_equals_pillow(entry):
         assert sha(got) == entry["sha256"][mode]
         np.testing.assert_array_equal(got, pillow(data, mode))
     own = read_image(path)
-    assert own.shape[:2] == tuple(entry["shape"][:2])
-    assert own.shape[2] == {"RGB": 3, "L": 1, "P": 3}[entry["mode"]]
+    assert list(own.shape) == entry["shape"] and str(own.dtype) == entry["dtype"]
+    assert sha(own) == entry["sha256"]["None"]
+    with Image.open(path) as im:
+        assert decode_image(data, entry["file"]).mode == im.mode == entry["mode"]
+        np.testing.assert_array_equal(own, np.asarray(im))
 
 
 SEEDED = [
@@ -173,12 +197,24 @@ def test_plain_and_native_entropy_decoders_agree(kw):
 
 
 def test_plain_and_native_agree_on_every_small_fixture():
+    """Every JPEG fixture (Huffman, arithmetic, lossless, smoothed): equal
+    coefficients or samples and pixels; every GIF, TGA and TIFF fixture:
+    equal pixels through the plain and the native codecs."""
     need_gpp()
+    readers = {".gif": gif_reader.decode_gif, ".tga": tga.decode_tga, ".tif": tiff.decode_tiff}
     for entry in SMALL:
-        if not entry["file"].endswith(".jpg") or entry.get("raises"):
+        if entry.get("raises"):
             continue
         with open(os.path.join(FIXTURES, entry["file"]), "rb") as fh:
             data = fh.read()
+        ext = os.path.splitext(entry["file"])[1]
+        if ext in readers:
+            plain = readers[ext](data, entry["file"], native=False)
+            native = readers[ext](data, entry["file"], native=True)
+            np.testing.assert_array_equal(plain.pixels, native.pixels)
+            continue
+        if ext != ".jpg":
+            continue
         plain = jpeg.decode_coefficients(data, entry["file"], native=False)
         native = jpeg.decode_coefficients(data, entry["file"], native=True)
         for a, b in zip(plain.coef, native.coef):
@@ -200,17 +236,28 @@ def patched(data: bytes, marker: int, offset: int, value: int) -> bytes:
 
 
 @pytest.mark.parametrize("what,edit,match", [
-    ("arithmetic", (0xC0, -1, 0xC9), "arithmetic"),
-    ("arithmetic_progressive", (0xC0, -1, 0xCA), "arithmetic"),
-    ("lossless", (0xC0, -1, 0xC3), "lossless"),
+    ("arithmetic", (0xC0, -1, 0xCB), "arithmetic lossless"),
+    ("arithmetic_progressive", (0xC0, -1, 0xCE), "arithmetic hierarchical"),
+    ("lossless", (0xC0, -1, 0xC7), "hierarchical lossless"),
     ("hierarchical", (0xC0, -1, 0xC5), "hierarchical"),
     ("12-bit", (0xC0, 0, 12), "12-bit"),
-    ("h1v2", (0xC0, 7, 0x12), "sampling factors"),
-    ("h4v1", (0xC0, 7, 0x41), "sampling factors"),
+    ("fractional_sampling", (0xC0, 10, 0x21), "sampling factors"),
+    ("mcu_over_10_blocks", (0xC0, 7, 0x44), "10 blocks"),
+    ("dnl_height", (0xC0, 1, 0), "DNL"),
 ])
 def test_unsupported_jpegs_raise_naming_the_file(tmp_path, what, edit, match):
+    """JPEGs libjpeg-turbo refuses: Pillow raises, and the port raises a
+    ``ValueError`` naming the file and the feature."""
     path = tmp_path / f"{what}.jpg"
-    path.write_bytes(patched(jpeg_bytes(seeded_rgb((16, 16), 1), quality=75), *edit))
+    data = jpeg_bytes(seeded_rgb((16, 16), 1), quality=75, subsampling=1)
+    if what == "dnl_height":
+        data = patched(data, 0xC0, 2, 0)
+    if what == "fractional_sampling":                  # luma 3x1 over chroma 2x1
+        data = patched(data, 0xC0, 7, 0x31)
+    path.write_bytes(patched(data, *edit))
+    with pytest.raises((OSError, SyntaxError)):
+        with Image.open(path) as im:
+            im.load()
     with pytest.raises(ValueError, match=rf"{what}\.jpg.*{match}"):
         read_image(str(path), "RGB")
 

@@ -19,6 +19,7 @@ Same seeded numpy inputs on both sides; tolerances:
   (2,000 seeded quads in [-20, 84]² on a 64² canvas, and degenerate hulls)
   and to ``coma_tpu``'s grids; valid-mask ids and camera pickles equal.
 """
+import io
 import os
 import pickle
 import struct
@@ -199,10 +200,10 @@ def test_load_obj_textured_matches(tmp_path, capsys):
 
 
 def test_load_obj_textured_keeps_kd_for_a_jpeg(tmp_path, capsys):
-    """A JPEG ``map_Kd`` (baseline and progressive) decodes and resizes to
-    ``coma_tpu``'s layer through PIL, bit for bit; only a JPEG the port's
-    decoder refuses (CMYK) keeps the material's Kd layer, naming the file
-    (``coma_tpu`` decodes that one)."""
+    """A JPEG ``map_Kd`` (baseline, progressive and CMYK) decodes and resizes
+    to ``coma_tpu``'s layer through PIL, bit for bit; a JPEG that PIL refuses
+    too (12-bit samples) keeps the material's Kd layer on both sides, and
+    the port names the file."""
     rng = np.random.default_rng(3)
     yy, xx = np.mgrid[:24, :40]
     tex = np.stack([120 + 90 * np.sin(xx / 4 + c) * np.cos(yy / 3) for c in range(3)], -1)
@@ -210,20 +211,26 @@ def test_load_obj_textured_keeps_kd_for_a_jpeg(tmp_path, capsys):
     Image.fromarray(tex).save(str(tmp_path / "t.jpg"), quality=80)
     Image.fromarray(tex[::-1]).save(str(tmp_path / "p.jpg"), quality=90, progressive=True)
     Image.fromarray(tex).convert("CMYK").save(str(tmp_path / "c.jpg"))
+    buf = io.BytesIO()
+    Image.fromarray(tex).save(buf, "JPEG", quality=75)
+    twelve = bytearray(buf.getvalue())
+    twelve[twelve.index(b"\xff\xc0") + 4] = 12                 # SOF0 precision 12
+    (tmp_path / "x.jpg").write_bytes(bytes(twelve))
     (tmp_path / "m.mtl").write_text("newmtl j\nKd 0.5 0.5 0.5\nmap_Kd t.jpg\n"
                                     "newmtl p\nmap_Kd p.jpg\n"
-                                    "newmtl c\nKd 0.1 0.9 0.2\nmap_Kd c.jpg\n")
+                                    "newmtl c\nmap_Kd c.jpg\n"
+                                    "newmtl x\nKd 0.1 0.9 0.2\nmap_Kd x.jpg\n")
     (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
                                     "usemtl j\nf 1/1 2/1 3/1\nusemtl p\nf 1/1 2/1 3/1\n"
-                                    "usemtl c\nf 1/1 2/1 3/1\n")
+                                    "usemtl c\nf 1/1 2/1 3/1\nusemtl x\nf 1/1 2/1 3/1\n")
     got = t_mesh.load_obj_textured(str(tmp_path / "a.obj"), tex_size=16)
     want = j_load_obj_textured(str(tmp_path / "a.obj"), tex_size=16)
     np.testing.assert_array_equal(got.face_material, want.face_material)
-    np.testing.assert_array_equal(got.textures[:3], want.textures[:3])   # grey, j, p
-    np.testing.assert_allclose(got.textures[3], np.broadcast_to([0.1, 0.9, 0.2], (16, 16, 3)),
+    np.testing.assert_array_equal(got.textures, want.textures)       # grey, j, p, c, x
+    np.testing.assert_allclose(got.textures[4], np.broadcast_to([0.1, 0.9, 0.2], (16, 16, 3)),
                                atol=1e-7)
     out = capsys.readouterr().out
-    assert "c.jpg" in out and "t.jpg" not in out and "p.jpg" not in out
+    assert "x.jpg" in out and all(n not in out for n in ("t.jpg", "p.jpg", "c.jpg"))
 
 
 # -------------------------------------------------------------- rasterizer

@@ -1,13 +1,16 @@
-"""Step videos: the GIF encoder, the frames, and ``--save_step_video``.
+"""Step videos: the GIF writer, the frames, and ``--save_step_video``.
 
-The port's numpy GIF89a encoder is decoded by PIL (an independent decoder,
-here on the CPU host) and by ``chip_smoke.py``'s numpy decoder: the frames
-equal the palette-quantised frames exactly, with a 256-entry global
-palette, ``loop=0`` and PIL's delay for ``fps=8``. ``compose_step_frames``
-equals ``coma_tpu``'s on the same per-step outputs, decoded by one numpy
-function on both sides (so the comparison is of the composition: clip,
-scale, nearest upsampling, side by side, uint8). The CLI writes one
-``.steps.gif`` per batch with ⌈50/3⌉ = 17 frames of the composed size.
+The port's GIF writer (``utils/gif.py``) is held against ``coma_tpu``'s PIL
+call (``visualization/video.py:write_gif``): Pillow decodes both files to
+the same frames (each frame quantised on its own by libImaging's median
+cut, a frame equal to the one before merged into it), durations and loop,
+and the port's reader (``utils/gif_reader.py``, which ``chip_smoke.py``'s
+``decode_gif`` uses) decodes the port's file to the same frames.
+``compose_step_frames`` equals ``coma_tpu``'s on the same per-step outputs,
+decoded by one numpy function on both sides (so the comparison is of the
+composition: clip, scale, nearest upsampling, side by side, uint8). The CLI
+writes one ``.steps.gif`` per batch with ⌈50/3⌉ = 17 frames of the
+composed size.
 """
 import io
 
@@ -19,7 +22,7 @@ from PIL import Image
 
 import chip_smoke
 from coma_tpu.visualization import video as j_video
-from coma_tpu_torch.utils import gif
+from coma_tpu_torch.utils import gif, gif_reader
 from coma_tpu_torch.visualization import video as t_video
 
 
@@ -41,8 +44,17 @@ def pil_frames(data: bytes):
     return np.stack(frames), durations, im.info.get("loop")
 
 
+def coma_tpu_gif(frames: np.ndarray, tmp_path, fps: int = 8) -> bytes:
+    path = tmp_path / "coma_tpu.gif"
+    j_video.write_gif(frames, str(path), fps=fps)
+    return path.read_bytes()
+
+
 @pytest.mark.parametrize("kind", ["few_colours", "many_colours"])
-def test_gif_decodes_to_the_quantised_frames(kind):
+def test_gif_decodes_to_the_quantised_frames(kind, tmp_path):
+    """Pillow decodes the port's GIF to the frames it decodes from
+    ``coma_tpu``'s; at most 256 colours they are the frames themselves; the
+    port's reader agrees."""
     rng = np.random.default_rng(41)
     if kind == "few_colours":      # at most 256 colours: the palette is exact
         frames = (rng.integers(0, 5, size=(4, 24, 40, 3)) * 60).astype(np.uint8)
@@ -51,18 +63,62 @@ def test_gif_decodes_to_the_quantised_frames(kind):
         base = np.stack([yy * 200, xx * 120, 80 + 40 * np.sin(6 * xx)], -1)
         frames = np.uint8(np.clip(base[None] + rng.normal(0, 20, size=(5, 48, 80, 3)), 0, 255))
     data = gif.encode_gif(frames, fps=8)
-    palette, indices = gif.quantize(frames)
-    want = palette[indices]
+    want, want_durations, want_loop = pil_frames(coma_tpu_gif(frames, tmp_path))
     if kind == "few_colours":
         np.testing.assert_array_equal(want, frames)
     else:
         assert np.abs(want.astype(int) - frames).mean() < 8
     got, durations, loop = pil_frames(data)
     np.testing.assert_array_equal(got, want)
-    assert durations == [120] * len(frames) and loop == 0    # PIL's int(125 / 10) cs
+    assert durations == want_durations == [120] * len(frames)    # PIL's int(125 / 10) cs
+    assert loop == want_loop == 0
     dec, delays, loop = chip_smoke.decode_gif(data)
     np.testing.assert_array_equal(dec, want)
     assert delays == [12] * len(frames) and loop == 0
+
+
+def test_step_video_gif_equals_coma_tpus(tmp_path):
+    """The frames that showed the fault (three 64 x 64 many-colour frames:
+    a global 5-bit median cut differed from PIL's at every pixel, by up to
+    27 levels), repeated frames (PIL merges them, adding durations) and a
+    frame of more than 65536 colours (libImaging's hash then drops bits)."""
+    rng = np.random.default_rng(42)
+    yy, xx = np.mgrid[:64, :64] / 64
+    base = np.stack([yy * 200, xx * 120, 80 + 40 * np.sin(6 * xx)], -1)
+    cases = {"three_64": np.uint8(np.clip(base[None] + rng.normal(0, 20, (3, 64, 64, 3)), 0, 255)),
+             "repeated": np.repeat(rng.integers(0, 256, (2, 1, 20, 30, 3)), [3, 2], 0)[:, 0]
+             .astype(np.uint8),
+             "scaled_hash": rng.integers(0, 256, (2, 300, 260, 3)).astype(np.uint8)}
+    for name, frames in cases.items():
+        want = pil_frames(coma_tpu_gif(frames, tmp_path))
+        got = pil_frames(gif.encode_gif(frames))
+        np.testing.assert_array_equal(got[0], want[0], err_msg=name)
+        assert got[1:] == want[1:], name
+        mine = gif_reader.decode_gif_frames(gif.encode_gif(frames))
+        np.testing.assert_array_equal(mine[0], want[0])
+        assert mine[1:] == want[1:]
+    assert pil_frames(gif.encode_gif(cases["repeated"]))[1] == [370, 250]
+
+
+def test_seeded_step_video_equals_the_manifest_hash():
+    """``chip_smoke.py`` phase 16d's check, on this host: the seeded step
+    video written by the port and read by the port's reader, against
+    Pillow's decoding of ``coma_tpu``'s file (the manifest's hash)."""
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    from make_image_fixtures import array_sha, step_video_frames
+
+    with open(os.path.join(root, "tests", "data", "images", "manifest.json")) as fh:
+        entry = json.load(fh)["step_video"]
+    frames = step_video_frames(*(entry[k] for k in ("frames", "height", "width", "seed")))
+    decoded, durations, loop = gif_reader.decode_gif_frames(gif.encode_gif(frames))
+    assert list(decoded.shape) == entry["decoded_shape"]
+    assert array_sha(decoded) == entry["sha256"]
+    assert durations == entry["durations"] and loop == entry["loop"]
 
 
 def test_lzw_fills_and_clears_the_table():
@@ -120,5 +176,6 @@ def test_cli_writes_the_step_video(tmp_path, monkeypatch):
     assert gifs[0].name == "00000.steps.gif"
     frames, durations, loop = pil_frames(gifs[0].read_bytes())
     assert frames.shape == (17, 64, 128, 3) == composed[0].shape and loop == 0
-    palette, indices = gif.quantize(composed[0])
-    np.testing.assert_array_equal(frames, palette[indices])
+    want, want_durations, _ = pil_frames(coma_tpu_gif(composed[0], tmp_path))
+    np.testing.assert_array_equal(frames, want)
+    assert durations == want_durations
