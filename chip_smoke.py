@@ -105,12 +105,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 7. The HOI-reconstruction application: ``cli/optimize`` on phase 4b's
    SMPL-X-shaped npz, its ``qual:backpack_human_contact`` pickle (H 10475,
    O 180, N 250) and 180-point object downsample, with a seeded VPoser
-   snapshot (512 wide, latent 32), at the CLI defaults (2000 steps, lr 1e-2,
-   weights 1e12 / 2.6e11), then with ``--use_collision`` at 200 steps; every
-   kernel's counter from 0 (the application runs none). Checks: the losses
-   finite and the total falling from step 0; the card against the CPU over
-   10 steps (total loss within 1e-3 relative, vertices within 1e-3 m; the
-   card sums ``index_add`` and the gather's backward with atomics). Printed:
+   snapshot (512 wide, latent 32), at the CLI defaults (lr 1e-2, weights 1e12 /
+   2.6e11) cut to 500 of their 2000 steps, then with ``--use_collision`` at
+   200 steps; every kernel's counter from 0 (the application runs none).
+   Checks: the losses finite and the total falling from step 0; the card
+   against the CPU over 10 steps (total loss within 1e-3 relative, vertices
+   within 1e-3 m; the card sums ``index_add`` and the gather's backward with
+   atomics). Printed:
    the wall clocks, ms per step (CUDA events), peak memory, and the device's
    idle share over 50 steps (``torch.profiler``).
 
@@ -287,6 +288,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    back by the port's GIF reader: every frame, duration and the loop equal
    to Pillow's decoding of ``coma_tpu``'s PIL-written file (the manifest's
    hash). ``python3 tools/phase16_torch.py`` runs phase 16 alone.
+
+17. ``coma_tpu_torch.benchkit``, the bench's measured entry points (``coma_tpu/benchkit.py``'s
+   counterpart). First K3 against its plain version at the suite's batch-16
+   shapes, the UNet's (32, 8, L, L|77, D) at the four levels and the VAE's
+   (16, 1, L, L, 512) at the full frame, fast mode's 32² and crop mode's 40²,
+   the fp32 plain version on batch rows 0 and B - 1 only (5e-4 + 8e-3
+   |plain|), with the kernel's, the plain version's and SDPA's times on the
+   whole batch. Then every key of ``bench.py``'s sections coma, pipe_suite,
+   torch_baselines, dp_scaling and extract_production, one line per emitted
+   dict: ``bench_coma`` at qual, object-contact and quant:full and
+   ``bench_occupancy`` (9 launches of K1 or K2 each: a 1-step and a 2-step
+   chain, each run 3 times); the pipeline suite at 16 images, 512², 50 steps
+   (K3 on every variant: its warm-up's launches + 1644 a timed batch, all
+   bf16; the UNet step's 352; ``0 < unet_step_mfu <= 1``; crop bucket 40),
+   the first two timed batches of the headline compared (the warm-up is one
+   forward of each model at its shapes); the device's idle share of the CFG
+   UNet step and of each segmenter's provoke call (``torch.profiler``); the
+   two CPU baselines; ``bench_dp_scaling`` at 1 and 2 ranks on the card (K3,
+   f32, 1044 launches a rank); ``bench_extract_production`` with 64 samples
+   at qual (K1, 2 launches). Each kernel's counter is set to 0 before each
+   path and read after it. ``python3 tools/phase17_torch.py`` runs phase 17
+   alone.
 
 Phase 5 also holds K3 at phase 6b's shapes (D = 64: (8, 5, 4096, 4096|77),
 (8, 10, 1024, 1024|77), (8, 20, 256, 256|77), (8, 20, 64, 64|77)) and at
@@ -1067,17 +1090,20 @@ K3_SHAPES = (  # (name, B, H, Lq, Lk, D, dtype): phase 6's, CFG doubling the UNe
 K3_BF16_ATOL, K3_BF16_RTOL, K3_F32_ATOL = 5e-4, 8e-3, 1e-4
 
 
-def check_k3(rng, name, B, H, Lq, Lk, D, dtype):
-    """Kernel vs the plain version computed in fp32 from the same inputs;
-    times of the kernel, the plain version (in the input dtype) and SDPA."""
+def check_k3(rng, name, B, H, Lq, Lk, D, dtype, rows=None):
+    """Kernel vs the plain version computed in fp32 from the same inputs (on
+    the batch ``rows`` only, where given: the fp32 scores of a whole batch
+    can be too large); times of the kernel, the plain version (in the input
+    dtype) and SDPA on the whole batch."""
     import torch.nn.functional as F
 
     from coma_tpu_torch.ops.attention import KERNELS, attention_reference, scaled_dot_attention
 
     q, k, v = (torch.from_numpy(np.float32(rng.normal(size=(B, H, n, D)))).to(DEVICE, dtype)
                for n in (Lq, Lk, Lk))
-    out = scaled_dot_attention(q, k, v)
-    want = attention_reference(q.float(), k.float(), v.float())
+    sel = slice(None) if rows is None else list(rows)
+    out = scaled_dot_attention(q, k, v)[sel]
+    want = attention_reference(q[sel].float(), k[sel].float(), v[sel].float())
     torch.cuda.synchronize()
     err = (out.float() - want).abs()
     rtol = K3_BF16_RTOL if dtype == torch.bfloat16 else 0.0
@@ -1096,7 +1122,8 @@ def check_k3(rng, name, B, H, Lq, Lk, D, dtype):
     nbytes = size * B * H * (2 * Lq + 2 * Lk) * D
     peak = PEAK_BF16_OPS if dtype == torch.bfloat16 else PEAK_F32_OPS
     bound_ms, bound_by = bound(4.0 * B * H * Lq * Lk * D, nbytes, peak)
-    return dict(shape=f"{name} ({B}, {H}, {Lq}, {Lk}, {D}) {str(dtype)[6:]}",
+    return dict(shape=f"{name} ({B}, {H}, {Lq}, {Lk}, {D}) {str(dtype)[6:]}"
+                + ("" if rows is None else f", rows {list(rows)} held"),
                 source=f"coma_tpu_torch/csrc/{KERNELS[dtype][0]}.cu",
                 max_abs_err=max_abs, atol_used=atol_used, atol=atol, rtol=rtol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1839,6 +1866,7 @@ OPT_CPU_STEPS = 10
 # sums (index_add, the gather's backward) run in another order on the card
 OPT_LOSS_RTOL, OPT_VERTS_ATOL = 1e-3, 1e-3
 OPT_TIMED_STEPS = (20, 120)
+OPT_CLI_STEPS = 500   # of the CLI's 2000: the ms per step is timed apart (OPT_TIMED_STEPS)
 OPT_PROFILED_STEPS = 50
 
 
@@ -1908,7 +1936,7 @@ def run_optimize_cli(files: dict, out_dir: str, label: str, extra=()) -> dict:
             or any(launches.values()):
         raise AssertionError(f"optimize {list(extra)}: losses {result.losses}, total "
                              f"{hist[0]} -> {hist[-1]}, launches {launches}")
-    log(f"optimize {' '.join(extra) or 'at the CLI defaults (2000 steps)'}: {seconds:.3f} s "
+    log(f"optimize {' '.join(extra)} (the CLI's defaults otherwise): {seconds:.3f} s "
         f"(CLI wall clock: pickle, npz, snapshot, the fit, OBJ), {len(hist)} steps, total loss "
         f"{hist[0]:.6e} at step 0 -> {hist[-1]:.6e}; final {result.losses}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; launches {launches} [{label}]")
@@ -1931,8 +1959,8 @@ def optimize_problem(files: dict, device):
 
 
 def optimize_phase(files: dict, label: str) -> dict:
-    """Phase 7: the CLI at its defaults, then with ``--use_collision`` at 200
-    steps; ms per step (CUDA events, the difference of two fits); the card
+    """Phase 7: the CLI at its defaults but 500 steps, then with
+    ``--use_collision`` at 200 steps; ms per step (CUDA events, the difference of two fits); the card
     against the CPU over 10 steps; the device's idle share over 50 steps."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1940,7 +1968,8 @@ def optimize_phase(files: dict, label: str) -> dict:
     from coma_tpu_torch.pipelines.application import derive_targets_from_coma, optimize_smpl
 
     with tempfile.TemporaryDirectory(prefix="opt_", dir=SCRATCH) as out:
-        runs = dict(defaults=run_optimize_cli(files, out, label),
+        runs = dict(defaults=run_optimize_cli(files, out, label,
+                                              ("--num_iters", str(OPT_CLI_STEPS))),
                     collision=run_optimize_cli(files, out, label,
                                                ("--use_collision", "--num_iters", "200")))
     coma = load_pickle(files["coma"])
@@ -3888,6 +3917,283 @@ def phase16(label: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: coma_tpu_torch.benchkit, the bench's entry points, on the card
+# ---------------------------------------------------------------------------
+
+BENCH_K1_SHAPES = (  # (key, H, O, samples a step): bench.py's section_coma
+    ("coma_contact_aggregation_samples_per_sec", 10475, 180, 32),
+    ("coma_object_contact_samples_per_sec", 1000, 1500, 16),
+    ("coma_quant_full_samples_per_sec", 750, 2048, 16),
+)
+CHAIN_STEPS = 9          # _sustained_rate: 3 runs of a 1-step chain, 3 of a 2-step chain
+BENCH_BATCH = 16         # the bench's images a batch: the CFG UNet's batch 32
+K3_BENCH_SHAPES = (  # (name, B, H, Lq, Lk, D): the pipeline suite's, at batch 16
+    ("bench_unet_self_64x64", 32, 8, 4096, 4096, 40),
+    ("bench_unet_cross_64x64", 32, 8, 4096, 77, 40),
+    ("bench_unet_self_32x32", 32, 8, 1024, 1024, 80),
+    ("bench_unet_cross_32x32", 32, 8, 1024, 77, 80),
+    ("bench_unet_self_16x16", 32, 8, 256, 256, 160),
+    ("bench_unet_cross_16x16", 32, 8, 256, 77, 160),
+    ("bench_unet_mid_self_8x8", 32, 8, 64, 64, 160),
+    ("bench_unet_mid_cross_8x8", 32, 8, 64, 77, 160),
+    ("bench_vae_mid", 16, 1, 4096, 4096, 512),
+    ("bench_vae_mid_fast_32x32", 16, 1, 1024, 1024, 512),   # fast mode's x̂0 at 1/2
+    ("bench_vae_mid_crop_40x40", 16, 1, 1600, 1600, 512),   # crop mode's bucket 40
+)
+# K3 launches on each emitted key's path: the warm-up's (the CFG UNet's 32,
+# the VAE's full-frame encode and decode, and the provoke round's own decode
+# in fast mode, decode and encode in crop mode) + 1644 a timed batch; the
+# UNet step: 11 forwards of 32
+SUITE_K3 = {
+    "hoi_2d_images_per_sec": 34 + 2 * K3_LAUNCHES_PER_BATCH,
+    "unet_cfg_step_ms": 11 * 32,
+    "hoi_2d_images_per_sec_pointrend_loop": 34 + K3_LAUNCHES_PER_BATCH,
+    "hoi_2d_images_per_sec_pointrend_loop_fast": 34 + K3_LAUNCHES_PER_BATCH,
+    "hoi_2d_images_per_sec_fast_mode": 35 + K3_LAUNCHES_PER_BATCH,
+    "hoi_2d_images_per_sec_crop_mode": 36 + K3_LAUNCHES_PER_BATCH,
+}
+BENCH_CROP_BUCKET = 40   # choose_crop_latent of the bench's 200-pixel person box at 512²
+TINY_K3_LAUNCHES = 50 * 20 + 44   # the tiny UNet's 10 transformer blocks x 2 x 50 steps + VAE
+DP_RANKS = (1, 2)
+EXTRACT_BENCH_SAMPLES = 64
+WARM_SPREAD = 0.05       # the headline's two timed batches: the warm-up is enough within 5%
+
+
+class StderrTee:
+    """Copies what is written to stderr, which still gets it."""
+
+    def __init__(self):
+        self.parts, self.stream = [], sys.stderr
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def bench_line(d: dict, label: str) -> None:
+    log(f"bench {json.dumps(d)} [{label}]")
+
+
+def idle_share(fn, calls: int = 2) -> dict:
+    """``fn`` under ``torch.profiler`` after a warm-up call: wall ms per
+    call, the device's busy ms and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                  ) / calls / 1e3
+    if not busy_ms > 0:
+        raise AssertionError("the profiler saw no device time")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=max(0.0, 1 - busy_ms / wall_ms))
+
+
+def bench_coma_phase(label: str) -> tuple:
+    """bench.py's section_coma through ``benchkit``: K1 at its three shapes,
+    K2 at qual, each kernel's counter from 0 before each call."""
+    from coma_tpu_torch import benchkit as bk
+
+    out, launches = {}, {}
+    for key, h, o, iters in BENCH_K1_SHAPES:
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rate, raw = bk.bench_coma(h=h, o=o, iters=iters, device=DEVICE)
+        launches[key] = kernel_counts()
+        out[key] = round(rate, 3)
+        if key == BENCH_K1_SHAPES[0][0]:
+            out["coma_contact_chain_times_s"] = raw
+        log(f"bench_coma ({h}, {o}, {bk.N}), {iters} i.i.d. samples a step: {rate:.3f} "
+            f"samples/s, chains {raw}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB, launches {launches[key]} [{label}]")
+    reset_kernel_counts()
+    rate, raw = bk.bench_occupancy(device=DEVICE)
+    key = "coma_occupancy_aggregation_samples_per_sec"
+    launches[key] = kernel_counts()
+    out[key] = round(rate, 3)
+    log(f"bench_occupancy ({bk.H}, {bk.O}, R={bk.OCC_RES}), {bk.ITERS} i.i.d. samples a step: "
+        f"{rate:.3f} samples/s, chains {raw}, launches {launches[key]} [{label}]")
+    for key, counts in launches.items():
+        want = ({"contact_splat": 0, "occupancy_hits": CHAIN_STEPS, "flash_attention": 0}
+                if key == "coma_occupancy_aggregation_samples_per_sec" else
+                {"contact_splat": CHAIN_STEPS, "occupancy_hits": 0, "flash_attention": 0})
+        if counts != want:
+            raise AssertionError(f"{key}: launches {counts}, expected {want}")
+    bench_line(out, label)
+    return out, launches
+
+
+def bench_suite_phase(label: str) -> tuple:
+    """bench.py's section_pipe_suite through ``benchkit``: K3's counters
+    from 0 before each sub-measurement, read when it is emitted."""
+    from coma_tpu_torch import benchkit as bk
+    from coma_tpu_torch.ops import attention
+
+    out, launches = {}, {}
+
+    def emit(d):
+        key = next(iter(d))
+        launches[key] = dict(kernel_counts(), by_source=dict(attention.source_launches))
+        out.update(d)
+        bench_line(d, label)
+        reset_kernel_counts()
+
+    tee = StderrTee()
+    sys.stderr = tee
+    try:
+        reset_kernel_counts()
+        bk.bench_pipe_suite(emit, device=DEVICE)
+    finally:
+        sys.stderr = tee.stream
+    for key, want in SUITE_K3.items():
+        got = launches[key]
+        if got["flash_attention"] != want or got["by_source"]["flash_attention_sm90"] != want \
+                or got["contact_splat"] or got["occupancy_hits"]:
+            raise AssertionError(f"{key}: launches {got}, expected K3 {want}, all bf16")
+    if not 0 < out["unet_step_mfu"] <= 1:
+        raise AssertionError(f"unet_step_mfu {out['unet_step_mfu']} is not in (0, 1]")
+    if out["crop_mode_latent_bucket"] != BENCH_CROP_BUCKET:
+        raise AssertionError(f"crop bucket {out['crop_mode_latent_bucket']}, expected "
+                             f"{BENCH_CROP_BUCKET}")
+    batches = [json.loads(line.split("timed batches ", 1)[1].split(" s", 1)[0])
+               for line in tee.text().splitlines() if "timed batches" in line]
+    first, second = batches[0]
+    spread = abs(first - second) / second
+    log(f"warm-up of each variant: one forward of each model at its shapes; the headline's "
+        f"timed batches {first:.3f} s and {second:.3f} s differ by {spread:.4f} "
+        f"({'within' if spread <= WARM_SPREAD else 'beyond'} {WARM_SPREAD}: "
+        f"{'kept' if spread <= WARM_SPREAD else 'a whole generate would warm better'}) "
+        f"[{label}]")
+    flops = bk.unet_flops(bk.unet_config(), 2 * bk.BATCH, bk.LAT)
+    log(f"unet step: {flops} FLOPs (FlopCounterMode on the meta device) against coma_tpu's "
+        f"fallback 677e9*2*2*16 = {677e9 * 2 * 2 * 16:.6g}: ratio "
+        f"{flops / (677e9 * 2 * 2 * 16):.4f} (not gated); {out['unet_cfg_step_ms']} ms a step = "
+        f"{flops / (out['unet_cfg_step_ms'] / 1e3) / 1e12:.1f} TFLOP/s, MFU "
+        f"{out['unet_step_mfu']} of {bk.H100_BF16_PEAK / 1e12:.1f} TFLOP/s [{label}]")
+    return out, launches, dict(batches=batches, warm_spread=spread, flops=flops)
+
+
+def bench_idle_phase(label: str) -> dict:
+    """The device's idle share over one CFG UNet step at batch 32 and over
+    one provoke round's segmenter call on 16 images at 512², per segmenter."""
+    from coma_tpu_torch import benchkit as bk
+
+    shared = {}
+    images = torch.rand(BENCH_BATCH, 3, bk.RES, bk.RES, device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(SEED))
+    out = {}
+    for name, kw in (("unet_segmenter", {}), ("pointrend_f32", dict(segmenter="pointrend")),
+                     ("pointrend_fast", dict(segmenter="pointrend", pointrend_fast=True))):
+        pipe, unet_fn, ucfg = bk._build_pipeline(shared=shared, device=DEVICE, **kw)
+        if name == "unet_segmenter":
+            lat = torch.zeros(2 * BENCH_BATCH, 9, bk.LAT, bk.LAT, device=DEVICE)
+            t = torch.full((2 * BENCH_BATCH,), 500.0, device=DEVICE)
+            ctx = torch.zeros(2 * BENCH_BATCH, 77, ucfg.cross_attention_dim, device=DEVICE)
+            out["cfg_unet_step"] = idle_share(lambda: unet_fn(lat, t, ctx))
+        out[name] = idle_share(lambda: pipe.segment_fn(images))
+    for name, r in out.items():
+        log(f"idle share, {name} (batch {BENCH_BATCH}, 512², torch.profiler): "
+            f"{r['wall_ms']:.3f} ms wall a call, device busy {r['busy_ms']:.3f} ms, idle "
+            f"{r['idle_share']:.4f} [{label}]")
+    return out
+
+
+def phase17(label: str) -> dict:
+    """Phase 17: ``coma_tpu_torch.benchkit``: K3 at the bench's shapes, then
+    every key of bench.py's sections coma, pipe_suite, torch_baselines,
+    dp_scaling and extract_production, each kernel's counter from 0 before
+    each path and read after it; the device's idle share of the suite's
+    parts."""
+    from coma_tpu_torch import benchkit as bk
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    k3 = []
+    for name, B, H, Lq, Lk, D in K3_BENCH_SHAPES:
+        r = check_k3(rng, name, B, H, Lq, Lk, D, torch.bfloat16, rows=(0, B - 1))
+        k3.append(r)
+        log(f"K3 {r['shape']}: max abs err {r['max_abs_err']:.3e}, least passing atol "
+            f"{r['atol_used']:.3e} (limit {r['atol']:.0e} + {r['rtol']:.0e} |plain|); kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+            f"{r['share_of_bound']:.3f}, kernel/SDPA {r['ratio_to_sdpa']:.3f} [{label}]")
+    bench, launches = bench_coma_phase(label)
+
+    suite, suite_launches, suite_info = bench_suite_phase(label)
+    bench.update(suite)
+    launches.update(suite_launches)
+    idle = bench_idle_phase(label)
+
+    t1 = time.perf_counter()
+    baselines = {"inpaint_torch_cpu_imgs_per_sec": bk.bench_inpaint_torch_cpu(),
+                 "coma_torch_cpu_samples_per_sec": bk.bench_coma_torch_cpu()}
+    bench.update(baselines)
+    bench_line(baselines, label)
+    log(f"the CPU baselines ({torch.get_num_threads()} threads, the full-width UNet and VAE "
+        f"decoder in float32; K1's plain arithmetic at ({bk.H}, {bk.O}, {bk.N})): "
+        f"{time.perf_counter() - t1:.1f} s [{label}]")
+
+    reset_kernel_counts()
+    dp = bk.bench_dp_scaling(ranks=DP_RANKS, device=DEVICE)
+    bench.update(dp)
+    bench_line(dp, label)
+    for n, point in dp["flagship_dp_scaling"].items():
+        if point["launches"] != [TINY_K3_LAUNCHES] * int(n):
+            raise AssertionError(f"dp scaling at {n} ranks: K3 launches {point['launches']}, "
+                                 f"expected {TINY_K3_LAUNCHES} a rank")
+    launches["flagship_dp_scaling"] = {n: p["launches"] for n, p in
+                                       dp["flagship_dp_scaling"].items()}
+
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="bench_extract_", dir=SCRATCH) as tmp:
+        rate, breakdown = bk.bench_extract_production(
+            num_samples=EXTRACT_BENCH_SAMPLES, workdir=tmp, device=DEVICE,
+            emit=lambda d: (bench.update(d), bench_line(d, label)))
+    extract = {"extract_coma_production_samples_per_sec": round(rate, 3),
+               "extract_coma_production_breakdown": breakdown}
+    bench.update(extract)
+    bench_line(extract, label)
+    launches["extract_coma_production_samples_per_sec"] = kernel_counts()
+    want = {"contact_splat": -(-EXTRACT_BENCH_SAMPLES // SLAB), "occupancy_hits": 0,
+            "flash_attention": 0}
+    if launches["extract_coma_production_samples_per_sec"] != want or \
+            breakdown["products_saved"] != 1:
+        raise AssertionError(f"bench_extract_production: launches "
+                             f"{launches['extract_coma_production_samples_per_sec']}, expected "
+                             f"{want}; {breakdown['products_saved']} products")
+    log(f"bench_extract_production: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{label}]")
+
+    keys = {"coma_contact_aggregation_samples_per_sec", "coma_object_contact_samples_per_sec",
+            "coma_quant_full_samples_per_sec", "coma_occupancy_aggregation_samples_per_sec",
+            "coma_contact_chain_times_s", *SUITE_K3, "unet_step_mfu",
+            "crop_mode_latent_bucket", "inpaint_torch_cpu_imgs_per_sec",
+            "coma_torch_cpu_samples_per_sec", "flagship_dp_scaling",
+            "extract_coma_production_samples_per_sec", "extract_coma_production_breakdown",
+            "extract_coma_aggregate_s", "extract_coma_aggregate_samples_per_sec"}
+    missing = keys - set(bench)
+    if missing:
+        raise AssertionError(f"phase 17 did not produce {sorted(missing)}")
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.1f} s [{label}]")
+    return dict(bench=bench, launches=launches, k3=k3, idle=idle, seconds=seconds, **suite_info)
+
+
 def glob_paths(root: str, pattern: str) -> list:
     return [str(p) for p in Path(root).glob(pattern)]
 
@@ -3902,6 +4208,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from coma_tpu_torch.ops import attention, build, contact_kernel, occupancy_kernel
+
+    t_main = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        log(f"elapsed after {after}: {time.perf_counter() - t_main:.1f} s")
 
     # phase 1: device
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -3941,6 +4252,8 @@ def main() -> int:
     k2_iid = check_k2(rng)
     log_k2(k2_iid, label)
 
+    elapsed("phase 2")
+
     # phase 3: K2 on the extraction's posed samples, then the extraction
     # through the CLI with the launch counters from 0
     os.makedirs(SCRATCH, exist_ok=True)
@@ -3966,6 +4279,7 @@ def main() -> int:
         for k, path in products.items():
             products[k] = shutil.copy(path, viz_keep)
 
+        elapsed("phases 3 and 4")
         # phase 4b: learn_coma through the CLI (K1/K2 counters from 0), then
         # phase 3's extractions on two ranks against phase 3's pickles
         keep = tempfile.mkdtemp(prefix="optimize_", dir=SCRATCH)   # phase 7's inputs
@@ -3983,6 +4297,8 @@ def main() -> int:
                              for r in ranked for rank in r["ranks"]]
                     for kernel in ("contact_splat", "occupancy_hits", "flash_attention")}
 
+    elapsed("phase 4b")
+
     # phase 5: K3 against its plain version, at phase 6's, 6b's and 6c's shapes
     c = crop_bucket()
     k3 = []
@@ -3996,6 +4312,8 @@ def main() -> int:
             f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
             f"{r['share_of_bound']:.3f}, kernel/SDPA {r['ratio_to_sdpa']:.3f} [{label}]")
+
+    elapsed("phase 5")
 
     # phase 6: inpainting through the CLI, the K3 counter from 0; then the
     # tiny loop on the card against the CPU
@@ -4018,9 +4336,11 @@ def main() -> int:
                              f"({by_source}), expected {K3_LAUNCHES_PER_BATCH}, all bf16")
     tiny_loop_against_cpu()
 
+    elapsed("phase 6")
     # phase 6b: SD-2-inpainting from a diffusers directory; phase 6c: the crop
     sd2 = inpaint_sd2(label)
     cropped = inpaint_cropped(label, inpaint_seconds)
+    elapsed("phases 6b and 6c")
 
     # phases 8, 9 and 11 on phase 6's tree (its seed), phase 10 on phase 6's images
     with tempfile.TemporaryDirectory(prefix="segmenters_", dir=SCRATCH) as tmp:
@@ -4030,22 +4350,32 @@ def main() -> int:
         segment_human_phase(phase6_images, label)
         video_run = step_video_phase(tmp, label, inpaint_seconds)
 
+    elapsed("phases 8 to 11")
     # phase 13: stage 1 end to end, every kernel's counter from 0
     stage1 = stage1_phase(label)
+    elapsed("phase 13")
 
     try:
         # phase 7: the HOI-reconstruction application
         optimized = optimize_phase(opt_files, label)
+        elapsed("phase 7")
         # phase 12: stage 2 on phase 6's images and phase 4b's npz, every
         # kernel's counter from 0
         stage2 = stage2_phase(phase6_images, opt_files["npz"], label)
+        elapsed("phase 12")
         # phase 14: evaluation, visualize and train_segmenter, every
         # kernel's counter from 0 before each
         item14 = phase14(products, star_pickle, opt_files["obj"], opt_files["npz"], label)
+        elapsed("phase 14")
         # phase 15: --mesh inpainting, the 2-D aggregation, the weights' readiness
         p15 = phase15(label)
+        elapsed("phase 15")
         # phase 16: every image format read through PIL, a six-format asset into K3, the GIF
         p16 = phase16(label)
+        elapsed("phase 16")
+        # phase 17: coma_tpu_torch.benchkit, every kernel's counter from 0 before each path
+        p17 = phase17(label)
+        elapsed("phase 17")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(phase6_images, ignore_errors=True)
@@ -4066,6 +4396,14 @@ def main() -> int:
             launches_aggregate_2d=[r["launches"][kernel] for r in p15["aggregate_2d"]["ranks"]],
             launches_weights=p15["weights"]["launches"][kernel])
 
+    def bench_launches(kernel: str) -> dict:
+        """Phase 17's launches of ``kernel`` on each emitted key's path."""
+        out = {key: counts[kernel] for key, counts in p17["launches"].items()
+               if key != "flagship_dp_scaling"}
+        if kernel == "flash_attention":
+            out["flagship_dp_scaling"] = p17["launches"]["flagship_dp_scaling"]
+        return out
+
     k1_main = k1[0]
     kernels = [
         dict(name="contact_splat", route="cuda", source="coma_tpu_torch/csrc/contact_splat.cu",
@@ -4081,7 +4419,8 @@ def main() -> int:
              launches_stage2=stage2["launches"]["contact_splat"],
              launches_stage1=stage1["launches"]["contact_splat"],
              **item14_launches("contact_splat"), **phase15_launches("contact_splat"),
-             launches_phase16=p16["stage1"]["launches"]["contact_splat"]),
+             launches_phase16=p16["stage1"]["launches"]["contact_splat"],
+             launches_bench=bench_launches("contact_splat")),
         dict(name="occupancy_hits", route="cuda", source="coma_tpu_torch/csrc/occupancy_hits.cu",
              replaces="coma_tpu/ops/occupancy_kernel.py:77",
              launches=launches["occupancy_hits"], max_abs_err=k2_iid["max_abs_err"],
@@ -4095,12 +4434,13 @@ def main() -> int:
              launches_stage2=stage2["launches"]["occupancy_hits"],
              launches_stage1=stage1["launches"]["occupancy_hits"],
              **item14_launches("occupancy_hits"), **phase15_launches("occupancy_hits"),
-             launches_phase16=p16["stage1"]["launches"]["occupancy_hits"]),
+             launches_phase16=p16["stage1"]["launches"]["occupancy_hits"],
+             launches_bench=bench_launches("occupancy_hits")),
         dict(name="flash_attention", route="cuda",
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
              launches=launches["flash_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in k3),
+             max_abs_err=max(r["max_abs_err"] for r in k3 + p17["k3"]),
              ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"], bound_ms=k3[0]["bound_ms"],
              bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
              launches_by_source=by_source, shapes=k3,
@@ -4120,7 +4460,8 @@ def main() -> int:
              launches_stage1=stage1["launches"]["flash_attention"],
              launches_stage1_by_source=stage1["by_source"],
              **item14_launches("flash_attention"), **phase15_launches("flash_attention"),
-             launches_phase16=p16["stage1"]["launches"]["flash_attention"]),
+             launches_phase16=p16["stage1"]["launches"]["flash_attention"],
+             launches_bench=bench_launches("flash_attention"), shapes_bench=p17["k3"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(label)

@@ -60,7 +60,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(B, H, Lq, D) x (B, H, Lk, D) -> (B, H, Lq, D), softmax(QKᵀ/√D)V.
 
-    CPU: the plain version. CUDA: one launch over all B·H slices, routed by
+    CPU: the plain version; on the ``meta`` device too, where it has no
+    data and only its shapes and operations count. CUDA: one launch over all B·H slices, routed by
     dtype alone — bf16 to the tensor-core kernel (``flash_attention_sm90.cu``:
     fp32 scores and softmax, P fed to the tensor cores as two bf16 terms),
     float32 to the FP32-pipe kernel (``flash_attention.cu``); output in the
@@ -68,7 +69,7 @@ def scaled_dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     not raises, it is not copied.
     """
     global launches
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -35,6 +36,7 @@ from coma_tpu_torch.parallel.distributed import (
     allreduce_count,
     allreduce_state,
     process_shard_worklist,
+    sync,
     zero_contribution,
 )
 from coma_tpu_torch.pipelines.affordance_inputs import prepare_affordance_extraction_inputs
@@ -146,12 +148,15 @@ def run_affordance_extraction(
     prompts: Optional[List[str]] = None,
     results_root: str = "results",
     constants_mesh_dir: str = "./constants/mesh",
+    coma_save_dir: Optional[str] = None,
+    affordance_save_dir: Optional[str] = None,
     scale_tolerance: float = 3.0,
     skip_done: bool = False,
     verbose: bool = True,
     device="cuda",
     dist: Optional[DistContext] = None,
     batch_size: int = 32,
+    timings: Optional[Dict[str, float]] = None,
 ) -> List[str]:
     """Run extraction for every discovered SCAM on ``device``; returns the
     saved product paths.
@@ -160,8 +165,24 @@ def run_affordance_extraction(
     each rank aggregates its shard of every SCAM's samples, the
     accumulators are all-reduced, and rank 0 alone writes the pickle, the
     JSON and the product; the other ranks return an empty list. Every rank
-    must run the same call."""
+    must run the same call.
+
+    ``coma_save_dir`` and ``affordance_save_dir`` are accepted and unused,
+    as in ``coma_tpu``: the outputs go where ``results_root``'s tree puts
+    them. ``timings`` (optional dict) accumulates phase wall clocks across
+    SCAMs: ``aggregate_s`` (load, prep and the device's aggregation, with
+    ``dist`` its all-reduce too), ``export_s`` (the state to the host and its
+    pickle) and ``product_s`` (the product computed and saved); each phase
+    ends in a device synchronisation, so device work is charged to the phase
+    that issued it. With ``dist`` only rank 0 adds ``export_s`` and
+    ``product_s``."""
     device = resolve_device(dist.device if dist is not None else device)
+
+    def add_time(key: str, t0: float) -> None:
+        if timings is not None:
+            sync(device)
+            timings[key] = timings.get(key, 0.0) + (time.perf_counter() - t0)
+
     root = dist is None or dist.is_root
     tree = ResultsTree(results_root)
     visualize_type = hyperparams["visualize_type"]
@@ -251,6 +272,7 @@ def run_affordance_extraction(
                     eps=hyperparams["eps"],
                     device=device,
                 )
+            t0 = time.perf_counter()
             if dist is None:
                 state, n_samples = aggregate_samples_streaming(
                     state, keys, prepare_one, occupancy, batch_size=batch_size
@@ -259,18 +281,21 @@ def run_affordance_extraction(
                 state, n_samples = aggregate_shards(
                     state, keys, prepare_one, occupancy, dist, batch_size=batch_size
                 )
-                if not root:
-                    continue  # rank 0 owns the writes
+            add_time("aggregate_s", t0)
+            if not root:
+                continue  # rank 0 owns the writes
             if n_samples == 0:
                 if verbose:
                     print(f"[extract] {scam}: no surviving samples, skipping")
                 continue
 
             os.makedirs(os.path.dirname(coma_pickle), exist_ok=True)
+            t0 = time.perf_counter()
             if occupancy:
                 save_occupancy_state(state, coma_pickle)
             else:
                 save_coma_state(state, coma_pickle)
+            add_time("export_s", t0)
             info = dict(hyperparams)
             info.update(
                 H=H, O=O, num_samples=n_samples,
@@ -283,7 +308,9 @@ def run_affordance_extraction(
                       f"(H={H}, O={O}) on {device} -> {coma_pickle}")
 
         if visualize_type != "none":
+            t0 = time.perf_counter()
             saved.append(
                 save_product(state, visualize_type, hyperparams, object_downsample, out_dir)
             )
+            add_time("product_s", t0)
     return saved

@@ -71,8 +71,9 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.parallel, coma_tpu_torch.parallel.flagship\n"
         "import coma_tpu_torch.parallel.sharding, coma_tpu_torch.geometry.transforms\n"
         "import coma_tpu_torch.models.weights_readiness, coma_tpu_torch.cli.convert_weights\n"
+        "import coma_tpu_torch.benchkit\n"
         f"sys.path.insert(0, {os.path.join(REPO, 'tools')!r})\n"
-        "import phase15_torch, phase16_torch\n"
+        "import phase15_torch, phase16_torch, phase17_torch\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'coma_tpu_torch.cli.extract_coma' in sys.modules\n"
@@ -90,6 +91,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "assert 'coma_tpu_torch.cli.convert_weights' in sys.modules\n"
         "assert 'chip_smoke' in sys.modules\n"
         "assert 'coma_tpu_torch.utils.image_io' in sys.modules\n"
+        "assert 'coma_tpu_torch.benchkit' in sys.modules\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -104,7 +106,8 @@ def test_no_module_of_the_port_imports_jax_or_coma_tpu():
              os.path.join(REPO, "tools", "stage1_torch.py"),
              os.path.join(REPO, "tools", "item14_torch.py"),
              os.path.join(REPO, "tools", "phase15_torch.py"),
-             os.path.join(REPO, "tools", "phase16_torch.py")]
+             os.path.join(REPO, "tools", "phase16_torch.py"),
+             os.path.join(REPO, "tools", "phase17_torch.py")]
     for root, _, names in os.walk(os.path.join(REPO, "coma_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
@@ -118,7 +121,7 @@ def test_no_module_of_the_port_imports_jax_or_coma_tpu():
                  "models/segmentation_train.py", "config/filtering.py", "utils/ids.py",
                  "utils/profiling.py", "utils/jpeg.py", "__main__.py", "parallel/flagship.py",
                  "parallel/sharding.py", "models/weights_readiness.py",
-                 "cli/convert_weights.py", "utils/image_io.py"):
+                 "cli/convert_weights.py", "utils/image_io.py", "benchkit.py"):
         assert os.path.join(REPO, "coma_tpu_torch", name) in files, name
     offenders = []
     for path in files:
