@@ -260,34 +260,41 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 16. The images ``coma_tpu`` reads through PIL. (a) Every fixture of
    ``tests/data/images/`` (written from seeds by Pillow, by libjpeg-turbo's
-   compressor and by ``tools/make_image_fixtures.py``'s writers: baseline,
-   progressive, arithmetic (SOF9/SOF10, DAC), lossless (SOF3) and
-   block-smoothed JPEGs in every sampling, gray, RGB, CMYK and YCCK; Adam7
-   PNGs; BMP, TGA, PBM/PGM/PPM, TIFF and GIF files of every kind the readers
-   take; the 2048 x 1536 BEHAVE frames and atlas) through ``read_image``
-   with the native decoder and codecs (``native/src/{jpeg_decode,
-   image_codecs}.cpp``, built with ``g++``; the phase fails if they do not
+   compressor, by libwebp's API and by ``tools/make_image_fixtures.py``'s
+   writers: baseline, progressive, arithmetic (SOF9/SOF10, DAC), lossless
+   (SOF3) and block-smoothed JPEGs in every sampling, gray, RGB, CMYK and
+   YCCK; Adam7 PNGs; BMP, TGA, PBM/PGM/PPM, TIFF (JPEG strips, separate
+   planes, fill order 2, BigTIFF) and GIF files of every kind the readers
+   take; lossy, lossless, alpha and animated WebP; DDS of every block format
+   and bit-mask layout Pillow reads; PSD of every mode; the 2048 x 1536
+   BEHAVE frames and atlas) through ``read_image`` with the native decoders
+   and codecs (``native/src/{jpeg_decode,image_codecs,bcn_decode,
+   webp_decode}.cpp``, built with ``g++``; the phase fails if they do not
    build or load): the SHA-256 of modes None, RGB and L equal to Pillow's in
    the manifest, and each file Pillow refuses refused naming itself. The
    BEHAVE frame's decode, median of 5, split into entropy and
    reconstruction ms (host), beside the plain decoder's (Python entropy,
    numpy reconstruction; equal coefficients and pixels), the Python entropy
    decoder on the 512² texture, and the host decode ms (median of 5) of the
-   2048 x 1536 atlas as TGA, TIFF-LZW, SOF9 and block-smoothed progressive
-   JPEG. (b) A BEHAVE-shaped sequence of 2 frames whose k0-k3 colour frames
-   and person masks are the 2048 x 1536 JPEGs: ``BehaveSequence.__getitem__``
-   and ``get_person_mask``, every image equal to Pillow's hash; ms per frame.
-   (c) Phase 13's chair with the 512² JPEG as its seat's ``map_Kd`` and an
-   arithmetic JPEG, a TGA, a BMP, a TIFF-LZW and a CMYK JPEG on its back and
-   legs, through ``cli/generate_2d_hoi_images`` at 384² with phase 13's
-   checks (view 0 on the card against the CPU, K3 1644 launches, all bf16,
-   K1 and K2 none, counters from 0); each layer is its decoded texture
-   bilinearly resized; the inpainting's inputs (384² renders and masks) equal
-   the host's ``read_image`` and PIL's bicubic resize to 512². (d) The seeded
-   step video (17 frames of 512 x 256) through ``utils/gif.write_gif``, read
-   back by the port's GIF reader: every frame, duration and the loop equal
-   to Pillow's decoding of ``coma_tpu``'s PIL-written file (the manifest's
-   hash). ``python3 tools/phase16_torch.py`` runs phase 16 alone.
+   2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
+   JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits and YCbCr
+   TIFF-JPEG. (b) A BEHAVE-shaped sequence of 2 frames whose k0-k3 colour
+   frames and person masks are the 2048 x 1536 JPEGs:
+   ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image equal
+   to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512² JPEG
+   as its seat's ``map_Kd`` and an arithmetic JPEG, a TGA, a BMP, a
+   TIFF-LZW, a CMYK JPEG, a lossy WebP with alpha, a lossless WebP, a DDS
+   BC7, a DDS DXT1, a PSD and a YCbCr 4:2:0 TIFF-JPEG on its back, legs,
+   stretchers and armrests, through ``cli/generate_2d_hoi_images`` at 384²
+   with phase 13's checks (view 0 on the card against the CPU, K3 1644
+   launches, all bf16, K1 and K2 none, counters from 0); each layer is its
+   decoded texture bilinearly resized; the inpainting's inputs (384² renders
+   and masks) equal the host's ``read_image`` and PIL's bicubic resize to
+   512². (d) The seeded step video (17 frames of 512 x 256) through
+   ``utils/gif.write_gif``, read back by the port's GIF reader: every frame,
+   duration and the loop equal to Pillow's decoding of ``coma_tpu``'s
+   PIL-written file (the manifest's hash). ``python3 tools/phase16_torch.py``
+   runs phase 16 alone.
 
 17. ``coma_tpu_torch.benchkit``, the bench's measured entry points (``coma_tpu/benchkit.py``'s
    counterpart). First K3 against its plain version at the suite's batch-16
@@ -2564,9 +2571,10 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to five image files) give the back and then each
-    leg a material, UVs and a ``map_Kd`` of their own. Returns the OBJ's
-    path."""
+    ``part_textures`` (up to eleven image files) give the back, then each
+    leg, then (past five) each of four stretchers between the legs and two
+    armrests a material, UVs and a ``map_Kd`` of their own. Returns the
+    OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
     if texture is None:
@@ -2590,6 +2598,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
              ("fabric", chair_box((-0.25, 0.48, -0.25), (0.25, 0.95, -0.2), big))]
     parts += [("metal", chair_box((x, 0.0, z), (x + 0.04, 0.43, z + 0.04), leg))
               for x in (-0.23, 0.19) for z in (-0.23, 0.19)]
+    extras = [((-0.21, 0.14, -0.23), (0.19, 0.17, -0.20)),
+              ((-0.21, 0.14, 0.19), (0.19, 0.17, 0.22)),
+              ((-0.23, 0.14, -0.19), (-0.20, 0.17, 0.19)),
+              ((0.20, 0.14, -0.19), (0.23, 0.17, 0.19)),
+              ((-0.27, 0.62, -0.20), (-0.23, 0.65, 0.20)),
+              ((0.23, 0.62, -0.20), (0.27, 0.65, 0.20))]
+    parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
     vlines, tlines, flines, n, current = [], [], [], 0, None
@@ -3636,12 +3651,18 @@ IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
 BEHAVE_COLOR = "behave_color_2048x1536.jpg"
 BEHAVE_MASK = "behave_mask_2048x1536.jpg"
 FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
-# the chair's back and legs in phase 16c: TGA, BMP, TIFF-LZW, CMYK and arithmetic JPEG
+# the chair's back, legs, stretchers and armrests in phase 16c: arithmetic JPEG, TGA, BMP,
+# TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS BC7, DDS DXT1, PSD and
+# YCbCr 4:2:0 TIFF-JPEG
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
-                 "cmyk_libjpeg.jpg")
+                 "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
+                 "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif")
 # the 2048 x 1536 files whose host decode phase 16a times
 TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
-                 "atlas_arith_2048x1536.jpg", "atlas_smoothed_2048x1536.jpg")
+                 "atlas_arith_2048x1536.jpg", "atlas_smoothed_2048x1536.jpg",
+                 "atlas_lossy_2048x1536.webp", "atlas_lossless_2048x1536.webp",
+                 "atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds",
+                 "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3655,6 +3676,15 @@ def image_manifest() -> dict:
     return dict({e["file"]: e for e in manifest["files"]}, step_video=manifest["step_video"])
 
 
+def fixture_bytes(entry: dict) -> bytes:
+    """A fixture's file as Pillow read it (a ``.gz``-stored one decompressed)."""
+    import gzip
+
+    with open(os.path.join(IMAGE_FIXTURES, entry.get("stored", entry["file"])), "rb") as fh:
+        data = fh.read()
+    return gzip.decompress(data) if entry.get("stored", "").endswith(".gz") else data
+
+
 def image_sha(image: np.ndarray) -> str:
     """SHA-256 of an array's values (a bool array as 0/1 bytes), as the
     fixture tool hashes Pillow's arrays."""
@@ -3666,13 +3696,15 @@ def image_sha(image: np.ndarray) -> str:
 
 
 def decode_phase(label: str) -> dict:
-    """(a) Every fixture through ``read_image`` (the native JPEG decoder and
-    codecs) against Pillow's hashes for modes None, RGB and L, the refused
-    ones refused naming the file; the BEHAVE frame's decode timed (entropy
-    and reconstruction, median of 5) beside the plain decoder's (Python
-    entropy, numpy reconstruction), the Python entropy decoder on the 512²
-    texture, and the host decode of the 2048 x 1536 TGA, TIFF-LZW, SOF9 and
-    block-smoothed progressive JPEG (median of 5)."""
+    """(a) Every fixture through ``read_image`` (the native JPEG, BCn and
+    WebP decoders and codecs, which must build) against Pillow's hashes for
+    modes None, RGB and L, the refused ones refused naming the file; the
+    BEHAVE frame's decode timed (entropy and reconstruction, median of 5)
+    beside the plain decoder's (Python entropy, numpy reconstruction), the
+    Python entropy decoder on the 512² texture, and the host decode of the
+    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive JPEG,
+    lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits and YCbCr
+    TIFF-JPEG (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3680,9 +3712,11 @@ def decode_phase(label: str) -> dict:
     from coma_tpu_torch.utils.image_io import decode_image, read_image
     from coma_tpu_torch.utils.modes import to_mode
 
-    if not jpeg.native_available() or not codecs.available():
-        raise AssertionError("the native JPEG decoder (native/src/jpeg_decode.cpp) or image "
-                             "codecs (native/src/image_codecs.cpp) did not build or load")
+    if not (jpeg.native_available() and codecs.available() and codecs.bcn_available()
+            and codecs.webp_available()):
+        raise AssertionError("a native image decoder (native/src/jpeg_decode.cpp, "
+                             "image_codecs.cpp, bcn_decode.cpp, webp_decode.cpp) did not build "
+                             "or load")
     manifest = image_manifest()
     equal, refused = [], []
     for name, entry in manifest.items():
@@ -3704,8 +3738,7 @@ def decode_phase(label: str) -> dict:
             image = read_image(path)
             if not np.array_equal(pixels[..., 0] if pixels.shape[-1] == 1 else pixels, image):
                 raise AssertionError(f"{name}: read_image is not the native decoder's")
-        with open(path, "rb") as fh:
-            decoded = decode_image(fh.read(), path)
+        decoded = decode_image(fixture_bytes(entry), path)     # read_image's decode, once
         for mode in (None, "RGB", "L"):
             if image_sha(to_mode(decoded, mode)) != entry["sha256"][str(mode)]:
                 raise AssertionError(f"{name}: mode {mode} differs from Pillow's")
@@ -3741,8 +3774,7 @@ def decode_phase(label: str) -> dict:
         raise AssertionError(f"{FABRIC_JPEG}: the plain and native entropy decoders differ")
     timed = {}
     for name in TIMED_DECODES:
-        with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
-            blob = fh.read()
+        blob = fixture_bytes(manifest[name])
         ms = []
         for _ in range(DECODE_REPS):
             t0 = time.perf_counter()
@@ -3756,7 +3788,7 @@ def decode_phase(label: str) -> dict:
                entropy_ms_all=entropy_ms, reconstruct_ms_all=recon_ms,
                plain_entropy_s=plain_entropy_s, plain_reconstruct_s=plain_recon_s,
                fabric_python_entropy_s=fabric_python_s, timed_decodes=timed)
-    log(f"phase 16a: {len(equal)} fixtures through read_image (native decoder and codecs) equal "
+    log(f"phase 16a: {len(equal)} fixtures through read_image (native decoders and codecs) equal "
         f"to Pillow's hashes (modes None, RGB and L), {len(refused)} refused naming the file as "
         f"Pillow refuses them; {BEHAVE_COLOR} ({len(data)} bytes), median of {DECODE_REPS} "
         f"native decodes: entropy {out['entropy_ms']:.3f} ms, reconstruction "
@@ -3822,8 +3854,10 @@ def behave_jpeg_phase(label: str) -> dict:
 
 def jpeg_asset_phase(label: str) -> dict:
     """(c) Phase 13's chair with its fabric texture the committed progressive
-    JPEG, its back an arithmetic JPEG and its legs TGA, BMP, TIFF-LZW and
-    CMYK JPEG textures, through ``cli/generate_2d_hoi_images`` at
+    JPEG, its back an arithmetic JPEG, its legs TGA, BMP, TIFF-LZW and CMYK
+    JPEG textures, and its stretchers and armrests lossy WebP with alpha,
+    lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, through
+    ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
     inputs against the host's ``read_image`` and PIL's resizes."""

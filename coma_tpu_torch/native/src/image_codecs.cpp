@@ -108,6 +108,43 @@ int64_t packbits_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t ca
   return written;
 }
 
+// PackBits as PIL's decoder reads it (a Photoshop file's channels): rows of
+// ``row`` bytes, a packet that crosses a row's end cut there, 0x80 a no-op,
+// from ``data[pos:]`` until ``rows`` rows are full. Returns 0, or 1 when the
+// data ends first.
+int packbits_rows_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t row, int64_t rows,
+                         uint8_t* out) {
+  int64_t x = 0, y = 0;
+  while (y < rows) {
+    if (pos >= n) return 1;
+    int h = data[pos];
+    int64_t count, take;
+    if (h & 0x80) {
+      if (h == 0x80) {
+        ++pos;
+        continue;
+      }
+      if (pos + 2 > n) return 1;
+      count = 257 - h;
+      take = count < row - x ? count : row - x;
+      std::memset(out + y * row + x, data[pos + 1], take);
+      pos += 2;
+    } else {
+      count = h + 1;
+      if (pos + 1 + count > n) return 1;
+      take = count < row - x ? count : row - x;
+      std::memcpy(out + y * row + x, data + pos + 1, take);
+      pos += 1 + count;
+    }
+    x += take;
+    if (x >= row) {
+      x = 0;
+      ++y;
+    }
+  }
+  return 0;
+}
+
 // TGA run-length packets from ``data[pos:]`` until ``rows`` rows of
 // ``row_bytes`` are full (pixels of ``pixel_bytes``). Returns 0, 1 when the
 // data ends first, 2 when a run crosses the end of a row.

@@ -11,13 +11,17 @@ file's first bytes, as PIL does, not by its name:
   progressive and lossless, Huffman or arithmetic coded, every sampling,
   gray, YCbCr, RGB, CMYK and YCCK;
 - GIF (``utils/gif_reader.py``): the first frame, "P" or "L";
-- BMP (``utils/bmp.py``), TIFF (``utils/tiff.py``, first page), PBM/PGM/PPM
-  (``utils/pnm.py``) and, as PIL's last resort for a file with no magic
-  number, TGA (``utils/tga.py``).
+- WebP (``utils/webp.py``): lossy with its alpha, lossless, an animation's
+  first frame;
+- DDS (``utils/dds.py``): BC1-BC7, bit masks, luminance, palettes;
+- PSD (``utils/psd.py``): the composite image of every mode PIL reads;
+- BMP (``utils/bmp.py``), TIFF (``utils/tiff.py``, first page, JPEG
+  compression included), PBM/PGM/PPM (``utils/pnm.py``) and, as PIL's last
+  resort for a file with no magic number, TGA (``utils/tga.py``).
 
-The card machine has no PIL. WebP, DDS, PSD and JPEG 2000 files, TIFFs with
-JPEG or CCITT compression, and anything PIL itself refuses raise a
-``ValueError`` naming the file (and the format where it is known).
+The card machine has no PIL. JPEG 2000 files, TIFFs with CCITT or old-style
+JPEG compression, a Lab PSD's conversions, and anything PIL itself refuses
+raise a ``ValueError`` naming the file (and the format where it is known).
 """
 from __future__ import annotations
 
@@ -25,15 +29,12 @@ from typing import Optional
 
 import numpy as np
 
-from coma_tpu_torch.utils import bmp, gif_reader, jpeg, pnm, tga, tiff
+from coma_tpu_torch.utils import bmp, dds, gif_reader, jpeg, pnm, psd, tga, tiff, webp
 from coma_tpu_torch.utils.modes import Decoded, to_mode
 from coma_tpu_torch.utils.png import decode_png_pil
 
 # formats PIL reads that the port does not: (test of the first bytes, name)
 _NOT_READ = (
-    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP (VP8 needs libwebp's decoder)"),
-    (lambda d: d[:4] == b"DDS ", "DDS"),
-    (lambda d: d[:4] == b"8BPS", "Photoshop PSD"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xffO\xffQ",
      "JPEG 2000"),
 )
@@ -60,6 +61,12 @@ def decode_image(data: bytes, name: str = "<bytes>") -> Decoded:
         return tiff.decode_tiff(data, name)
     if data[:1] == b"P" and data[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6"):
         return pnm.decode_pnm(data, name)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return webp.decode_webp(data, name)
+    if data[:4] == b"DDS ":
+        return dds.decode_dds(data, name)
+    if data[:4] == b"8BPS":
+        return psd.decode_psd(data, name)
     for test, fmt in _NOT_READ:
         if test(data):
             raise ValueError(f"{name}: a {fmt} file is not read")
@@ -78,4 +85,8 @@ def read_image(path: str, mode: Optional[str] = None) -> np.ndarray:
         raise ValueError(f"mode {mode!r}: only None, 'RGB' and 'L' are read")
     with open(path, "rb") as fh:
         data = fh.read()
-    return to_mode(decode_image(data, str(path)), mode)
+    decoded = decode_image(data, str(path))
+    try:
+        return to_mode(decoded, mode)
+    except ValueError as err:
+        raise ValueError(f"{path}: {err}") from None

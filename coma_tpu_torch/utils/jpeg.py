@@ -1319,16 +1319,19 @@ def _colour(frame: JpegCoefficients) -> int:
     return RGB if frame.ids == [82, 71, 66] or frame.lossless else YCC
 
 
-def reconstruct(frame: JpegCoefficients, native=None) -> np.ndarray:
+def reconstruct(frame: JpegCoefficients, native=None, colour=None) -> np.ndarray:
     """The coefficients -> Pillow's pixels: (H, W, 3) uint8 RGB, (H, W, 1)
     gray, or (H, W, 4) CMYK as Pillow holds it (``CMYK;I``: libjpeg's CMYK,
     YCCK converted by ``ycck_cmyk_convert``, inverted). libjpeg's islow
     IDCT, block smoothing, upsampling and colour conversion. ``native`` as
     in :func:`decode_coefficients`: the C++ reconstruction
-    (``jpeg_reconstruct``) or this plain numpy one, equal to the bit."""
+    (``jpeg_reconstruct``) or this plain numpy one, equal to the bit.
+    ``colour`` (``YCC``, ``RGB``, ...) overrides the colour space libjpeg
+    would infer, as a caller setting ``jpeg_color_space`` does (libtiff)."""
     if native is None:
         native = native_available()
-    colour = _colour(frame)
+    if colour is None:
+        colour = _colour(frame)
     if native:
         return _reconstruct_native(frame, colour)
     planes = [_component_samples(frame, i) for i in range(len(frame.coef))]

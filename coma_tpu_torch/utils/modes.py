@@ -11,7 +11,10 @@ in PIL's integer arithmetic:
 - "1" is 0 or 255; "I;16" and "I" are clipped to 0..255; alpha is dropped,
   not composited;
 - "CMYK" to "RGB" is ``cmyk2rgb``: ``nk - nk C / 255`` with ``nk = 255 - K``,
-  in PIL's ``MULDIV255`` rounding.
+  in PIL's ``MULDIV255`` rounding;
+- "LAB" (a Photoshop file's) is not converted: PIL refuses "L" and takes
+  "RGB" through Little CMS's Lab -> sRGB transform, which the port does
+  not carry, so both raise.
 """
 from __future__ import annotations
 
@@ -77,6 +80,9 @@ def to_mode(img: Decoded, mode: Optional[str]) -> np.ndarray:
     own array for None."""
     if mode is None:
         return img.pixels
+    if img.mode == "LAB":
+        raise ValueError(f"conversion from LAB to {mode} is not done here (PIL takes RGB through "
+                         "Little CMS and refuses L)")
     if img.mode not in GRAY_MODES + COLOUR_MODES:
         raise ValueError(f"PIL mode {img.mode!r} is not converted here")
     if img.mode in GRAY_MODES:

@@ -1,15 +1,23 @@
 """TIFF files, first page, as Pillow (with libtiff) reads them.
 
-Strips or tiles, one plane per pixel (planar configuration 1), uncompressed,
-PackBits, LZW or Deflate, with or without horizontal differencing
-(predictor 2). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
+Classic and (little-endian, as PIL reads them) BigTIFF headers, strips or
+tiles, samples interleaved (planar configuration 1) or, for RGB, RGBA and CMYK, in planes of their own (2), uncompressed, PackBits,
+LZW, Deflate or JPEG, with or without horizontal differencing (predictor
+2), either fill order (2: the stored bytes' bits reversed first, as libtiff
+does). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
 photometric), "L" (2, 4 and 8-bit gray, white-is-zero inverted, scaled to
 0..255), "I;16" (16-bit gray), "LA", "RGB" (with or without one unused
 extra sample), "RGBA" (unassociated alpha, or associated alpha divided out
 as PIL does), "P" (1 to 8 bits, the ColorMap's high bytes) and "CMYK".
-JPEG, CCITT and the other compressions, bit-reversed fill order, separate
-planes, BigTIFF and sample formats other than unsigned integers raise a
-``ValueError`` naming the file.
+
+JPEG (compression 7) as libtiff's codec decodes it: the JPEGTables tag is
+an abbreviated stream of tables, and each strip or tile a JPEG of its own
+(so chroma upsampling stops at its edges) decoded by ``utils/jpeg.py``:
+YCbCr photometric converted to RGB (libtiff's ``JPEGCOLORMODE_RGB``, with
+libjpeg's fancy upsampling), any other photometric taken as stored.
+CCITT (2, 3, 4), old-style JPEG (6) and the other compressions, and sample
+formats other than unsigned integers, raise a ``ValueError`` naming the
+file and the compression.
 
 LZW and PackBits have native twins in ``native/src/image_codecs.cpp``,
 taken where they build; the plain Python versions here are their
@@ -23,11 +31,12 @@ import numpy as np
 
 from coma_tpu_torch.utils.modes import Decoded
 
-_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 8: ("h", 2), 9: ("i", 4)}
+_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
+          9: ("i", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
 _REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-            7: "JPEG", 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
+            34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
             50001: "WebP"}
-_COMPRESSIONS = (1, 5, 8, 32946, 32773)        # none, LZW, Deflate (twice), PackBits
+_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773)     # none, LZW, JPEG, Deflate (twice), PackBits
 
 
 def lzw_decode_python(data: bytes, cap: int) -> bytes:
@@ -105,25 +114,33 @@ def _decompress(chunk: bytes, compression: int, cap: int, native) -> bytes:
 
 
 class _Ifd:
-    """The first image file directory: tag -> tuple of values."""
+    """The first image file directory: tag -> tuple of values (a classic
+    TIFF's 12-byte entries, or BigTIFF's 20-byte ones with 8-byte counts and
+    offsets)."""
 
     def __init__(self, data: bytes, name: str):
-        if data[:4] not in (b"II*\x00", b"MM\x00*"):
-            if data[:4] in (b"II+\x00", b"MM\x00+"):
-                raise ValueError(f"{name}: BigTIFF is not read")
+        if data[:4] not in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
             raise ValueError(f"{name}: not a TIFF file")
         self.order = "<" if data[:2] == b"II" else ">"
         self.data, self.name = data, name
-        at = self._int(4, 4)
-        count = self._int(at, 2)
+        big = data[:4] == b"II+\x00"      # PIL takes "MM\0+" for a classic header
+
+        if big and (self._int(4, 2) != 8 or self._int(6, 2) != 0):
+            raise ValueError(f"{name}: a BigTIFF header with offsets other than 8 bytes")
+        word, entry = (8, 20) if big else (4, 12)
+        at = self._int(8, 8) if big else self._int(4, 4)
+        count = self._int(at, 8 if big else 2)
+        first = at + (8 if big else 2)
+        if first + entry * count > len(data):
+            raise ValueError(f"{name}: the TIFF directory runs past the end of the file")
         self.tags = {}
         for k in range(count):
-            e = at + 2 + 12 * k
-            tag, kind, n = self._int(e, 2), self._int(e + 2, 2), self._int(e + 4, 4)
+            e = first + entry * k
+            tag, kind, n = self._int(e, 2), self._int(e + 2, 2), self._int(e + 4, word)
             if kind not in _TYPES:
                 continue
             code, size = _TYPES[kind]
-            where = e + 8 if n * size <= 4 else self._int(e + 8, 4)
+            where = e + 4 + word if n * size <= word else self._int(e + 4 + word, word)
             if where + n * size > len(data):
                 raise ValueError(f"{name}: TIFF tag {tag} runs past the end of the file")
             self.tags[tag] = tuple(np.frombuffer(data, self.order + code, n, where).tolist())
@@ -203,6 +220,72 @@ def _unpack(raw: np.ndarray, rawmode: str, width: int, order: str) -> np.ndarray
     return np.ascontiguousarray(px)
 
 
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+
+
+def _jpeg_block(chunk: bytes, tables, photometric: int, spp: int, name: str,
+                native) -> np.ndarray:
+    """One JPEG strip or tile, after the JPEGTables stream, as libtiff's codec
+    decodes it: (rows, columns * spp) uint8."""
+    from coma_tpu_torch.utils import jpeg
+
+    if tables is not None and len(tables) >= 4 and chunk[:2] == b"\xff\xd8":
+        chunk = bytes(tables)[:-2] + chunk[2:]      # the tables, then the strip after its SOI
+    frame = jpeg.decode_coefficients(chunk, name, native)
+    if len(frame.coef) != spp:
+        raise ValueError(f"{name}: a JPEG strip of {len(frame.coef)} components in a TIFF of "
+                         f"{spp} samples")
+    if spp == 1:
+        colour = jpeg.GRAY
+    elif photometric == 6:
+        colour = jpeg.YCC
+    else:                                           # libtiff's JCS_UNKNOWN: as stored
+        colour = jpeg.RGB if spp == 3 else jpeg.CMYK
+    px = jpeg.reconstruct(frame, native, colour)
+    if spp == 4:                                    # undo reconstruct's CMYK inversion
+        px = 255 - px
+    return px.reshape(px.shape[0], -1)
+
+
+def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: int, bits: int,
+              samples: int, tile, bw: int, bh: int, width: int, height: int, predictor: int,
+              bps: int, photometric: int, native, name: str) -> np.ndarray:
+    """The strips or tiles of one plane (or of the interleaved samples) ->
+    (height, row bytes) uint8."""
+    row_bytes = (width * bits + 7) // 8
+    block_row_bytes = (bw * bits + 7) // 8
+    across = -(-width // bw)
+    raw = np.zeros((-(-height // bh) * bh, across * block_row_bytes), np.uint8)
+    tables = ifd.get(347)
+    for k, (offset, count) in enumerate(zip(offsets, counts)):
+        by, bx = divmod(k, across)
+        if by * bh >= height:
+            break
+        chunk = data[offset:offset + count]
+        if fill == 2:
+            chunk = chunk.translate(_REVERSED)
+        try:
+            if compression == 7:
+                piece = _jpeg_block(chunk, tables, photometric, samples, name, native)
+                piece = piece[:bh, :block_row_bytes]
+            else:
+                block = _decompress(chunk, compression, block_row_bytes * bh, native)
+                rows = len(block) // block_row_bytes
+                piece = np.frombuffer(block[:rows * block_row_bytes], np.uint8).reshape(
+                    rows, block_row_bytes)
+        except (ValueError, zlib.error) as err:
+            raise ValueError(f"{name}: {err}") from None
+        if predictor == 2:
+            piece = _undo_predictor(piece, bw, samples, bps, ifd.order)
+        rows, cols = piece.shape
+        raw[by * bh:by * bh + rows, bx * block_row_bytes:bx * block_row_bytes + cols] = piece
+    if tile:
+        if bits % 8:
+            raise ValueError(f"{name}: tiled TIFF below 8 bits a pixel is not read")
+        raw = raw[:, :width * bits // 8]
+    return np.ascontiguousarray(raw[:height, :row_bytes])
+
+
 def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     """A TIFF file's first page -> what ``np.asarray(PIL.Image.open(f))``
     gives, and its mode; a ``ValueError`` naming ``name`` where it is not read."""
@@ -219,17 +302,22 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     if len(bps) == 1 and spp > 1:
         bps = bps * spp
     extra = tuple(ifd.get(338, ()))
-    if ifd.get(266, (1,))[0] != 1:
-        raise ValueError(f"{name}: TIFF with a bit-reversed fill order is not read")
-    if ifd.get(284, (1,))[0] != 1 and spp > 1:
-        raise ValueError(f"{name}: TIFF with separate colour planes is not read")
+    fill = ifd.get(266, (1,))[0]
+    planar = ifd.get(284, (1,))[0] == 2 and spp > 1
     if any(f != 1 for f in ifd.get(339, (1,))) and not (bps == (8,) and photometric == 1):
         raise ValueError(f"{name}: TIFF samples other than unsigned integers are not read")
-    mode, rawmode = _mode(photometric, bps, extra, name)
-    predictor = ifd.get(317, (1,))[0]
+    if compression == 7 and photometric == 6 and bps == (8, 8, 8) and not planar:
+        mode, rawmode = "RGB", "RGB"                # libtiff's JPEGCOLORMODE_RGB
+    else:
+        mode, rawmode = _mode(photometric, bps, extra, name)
+    if compression == 7 and (any(b != 8 for b in bps) or planar):
+        raise ValueError(f"{name}: a JPEG TIFF of {bps} bits (planar {planar}) is not read")
+    predictor = ifd.get(317, (1,))[0] if compression != 7 else 1
     if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
         raise ValueError(f"{name}: TIFF predictor {predictor} at {bps[0]} bits is not read")
-    bits = sum(bps)
+    if planar and (rawmode not in ("RGB", "RGBA", "CMYK") or bps[0] != 8):
+        # PIL unpacks each plane with one letter of the raw mode
+        raise ValueError(f"{name}: separate planes of raw mode {rawmode} are not read")
     tiled = 322 in ifd.tags
     if tiled:
         bw, bh = ifd.get(322)[0], ifd.get(323)[0]
@@ -239,30 +327,17 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
         offsets, counts = ifd.get(273), ifd.get(279)
     if not width or not height or offsets is None or counts is None:
         raise ValueError(f"{name}: a TIFF without size or image data")
-    row_bytes = (width * bits + 7) // 8
-    block_row_bytes = (bw * bits + 7) // 8
-    across = -(-width // bw)
-    raw = np.zeros((-(-height // bh) * bh, across * block_row_bytes), np.uint8)
-    for k, (offset, count) in enumerate(zip(offsets, counts)):
-        by, bx = divmod(k, across)
-        if by * bh >= height:
-            break
-        try:
-            block = _decompress(data[offset:offset + count], compression, block_row_bytes * bh,
-                                native)
-        except (ValueError, zlib.error) as err:
-            raise ValueError(f"{name}: {err}") from None
-        rows = len(block) // block_row_bytes
-        piece = np.frombuffer(block[:rows * block_row_bytes], np.uint8).reshape(
-            rows, block_row_bytes)
-        if predictor == 2:
-            piece = _undo_predictor(piece, bw, len(bps), bps[0], ifd.order)
-        raw[by * bh:by * bh + rows, bx * block_row_bytes:(bx + 1) * block_row_bytes] = piece
-    if tiled:
-        if bits % 8:
-            raise ValueError(f"{name}: tiled TIFF below 8 bits a pixel is not read")
-        raw = raw[:, :width * bits // 8]
-    raw = np.ascontiguousarray(raw[:height, :row_bytes])
+    planes = len(bps) if planar else 1
+    per_plane = -(-len(offsets) // planes)
+    raws = [_assemble(data, ifd, offsets[p * per_plane:(p + 1) * per_plane],
+                      counts[p * per_plane:(p + 1) * per_plane], compression, fill,
+                      bps[p] if planar else sum(bps), 1 if planar else len(bps), tiled, bw, bh,
+                      width, height, predictor, bps[0], photometric, native, name)
+            for p in range(planes)]
+    if planar:                                      # interleave the planes' samples
+        raw = np.stack(raws, 2).reshape(height, -1)
+    else:
+        raw = raws[0]
     palette = None
     if mode == "P":
         cmap = ifd.get(320)

@@ -759,16 +759,20 @@ def _sha(a) -> str:
 @pytest.mark.cuda
 def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
     """Every committed fixture, the 512² and 2048 x 1536 ones included,
-    through ``read_image`` with the native JPEG decoder and image codecs
-    (built with the card machine's g++) against the Pillow hashes of the
-    manifest for modes None, RGB and L; each file Pillow refuses is refused
-    naming itself."""
+    through ``read_image`` with the native JPEG, WebP and BCn decoders and
+    image codecs (built with the card machine's g++) against the Pillow
+    hashes of the manifest for modes None, RGB and L (a ``.gz``-stored one
+    decompressed first); each file Pillow refuses is refused naming itself."""
     need_card()
+    import gzip
+
     from coma_tpu_torch.native import codecs
     from coma_tpu_torch.utils import jpeg
-    from coma_tpu_torch.utils.image_io import read_image
+    from coma_tpu_torch.utils.image_io import decode_image, read_image
+    from coma_tpu_torch.utils.modes import to_mode
 
     assert jpeg.native_available() and codecs.available()
+    assert codecs.bcn_available() and codecs.webp_available()
     root, manifest = _fixture_manifest()
     for name, entry in manifest.items():
         path = f"{root}/{name}"
@@ -776,8 +780,12 @@ def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
             with pytest.raises(ValueError, match=name):
                 read_image(path)
             continue
+        if "stored" in entry:
+            with open(f"{root}/{entry['stored']}", "rb") as fh:
+                decoded = decode_image(gzip.decompress(fh.read()), name)
         for mode in (None, "RGB", "L"):
-            assert _sha(read_image(path, mode)) == entry["sha256"][str(mode)], (name, mode)
+            got = to_mode(decoded, mode) if "stored" in entry else read_image(path, mode)
+            assert _sha(got) == entry["sha256"][str(mode)], (name, mode)
 
 
 @pytest.mark.cuda

@@ -8,16 +8,22 @@ tolerance:
 - seeded images written by Pillow at test time in every mode and
   compression each format takes, and by ``tools/jpeg_fixture_writer.c``
   (libjpeg-turbo's compressor, built with gcc) in every JPEG process;
+- TIFF's JPEG compression (Pillow's RGB, YCbCr, gray, CMYK and RGBA files,
+  and YCbCr 4:2:0 and 4:2:2 strips written by libjpeg with the tables in
+  JPEGTables), separate planes, fill order 2 and BigTIFF;
 - the native codecs (``native/src/image_codecs.cpp``: LZW, PackBits, TGA
   run-length) against their plain Python versions;
-- the formats left out (WebP, TIFF with JPEG or CCITT compression, DDS,
-  PSD, JPEG 2000) raise a ``ValueError`` naming the file and the format;
+- WebP, DDS and TIFF-JPEG files, once left out, equal to Pillow; the formats
+  still left out (JPEG 2000, TIFF with CCITT RLE, Group 3 or Group 4
+  compression) raise a ``ValueError`` naming the file and the format;
 - ``load_obj_textured`` on an OBJ whose materials take TGA, BMP, TIFF-LZW,
-  CMYK and arithmetic JPEG textures, and ``BehaveSequence`` on a YCCK colour
-  frame, against ``coma_tpu``'s.
+  CMYK and arithmetic JPEG, WebP (lossy with alpha, lossless), DDS (BC1,
+  BC3, BC7), PSD and TIFF-JPEG textures, and ``BehaveSequence`` on a YCCK
+  colour frame, against ``coma_tpu``'s.
 
 The committed fixtures of ``tests/data/images/`` are held in
-``tests/test_torch_image_io.py``.
+``tests/test_torch_image_io.py``; WebP, DDS and PSD in detail in
+``tests/test_torch_webp.py`` and ``tests/test_torch_dds_psd.py``.
 """
 import hashlib
 import io
@@ -41,8 +47,9 @@ from coma_tpu_torch.utils.image_io import decode_image, read_image
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from make_image_fixtures import (LibjpegWriter, array_sha, bmp_file, bmp_rle4,  # noqa: E402
-                                 bmp_rle8, bmp_rows, seeded_rgb, tga_file, tga_rle, tiff_file)
+from make_image_fixtures import (LibjpegWriter, array_sha, bc7_mode6,  # noqa: E402
+                                 bmp_file, bmp_rle4, bmp_rle8, bmp_rows, dds_file, jpeg_tiff,
+                                 psd_file, seeded_rgb, tga_file, tga_rle, tiff_file)
 
 MODES = (None, "RGB", "L")
 
@@ -198,6 +205,7 @@ def _tiff_cases():
     packed2 = (np.pad(idx, ((0, 0), (0, 1))).reshape(21, 9, 4) << np.array([6, 4, 2, 0],
                                                                           np.uint8)).sum(-1)
     cmap = rng.integers(0, 256, (4, 3))
+    rgba = np.dstack([rgb, rgb[..., :1]])
     return {
         "tiled_deflate_predictor": tiff_file(rgb, (8, 8, 8), 2, compression=8, predictor=2,
                                              tile=(16, 16)),
@@ -208,13 +216,46 @@ def _tiff_cases():
         "gray_2bit_white_is_zero": tiff_file(packed2.astype(np.uint8), (2,), 0, width=35),
         "gray_predictor_deflate": tiff_file(rgb[..., :1], (8,), 1, compression=8, predictor=2,
                                             rows_per_strip=7),
-    }
+        "planar_rgb_strips": tiff_file(rgb, (8, 8, 8), 2, planar=True, rows_per_strip=8),
+        "planar_rgb_deflate_predictor": tiff_file(rgb, (8, 8, 8), 2, planar=True, compression=8,
+                                                  predictor=2, rows_per_strip=5),
+        "planar_rgba_tiles": tiff_file(rgba, (8, 8, 8, 8), 2, planar=True, extra=(2,),
+                                       tile=(16, 16)),
+        "planar_cmyk_packbits": tiff_file(rgba, (8, 8, 8, 8), 5, planar=True,
+                                          compression=32773),
+        "planar_la_refused": tiff_file(rgba[..., :2], (8, 8), 1, planar=True, extra=(2,)),
+        "fill2_gray": tiff_file(rgb[..., :1], (8,), 1, fill_order=2),
+        "fill2_rgb_deflate": tiff_file(rgb, (8, 8, 8), 2, fill_order=2, compression=8),
+        "fill2_rgb_packbits": tiff_file(rgb, (8, 8, 8), 2, fill_order=2, compression=32773,
+                                        rows_per_strip=6),
+        "fill2_1bit": tiff_file(np.packbits(rgb[..., 0] > 100, axis=1), (1,), 1, fill_order=2,
+                                width=35),
+        "bigtiff_strips": tiff_file(rgb, (8, 8, 8), 2, bigtiff=True, rows_per_strip=7),
+        "bigtiff_tiles_deflate": tiff_file(rgb, (8, 8, 8), 2, bigtiff=True, tile=(16, 16),
+                                           compression=8),
+        "bigtiff_palette": tiff_file(rgb[..., :1], (8,), 3, bigtiff=True,
+                                     colormap=rng.integers(0, 256, (256, 3))),
+        "bigtiff_big_endian_refused": tiff_file(rgb, (8, 8, 8), 2, bigtiff=True,
+                                                big_endian=True),
+    } | {f"jpeg_{mode.lower()}_{k}": _pillow_tiff(rgb, mode, compression="jpeg", **kw)
+         for mode in ("RGB", "YCbCr", "L", "CMYK", "RGBA")
+         for k, kw in (("one_strip", {}), ("strips_of_8", {"tiffinfo": {278: 8}}),
+                       ("q40", {"quality": 40}))}
+
+
+def _pillow_tiff(rgb: np.ndarray, mode: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    image = Image.fromarray(np.dstack([rgb, rgb[..., :1]]) if mode == "RGBA" else rgb)
+    image.convert(mode).save(buf, "TIFF", **kw)
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("name", list(_tiff_cases()))
 def test_tiff_variants_equal_pillow(tmp_path, name):
     """Tiles, big-endian files, predictor 2, an unused extra sample, 2-bit
-    palette and gray."""
+    palette and gray; separate planes (PIL unpacks each with one letter of
+    the raw mode, so "LA" is refused), fill order 2, BigTIFF (PIL reads the
+    little-endian header only), and JPEG compression as Pillow writes it."""
     path = tmp_path / f"{name}.tif"
     path.write_bytes(_tiff_cases()[name])
     assert_equal_to_pillow(path)
@@ -328,11 +369,10 @@ def _gif_lzw(idx: np.ndarray):
 
 
 LEFT_OUT = [
-    ("webp", "WEBP", {}, "WebP"),
-    ("dds", "DDS", {}, "DDS"),
     ("jp2", "JPEG2000", {}, "JPEG 2000"),
-    ("tif", "TIFF", {"compression": "jpeg"}, "JPEG compression"),
     ("tif", "TIFF", {"compression": "group4"}, "CCITT Group 4"),
+    ("tif", "TIFF", {"compression": "group3"}, "CCITT Group 3"),
+    ("tif", "TIFF", {"compression": "tiff_ccitt"}, "CCITT RLE"),
 ]
 
 
@@ -341,7 +381,7 @@ def test_left_out_formats_raise_naming_the_file(tmp_path, ext, fmt, kw, word):
     """Pillow reads these; the port does not (ROADMAP Queue 3), and says
     which file and which format."""
     image = Image.fromarray(seeded_rgb((16, 16), 81))
-    if kw.get("compression") == "group4":
+    if kw.get("compression") in ("group3", "group4", "tiff_ccitt"):
         image = image.convert("1")
     path = tmp_path / f"left_out.{ext}"
     try:
@@ -354,10 +394,31 @@ def test_left_out_formats_raise_naming_the_file(tmp_path, ext, fmt, kw, word):
         read_image(str(path), "RGB")
 
 
+ONCE_LEFT_OUT = [
+    ("webp", "WEBP", {}, "WebP"),
+    ("dds", "DDS", {}, "DDS"),
+    ("tif", "TIFF", {"compression": "jpeg"}, "JPEG compression"),
+]
+
+
+@pytest.mark.parametrize("ext,fmt,kw,word", ONCE_LEFT_OUT, ids=[c[3] for c in ONCE_LEFT_OUT])
+def test_formats_once_left_out_equal_pillow(tmp_path, ext, fmt, kw, word):
+    """The files the port refused before it read WebP, DDS and TIFF-JPEG:
+    now every mode equal to Pillow's."""
+    path = tmp_path / f"once_left_out.{ext}"
+    Image.fromarray(seeded_rgb((16, 16), 81)).save(path, fmt, **kw)
+    assert_equal_to_pillow(path)
+
+
 def test_psd_raises_naming_the_file(tmp_path):
+    """Image data cut short: Pillow refuses it ("image file is truncated"),
+    and so does the port, naming the file."""
     path = tmp_path / "layers.psd"
     path.write_bytes(b"8BPS\x00\x01" + bytes(6) + b"\x00\x03\x00\x00\x00\x10\x00\x00\x00\x10"
                      b"\x00\x08\x00\x03" + bytes(16))
+    with pytest.raises(OSError):
+        with Image.open(path) as im:
+            im.load()
     with pytest.raises(ValueError, match=r"layers\.psd.*PSD"):
         read_image(str(path))
 
@@ -395,20 +456,34 @@ def libjpeg_writer():
 
 
 def test_load_obj_textured_reads_every_texture_format(tmp_path, libjpeg_writer):
-    """An OBJ whose materials take TGA, BMP, TIFF-LZW, CMYK JPEG and
-    arithmetic JPEG textures: every layer equal to ``coma_tpu``'s (PIL's
-    decode and bilinear resize), none left at its Kd colour."""
+    """An OBJ whose materials take TGA, BMP, TIFF-LZW, CMYK JPEG, arithmetic
+    JPEG, WebP (lossy with alpha, lossless), DDS (BC1, BC3, BC7), PSD and
+    TIFF-JPEG (Pillow's RGB, and YCbCr 4:2:0 strips) textures: every layer
+    equal to ``coma_tpu``'s (PIL's decode and bilinear resize), none left at
+    its Kd colour."""
     rng = np.random.default_rng(83)
     yy, xx = np.mgrid[:24, :40]
     tex = np.uint8(np.clip(np.stack([120 + 90 * np.sin(xx / 4 + c) * np.cos(yy / 3)
                                      for c in range(3)], -1) + rng.normal(0, 10, (24, 40, 3)),
                            0, 255))
+    tex_a = np.concatenate([tex, rng.integers(60, 256, (24, 40, 1)).astype(np.uint8)], -1)
     Image.fromarray(tex).save(tmp_path / "t.tga", compression="tga_rle")
     Image.fromarray(tex[::-1]).save(tmp_path / "b.bmp")
     Image.fromarray(tex[:, ::-1]).save(tmp_path / "l.tif", compression="tiff_lzw")
     Image.fromarray(tex).convert("CMYK").save(tmp_path / "c.jpg", quality=85)
     (tmp_path / "a.jpg").write_bytes(libjpeg_writer(tex[::-1, ::-1], arith=1, quality=90))
-    names = ["t.tga", "b.bmp", "l.tif", "c.jpg", "a.jpg"]
+    Image.fromarray(tex_a).save(tmp_path / "w.webp", quality=80)
+    Image.fromarray(tex[::-1]).save(tmp_path / "wl.webp", lossless=True)
+    Image.fromarray(tex_a).save(tmp_path / "d1.dds", pixel_format="DXT1")
+    Image.fromarray(tex_a[:, ::-1]).save(tmp_path / "d3.dds", pixel_format="DXT5")
+    (tmp_path / "d7.dds").write_bytes(dds_file(40, 24, bc7_mode6(tex_a[::-1]), fourcc=b"DX10",
+                                               dxgi=98))
+    (tmp_path / "p.psd").write_bytes(psd_file(np.ascontiguousarray(tex.transpose(2, 0, 1)), 3,
+                                              rle=True))
+    Image.fromarray(tex).save(tmp_path / "j.tif", compression="jpeg")
+    (tmp_path / "y.tif").write_bytes(jpeg_tiff(libjpeg_writer, tex[:, ::-1], 16))
+    names = ["t.tga", "b.bmp", "l.tif", "c.jpg", "a.jpg", "w.webp", "wl.webp", "d1.dds",
+             "d3.dds", "d7.dds", "p.psd", "j.tif", "y.tif"]
     (tmp_path / "m.mtl").write_text("".join(f"newmtl m{k}\nKd 0.1 0.9 0.2\nmap_Kd {n}\n"
                                             for k, n in enumerate(names)))
     (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
@@ -421,6 +496,33 @@ def test_load_obj_textured_reads_every_texture_format(tmp_path, libjpeg_writer):
     np.testing.assert_array_equal(got.textures, want.textures)
     for layer in got.textures[1:]:
         assert not np.allclose(layer, [0.1, 0.9, 0.2])
+
+
+JPEG_TIFFS = [("2x2,1x1,1x1", 16, (37, 29)), ("2x2,1x1,1x1", 8, (45, 33)),
+              ("2x1,1x1,1x1", 16, (30, 41)), ("1x2,1x1,1x1", 8, (27, 19)),
+              ("1x1,1x1,1x1", 30, (30, 41)), ("2x2,1x1,1x1", 64, (21, 50))]
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["plain", "native"])
+@pytest.mark.parametrize("sampling,rows,shape", JPEG_TIFFS,
+                         ids=[f"{c[0].split(',')[0]}-rows{c[1]}-{c[2][0]}x{c[2][1]}"
+                              for c in JPEG_TIFFS])
+def test_tiff_jpeg_strips_from_libjpeg_equal_pillow(tmp_path, libjpeg_writer, sampling, rows,
+                                                    shape, native):
+    """YCbCr TIFFs whose strips are JPEGs libjpeg wrote at 4:2:0, 4:2:2 and
+    4:4:0, their tables in JPEGTables: each strip upsampled on its own (the
+    chroma does not cross a strip's edge), libjpeg's fancy upsampling, an
+    odd last strip."""
+    if native and shutil.which("g++") is None:
+        pytest.skip("no g++ on this host: the native JPEG decoder cannot be built")
+    data = jpeg_tiff(libjpeg_writer, seeded_rgb(shape, rows + shape[0], noise=30), rows,
+                     sampling=sampling)
+    path = tmp_path / "ycbcr.tif"
+    path.write_bytes(data)
+    assert_equal_to_pillow(path)
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(tiff.decode_tiff(data, "ycbcr.tif", native=native).pixels,
+                                      np.asarray(im))
 
 
 def test_behave_sequence_reads_a_ycck_frame(tmp_path, libjpeg_writer):

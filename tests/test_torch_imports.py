@@ -45,6 +45,7 @@ def test_import_in_fresh_interpreter_loads_no_jax():
         "import coma_tpu_torch.models.mask_predictors, coma_tpu_torch.config.segmentation\n"
         "import coma_tpu_torch.cli.segment_human, coma_tpu_torch.visualization.video\n"
         "import coma_tpu_torch.utils.gif\n"
+        "import coma_tpu_torch.utils.webp, coma_tpu_torch.utils.dds, coma_tpu_torch.utils.psd\n"
         "import coma_tpu_torch.lifting.cameras, coma_tpu_torch.lifting.rasterizer\n"
         "import coma_tpu_torch.lifting.depth_init, coma_tpu_torch.lifting.triangulation\n"
         "import coma_tpu_torch.lifting.depth_optimize, coma_tpu_torch.lifting.metrics\n"

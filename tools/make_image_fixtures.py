@@ -23,6 +23,7 @@ tests and ``chip_smoke.py`` phase 16 hold the port against these hashes.
 """
 from __future__ import annotations
 
+import gzip
 import hashlib
 import io
 import json
@@ -485,11 +486,17 @@ def tga_rle(rows: np.ndarray, pixel_bytes: int, across_rows: bool = False) -> by
 
 def tiff_file(pixels: np.ndarray, bits: tuple, photometric: int, compression: int = 1,
               predictor: int = 1, tile=None, rows_per_strip: int = 0, extra=(),
-              colormap=None, big_endian: bool = False, width: int = 0) -> bytes:
+              colormap=None, big_endian: bool = False, width: int = 0, planar: bool = False,
+              fill_order: int = 1, bigtiff: bool = False, chunks=None, tags=None) -> bytes:
     """A one-page TIFF of (H, W, C) byte samples (or packed (H, row bytes)
     rows of ``width`` pixels for bits below 8), in strips or ``tile`` =
     (w, h) tiles, compressed with none (1), Deflate (8) or PackBits (32773),
-    with horizontal differencing (predictor 2)."""
+    with horizontal differencing (predictor 2); ``planar`` stores each
+    sample in planes of its own (planar configuration 2), ``fill_order`` 2
+    reverses the bits of every stored byte, ``bigtiff`` writes the BigTIFF
+    header and 8-byte offsets. ``chunks`` gives the stored strips or tiles
+    as they are (a JPEG's, compression 7) and ``tags`` more entries: tag ->
+    (type, values), type 7 (undefined) taking bytes."""
     o = ">" if big_endian else "<"
     px = pixels if pixels.ndim == 3 else pixels[..., None]
     H, W = px.shape[0], width or px.shape[1]
@@ -501,25 +508,33 @@ def tiff_file(pixels: np.ndarray, bits: tuple, photometric: int, compression: in
             b[:, 1:] = (b[:, 1:].astype(np.int16) - block[:, :-1]).astype(np.uint8)
         raw = b.tobytes()
         if compression == 8:
-            return zlib.compress(raw, 9)
-        if compression == 32773:
-            return _packbits(raw, b.shape[1] * b.shape[2] if b.ndim == 3 else b.shape[1])
+            raw = zlib.compress(raw, 9)
+        elif compression == 32773:
+            raw = _packbits(raw, b.shape[1] * b.shape[2] if b.ndim == 3 else b.shape[1])
+        if fill_order == 2:
+            raw = np.unpackbits(np.frombuffer(raw, np.uint8)).reshape(-1, 8)[:, ::-1]
+            raw = np.packbits(raw.reshape(-1)).tobytes()
         return raw
 
-    chunks = []
-    if tile:
-        tw, th = tile
-        for ty in range(0, H, th):
-            for tx in range(0, W, tw):
-                block = np.zeros((th, tw, px.shape[2]), np.uint8)
-                part = px[ty:ty + th, tx:tx + tw]
-                block[:part.shape[0], :part.shape[1]] = part
-                chunks.append(encode(block))
-    else:
-        rps = rows_per_strip or H
-        chunks = [encode(px[y:y + rps]) for y in range(0, H, rps)]
+    planes = [px[..., c:c + 1] for c in range(px.shape[2])] if planar else [px]
+    if chunks is None:
+        chunks = []
+        for plane in planes:
+            if tile:
+                tw, th = tile
+                for ty in range(0, H, th):
+                    for tx in range(0, W, tw):
+                        block = np.zeros((th, tw, plane.shape[2]), np.uint8)
+                        part = plane[ty:ty + th, tx:tx + tw]
+                        block[:part.shape[0], :part.shape[1]] = part
+                        chunks.append(encode(block))
+            else:
+                rps = rows_per_strip or H
+                chunks += [encode(plane[y:y + rps]) for y in range(0, H, rps)]
     entries = {256: (4, [W]), 257: (4, [H]), 258: (3, list(bits)), 259: (3, [compression]),
-               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [1])}
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [2 if planar else 1])}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
     if predictor != 1:
         entries[317] = (3, [predictor])
     if extra:
@@ -530,31 +545,468 @@ def tiff_file(pixels: np.ndarray, bits: tuple, photometric: int, compression: in
         entries[322], entries[323] = (3, [tile[0]]), (3, [tile[1]])
     else:
         entries[278] = (4, [rows_per_strip or H])
-    data = bytearray((b"MM\x00*" if big_endian else b"II*\x00") + b"\x00" * 4)
+    entries.update(tags or {})
+    word, head = (8, 16) if bigtiff else (4, 8)
+    if bigtiff:
+        data = bytearray((b"MM\x00+" if big_endian else b"II+\x00") + struct.pack(o + "HH", 8, 0)
+                         + bytes(8))
+    else:
+        data = bytearray((b"MM\x00*" if big_endian else b"II*\x00") + b"\x00" * 4)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c + (b"\x00" if len(c) % 2 else b"")
-    entries[324 if tile else 273] = (4, offsets)
-    entries[325 if tile else 279] = (4, [len(c) for c in chunks])
+    entries[324 if tile else 273] = (16 if bigtiff else 4, offsets)
+    entries[325 if tile else 279] = (16 if bigtiff else 4, [len(c) for c in chunks])
     blobs = bytearray()
     ifd_at = len(data)
     n = len(entries)
-    table = bytearray(struct.pack(o + "H", n))
-    blob_at = ifd_at + 2 + 12 * n + 4
+    size = 20 if bigtiff else 12
+    table = bytearray(struct.pack(o + ("Q" if bigtiff else "H"), n))
+    blob_at = ifd_at + (8 if bigtiff else 2) + size * n + word
     for tag in sorted(entries):
         kind, values = entries[tag]
-        code = "H" if kind == 3 else "I"
-        packed = struct.pack(o + code * len(values), *values)
-        if len(packed) <= 4:
-            table += struct.pack(o + "HHI", tag, kind, len(values)) + packed.ljust(4, b"\x00")
+        if kind == 7:
+            packed = bytes(values)
         else:
-            table += struct.pack(o + "HHII", tag, kind, len(values), blob_at + len(blobs))
+            packed = struct.pack(o + {3: "H", 4: "I", 16: "Q"}[kind] * len(values), *values)
+        count = len(packed) if kind == 7 else len(values)
+        fmt = o + ("HHQ" if bigtiff else "HHI")
+        if len(packed) <= word:
+            table += struct.pack(fmt, tag, kind, count) + packed.ljust(word, b"\x00")
+        else:
+            table += struct.pack(fmt, tag, kind, count) + struct.pack(
+                o + ("Q" if bigtiff else "I"), blob_at + len(blobs))
             blobs += packed + (b"\x00" if len(packed) % 2 else b"")
-    table += b"\x00\x00\x00\x00"
+    table += bytes(word)
     data += table + blobs
-    data[4:8] = struct.pack(o + "I", ifd_at)
+    data[head - word:head] = struct.pack(o + ("Q" if bigtiff else "I"), ifd_at)
     return bytes(data)
+
+
+def jpeg_tiff(writer, pixels: np.ndarray, rows_per_strip: int, sampling: str = "2x2,1x1,1x1",
+              quality: int = 80) -> bytes:
+    """A YCbCr (photometric 6) TIFF with JPEG compression (7) as libtiff
+    writes one: each strip a JPEG of its own rows written by libjpeg
+    (``writer``, a :class:`LibjpegWriter`) at ``sampling``, its quantisation
+    and Huffman tables moved into the JPEGTables tag and the strips left
+    abbreviated."""
+    strips = [writer(pixels[y:y + rows_per_strip], space="ycc", quality=quality,
+                     sampling=sampling) for y in range(0, pixels.shape[0], rows_per_strip)]
+    tables, stripped = b"", []
+    for k, jpg in enumerate(strips):
+        pos, keep = 2, bytearray(b"\xff\xd8")
+        while True:
+            marker, length = jpg[pos + 1], int.from_bytes(jpg[pos + 2:pos + 4], "big")
+            segment = jpg[pos:pos + 2 + length]
+            if marker in (0xDB, 0xC4):
+                if k == 0:
+                    tables += segment
+            elif marker != 0xE0:
+                keep += segment
+            pos += 2 + length
+            if marker == 0xDA:
+                keep += jpg[pos:]
+                break
+        stripped.append(bytes(keep))
+    h, v = (int(x) for x in sampling.split(",")[0].split("x"))
+    return tiff_file(pixels, (8, 8, 8), 6, compression=7, rows_per_strip=rows_per_strip,
+                     chunks=stripped, tags={347: (7, b"\xff\xd8" + tables + b"\xff\xd9"),
+                                            530: (3, [h, v])})
+
+
+def psd_file(planes: np.ndarray, ps_mode: int, bits: int = 8, rle: bool = False,
+             color_data: bytes = b"", resources: bool = True, layer: bool = True,
+             channels: int = 0) -> bytes:
+    """A Photoshop file of (C, H, row bytes) composite planes in colour mode
+    ``ps_mode`` (0 bitmap, 1 gray, 2 indexed, 3 RGB, 4 CMYK, 7 multichannel,
+    8 duotone, 9 Lab) at ``bits``: raw or, with ``rle``, PackBits rows with
+    their byte counts; ``color_data`` the colour-mode section (a 768-byte
+    planar palette for mode 2), an image resource with an odd-length name
+    and data, and a layer (its own raw channels) that readers of the
+    composite skip. ``channels`` overrides the header's count."""
+    C, H, row = planes.shape
+    width = row * 8 if bits == 1 else row
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or C, H, width, bits, ps_mode)
+    res = b""
+    if resources:
+        res = b"8BIM" + struct.pack(">H", 1005) + b"\x03abc" + struct.pack(">I", 5) + b"12345\x00"
+        res += b"8BIM" + struct.pack(">H", 1039) + b"\x00\x00" + struct.pack(">I", 4) + b"icc!"
+    lay = b""
+    if layer:
+        lw, lh = 3, 2
+        rec = struct.pack(">iiiiH", 0, 0, lh, lw, 1) + struct.pack(">hI", 0, 2 + lw * lh)
+        rec += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(">I", 12) + bytes(8)
+        rec += b"\x03ab\x00"
+        body = struct.pack(">h", 1) + rec + struct.pack(">H", 0) + bytes(range(lw * lh))
+        body += bytes(len(body) % 2)
+        lay = struct.pack(">I", len(body)) + body + struct.pack(">I", 0)
+    if rle:
+        rows = [_packbits(planes[c, y].tobytes(), row) for c in range(C) for y in range(H)]
+        pixels = struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in rows) \
+            + b"".join(rows)
+    else:
+        pixels = struct.pack(">H", 0) + planes.tobytes()
+    return (head + struct.pack(">I", len(color_data)) + color_data + struct.pack(">I", len(res))
+            + res + struct.pack(">I", len(lay)) + lay + pixels)
+
+
+def dds_file(width: int, height: int, body: bytes, fourcc: bytes = b"", dxgi: int = 0,
+             pfflags: int = 0, bitcount: int = 0, masks=(0, 0, 0, 0), mipmaps: int = 0) -> bytes:
+    """A DDS file: the 124-byte header over ``body``, FourCC-compressed when
+    ``fourcc`` is given (``b"DX10"`` with its DXGI header for ``dxgi``),
+    else uncompressed with ``pfflags``, ``bitcount`` and the channel
+    ``masks``. Pillow decodes any block bytes, so seeded random blocks
+    reach every BC6H and BC7 mode."""
+    flags = 0x1 | 0x2 | 0x4 | 0x1000 | (0x20000 if mipmaps else 0)
+    if fourcc:
+        pfflags, bitcount, masks = 0x4, 0, (0, 0, 0, 0)
+    head = struct.pack("<4s7I", b"DDS ", 124, flags, height, width, 0, 0, mipmaps)
+    head += bytes(44) + struct.pack("<2I4sI4I", 32, pfflags, fourcc or bytes(4), bitcount, *masks)
+    head += struct.pack("<5I", 0x1000 | (0x400008 if mipmaps else 0), 0, 0, 0, 0)
+    if fourcc == b"DX10":
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + body
+
+
+def bc_blocks(width: int, height: int, block_bytes: int, seed: int, first=None) -> bytes:
+    """Seeded random blocks covering ``width`` x ``height``; ``first`` fixes
+    the low bits of each block's first byte (a BC6H or BC7 mode)."""
+    rng = np.random.default_rng(seed)
+    n = -(-width // 4) * -(-height // 4)
+    blocks = rng.integers(0, 256, (n, block_bytes)).astype(np.uint8)
+    if first is not None:
+        bits, value = first
+        blocks[:, 0] = (blocks[:, 0] & ~np.uint8((1 << bits) - 1)) | value
+    return blocks.tobytes()
+
+
+_WEBP_CONFIG = ("lossless", "quality", "method", "image_hint", "target_size", "target_psnr",
+                "segments", "sns_strength", "filter_strength", "filter_sharpness", "filter_type",
+                "autofilter", "alpha_compression", "alpha_filtering", "alpha_quality", "pass",
+                "show_compressed", "preprocessing", "partitions", "partition_limit",
+                "emulate_jpeg_size", "thread_level", "low_memory", "near_lossless", "exact",
+                "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")
+
+
+def libwebp_encode(pixels: np.ndarray, **config) -> bytes:
+    """A WebP file written by the libwebp that Pillow carries, through its
+    advanced API, so that settings Pillow does not pass reach the file: the
+    simple loop filter (``filter_type=0``), ``filter_sharpness``, several
+    token ``partitions``, ``segments``, ``sns_strength``. ``pixels`` (H, W, 3)
+    or (H, W, 4) uint8."""
+    import ctypes
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    for dep in sorted(glob.glob(os.path.join(libs, "libsharpyuv-*.so*"))):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    found = glob.glob(os.path.join(libs, "libwebp-*.so*"))
+    if not found:
+        raise OSError("Pillow's libwebp is not in " + libs)
+    lib = ctypes.CDLL(found[0])
+    cfg = (ctypes.c_int32 * 32)()
+    if not lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(75.0), 0x0210):
+        raise OSError("WebPConfigInit failed")
+    for key, value in config.items():
+        at = _WEBP_CONFIG.index(key)
+        if key in ("quality", "target_psnr"):
+            ctypes.c_float.from_buffer(cfg, 4 * at).value = value
+        else:
+            cfg[at] = value
+    pic = (ctypes.c_uint8 * 256)()                  # WebPPicture: 256 bytes on x86-64
+    writer = (ctypes.c_uint64 * 4)()                # WebPMemoryWriter
+    if not lib.WebPPictureInitInternal(pic, 0x0210):
+        raise OSError("WebPPictureInit failed")
+    H, W, C = pixels.shape
+    ctypes.c_int32.from_buffer(pic, 0).value = int(config.get("lossless", 0))   # use_argb
+    ctypes.c_int32.from_buffer(pic, 8).value = W
+    ctypes.c_int32.from_buffer(pic, 12).value = H
+    lib.WebPMemoryWriterInit(writer)
+    ctypes.c_void_p.from_buffer(pic, 96).value = ctypes.cast(lib.WebPMemoryWrite,
+                                                             ctypes.c_void_p).value
+    ctypes.c_void_p.from_buffer(pic, 104).value = ctypes.addressof(writer)
+    px = np.ascontiguousarray(pixels, np.uint8)
+    importer = lib.WebPPictureImportRGBA if C == 4 else lib.WebPPictureImportRGB
+    if not importer(pic, px.ctypes.data_as(ctypes.c_void_p), W * C):
+        raise OSError("WebPPictureImport failed")
+    ok = lib.WebPEncode(cfg, pic)
+    data = ctypes.string_at(writer[0], writer[1]) if ok else b""
+    lib.WebPPictureFree(pic)
+    lib.WebPMemoryWriterClear(writer)
+    if not ok:
+        raise OSError(f"WebPEncode failed with error {ctypes.c_int32.from_buffer(pic, 136).value}")
+    return data
+
+
+def webp_animation(canvas: tuple, frames: list, alpha: bool = True) -> bytes:
+    """An animated WebP (VP8X, ANIM, ANMF) of (x, y, still WebP file) frames
+    on a ``canvas`` = (width, height): each frame's image chunks (ALPH, VP8
+    or VP8L) moved into an ANMF at its offset (even, as the format needs)."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return kind + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+    body = chunk(b"VP8X", struct.pack("<B3x", 0x02 | (0x10 if alpha else 0))
+                 + (canvas[0] - 1).to_bytes(3, "little") + (canvas[1] - 1).to_bytes(3, "little"))
+    body += chunk(b"ANIM", struct.pack("<IH", 0, 0))
+    for x, y, still in frames:
+        pos, inner, size = 12, b"", None
+        while pos + 8 <= len(still):
+            kind, n = still[pos:pos + 4], struct.unpack_from("<I", still, pos + 4)[0]
+            if kind == b"VP8X":
+                size = (int.from_bytes(still[pos + 12:pos + 15], "little") + 1,
+                        int.from_bytes(still[pos + 15:pos + 18], "little") + 1)
+            elif kind in (b"ALPH", b"VP8 ", b"VP8L"):
+                inner += chunk(kind, still[pos + 8:pos + 8 + n])
+                if kind == b"VP8 ":
+                    size = size or (int.from_bytes(still[pos + 14:pos + 16], "little") & 0x3FFF,
+                                    int.from_bytes(still[pos + 16:pos + 18], "little") & 0x3FFF)
+                elif kind == b"VP8L":
+                    bits = int.from_bytes(still[pos + 9:pos + 13], "little")
+                    size = ((bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1)
+            pos += 8 + n + (n & 1)
+        head = (x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+        head += (size[0] - 1).to_bytes(3, "little") + (size[1] - 1).to_bytes(3, "little")
+        head += (100).to_bytes(3, "little") + b"\x00"
+        body += chunk(b"ANMF", head + inner)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def alpha_filter(levels: np.ndarray, method: int) -> np.ndarray:
+    """WebP's alpha filters forward (1 horizontal, 2 vertical, 3 gradient):
+    each level less its prediction, modulo 256, the first row predicted from
+    the left (0 before it), the first column from above."""
+    a = levels.astype(np.int64)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    elif method == 3:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    else:
+        pred[:] = 0
+    return ((a - pred) & 0xFF).astype(np.uint8)
+
+
+def webp_with_alpha(lossy: bytes, alpha: np.ndarray, method: int) -> bytes:
+    """A VP8X WebP of a simple lossy file's ``VP8 `` chunk and a raw (not
+    lossless-coded) ``ALPH`` chunk of ``alpha`` under filter ``method``."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return kind + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+    H, W = alpha.shape
+    vp8 = lossy[12:]                                # the VP8 chunk of a simple file
+    body = chunk(b"VP8X", struct.pack("<B3x", 0x10) + (W - 1).to_bytes(3, "little")
+                 + (H - 1).to_bytes(3, "little"))
+    body += chunk(b"ALPH", bytes([method << 2]) + alpha_filter(alpha, method).tobytes()) + vp8
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+class _BoolWriter:
+    """RFC 6386's boolean entropy encoder (section 7.3)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def literal(self, value: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.put(128, (value >> k) & 1)
+
+    def signed(self, value: int, n: int) -> None:
+        self.literal(abs(value), n)
+        self.put(128, int(value < 0))
+
+    def flush(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def vp8_header_rewrite(still: bytes, ref_delta: int = 0, mode_delta: int = 0) -> bytes:
+    """A simple lossy WebP file with its VP8 frame header written again: the
+    segments' quantisers and filter levels as deltas from the frame's (where
+    libwebp writes them absolute) and loop-filter deltas for the reference
+    frame and the 4x4 mode (which libwebp's encoder never writes). The first
+    partition's bits are read back through ``coma_tpu_torch.utils.vp8`` and
+    re-encoded; the token partitions are kept as they are."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from coma_tpu_torch.utils import vp8
+
+    payload = still[20:20 + struct.unpack_from("<I", still, 16)[0]]
+    made = []
+
+    class Recording(vp8.BoolDecoder):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.bits = []
+            made.append(self)
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.bits.append((prob, b))
+            return b
+
+    plain = vp8.BoolDecoder
+    vp8.BoolDecoder = Recording
+    try:
+        vp8.decode(payload)
+    finally:
+        vp8.BoolDecoder = plain
+    records = made[0].bits
+    pos = 0
+
+    def take(n: int) -> int:
+        nonlocal pos
+        v = 0
+        for _ in range(n):
+            v = v << 1 | records[pos][1]
+            pos += 1
+        return v
+
+    def signed(n: int) -> int:
+        v = take(n)
+        return -v if take(1) else v
+
+    head = take(2)
+    seg = dict(use=take(1))
+    if seg["use"]:
+        seg["update_map"], seg["update_data"] = take(1), take(1)
+        if seg["update_data"]:
+            seg["absolute"] = take(1)
+            seg["q"] = [signed(7) if take(1) else 0 for _ in range(4)]
+            seg["f"] = [signed(6) if take(1) else 0 for _ in range(4)]
+        if seg["update_map"]:
+            seg["probs"] = [take(8) if take(1) else None for _ in range(3)]
+    simple, level, sharpness = take(1), take(6), take(3)
+    if take(1) and take(1):
+        for _ in range(8):
+            if take(1):
+                signed(6)
+    parts = take(2)
+    base = take(7)
+    dq = [signed(4) if take(1) else None for _ in range(5)]
+    w = _BoolWriter()
+    w.literal(head, 2)
+    w.literal(seg["use"], 1)
+    if seg["use"]:
+        w.literal(seg["update_map"], 1)
+        w.literal(seg["update_data"], 1)
+        if seg["update_data"]:
+            relative = seg["absolute"] == 1
+            w.literal(0 if relative else seg["absolute"], 1)
+            for values, ref, n in ((seg["q"], base, 7), (seg["f"], level, 6)):
+                for v in values:
+                    d = v - ref if relative else v
+                    w.literal(int(d != 0), 1)
+                    if d:
+                        w.signed(d, n)
+        if seg["update_map"]:
+            for p in seg["probs"]:
+                w.literal(int(p is not None), 1)
+                if p is not None:
+                    w.literal(p, 8)
+    w.literal(simple, 1)
+    w.literal(level, 6)
+    w.literal(sharpness, 3)
+    w.literal(1, 1)                                  # loop-filter deltas on, updated
+    w.literal(1, 1)
+    for deltas in ([ref_delta, 0, 0, 0], [mode_delta, 0, 0, 0]):
+        for d in deltas:
+            w.literal(int(d != 0), 1)
+            if d:
+                w.signed(d, 6)
+    w.literal(parts, 2)
+    w.literal(base, 7)
+    for d in dq:
+        w.literal(int(d is not None), 1)
+        if d is not None:
+            w.signed(d, 4)
+    for prob, bit in records[pos:]:                  # probabilities and macroblock modes
+        w.put(prob, bit)
+    first = w.flush()
+    tag = payload[0] | payload[1] << 8 | payload[2] << 16
+    old_size = tag >> 5
+    tag = (tag & 0x1F) | len(first) << 5
+    frame = bytes([tag & 0xFF, tag >> 8 & 0xFF, tag >> 16]) + payload[3:10] + first + \
+        payload[10 + old_size:]
+    body = b"VP8 " + struct.pack("<I", len(frame)) + frame + b"\0" * (len(frame) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def bc7_mode6(rgba: np.ndarray) -> bytes:
+    """A simple BC7 encoder (mode 6 for every block: one subset, 7-bit RGBA
+    endpoints with a p-bit each, 4-bit indices by projection onto the
+    endpoints' line), for the textures Pillow cannot write as BC7. (H, W, 4)
+    uint8, H and W multiples of 4 -> the blocks."""
+    H, W, _ = rgba.shape
+    blocks = rgba.reshape(H // 4, 4, W // 4, 4, 4).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 4)
+    px = blocks.astype(np.int64)
+    lo, hi = px.min(1) >> 1, np.minimum((px.max(1) + 1) >> 1, 127)
+    e0, e1 = lo << 1, hi << 1 | 1                   # p-bits 0 and 1
+    d = e1 - e0
+    span = np.maximum((d * d).sum(1), 1)
+    t = ((px - e0[:, None]) * d[:, None]).sum(2)
+    idx = np.clip((t * 15 + span[:, None] // 2) // span[:, None], 0, 15)
+    swap = idx[:, 0] >= 8                           # the anchor index's top bit must be 0
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    q0, q1 = np.where(swap[:, None], hi, lo), np.where(swap[:, None], lo, hi)
+    p0, p1 = np.where(swap, 1, 0), np.where(swap, 0, 1)
+    fields = [(np.full(len(px), 1 << 6), 7)]
+    for c in range(4):
+        fields += [(q0[:, c], 7), (q1[:, c], 7)]
+    fields += [(p0, 1), (p1, 1), (idx[:, 0], 3)] + [(idx[:, k], 4) for k in range(1, 16)]
+    lo_word = np.zeros(len(px), np.uint64)
+    hi_word = np.zeros(len(px), np.uint64)
+    bit = 0
+    for value, n in fields:
+        v = value.astype(np.uint64)
+        for b in range(n):                          # bit by bit across the two words
+            word_bit = (v >> np.uint64(b)) & np.uint64(1)
+            if bit < 64:
+                lo_word |= word_bit << np.uint64(bit)
+            else:
+                hi_word |= word_bit << np.uint64(bit - 64)
+            bit += 1
+    assert bit == 128
+    return np.stack([lo_word, hi_word], 1).astype("<u8").tobytes()
 
 
 def _packbits(raw: bytes, row: int) -> bytes:
@@ -629,6 +1081,7 @@ def fixtures() -> dict:
                                         jpeg(behave_mask(), quality=90))
     out.update(jpeg_processes(jpeg))
     out.update(other_formats())
+    out.update(new_formats())
     return out
 
 
@@ -857,6 +1310,173 @@ def other_formats() -> dict:
     return out
 
 
+def new_formats() -> dict:
+    """WebP (lossy, lossy with alpha, lossless, animated, settings only the
+    libwebp API reaches), DDS (Pillow's DXT1/3/5 and BC5, seeded blocks of
+    BC4/BC5S/BC6H/BC7, bit masks, luminance, palette), PSD (every mode PIL
+    reads, raw and PackBits) and TIFF (JPEG strips, separate planes, fill
+    order 2, BigTIFF), the chair's textures in them, and the 2048 x 1536
+    atlas in six of them; the two DDS atlases stored gzip-compressed (the
+    ``.gz`` name; the manifest hashes the file inside)."""
+    from PIL import Image
+
+    def pil(image, fmt, **kw):
+        buf = io.BytesIO()
+        (image if isinstance(image, Image.Image) else Image.fromarray(image)).save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(40)
+    rgb = seeded_rgb((37, 53), 41)
+    alpha = np.clip(rng.normal(200, 60, (37, 53, 1)), 0, 255).astype(np.uint8)
+    alpha[:10] = 255
+    rgba = np.concatenate([rgb, alpha], -1)
+    tex = seeded_rgb((64, 64), 42, noise=12)
+    tex_a = np.concatenate([tex, np.full((64, 64, 1), 255, np.uint8)], -1)
+    tex_a[40:, 20:44, 3] = 90
+    planes = np.ascontiguousarray(rgb.transpose(2, 0, 1))
+    out = {
+        "webp_lossy_q75.webp": ("WebP lossy (VP8) q75", pil(rgb, "WEBP", quality=75)),
+        "webp_lossy_q20_m6.webp": ("WebP lossy q20 method 6", pil(rgb, "WEBP", quality=20,
+                                                                 method=6)),
+        "webp_lossy_alpha.webp": ("WebP lossy with ALPH (lossless-coded, filtered)",
+                                  pil(rgba, "WEBP", quality=70)),
+        "webp_lossy_alpha_raw.webp": ("WebP lossy with raw ALPH, gradient filter",
+                                      libwebp_encode(rgba, quality=60, alpha_compression=0,
+                                                     alpha_filtering=2)),
+        "webp_simple_filter.webp": ("WebP lossy, simple loop filter, sharpness 4",
+                                    libwebp_encode(seeded_rgb((40, 72), 43, noise=30),
+                                                   filter_type=0, filter_sharpness=4)),
+        "webp_partitions.webp": ("WebP lossy, 4 token partitions, sharpness 6, skip probability",
+                                 libwebp_encode(seeded_rgb((70, 48), 44, noise=25), quality=20,
+                                                method=1, partitions=2, filter_sharpness=6)),
+        "webp_lf_deltas.webp": ("WebP lossy, relative segment values, loop-filter deltas",
+                                vp8_header_rewrite(libwebp_encode(seeded_rgb((40, 56), 46,
+                                                                             noise=25)), 7, -5)),
+        "webp_lossless.webp": ("WebP lossless (VP8L)", pil(rgb, "WEBP", lossless=True)),
+        "webp_lossless_alpha.webp": ("WebP lossless with alpha", pil(rgba, "WEBP", lossless=True,
+                                                                     method=6)),
+        "webp_lossless_palette.webp": ("WebP lossless, colour indexing of 5 colours",
+                                       pil(Image.fromarray(rgb).quantize(5).convert("RGB"),
+                                           "WEBP", lossless=True)),
+        "webp_metadata.webp": ("WebP VP8X with ICCP and EXIF chunks",
+                               pil(rgb, "WEBP", quality=80, icc_profile=b"\0" * 128,
+                                   exif=b"Exif\0\0" + bytes(20))),
+        "webp_animated_offset.webp": ("WebP animation, frame 0 inside the canvas at (6, 4)",
+                                      webp_animation((64, 48), [
+                                          (6, 4, pil(rgba[:30, :40], "WEBP", quality=80)),
+                                          (0, 0, pil(rgb[:12, :20], "WEBP", lossless=True))])),
+        "refused_webp_truncated.webp": ("WebP cut short (refused)",
+                                        pil(rgb, "WEBP", quality=75)[:-40]),
+        "dds_dxt1.dds": ("DDS DXT1 (BC1)", pil(rgba, "DDS", pixel_format="DXT1")),
+        "dds_dxt3.dds": ("DDS DXT3 (BC2)", pil(rgba, "DDS", pixel_format="DXT3")),
+        "dds_dxt5.dds": ("DDS DXT5 (BC3)", pil(rgba, "DDS", pixel_format="DXT5")),
+        "dds_bc5_dx10.dds": ("DDS DX10 BC5", pil(rgb, "DDS", pixel_format="BC5")),
+        "dds_bc1_blocks.dds": ("DDS DXT1 seeded blocks (three-colour mode)",
+                               dds_file(21, 13, bc_blocks(21, 13, 8, 45), fourcc=b"DXT1")),
+        "dds_ati1.dds": ("DDS ATI1 (BC4) seeded blocks", dds_file(21, 13, bc_blocks(21, 13, 8, 46),
+                                                                  fourcc=b"ATI1")),
+        "dds_bc5s.dds": ("DDS BC5S seeded blocks", dds_file(21, 13, bc_blocks(21, 13, 16, 47),
+                                                            fourcc=b"BC5S")),
+        "dds_bc6h_uf16.dds": ("DDS BC6H UF16 seeded blocks, every mode",
+                              dds_file(128, 8, bc_blocks(128, 8, 16, 48), fourcc=b"DX10",
+                                       dxgi=95)),
+        "dds_bc6h_sf16.dds": ("DDS BC6H SF16 seeded blocks, every mode",
+                              dds_file(128, 8, bc_blocks(128, 8, 16, 49), fourcc=b"DX10",
+                                       dxgi=96)),
+        "dds_bc7_blocks.dds": ("DDS BC7 seeded blocks, a row of each mode (and of none)",
+                               dds_file(32, 35, b"".join(
+                                   bc_blocks(32, 4, 16, 50 + m,
+                                             first=(min(m + 1, 8), (1 << m) & 0xFF))
+                                   for m in range(9)), fourcc=b"DX10", dxgi=98)),
+        "dds_bc7_srgb_mipmaps.dds": ("DDS BC7 sRGB, encoded, with mip levels after it",
+                                     dds_file(64, 64, bc7_mode6(tex_a) + bytes(1024),
+                                              fourcc=b"DX10", dxgi=99, mipmaps=2)),
+        "dds_rgb565.dds": ("DDS bit masks 5-6-5", dds_file(
+            21, 13, bc_blocks(21, 16, 8, 51)[:21 * 13 * 2], pfflags=0x40, bitcount=16,
+            masks=(0xF800, 0x7E0, 0x1F, 0))),
+        "dds_rgba_masks.dds": ("DDS bit masks 32-bit with alpha", pil(rgba, "DDS")),
+        "dds_l8.dds": ("DDS luminance", pil(rgb[..., 0], "DDS")),
+        "dds_la.dds": ("DDS luminance with alpha", pil(Image.fromarray(rgba[..., [0, 3]], "LA"),
+                                                       "DDS")),
+        "dds_p8.dds": ("DDS 8-bit palette", dds_file(
+            21, 13, bc_blocks(16, 16, 64, 52)[:1024] + bc_blocks(21, 13, 16, 53)[:21 * 13],
+            pfflags=0x20, bitcount=8)),
+        "dds_rgba8_dx10.dds": ("DDS DX10 R8G8B8A8", dds_file(21, 13, rgba[:13, :21].tobytes(),
+                                                             fourcc=b"DX10", dxgi=28)),
+        "refused_dds_bc4s.dds": ("DDS BC4S (refused)", dds_file(8, 8, bytes(32), fourcc=b"BC4S")),
+        "refused_dds_truncated.dds": ("DDS DXT5 cut short (refused)",
+                                      pil(rgba, "DDS", pixel_format="DXT5")[:-64]),
+        "psd_rgb_rle.psd": ("PSD RGB, PackBits, a layer", psd_file(planes, 3, rle=True)),
+        "psd_rgba_raw.psd": ("PSD RGBA, raw", psd_file(np.concatenate([planes, alpha.transpose(
+            2, 0, 1)]), 3)),
+        "psd_gray_rle.psd": ("PSD gray", psd_file(planes[:1], 1, rle=True)),
+        "psd_multichannel.psd": ("PSD multichannel (L)", psd_file(planes, 7, rle=True)),
+        "psd_duotone.psd": ("PSD duotone (L)", psd_file(planes[:1], 8, color_data=b"duotone!")),
+        "psd_indexed.psd": ("PSD indexed (P)", psd_file(
+            (planes[:1] // 32).astype(np.uint8), 2, rle=True,
+            color_data=rng.integers(0, 256, 768).astype(np.uint8).tobytes())),
+        "psd_cmyk_rle.psd": ("PSD CMYK, PackBits", psd_file(np.concatenate(
+            [planes, alpha.transpose(2, 0, 1)]), 4, rle=True)),
+        "psd_bitmap.psd": ("PSD bitmap (1)", psd_file(np.packbits(planes[:1] > 100, axis=2), 0,
+                                                      bits=1, rle=True)),
+        "refused_psd_16bit.psd": ("PSD 16-bit (refused)", psd_file(planes, 3, bits=16)),
+        "refused_psd_truncated.psd": ("PSD cut short (refused)", psd_file(planes, 3)[:-50]),
+        "tiff_jpeg_rgb.tif": ("TIFF JPEG, RGB", pil(rgb, "TIFF", compression="jpeg")),
+        "tiff_jpeg_ycbcr_strips.tif": ("TIFF JPEG, YCbCr, strips of 8 rows",
+                                       pil(Image.fromarray(rgb).convert("YCbCr"), "TIFF",
+                                           compression="jpeg", tiffinfo={278: 8})),
+        "tiff_jpeg_gray.tif": ("TIFF JPEG, gray", pil(rgb[..., 0], "TIFF", compression="jpeg")),
+        "tiff_planar_deflate.tif": ("TIFF RGB, separate planes, Deflate, predictor 2",
+                                    tiff_file(rgb, (8, 8, 8), 2, planar=True, compression=8,
+                                              predictor=2, rows_per_strip=9)),
+        "tiff_fill2_packbits.tif": ("TIFF RGB, fill order 2, PackBits",
+                                    tiff_file(rgb, (8, 8, 8), 2, fill_order=2,
+                                              compression=32773, rows_per_strip=10)),
+        "tiff_bigtiff.tif": ("TIFF BigTIFF, RGBA, tiles", tiff_file(rgba, (8, 8, 8, 8), 2,
+                                                                    extra=(2,), tile=(16, 16),
+                                                                    bigtiff=True)),
+        "chair_lossy_alpha.webp": ("chair texture, WebP lossy with alpha",
+                                   pil(tex_a, "WEBP", quality=80)),
+        "chair_lossless.webp": ("chair texture, WebP lossless", pil(tex[::-1], "WEBP",
+                                                                    lossless=True)),
+        "chair_bc7.dds": ("chair texture, DDS BC7", dds_file(64, 64, bc7_mode6(tex_a[:, ::-1]),
+                                                             fourcc=b"DX10", dxgi=98)),
+        "chair_dxt1.dds": ("chair texture, DDS DXT1", pil(tex_a[::-1, ::-1], "DDS",
+                                                          pixel_format="DXT1")),
+        "chair_rle.psd": ("chair texture, PSD PackBits", psd_file(np.ascontiguousarray(
+            tex.transpose(2, 1, 0)), 3, rle=True)),
+    }
+    writer = LibjpegWriter()
+    try:
+        out["chair_ycbcr_420.tif"] = ("chair texture, TIFF JPEG YCbCr 4:2:0, strips of 24 rows",
+                                      jpeg_tiff(writer, np.ascontiguousarray(tex.transpose(
+                                          1, 0, 2)[::-1]), 24))
+        out["tiff_jpeg_ycbcr_420.tif"] = ("TIFF JPEG, YCbCr 4:2:0, strips of 16 rows (libjpeg)",
+                                          jpeg_tiff(writer, rgb, 16))
+    finally:
+        writer.close()
+    atlas = texture_atlas(9)
+    atlas_a = np.concatenate([atlas, np.full(atlas.shape[:2] + (1,), 255, np.uint8)], -1)
+    out["atlas_lossy_2048x1536.webp"] = ("2048 x 1536 atlas, WebP lossy q90",
+                                         pil(atlas, "WEBP", quality=90))
+    out["atlas_lossless_2048x1536.webp"] = ("2048 x 1536 atlas, WebP lossless",
+                                            pil(atlas, "WEBP", lossless=True))
+    out["atlas_bc7_2048x1536.dds"] = ("2048 x 1536 atlas, DDS BC7", dds_file(
+        2048, 1536, bc7_mode6(atlas_a), fourcc=b"DX10", dxgi=98))
+    out["atlas_dxt1_2048x1536.dds"] = ("2048 x 1536 atlas, DDS DXT1",
+                                       pil(atlas, "DDS", pixel_format="DXT1"))
+    out["atlas_rle_2048x1536.psd"] = ("2048 x 1536 atlas, PSD PackBits", psd_file(
+        np.ascontiguousarray(atlas.transpose(2, 0, 1)), 3, rle=True, layer=False))
+    out["atlas_ycbcr_jpeg_2048x1536.tif"] = ("2048 x 1536 atlas, TIFF JPEG YCbCr, strips of 64",
+                                             pil(Image.fromarray(atlas).convert("YCbCr"), "TIFF",
+                                                 compression="jpeg", quality=75,
+                                                 tiffinfo={278: 64}))
+    return out
+
+
+GZIPPED = ("atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds")
+
+
 def _top_down(rows: bytes, height: int) -> bytes:
     """Bottom-up padded rows in top-down order."""
     stride = len(rows) // height
@@ -932,22 +1552,27 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     entries = []
     for name, (kind, data) in fixtures().items():
-        path = os.path.join(OUT, name)
-        with open(path, "wb") as fh:
-            fh.write(data)
-        entry = dict(file=name, kind=kind, bytes=len(data))
+        stored = name + ".gz" if name in GZIPPED else name
+        blob = gzip.compress(data, 9, mtime=0) if name in GZIPPED else data
+        with open(os.path.join(OUT, stored), "wb") as fh:
+            fh.write(blob)
+        entry = dict(file=name, kind=kind, bytes=len(blob))
+        if name in GZIPPED:
+            entry.update(stored=stored, raw_bytes=len(data))
         try:
-            with Image.open(path) as im:
+            with Image.open(io.BytesIO(data) if name in GZIPPED else os.path.join(OUT, name)) as im:
                 own = np.asarray(im)
                 arrays = {"None": own, "RGB": np.asarray(im.convert("RGB")),
                           "L": np.asarray(im.convert("L"))}
                 entry.update(mode=im.mode, shape=list(own.shape), dtype=str(own.dtype),
                              sha256={m: array_sha(a) for m, a in arrays.items()})
-        except (OSError, SyntaxError, ValueError) as err:
+        except (OSError, SyntaxError, ValueError, NotImplementedError) as err:
             entry.update(raises=True, pillow_error=f"{type(err).__name__}: {err}")
         entries.append(entry)
     manifest = dict(pillow=PIL.__version__, libjpeg_turbo=features.version("libjpeg_turbo"),
-                    files=entries, step_video=step_video_entry())
+                    libwebp=features.version("webp"), openjpeg=features.version("jpg_2000"),
+                    libtiff=features.version("libtiff"), files=entries,
+                    step_video=step_video_entry())
     with open(os.path.join(OUT, "manifest.json"), "w") as fh:
         json.dump(manifest, fh, indent=1)
         fh.write("\n")
