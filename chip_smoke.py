@@ -266,29 +266,32 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    YCCK; Adam7 PNGs; BMP, TGA, PBM/PGM/PPM, TIFF (JPEG strips, separate
    planes, fill order 2, BigTIFF) and GIF files of every kind the readers
    take; lossy, lossless, alpha and animated WebP; DDS of every block format
-   and bit-mask layout Pillow reads; PSD of every mode; the 2048 x 1536
-   BEHAVE frames and atlas) through ``read_image`` with the native decoders
-   and codecs (``native/src/{jpeg_decode,image_codecs,bcn_decode,
-   webp_decode}.cpp``, built with ``g++``; the phase fails if they do not
-   build or load): the SHA-256 of modes None, RGB and L equal to Pillow's in
-   the manifest, and each file Pillow refuses refused naming itself. The
+   and bit-mask layout Pillow reads; PSD of every mode; SGI, PCX, DCX, ICO,
+   CUR, QOI, XBM, IM, ICNS, BLP, Sun raster, MSP, SPIDER and bare DIB files;
+   the 2048 x 1536 BEHAVE frames and atlas) through ``read_image`` with the
+   native decoders and codecs (``native/src/{jpeg_decode,image_codecs,
+   bcn_decode,webp_decode}.cpp``, built with ``g++``; the phase fails if
+   they do not build or load): the SHA-256 of modes None, RGB and L equal to
+   Pillow's in the manifest, and each file Pillow refuses refused naming
+   itself. The
    BEHAVE frame's decode, median of 5, split into entropy and
    reconstruction ms (host), beside the plain decoder's (Python entropy,
    numpy reconstruction; equal coefficients and pixels), the Python entropy
    decoder on the 512² texture, and the host decode ms (median of 5) of the
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
-   JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits and YCbCr
-   TIFF-JPEG. (b) A BEHAVE-shaped sequence of 2 frames whose k0-k3 colour
-   frames and person masks are the 2048 x 1536 JPEGs:
+   JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
+   TIFF-JPEG, QOI and SGI RLE. (b) A BEHAVE-shaped sequence of 2 frames
+   whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
    ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image equal
    to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512² JPEG
    as its seat's ``map_Kd`` and an arithmetic JPEG, a TGA, a BMP, a
    TIFF-LZW, a CMYK JPEG, a lossy WebP with alpha, a lossless WebP, a DDS
-   BC7, a DDS DXT1, a PSD and a YCbCr 4:2:0 TIFF-JPEG on its back, legs,
-   stretchers and armrests, through ``cli/generate_2d_hoi_images`` at 384²
-   with phase 13's checks (view 0 on the card against the CPU, K3 1644
-   launches, all bf16, K1 and K2 none, counters from 0); each layer is its
-   decoded texture bilinearly resized; the inpainting's inputs (384² renders
+   BC7, a DDS DXT1, a PSD, a YCbCr 4:2:0 TIFF-JPEG, an SGI RLE, a PCX, a
+   QOI, an ICO, a BLP2 DXT5 and a Sun RLE file on its back, legs,
+   stretchers, armrests, seat trims and back slats, through
+   ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
+   the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
+   counters from 0); each layer is its decoded texture bilinearly resized; the inpainting's inputs (384² renders
    and masks) equal the host's ``read_image`` and PIL's bicubic resize to
    512². (d) The seeded step video (17 frames of 512 x 256) through
    ``utils/gif.write_gif``, read back by the port's GIF reader: every frame,
@@ -2571,10 +2574,11 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to eleven image files) give the back, then each
-    leg, then (past five) each of four stretchers between the legs and two
-    armrests a material, UVs and a ``map_Kd`` of their own. Returns the
-    OBJ's path."""
+    ``part_textures`` (up to seventeen image files) give the back, then each
+    leg, then (past five) each of four stretchers between the legs, two
+    armrests, four trims under the seat's edges and two slats before the
+    back a material, UVs and a ``map_Kd`` of their own. Returns the OBJ's
+    path."""
     from coma_tpu_torch.utils.png import write_png
 
     if texture is None:
@@ -2603,7 +2607,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((-0.23, 0.14, -0.19), (-0.20, 0.17, 0.19)),
               ((0.20, 0.14, -0.19), (0.23, 0.17, 0.19)),
               ((-0.27, 0.62, -0.20), (-0.23, 0.65, 0.20)),
-              ((0.23, 0.62, -0.20), (0.27, 0.65, 0.20))]
+              ((0.23, 0.62, -0.20), (0.27, 0.65, 0.20)),
+              ((-0.25, 0.39, 0.21), (0.25, 0.43, 0.25)),
+              ((-0.25, 0.39, -0.25), (0.25, 0.43, -0.21)),
+              ((-0.25, 0.39, -0.21), (-0.21, 0.43, 0.21)),
+              ((0.21, 0.39, -0.21), (0.25, 0.43, 0.21)),
+              ((-0.15, 0.52, -0.20), (-0.11, 0.90, -0.17)),
+              ((0.11, 0.52, -0.20), (0.15, 0.90, -0.17))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3651,18 +3661,21 @@ IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
 BEHAVE_COLOR = "behave_color_2048x1536.jpg"
 BEHAVE_MASK = "behave_mask_2048x1536.jpg"
 FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
-# the chair's back, legs, stretchers and armrests in phase 16c: arithmetic JPEG, TGA, BMP,
-# TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS BC7, DDS DXT1, PSD and
-# YCbCr 4:2:0 TIFF-JPEG
+# the chair's back, legs, stretchers, armrests, seat trims and back slats in phase 16c:
+# arithmetic JPEG, TGA, BMP, TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS
+# BC7, DDS DXT1, PSD, YCbCr 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
-                 "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif")
+                 "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
+                 "chair_rle.sgi", "chair.pcx", "chair.qoi", "chair.ico", "chair_dxt5.blp",
+                 "chair_rle.ras")
 # the 2048 x 1536 files whose host decode phase 16a times
 TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_arith_2048x1536.jpg", "atlas_smoothed_2048x1536.jpg",
                  "atlas_lossy_2048x1536.webp", "atlas_lossless_2048x1536.webp",
                  "atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds",
-                 "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif")
+                 "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif",
+                 "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3703,8 +3716,8 @@ def decode_phase(label: str) -> dict:
     beside the plain decoder's (Python entropy, numpy reconstruction), the
     Python entropy decoder on the 512² texture, and the host decode of the
     2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive JPEG,
-    lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits and YCbCr
-    TIFF-JPEG (median of 5)."""
+    lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
+    TIFF-JPEG, QOI and SGI RLE (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3855,8 +3868,10 @@ def behave_jpeg_phase(label: str) -> dict:
 def jpeg_asset_phase(label: str) -> dict:
     """(c) Phase 13's chair with its fabric texture the committed progressive
     JPEG, its back an arithmetic JPEG, its legs TGA, BMP, TIFF-LZW and CMYK
-    JPEG textures, and its stretchers and armrests lossy WebP with alpha,
-    lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, through
+    JPEG textures, its stretchers and armrests lossy WebP with alpha,
+    lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, and its
+    seat trims and back slats SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
+    ones, through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -3940,9 +3955,9 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture against Pillow's hashes and the host
     decode times, (b) the BEHAVE reader on JPEG frames, (c) an asset textured
-    in six formats through stage 1 into K3, every kernel's counter from 0
-    before (c)'s path and read after it, (d) the step-video GIF as PIL
-    writes it."""
+    in eighteen files of fourteen formats through stage 1 into K3, every
+    kernel's counter from 0 before (c)'s path and read after it, (d) the
+    step-video GIF as PIL writes it."""
     t0 = time.perf_counter()
     out = dict(decode=decode_phase(label), behave=behave_jpeg_phase(label),
                stage1=jpeg_asset_phase(label), step_video=step_video_seeded_phase(label))
@@ -4404,7 +4419,7 @@ def main() -> int:
         # phase 15: --mesh inpainting, the 2-D aggregation, the weights' readiness
         p15 = phase15(label)
         elapsed("phase 15")
-        # phase 16: every image format read through PIL, a six-format asset into K3, the GIF
+        # phase 16: every image format read through PIL, a many-format asset into K3, the GIF
         p16 = phase16(label)
         elapsed("phase 16")
         # phase 17: coma_tpu_torch.benchkit, every kernel's counter from 0 before each path

@@ -120,7 +120,9 @@ def _parse_mtl(path: str, tex_size: int) -> dict:
                 except OSError:
                     continue                      # missing: keep Kd, as coma_tpu does
                 except (ValueError, zlib.error) as err:
-                    print(f"[mesh] WARNING: texture {tex_pth} not decoded ({err}); "
+                    fmt = getattr(err, "format", None)      # utils.modes.FormatNotRead's
+                    what = f" ({fmt})" if fmt else ""
+                    print(f"[mesh] WARNING: texture {tex_pth}{what} not decoded ({err}); "
                           f"material {cur!r} keeps its Kd colour")
                     continue
                 resized = resize_bilinear(image, (tex_size, tex_size))

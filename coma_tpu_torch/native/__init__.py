@@ -4,8 +4,10 @@ A copy of ``coma_tpu/native`` (``src/coma_native.cpp`` unchanged): Yuksel's
 weighted sample elimination behind poisson-disk downsampling, and a
 ray-parity point-in-mesh test. ``src/jpeg_decode.cpp`` is the JPEG decoder's
 native half (``utils/jpeg.py`` loads it), ``src/image_codecs.cpp`` the LZW,
-PackBits and TGA run-length decoders of the other image readers
-(``codecs.py`` loads it). This is host code, not a device kernel.
+PackBits, run-length (TGA, SGI, PCX, ICNS, Sun, MSP) and QOI decoders of the
+other image readers, ``src/bcn_decode.cpp`` the block decoders of DDS and
+BLP and ``src/webp_decode.cpp`` WebP's (``codecs.py`` loads them). This is
+host code, not a device kernel.
 
 Each source is compiled with ``g++`` at first use into
 ``coma_tpu_torch/_build/`` (ignored by git), named by a hash of the source

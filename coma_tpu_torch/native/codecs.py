@@ -1,6 +1,8 @@
-"""ctypes bindings of ``src/image_codecs.cpp``: the LZW, PackBits and TGA
-run-length decoders of the image readers (``utils/gif_reader.py``,
-``utils/tiff.py``, ``utils/psd.py``, ``utils/tga.py``), built with ``g++`` at first use like
+"""ctypes bindings of ``src/image_codecs.cpp``: the LZW, PackBits, run-length
+and QOI decoders of the image readers (``utils/gif_reader.py``,
+``utils/tiff.py``, ``utils/psd.py``, ``utils/tga.py``, ``utils/{sgi,pcx,
+icns,sun,msp,qoi}.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's
+blocks) and of ``src/webp_decode.cpp``, built with ``g++`` at first use like
 the other native sources. Each reader keeps its plain Python decoder as the
 reference and falls back to it where :func:`available` is false."""
 from __future__ import annotations
@@ -29,6 +31,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tga_rle_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
                                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_void_p]
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    for fn, args, res in (
+            ("qoi_decode", [ctypes.c_char_p, i64, i64, i64, ctypes.c_int, ptr], ctypes.c_int),
+            ("sgi_rle_decode", [ctypes.c_char_p, i64, i64, i64, ctypes.c_int, ctypes.c_int, ptr],
+             ctypes.c_int),
+            ("pcx_rle_decode", [ctypes.c_char_p, i64, i64, i64, i64, i64, i64, i64, ptr],
+             ctypes.c_int),
+            ("icns_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
+            ("sun_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
+            ("msp_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr, i64], i64)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = res
 
 
 def _lib():
@@ -82,10 +96,69 @@ def tga_rle_decode(data: bytes, pos: int, row_bytes: int, rows: int, pixel_bytes
     return out[:row_bytes * rows].tobytes()
 
 
+def qoi_decode(data: bytes, pos: int, pixels: int, channels: int) -> bytes:
+    out = np.zeros(max(pixels * channels, 1), np.uint8)
+    if _need().qoi_decode(data, len(data), pos, pixels, channels, out.ctypes.data):
+        raise ValueError("the QOI data ends before the image is full")
+    return out[:pixels * channels].tobytes()
+
+
+def sgi_rle_decode(data: bytes, width: int, height: int, bands: int, bpc: int) -> bytes:
+    out = np.zeros(max(width * height * bands * bpc, 1), np.uint8)
+    if _need().sgi_rle_decode(data, len(data), width, height, bands, bpc, out.ctypes.data):
+        raise ValueError("an RLE table, row or packet runs past the file or its row")
+    return out[:width * height * bands * bpc].tobytes()
+
+
+def pcx_rle_decode(data: bytes, pos: int, row_bytes: int, rows: int, bands: int, size: int,
+                   stride: int) -> bytes:
+    out = np.zeros(max(row_bytes * rows, 1), np.uint8)
+    status = _need().pcx_rle_decode(data, len(data), pos, row_bytes, rows, bands, size, stride,
+                                    out.ctypes.data)
+    if status == 1:
+        raise ValueError("image file is truncated")
+    if status == 2:
+        raise ValueError("a run passes the end of a row (buffer overrun)")
+    return out[:row_bytes * rows].tobytes()
+
+
+def icns_rle_decode(data: bytes, pos: int, pixels: int) -> bytes:
+    out = np.zeros(max(3 * pixels, 1), np.uint8)
+    status = _need().icns_rle_decode(data, len(data), pos, pixels, out.ctypes.data)
+    if status == 1:
+        raise ValueError("error reading channel (it does not end at the image's size)")
+    if status == 2:
+        raise ValueError("not enough image data")
+    return out[:3 * pixels].tobytes()
+
+
+def sun_rle_decode(data: bytes, pos: int, want: int) -> bytes:
+    out = np.zeros(max(want, 1), np.uint8)
+    if _need().sun_rle_decode(data, len(data), pos, want, out.ctypes.data):
+        raise ValueError("image file is truncated")
+    return out[:want].tobytes()
+
+
+def msp_rle_decode(data: bytes, width: int, height: int) -> bytes:
+    """The joined rows, at most ``(width + 7) // 8 * height`` bytes of them
+    (the raw decoder reads no more)."""
+    cap = (width + 7) // 8 * height
+    out = np.zeros(max(cap, 1), np.uint8)
+    n = _need().msp_rle_decode(data, len(data), width, height, out.ctypes.data, cap)
+    if n == -1:
+        raise ValueError("truncated MSP file (row map or row)")
+    if n == -2:
+        raise ValueError("corrupted MSP file (a run cut short)")
+    return out[:min(n, cap)].tobytes()
+
+
 def _declare_bcn(lib: ctypes.CDLL) -> None:
     lib.bcn_decode.restype = None
     lib.bcn_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p]
+    lib.blp_dxt_decode.restype = None
+    lib.blp_dxt_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_void_p]
 
 
 def bcn_available() -> bool:
@@ -102,6 +175,19 @@ def bcn_decode(data: bytes, n: int, sign: bool, width: int, height: int) -> np.n
     out = np.zeros((height, width, 1 if n == 4 else 4), np.uint8)
     lib.bcn_decode(data, n, int(sign), width, height, out.ctypes.data)
     return out[..., 0] if n == 4 else out
+
+
+def blp_dxt_decode(data: bytes, fmt: str, width: int, height: int, alpha: bool) -> bytes:
+    """BLP2's DXT1/3/5 blocks as ``BlpImagePlugin`` decodes them (see
+    ``utils/blp.dxt_decode_python``)."""
+    lib = native.load_library(BCN_SRC, _declare_bcn)
+    if lib is None:
+        raise RuntimeError("the native BCn decoder is not available (no g++)")
+    bw, bh = (width + 3) // 4, (height + 3) // 4
+    bands = 3 if fmt == "DXT1" and not alpha else 4
+    out = np.zeros(bh * 4 * bw * 4 * bands, np.uint8)
+    lib.blp_dxt_decode(data, int(fmt[-1]), int(alpha), width, height, out.ctypes.data)
+    return out.tobytes()
 
 
 WEBP_SRC = native._SRC_DIR / "webp_decode.cpp"

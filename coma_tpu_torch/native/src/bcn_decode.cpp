@@ -1,7 +1,10 @@
 // The block decoders of DDS textures (utils/dds.py), as Pillow's bcn.c
 // decodes them: BC1-BC5, BC6H (unsigned and signed) and BC7. Each equals
 // utils/dds.py's bcn_decode_python byte for byte; this exists because a
-// 2048 x 1536 BC7 texture takes minutes in Python.
+// 2048 x 1536 BC7 texture takes minutes in Python. blp_dxt_decode is the
+// DXT1/3/5 of BLP2 textures as BlpImagePlugin's Python decoders decode
+// them (5-6-5 widened by a shift alone), equal to utils/blp.py's
+// dxt_decode_python.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 bcn_decode.cpp (native/__init__.py
 // does it at first use).
@@ -387,6 +390,66 @@ void bcn_decode(const uint8_t* data, int n, int sign, int width, int height, uin
         for (int x = 0; x < 4 && bx * 4 + x < width; ++x)
           std::memcpy(out + ((static_cast<int64_t>(by) * 4 + y) * width + bx * 4 + x) * channels,
                       px + (y * 4 + x) * channels, channels);
+    }
+  }
+}
+
+// BLP2's DXT blocks (fmt 1, 3 or 5) as BlpImagePlugin's decode_dxt1/3/5:
+// block rows of 4 lines of 4 * ceil(width / 4) pixels, each pixel RGBA, or
+// RGB for DXT1 without ``alpha``, into ``out``.
+void blp_dxt_decode(const uint8_t* data, int fmt, int alpha, int width, int height,
+                    uint8_t* out) {
+  const int bw = (width + 3) / 4, bh = (height + 3) / 4, size = fmt == 1 ? 8 : 16;
+  const int bands = fmt == 1 && !alpha ? 3 : 4;
+  const int64_t line = static_cast<int64_t>(bw) * 4 * bands;
+  for (int by = 0; by < bh; ++by) {
+    for (int bx = 0; bx < bw; ++bx) {
+      const uint8_t* blk = data + (static_cast<int64_t>(by) * bw + bx) * size;
+      const uint8_t* col = fmt == 1 ? blk : blk + 8;
+      const int c0 = col[0] | col[1] << 8, c1 = col[2] | col[3] << 8;
+      const uint32_t code = col[4] | col[5] << 8 | col[6] << 16 | static_cast<uint32_t>(col[7]) << 24;
+      int e[2][3];
+      for (int k = 0; k < 2; ++k) {
+        const int v = k ? c1 : c0;
+        e[k][0] = ((v >> 11) & 31) << 3;
+        e[k][1] = ((v >> 5) & 63) << 2;
+        e[k][2] = (v & 31) << 3;
+      }
+      const bool four = fmt != 1 || c0 > c1;
+      uint64_t abits = 0;
+      if (fmt == 5)
+        for (int k = 0; k < 6; ++k) abits |= static_cast<uint64_t>(blk[2 + k]) << (8 * k);
+      for (int p = 0; p < 16; ++p) {
+        const int j = p / 4, i = p % 4, c = (code >> (2 * p)) & 3;
+        int rgb[3], a = 255;
+        for (int ch = 0; ch < 3; ++ch) {
+          if (c < 2) {
+            rgb[ch] = e[c][ch];
+          } else if (four) {
+            rgb[ch] = c == 2 ? (2 * e[0][ch] + e[1][ch]) / 3 : (2 * e[1][ch] + e[0][ch]) / 3;
+          } else {
+            rgb[ch] = c == 2 ? (e[0][ch] + e[1][ch]) / 2 : 0;
+          }
+        }
+        if (fmt == 1) {
+          if (c == 3 && !four) a = 0;
+        } else if (fmt == 3) {
+          a = ((blk[p / 2] >> (4 * (p & 1))) & 15) * 17;
+        } else {
+          const int a0 = blk[0], a1 = blk[1], k = (abits >> (3 * p)) & 7;
+          if (k == 0) a = a0;
+          else if (k == 1) a = a1;
+          else if (a0 > a1) a = ((8 - k) * a0 + (k - 1) * a1) / 7;
+          else if (k == 6) a = 0;
+          else if (k == 7) a = 255;
+          else a = ((6 - k) * a0 + (k - 1) * a1) / 5;
+        }
+        uint8_t* px = out + (static_cast<int64_t>(by) * 4 + j) * line + (bx * 4 + i) * bands;
+        px[0] = static_cast<uint8_t>(rgb[0]);
+        px[1] = static_cast<uint8_t>(rgb[1]);
+        px[2] = static_cast<uint8_t>(rgb[2]);
+        if (bands == 4) px[3] = static_cast<uint8_t>(a);
+      }
     }
   }
 }

@@ -1,9 +1,11 @@
 // The byte-stream decoders of the image readers in coma_tpu_torch/utils/:
-// GIF's and TIFF's LZW, TIFF's PackBits and TGA's run-length packets. Each
-// equals its plain Python twin byte for byte (utils/gif_reader.py:
-// lzw_decode_python, utils/tiff.py: lzw_decode_python and
-// packbits_decode_python, utils/tga.py: rle_decode_python); these exist
-// because a 2048 x 1536 file takes seconds in Python.
+// GIF's and TIFF's LZW, TIFF's PackBits, TGA's, SGI's, PCX's, ICNS's, Sun
+// raster's and MSP's run-length codes and QOI's opcodes. Each equals its
+// plain Python twin byte for byte (utils/gif_reader.py: lzw_decode_python,
+// utils/tiff.py: lzw_decode_python and packbits_decode_python,
+// utils/tga.py, sgi.py, pcx.py, icns.py, sun.py, msp.py:
+// rle_decode_python, utils/qoi.py: decode_ops_python); these exist because
+// a 2048 x 1536 file takes seconds in Python.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 image_codecs.cpp (native/__init__.py
 // does it at first use).
@@ -171,6 +173,259 @@ int tga_rle_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t row_byte
     }
   }
   return 0;
+}
+
+// QOI's opcodes from data[pos:] until ``pixels`` pixels of ``channels``
+// bytes are out (QoiImagePlugin.QoiDecoder). Returns 0, or 1 when the
+// data ends first.
+int qoi_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t pixels, int channels,
+               uint8_t* out) {
+  uint8_t seen[64][4];
+  bool filled[64] = {false};
+  uint8_t prev[4] = {0, 0, 0, 255};
+  const int64_t want = pixels * channels;
+  int64_t written = 0;
+  while (written < want) {
+    if (pos >= n) return 1;
+    const int byte = data[pos++];
+    uint8_t value[4];
+    if (byte == 0xFE) {
+      if (pos + 3 > n) return 1;
+      value[0] = data[pos];
+      value[1] = data[pos + 1];
+      value[2] = data[pos + 2];
+      value[3] = prev[3];
+      pos += 3;
+    } else if (byte == 0xFF) {
+      if (pos + 4 > n) return 1;
+      std::memcpy(value, data + pos, 4);
+      pos += 4;
+    } else if ((byte >> 6) == 0) {
+      if (filled[byte]) {
+        std::memcpy(value, seen[byte], 4);
+      } else {
+        std::memset(value, 0, 4);
+      }
+    } else if ((byte >> 6) == 1) {
+      value[0] = static_cast<uint8_t>(prev[0] + ((byte >> 4) & 3) - 2);
+      value[1] = static_cast<uint8_t>(prev[1] + ((byte >> 2) & 3) - 2);
+      value[2] = static_cast<uint8_t>(prev[2] + (byte & 3) - 2);
+      value[3] = prev[3];
+    } else if ((byte >> 6) == 2) {
+      if (pos >= n) return 1;
+      const int second = data[pos++];
+      const int dg = (byte & 0x3F) - 32;
+      value[0] = static_cast<uint8_t>(prev[0] + dg + (second >> 4) - 8);
+      value[1] = static_cast<uint8_t>(prev[1] + dg);
+      value[2] = static_cast<uint8_t>(prev[2] + dg + (second & 15) - 8);
+      value[3] = prev[3];
+    } else {
+      for (int r = 0; r < (byte & 0x3F) + 1; ++r)
+        for (int c = 0; c < channels; ++c, ++written)
+          if (written < want) out[written] = prev[c];
+      continue;
+    }
+    std::memcpy(prev, value, 4);
+    const int slot = (value[0] * 3 + value[1] * 5 + value[2] * 7 + value[3] * 11) % 64;
+    std::memcpy(seen[slot], value, 4);
+    filled[slot] = true;
+    for (int c = 0; c < channels; ++c) out[written++] = value[c];
+  }
+  return 0;
+}
+
+// SGI's run-length rows (SgiRleDecode.c) of the file ``data`` (its 512-byte
+// header included): rows in file order, ``width * bands * bpc`` bytes each,
+// samples interleaved, into ``out`` (zeroed by the caller). Returns 0, 1
+// when a table, row or packet runs past the file or a row (PIL's overrun).
+int sgi_rle_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height, int bands,
+                   int bpc, uint8_t* out) {
+  const uint8_t* body = data + 512;
+  const int64_t size = n - 512, tablen = static_cast<int64_t>(bands) * height;
+  if (size < 8 * tablen) return 1;
+  auto be32 = [&](int64_t at) {
+    return static_cast<int64_t>(static_cast<uint32_t>(body[at]) << 24 | body[at + 1] << 16 |
+                                body[at + 2] << 8 | body[at + 3]);
+  };
+  const int64_t row_bytes = width * bands * bpc, last = size - 1;
+  std::vector<uint8_t> row(row_bytes, 0);
+  for (int64_t y = 0; y < height; ++y) {
+    for (int c = 0; c < bands; ++c) {
+      const int64_t start = be32(4 * (y + c * height));
+      // PIL passes the length on as an int: 2^31 and up is negative, no packets
+      int64_t count_left = static_cast<int32_t>(static_cast<uint32_t>(
+          be32(4 * (tablen + y + c * height))));
+      if (start < 512) return 1;
+      int64_t src = start - 512, x = 0, dest = static_cast<int64_t>(c) * bpc;
+      bool stop = false;
+      for (; count_left > 0; --count_left) {
+        if (src + bpc - 1 > last) return 1;
+        const int pixel = body[src + bpc - 1];
+        src += bpc;
+        if (count_left == 1 && pixel) {
+          stop = true;
+          break;
+        }
+        const int count = pixel & 0x7F;
+        if (!count) break;
+        if (x + count > width) return 1;
+        x += count;
+        if (pixel & 0x80) {
+          if (src + static_cast<int64_t>(bpc) * count > last) return 1;
+          for (int k = 0; k < count; ++k, src += bpc, dest += bands * bpc)
+            std::memcpy(row.data() + dest, body + src, bpc);
+        } else {
+          if (src + bpc - 1 > last) return 1;
+          for (int k = 0; k < count; ++k, dest += bands * bpc)
+            std::memcpy(row.data() + dest, body + src, bpc);
+          src += bpc;
+        }
+      }
+      if (stop) return 0;
+    }
+    std::memcpy(out + y * row_bytes, row.data(), row_bytes);
+  }
+  return 0;
+}
+
+// PCX's run-length rows (PcxDecode.c) from data[pos:]: ``rows`` rows of
+// ``row_bytes``, planes 1 to ``bands`` of each row moved from ``stride`` to
+// ``size`` bytes apart (utils/pcx.py's _relay; ``bands`` 0 moves nothing).
+// Returns 0, 1 when the data ends first, 2 when a run passed a row's end
+// (PIL's overrun, raised when the image is done).
+int pcx_rle_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t row_bytes, int64_t rows,
+                   int64_t bands, int64_t size, int64_t stride, uint8_t* out) {
+  std::vector<uint8_t> buf(row_bytes, 0);
+  int64_t x = 0, y = 0;
+  bool overrun = false;
+  while (y < rows) {
+    if (pos >= n) return 1;
+    const int byte = data[pos];
+    if ((byte & 0xC0) == 0xC0) {
+      if (pos + 1 >= n) return 1;
+      int64_t count = byte & 0x3F;
+      if (x + count > row_bytes) {
+        overrun = true;
+        count = row_bytes - x;
+      }
+      std::memset(buf.data() + x, data[pos + 1], count);
+      x += count;
+      pos += 2;
+    } else {
+      buf[x++] = static_cast<uint8_t>(byte);
+      ++pos;
+    }
+    if (x >= row_bytes) {
+      for (int64_t i = 1; i < bands; ++i)
+        std::memmove(buf.data() + i * size, buf.data() + i * stride, size);
+      std::memcpy(out + y * row_bytes, buf.data(), row_bytes);
+      x = 0;
+      ++y;
+    }
+  }
+  return overrun ? 2 : 0;
+}
+
+// ICNS's run-length channels (IcnsImagePlugin.read_32) from data[pos:]:
+// three planes of ``pixels`` bytes. Returns 0, 1 when a channel does not
+// come out at exactly ``pixels`` (PIL's "error reading channel"), 2 when
+// the data ends inside a packet (not enough image data).
+int icns_rle_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t pixels, uint8_t* out) {
+  for (int band = 0; band < 3; ++band) {
+    uint8_t* plane = out + band * pixels;
+    int64_t left = pixels, written = 0;
+    bool short_read = false;
+    while (left > 0) {
+      if (pos >= n) break;
+      const int byte = data[pos++];
+      int64_t count;
+      if (byte & 0x80) {
+        count = byte - 125;
+        if (pos >= n) {
+          short_read = true;
+        } else {
+          for (int64_t k = 0; k < count && written < pixels; ++k) plane[written++] = data[pos];
+        }
+        ++pos;
+      } else {
+        count = byte + 1;
+        const int64_t take = pos + count <= n ? count : (n > pos ? n - pos : 0);
+        if (take < count) short_read = true;
+        for (int64_t k = 0; k < take && written < pixels; ++k) plane[written++] = data[pos + k];
+        pos += count;
+      }
+      left -= count;
+    }
+    if (left != 0) return 1;
+    if (short_read) return 2;
+  }
+  return 0;
+}
+
+// Sun raster's run-length stream (SunRleDecode.c) from data[pos:] until
+// ``want`` bytes are out. Returns 0, or 1 when the data ends first.
+int sun_rle_decode(const uint8_t* data, int64_t n, int64_t pos, int64_t want, uint8_t* out) {
+  int64_t written = 0;
+  while (written < want) {
+    if (pos >= n) return 1;
+    const int byte = data[pos];
+    if (byte == 0x80) {
+      if (pos + 1 >= n) return 1;
+      const int count = data[pos + 1];
+      if (count == 0) {
+        out[written++] = 0x80;
+        pos += 2;
+      } else {
+        if (pos + 2 >= n) return 1;
+        for (int k = 0; k <= count && written < want; ++k) out[written++] = data[pos + 2];
+        pos += 3;
+      }
+    } else {
+      out[written++] = static_cast<uint8_t>(byte);
+      ++pos;
+    }
+  }
+  return 0;
+}
+
+// MSP version 2's rows (MspImagePlugin.MspDecoder): the row map of
+// ``height`` words at byte 32, then each row's runs, joined into at most
+// ``cap`` bytes of ``out``; a row of count 0 is ``(width + 7) / 8`` bytes of
+// 0xFF. Returns the bytes the rows decode to (PIL's stream, which may
+// exceed ``cap``), -1 when the map or a row is cut short, -2 when a run's
+// count and value are cut short.
+int64_t msp_rle_decode(const uint8_t* data, int64_t n, int64_t width, int64_t height,
+                       uint8_t* out, int64_t cap) {
+  if (32 + 2 * height > n) return -1;
+  int64_t pos = 32 + 2 * height, written = 0;
+  const int64_t blank = (width + 7) / 8;
+  auto put = [&](uint8_t v) {
+    if (written < cap) out[written] = v;
+    ++written;
+  };
+  for (int64_t y = 0; y < height; ++y) {
+    const int64_t count = data[32 + 2 * y] | data[33 + 2 * y] << 8;
+    if (count == 0) {
+      for (int64_t k = 0; k < blank; ++k) put(0xFF);
+      continue;
+    }
+    if (pos + count > n) return -1;
+    const uint8_t* row = data + pos;
+    pos += count;
+    int64_t k = 0;
+    while (k < count) {
+      const int kind = row[k++];
+      if (kind == 0) {
+        if (k + 2 > count) return -2;
+        for (int r = 0; r < row[k]; ++r) put(row[k + 1]);
+        k += 2;
+      } else {
+        for (int r = 0; r < kind && k + r < count; ++r) put(row[k + r]);
+        k += kind;
+      }
+    }
+  }
+  return written;
 }
 
 }  // extern "C"

@@ -7,12 +7,18 @@ with PIL's supported masks (16-bit 5-6-5 and 5-5-5, 24-bit, 32-bit with or
 without an alpha mask), RLE8 and RLE4 (PIL's decoder, quirks included: a
 delta escape reads two bytes more than it uses), bottom-up and top-down.
 OS/2 1.x headers (12 bytes) and Windows headers of 40 to 124 bytes.
+
+:func:`bitmap` is PIL's ``BmpImageFile._bitmap``: the info header at any
+offset, so it also reads a bare DIB (:func:`decode_dib`, PIL's
+``DibImageFile``: the info header first, the pixels right after it and its
+masks and palette) and the bitmaps inside icons and cursors
+(``utils/ico.py``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from coma_tpu_torch.utils.modes import Decoded
+from coma_tpu_torch.utils.modes import Decoded, NotThisFormat
 
 _HEADERS = (40, 52, 56, 64, 108, 124)
 # (bits, masks) -> PIL raw mode of BI_BITFIELDS data
@@ -114,11 +120,33 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Decoded:
     its mode; a ``ValueError`` naming ``name`` where PIL refuses."""
     if data[:2] != b"BM" or len(data) < 26:
         raise ValueError(f"{name}: not a BMP file")
-    offset, header_size = _le(data, 10, 4), _le(data, 14, 4)
-    hdr = data[18:14 + header_size]
-    if len(hdr) != header_size - 4:
+    return bitmap(data, 14, _le(data, 10, 4), name=name)[0]
+
+
+def dib_accept(data: bytes) -> bool:
+    """PIL's ``_dib_accept``: the first four bytes are an info header's size."""
+    return len(data) >= 4 and _le(data, 0, 4) in (12,) + _HEADERS
+
+
+def decode_dib(data: bytes, name: str = "<bytes>") -> Decoded:
+    """A bare DIB (a BMP without its 14-byte file header) as PIL's
+    ``DibImageFile`` reads it."""
+    return bitmap(data, 0, 0, name=name)[0]
+
+
+def bitmap(data: bytes, at: int, offset: int = 0, height_div: int = 1, raw_alpha: bool = False,
+           name: str = "<bytes>"):
+    """PIL's ``_bitmap(header=at, offset=offset)``: the info header at
+    ``at``, the pixels at ``offset`` (0: right after the header, its masks
+    and its palette). ``height_div`` 2 keeps the top half of the rows an
+    icon's header counts (its XOR image), and ``raw_alpha`` reads 32-bit
+    data as "BGRA" (PIL does for a cursor whose bitmap starts at byte 22).
+    Returns (``Decoded``, the offset of the pixel data)."""
+    header_size = _le(data, at, 4)
+    hdr = data[at + 4:at + header_size]
+    if len(hdr) != header_size - 4 or len(data) < at + 4:
         raise ValueError(f"{name}: a BMP header that runs past the end of the file")
-    masks_at = 14 + header_size
+    pos = at + header_size                                      # the file position after it
     direction, palette_padding = -1, 4
     if header_size == 12:
         width, height, bits = _le(hdr, 0, 2), _le(hdr, 2, 2), _le(hdr, 6, 2)
@@ -138,8 +166,8 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Decoded:
             count = 4 if len(hdr) >= 52 else 3
             masks = [_le(hdr, 36 + 4 * i, 4) for i in range(count)] + [0] * (4 - count)
         else:
-            masks = [_le(data, masks_at + 4 * i, 4) for i in range(3)] + [0]
-            masks_at += 12
+            masks = [_le(data, pos + 4 * i, 4) for i in range(3)] + [0]
+            pos += 12
     colors = colors or 1 << bits
     if offset == 14 + header_size and bits <= 8:
         offset += 4 * colors
@@ -156,13 +184,17 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Decoded:
         mode = "RGBA" if "A" in rawmode else mode
     elif compression in (1, 2):
         rle = True
-    elif compression != 0:
+    elif compression == 0:
+        if bits == 32 and raw_alpha:
+            mode, rawmode = "RGBA", "BGRA"
+    else:
         raise ValueError(f"{name}: unsupported BMP compression ({compression})")
     palette = None
     if mode == "P":
         if not 0 < colors <= 65536:
             raise ValueError(f"{name}: unsupported BMP palette size ({colors})")
-        raw = np.frombuffer(data[masks_at:masks_at + palette_padding * colors], np.uint8)
+        raw = np.frombuffer(data[pos:pos + palette_padding * colors], np.uint8)
+        pos = min(pos + palette_padding * colors, len(data))
         entries = raw[:len(raw) // palette_padding * palette_padding].reshape(
             -1, palette_padding)[:, 2::-1]
         ramp = [0, 255] if colors == 2 else list(range(colors))
@@ -171,8 +203,10 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Decoded:
             mode = rawmode = "1" if colors == 2 else "L"
         else:
             palette = np.ascontiguousarray(entries)
+    offset = offset or pos
+    height //= height_div
     if width <= 0 or height <= 0:
-        raise ValueError(f"{name}: a BMP of {width} x {height} pixels")
+        raise NotThisFormat(f"{name}: a BMP of {width} x {height} pixels")
     if rle:
         if mode == "1":
             raise ValueError(f"{name}: an RLE BMP with a black-and-white palette (PIL has no "
@@ -187,17 +221,21 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> Decoded:
         rawmode = "L" if mode == "L" else "P"
     else:
         stride = ((width * bits + 31) >> 3) & ~3
-        if offset + stride * height > len(data):
-            raise ValueError(f"{name}: not enough image data")
         if rawmode in ("L", "P") and bits != 8:
             # a gray ramp at 1 or 4 bits: PIL maps the file and reads each
             # row as 8-bit "L", ``width`` bytes from the row's start
+            if offset + stride * height > len(data):
+                raise ValueError(f"{name}: not enough image data")
             tail = np.frombuffer(data[offset:] + bytes(width), np.uint8)
             rows = np.stack([tail[r * stride:r * stride + width] for r in range(height)])
         else:
-            rows = np.frombuffer(data[offset:offset + stride * height], np.uint8).reshape(
-                height, stride)
+            # PIL's raw decoder needs the last row's pixels, not its padding
+            if offset + stride * (height - 1) + (width * bits + 7) // 8 > len(data):
+                raise ValueError(f"{name}: not enough image data")
+            rows = np.frombuffer(data[offset:offset + stride * height].ljust(stride * height,
+                                                                              b"\0"),
+                                 np.uint8).reshape(height, stride)
     out = _unpack(rows, rawmode, width)
     if direction == -1:
         out = out[::-1]
-    return Decoded(np.ascontiguousarray(out), mode, palette)
+    return Decoded(np.ascontiguousarray(out), mode, palette), offset

@@ -7,7 +7,11 @@ texture maps and write their images with it, so the port needs no imaging
 library. :func:`read_png` returns what PIL holds for the file's mode, and
 :func:`to_rgb` and :func:`to_gray` are PIL's ``convert("RGB")`` and
 ``convert("L")`` of it (alpha is dropped, not composited; gray is ITU-R 601-2
-luma in PIL's fixed point).
+luma in PIL's fixed point). Damage is taken as PIL takes it: the chunks
+before the image data must be whole with good CRCs; the IDATs' CRCs are not
+checked and the file may end inside them once the image's bytes are in;
+zlib inflates only those bytes (a broken stream or checksum it meets first
+is refused); later chunks must be whole up to IEND.
 """
 from __future__ import annotations
 
@@ -148,6 +152,32 @@ def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndar
     return rows
 
 
+def _inflate(stream: bytes, needed: int, name: str) -> bytes:
+    """The first ``needed`` bytes zlib inflates from ``stream``, as PIL's
+    decoder takes them: fewer where the stream is cut short, and past the
+    last of them zlib goes on only through what writes nothing (an end of
+    block, the checksum); a ``ValueError`` where it meets broken data first."""
+    try:
+        return zlib.decompressobj().decompress(stream, needed)
+    except zlib.error as err:
+        raise ValueError(f"{name}: broken data stream ({err})") from None
+
+
+def _trailing_chunks_ok(data: bytes, pos: int) -> bool:
+    """PIL's ``load_end``: after the image data it reads each following
+    chunk until IEND or a header that is not one (a chunk type of 4
+    letters), and fails where a chunk's data runs past the end of the file."""
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        if not kind.isalpha() or not kind.isascii() or kind == b"IEND":
+            return True
+        if pos + 8 + length > len(data):
+            return False
+        pos += 12 + length
+    return True
+
+
 def _decode_samples(data: bytes, name: str):
     """PNG bytes -> (samples (H, W, C): uint16 at depth 16, raw levels or
     palette indices below 8; bit depth; colour type; PLTE (N, 3) or None)."""
@@ -155,19 +185,37 @@ def _decode_samples(data: bytes, name: str):
         raise ValueError(f"{name}: not a PNG file")
     pos, header, idat, palette = len(_SIGNATURE), None, [], None
     while pos < len(data):
+        if pos + 12 > len(data):
+            raise ValueError(f"{name}: a PNG chunk runs past the end of the file")
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
+        if kind == b"IDAT":
+            # PIL checks no IDAT's CRC and reads the run of IDATs as far as
+            # the file goes; of the chunks after it, only that each is whole
+            while kind == b"IDAT":
+                idat.append(data[pos + 8:pos + 8 + length])
+                pos += 12 + length
+                if pos + 8 > len(data):
+                    break
+                (length,) = struct.unpack(">I", data[pos:pos + 4])
+                kind = data[pos + 4:pos + 8]
+            if not _trailing_chunks_ok(data, pos):
+                raise ValueError(f"{name}: a chunk after the image data runs past the end of "
+                                 "the file")
+            break
+        if pos + 12 + length > len(data):
+            raise ValueError(f"{name}: a PNG chunk runs past the end of the file")
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
         if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
             raise ValueError(f"{name}: bad CRC in chunk {kind!r}")
         pos += 12 + length
         if kind == b"IHDR":
+            if length != 13:
+                raise ValueError(f"{name}: an IHDR chunk of {length} bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
         elif kind == b"IEND":
             break
     if header is None:
@@ -182,8 +230,11 @@ def _decode_samples(data: bytes, name: str):
     if paletted and palette is None:
         raise ValueError(f"{name}: palette image without a PLTE chunk")
     bpp = max(1, C * depth // 8)            # the filters' byte distance
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    needed = sum(h * ((w * C * depth + 7) // 8 + 1) for w, h in
+                 ((-(-(W - x0) // dx), -(-(H - y0) // dy)) for x0, y0, dx, dy in passes)
+                 if w > 0 and h > 0)
+    raw = np.frombuffer(_inflate(b"".join(idat), needed, name), np.uint8)
     out = np.empty((H, W * C), np.uint16 if depth == 16 else np.uint8)
     pos = 0
     for x0, y0, dx, dy in passes:
@@ -197,8 +248,6 @@ def _decode_samples(data: bytes, name: str):
         rows = _unfilter(raw[pos:pos + h * (stride + 1)].reshape(h, stride + 1), stride, bpp, name)
         pos += h * (stride + 1)
         out.reshape(H, W, C)[y0::dy, x0::dx] = _samples(rows, w, C, depth).reshape(h, w, C)
-    if pos != raw.size:
-        raise ValueError(f"{name}: image data has {raw.size} bytes, expected {pos}")
     if paletted and out.max(initial=0) >= len(palette):
         raise ValueError(f"{name}: palette index beyond the {len(palette)} PLTE entries")
     return out.reshape(H, W, C), depth, ctype, palette

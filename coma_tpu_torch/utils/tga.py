@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from coma_tpu_torch.utils.modes import Decoded
+from coma_tpu_torch.utils.modes import Decoded, NotThisFormat
 
 _RAWMODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z",
              (2, 24): "BGR", (2, 32): "BGRA"}
@@ -104,7 +104,7 @@ def decode_tga(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     """A TGA file's bytes -> what ``np.asarray(PIL.Image.open(f))`` gives, and
     its mode; a ``ValueError`` naming ``name`` where PIL refuses."""
     if not header_ok(data):
-        raise ValueError(f"{name}: not a TGA file")
+        raise NotThisFormat(f"{name}: not a TGA file")
     id_len, cmap_type, itype, depth, flags = data[0], data[1], data[2], data[16], data[17]
     width, height = _le16(data, 12), _le16(data, 14)
     if itype in (3, 11):
@@ -117,7 +117,7 @@ def decode_tga(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     elif itype in (2, 10):
         mode = "RGB" if depth == 24 else "RGBA"
     else:
-        raise ValueError(f"{name}: unknown TGA image type {itype}")
+        raise NotThisFormat(f"{name}: unknown TGA image type {itype}")
     orientation = flags & 0x30
     flip = orientation in (0x10, 0x30)
     top_down = orientation in (0x20, 0x30)
@@ -125,7 +125,9 @@ def decode_tga(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     palette = None
     if cmap_type:
         start, size, map_depth = _le16(data, 3), _le16(data, 5), data[7]
-        if map_depth not in (16, 24):
+        if map_depth not in (16, 24, 32):
+            raise NotThisFormat(f"{name}: unknown TGA map depth {map_depth}")
+        if map_depth == 32:
             raise ValueError(f"{name}: a TGA colour map of {map_depth} bits is not read (PIL "
                              "refuses it)")
         nbytes = map_depth // 8

@@ -48,8 +48,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from make_image_fixtures import (LibjpegWriter, array_sha, bc7_mode6,  # noqa: E402
-                                 bmp_file, bmp_rle4, bmp_rle8, bmp_rows, dds_file, jpeg_tiff,
-                                 psd_file, seeded_rgb, tga_file, tga_rle, tiff_file)
+                                 blp2_file, bmp_file, bmp_rle4, bmp_rle8, bmp_rows, dds_file,
+                                 jpeg_tiff, psd_file, seeded_rgb, sgi_file, sun_file, tga_file,
+                                 tga_rle, tiff_file)
 
 MODES = (None, "RGB", "L")
 
@@ -457,10 +458,11 @@ def libjpeg_writer():
 
 def test_load_obj_textured_reads_every_texture_format(tmp_path, libjpeg_writer):
     """An OBJ whose materials take TGA, BMP, TIFF-LZW, CMYK JPEG, arithmetic
-    JPEG, WebP (lossy with alpha, lossless), DDS (BC1, BC3, BC7), PSD and
-    TIFF-JPEG (Pillow's RGB, and YCbCr 4:2:0 strips) textures: every layer
-    equal to ``coma_tpu``'s (PIL's decode and bilinear resize), none left at
-    its Kd colour."""
+    JPEG, WebP (lossy with alpha, lossless), DDS (BC1, BC3, BC7), PSD,
+    TIFF-JPEG (Pillow's RGB, and YCbCr 4:2:0 strips), SGI RLE, PCX, QOI,
+    ICO, BLP2 DXT5 and Sun raster RLE textures: every layer equal to
+    ``coma_tpu``'s (PIL's decode and bilinear resize), none left at its Kd
+    colour."""
     rng = np.random.default_rng(83)
     yy, xx = np.mgrid[:24, :40]
     tex = np.uint8(np.clip(np.stack([120 + 90 * np.sin(xx / 4 + c) * np.cos(yy / 3)
@@ -482,8 +484,16 @@ def test_load_obj_textured_reads_every_texture_format(tmp_path, libjpeg_writer):
                                               rle=True))
     Image.fromarray(tex).save(tmp_path / "j.tif", compression="jpeg")
     (tmp_path / "y.tif").write_bytes(jpeg_tiff(libjpeg_writer, tex[:, ::-1], 16))
+    (tmp_path / "s.rgb").write_bytes(sgi_file(tex[::-1].transpose(2, 0, 1), rle=True))
+    Image.fromarray(tex[:, ::-1]).save(tmp_path / "x.pcx")
+    Image.fromarray(tex_a[::-1]).save(tmp_path / "q.qoi")
+    Image.fromarray(tex_a).save(tmp_path / "i.ico", sizes=[(40, 24)])
+    (tmp_path / "z.blp").write_bytes(blp2_file(40, 24, 2, rng.integers(0, 256, 60 * 16).astype(
+        np.uint8).tobytes(), 8, 7))
+    (tmp_path / "r.ras").write_bytes(sun_file(tex[:, :, ::-1].reshape(24, -1), 40, 24, 2))
     names = ["t.tga", "b.bmp", "l.tif", "c.jpg", "a.jpg", "w.webp", "wl.webp", "d1.dds",
-             "d3.dds", "d7.dds", "p.psd", "j.tif", "y.tif"]
+             "d3.dds", "d7.dds", "p.psd", "j.tif", "y.tif", "s.rgb", "x.pcx", "q.qoi", "i.ico",
+             "z.blp", "r.ras"]
     (tmp_path / "m.mtl").write_text("".join(f"newmtl m{k}\nKd 0.1 0.9 0.2\nmap_Kd {n}\n"
                                             for k, n in enumerate(names)))
     (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"

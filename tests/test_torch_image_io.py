@@ -91,12 +91,15 @@ def test_manifest_is_small_and_covers_every_kind():
                  "R8G8B8A8", "PSD RGB", "PSD RGBA", "PSD gray", "multichannel", "duotone",
                  "PSD indexed", "PSD CMYK", "PSD bitmap", "TIFF JPEG, RGB",
                  "TIFF JPEG, YCbCr", "YCbCr 4:2:0", "separate planes", "fill order 2",
-                 "BigTIFF"):
+                 "BigTIFF", "SGI RLE", "SGI verbatim", "PCX RGB", "PCX 4 bit planes", "DCX",
+                 "ICO, PNG members", "ICO, BMP member", "CUR", "QOI", "XBM", "IM YCC", "IM Lut",
+                 "ICNS is32 RLE", "BLP1 palette", "BLP1 JPEG", "BLP2 DXT5", "BLP2 raw BGRA",
+                 "Sun raster RLE", "Sun raster 8-bit", "MSP version 2", "SPIDER", "bare DIB"):
         assert word in kinds, word
     big = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("behave")]
     assert big == [[1536, 2048], [1536, 2048]]
     atlas = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("atlas")]
-    assert atlas == [[1536, 2048]] * 10
+    assert atlas == [[1536, 2048]] * 12
     assert MANIFEST["step_video"]["decoded_shape"] == [17, 256, 512, 3]
 
 

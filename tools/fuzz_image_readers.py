@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Damage the committed image fixtures and hold the port's readers against
+Pillow on the results.
+
+    python3 tools/fuzz_image_readers.py [--seed 0] [--trials 20] [--jpeg-scan 300]
+
+Needs Pillow (the CPU test host has it). Each small fixture of
+``tests/data/images/`` (its manifest's files under 64 kB, not the gzipped
+atlases) is changed ``--trials`` times from a numpy seed: one to three bytes
+overwritten (mostly in the first 600, where the headers are), the file cut
+at a random length, or a byte inserted or dropped. Pillow opens and loads
+each result from memory and converts it to modes None, RGB and L;
+``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same.
+Every outcome falls in one of: equal arrays, both refuse, different arrays,
+Pillow reads and the port refuses, the port reads and Pillow refuses. The
+counts are printed by outcome and, for the last three, by format.
+``--jpeg-scan N`` also changes one byte in the scan of a seeded JPEG N times
+(the damaged-data entry of ROADMAP Queue 3). Files whose size passes 4
+million pixels are skipped; the process caps its address space at 6 GiB,
+and a port decode that runs out of it counts as a refusal.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import io
+import json
+import os
+import resource
+import sys
+import warnings
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "data", "images")
+MODES = (None, "RGB", "L")
+
+
+def pillow(data: bytes):
+    """Pillow's three arrays, "big", or None where it refuses."""
+    from PIL import Image
+
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            if im.size[0] * im.size[1] > 4_000_000:
+                return "big"
+            im.load()
+            return [np.asarray(im if m is None else im.convert(m)) for m in MODES]
+    except Exception:                       # every refusal of Pillow's counts as one
+        return None
+
+
+def port(data: bytes):
+    from coma_tpu_torch.utils.image_io import decode_image
+    from coma_tpu_torch.utils.modes import to_mode
+
+    try:
+        decoded = decode_image(data, "fuzzed")
+        return [to_mode(decoded, m) for m in MODES]
+    except (ValueError, MemoryError):
+        return None
+
+
+def outcome(want, got) -> str:
+    if want is None and got is None:
+        return "both refuse"
+    if want is None:
+        return "port reads, Pillow refuses"
+    if got is None:
+        return "Pillow reads, port refuses"
+    same = all(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
+               for a, b in zip(want, got))
+    return "equal" if same else "different arrays"
+
+
+def damage(data: bytes, rng) -> bytes:
+    b = bytearray(data)
+    kind = rng.integers(0, 3)
+    if kind == 0:
+        for _ in range(rng.integers(1, 4)):
+            k = rng.integers(0, min(len(b), 600) if rng.random() < 0.7 else len(b))
+            b[k] = rng.integers(0, 256)
+    elif kind == 1:
+        b = b[:rng.integers(0, len(b))]
+    else:
+        k = rng.integers(0, len(b))
+        b[k:k + 1] = bytes([rng.integers(0, 256)]) * rng.integers(0, 3)
+    return bytes(b)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--trials", type=int, default=20)
+    parser.add_argument("--jpeg-scan", type=int, default=0)
+    args = parser.parse_args()
+    resource.setrlimit(resource.RLIMIT_AS, (6 << 30, 6 << 30))
+    warnings.simplefilter("ignore")
+    from PIL import Image
+
+    Image.MAX_IMAGE_PIXELS = 4_000_000
+    sys.path.insert(0, REPO)
+    rng = np.random.default_rng(args.seed)
+    with open(os.path.join(FIXTURES, "manifest.json")) as fh:
+        files = [e["file"] for e in json.load(fh)["files"]
+                 if "stored" not in e and e["bytes"] < 64_000]
+    counts, by_format = collections.Counter(), collections.Counter()
+    for name in files:
+        with open(os.path.join(FIXTURES, name), "rb") as fh:
+            data = fh.read()
+        for _ in range(args.trials):
+            damaged = damage(data, rng)
+            want = pillow(damaged)
+            if want == "big":
+                continue
+            result = outcome(want, port(damaged))
+            counts[result] += 1
+            if result not in ("equal", "both refuse"):
+                by_format[(os.path.splitext(name)[1], result)] += 1
+    print(f"fixtures: {len(files)}, damaged files: {sum(counts.values())}")
+    for result, n in counts.most_common():
+        print(f"  {result}: {n}")
+    for (ext, result), n in sorted(by_format.items()):
+        print(f"  {ext} {result}: {n}")
+    if args.jpeg_scan:
+        sys.path.insert(0, os.path.join(REPO, "tools"))
+        from make_image_fixtures import seeded_rgb
+
+        buf = io.BytesIO()
+        Image.fromarray(seeded_rgb((24, 40), 160)).save(buf, "JPEG", quality=85)
+        data = buf.getvalue()
+        scan = collections.Counter()
+        for _ in range(args.jpeg_scan):
+            b = bytearray(data)
+            b[rng.integers(len(data) // 3, len(data) - 2)] = rng.integers(0, 256)
+            scan[outcome(pillow(bytes(b)), port(bytes(b)))] += 1
+        print(f"a seeded JPEG with one scan byte changed, {args.jpeg_scan} times:")
+        for result, n in scan.most_common():
+            print(f"  {result}: {n}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1030,6 +1030,329 @@ def _packbits(raw: bytes, row: int) -> bytes:
     return bytes(out)
 
 
+def sgi_rle_row(samples: np.ndarray) -> bytes:
+    """SGI run-length packets of one channel's row (uint8, or uint16 written
+    big-endian with 16-bit packet headers): runs of 3 or more equal samples,
+    literals of at most 127, and the terminating 0."""
+    wide = samples.dtype.itemsize == 2
+    word = (lambda v: struct.pack(">H", v)) if wide else (lambda v: bytes([v]))
+    vals, out, i = samples.tolist(), bytearray(), 0
+    while i < len(vals):
+        j = i
+        while j < len(vals) and j - i < 127 and vals[j] == vals[i]:
+            j += 1
+        if j - i >= 3:
+            out += word(j - i) + word(vals[i])
+            i = j
+            continue
+        j = i + 1
+        while j < len(vals) and j - i < 127 and not vals[j:j + 3] == [vals[j]] * 3:
+            j += 1
+        out += word(0x80 | (j - i)) + b"".join(word(v) for v in vals[i:j])
+        i = j
+    return bytes(out + word(0))
+
+
+def sgi_file(planes: np.ndarray, rle: bool = False, dimension: int = 0) -> bytes:
+    """An SGI file of (Z, H, W) uint8 or uint16 samples (top row first; SGI
+    stores rows bottom-up), verbatim or run-length coded with the offset
+    and length tables (rows with equal data share it)."""
+    z, h, w = planes.shape
+    bpc = planes.dtype.itemsize
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">hBBHHHHll4s80sl", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       (1 << 8 * bpc) - 1, b"", b"seeded fixture", 0).ljust(512, b"\0")
+    rows = planes[:, ::-1].astype(">u2" if bpc == 2 else np.uint8)
+    if not rle:
+        return head + rows.tobytes()
+    body, seen, starts, lengths = bytearray(), {}, [], []
+    base = 512 + 8 * z * h
+    for c in range(z):
+        for y in range(h):
+            packed = sgi_rle_row(planes[c, h - 1 - y])
+            if packed not in seen:
+                seen[packed] = base + len(body)
+                body += packed
+            starts.append(seen[packed])
+            lengths.append(len(packed))
+    return head + struct.pack(f">{z * h}I", *starts) + struct.pack(f">{z * h}I", *lengths) + body
+
+
+def pcx_rle(rows: np.ndarray) -> bytes:
+    """PCX run-length of (H, row bytes) scanlines: runs of up to 63, a byte
+    of 0xC0 or more always as a run."""
+    out = bytearray()
+    for line in rows.tolist():
+        i = 0
+        while i < len(line):
+            j = i
+            while j < len(line) and j - i < 63 and line[j] == line[i]:
+                j += 1
+            if j - i > 1 or line[i] >= 0xC0:
+                out += bytes([0xC0 | (j - i), line[i]])
+            else:
+                out.append(line[i])
+            i = j
+    return bytes(out)
+
+
+def pcx_file(rows: np.ndarray, width: int, height: int, bits: int, planes: int,
+             version: int = 5, stride: int = 0, palette16: bytes = b"",
+             palette256: bytes = b"", origin: tuple = (0, 0)) -> bytes:
+    """A PCX file of (H, planes * stride) scanlines, the inclusive box at
+    ``origin``, the header's stride ``stride`` (0: the rows' own), an
+    optional 16-colour header palette and 0x0C-marked 256-colour one."""
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0, x0 + width - 1,
+                       y0 + height - 1, 72, 72)
+    head += palette16.ljust(48, b"\0")[:48] + bytes([0, planes])
+    head += struct.pack("<HH", stride or rows.shape[1] // planes, 1)
+    body = pcx_rle(rows)
+    tail = b"\x0c" + palette256 if palette256 else b""
+    return head.ljust(128, b"\0") + body + tail
+
+
+def dcx_file(pages: list) -> bytes:
+    """An Intel DCX file of PCX pages."""
+    offsets, at = [], 4 + 4 * (len(pages) + 1)
+    for page in pages:
+        offsets.append(at)
+        at += len(page)
+    return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(pages)
+
+
+def sun_rle(stream: bytes) -> bytes:
+    """Sun raster run-length of a byte stream: runs of 3 to 256 as 0x80 n-1
+    v, a lone 0x80 as 0x80 0x00, other bytes as themselves."""
+    out, i = bytearray(), 0
+    while i < len(stream):
+        j = i
+        while j < len(stream) and j - i < 256 and stream[j] == stream[i]:
+            j += 1
+        if j - i >= 3 or stream[i] == 0x80 and j - i > 1:
+            out += bytes([0x80, j - i - 1, stream[i]])
+        elif stream[i] == 0x80:
+            out += b"\x80\x00"
+            j = i + 1
+        else:
+            out.append(stream[i])
+            j = i + 1
+        i = j
+    return bytes(out)
+
+
+def sun_file(rows: np.ndarray, width: int, depth: int, kind: int = 1,
+             colour_map: bytes = b"") -> bytes:
+    """A Sun raster file of (H, ceil(width * depth / 8)) rows: raw (rows
+    padded to 16 bits) or, for ``kind`` 2, the unpadded stream run-length
+    coded, as PIL reads it."""
+    height = rows.shape[0]
+    if kind == 2:
+        body = sun_rle(rows.tobytes())
+    else:
+        pad = (width * depth + 15) // 16 * 2 - rows.shape[1]
+        body = np.pad(rows, ((0, 0), (0, pad))).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, width, height, depth, len(body), kind,
+                       1 if colour_map else 0, len(colour_map))
+    return head + colour_map + body
+
+
+def msp_file(bits: np.ndarray, rle: bool = True) -> bytes:
+    """A Microsoft Paint file of (H, W) bools (True white): version 2
+    (``LinS``, per-row runs and literals) or 1 (``DanM``, raw)."""
+    h, w = bits.shape
+    rows = np.packbits(bits, axis=1)
+    header = [0] * 16
+    header[0], header[1] = (0x694C, 0x536E) if rle else (0x6144, 0x4D6E)
+    header[2], header[3], header[4:8], header[8], header[9] = w, h, [1, 1, 1, 1], w, h
+    checksum = 0
+    for word in header:
+        checksum ^= word
+    header[12] = checksum
+    head = struct.pack("<16H", *header)
+    if not rle:
+        return head + rows.tobytes()
+    coded = []
+    for line in rows.tolist():
+        out, i = bytearray(), 0
+        while i < len(line):
+            j = i
+            while j < len(line) and j - i < 255 and line[j] == line[i]:
+                j += 1
+            if j - i >= 3:
+                out += bytes([0, j - i, line[i]])
+                i = j
+                continue
+            j = i + 1
+            while j < len(line) and j - i < 255 and not line[j:j + 3] == [line[j]] * 3:
+                j += 1
+            out += bytes([j - i]) + bytes(line[i:j])
+            i = j
+        coded.append(bytes(out) if line != [255] * len(line) else b"")
+    return head + struct.pack(f"<{h}H", *map(len, coded)) + b"".join(coded)
+
+
+def spider_file(image: np.ndarray, big_endian: bool = True, stack: bool = False) -> bytes:
+    """A SPIDER 2D image (float32), or a stack of one image, in either byte
+    order: a header of 256 floats (a record of the image's width)."""
+    h, w = image.shape
+    order = ">" if big_endian else "<"
+    words = max(256, w)
+    def header(istack: int, number: int, maxim: int) -> bytes:
+        t = np.zeros(words, np.float32)
+        t[0], t[1], t[4], t[11] = 1, h, 1, w                   # nslice, nrow, iform, nsam
+        labrec = words * 4 // (4 * w) if words * 4 % (4 * w) == 0 else words * 4 // (4 * w) + 1
+        t[12], t[21], t[22] = labrec, labrec * 4 * w, 4 * w   # labrec, labbyt, lenbyt
+        t[23], t[25], t[26] = istack, maxim, number
+        return t.astype(order + "f4").tobytes().ljust(labrec * 4 * w, b"\0")
+    pixels = image.astype(order + "f4").tobytes()
+    if not stack:
+        return header(0, 0, 0) + pixels
+    return header(2, 0, 1) + header(0, 1, 0) + pixels
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """ICNS 24-bit run-length of one channel: runs of 3 to 130 as n + 125,
+    literals of up to 128 as n - 1."""
+    vals, out, i = plane.ravel().tolist(), bytearray(), 0
+    while i < len(vals):
+        j = i
+        while j < len(vals) and j - i < 130 and vals[j] == vals[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i + 125, vals[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < len(vals) and j - i < 128 and not vals[j:j + 3] == [vals[j]] * 3:
+            j += 1
+        out += bytes([j - i - 1]) + bytes(vals[i:j])
+        i = j
+    return bytes(out)
+
+
+def icns_file(members: list) -> bytes:
+    """An ICNS file of (type, data) blocks."""
+    body = b"".join(kind + struct.pack(">I", 8 + len(data)) + data for kind, data in members)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(rgb: np.ndarray, it32: bool = False) -> bytes:
+    """A 24-bit ICNS member of (H, W, 3): each channel run-length coded in
+    turn (``it32`` after four zero bytes)."""
+    return (bytes(4) if it32 else b"") + b"".join(icns_rle(rgb[..., c]) for c in range(3))
+
+
+def blp2_file(width: int, height: int, encoding: int, body: bytes, alpha_depth: int = 0,
+              alpha_encoding: int = 0, palette: bytes = b"") -> bytes:
+    """A BLP2 file (compression 1) whose first mip is ``body``, after a
+    1024-byte BGRA palette."""
+    head = b"BLP2" + struct.pack("<ibbbbII", 1, encoding, alpha_depth, alpha_encoding, 0,
+                                 width, height)
+    offset = len(head) + 128 + 1024
+    return (head + struct.pack("<16I", offset, *[0] * 15) + struct.pack("<16I", len(body),
+                                                                         *[0] * 15)
+            + palette.ljust(1024, b"\0")[:1024] + body)
+
+
+def blp1_jpeg_file(jpeg: bytes, width: int, height: int, split: int, alpha_bits: int = 0,
+                   gap: int = 0) -> bytes:
+    """A BLP1 file (compression 0) whose JPEG is cut at ``split``: the shared
+    header, then the first mip ``gap`` bytes later."""
+    head = b"BLP1" + struct.pack("<iIIIii", 0, alpha_bits, width, height, 5, 0)
+    shared = struct.pack("<I", split) + jpeg[:split]
+    offset = len(head) + 128 + len(shared) + gap
+    return (head + struct.pack("<16I", offset, *[0] * 15)
+            + struct.pack("<16I", len(jpeg) - split, *[0] * 15) + shared + bytes(gap)
+            + jpeg[split:])
+
+
+def im_file(lines: list, body: bytes, lut: bytes = b"") -> bytes:
+    """An IM file: header lines, padding to 511 bytes, 0x1A, an optional
+    768-byte Lut, the pixels."""
+    head = b"".join(line.encode("latin-1") + b"\r\n" for line in lines)
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + lut + body
+
+
+# the formats Pillow 12.1.0 opens on this host and the port names when it refuses them
+REFUSED_FORMATS = ("AVIF", "BUFR (a PIL stub)", "EPS", "FITS", "FLI/FLC animation",
+                   "FTEX (Freeware texture)", "GIMP brush (GBR)", "GRIB (a PIL stub)",
+                   "HDF5 (a PIL stub)", "JPEG 2000", "JPEG 2000 in ICNS", "IM Tools (IMT)",
+                   "IPTC/NAA", "McIdas area", "MPEG", "Kodak PhotoCD (PCD)", "PIXAR", "WMF/EMF",
+                   "XPM", "XV thumbnail", "PNM Pf", "PNM Py", "PNM P0")
+
+
+def refused_format_files() -> dict:
+    """Seeded files of every format Pillow 12.1.0 opens on this host that the
+    port does not read: {the format as the port's refusal names it: (file
+    extension, bytes)}. Pillow writes the AVIF, JPEG 2000 and EPS ones; the
+    rest are the smallest headers (and data) Pillow's plugins open."""
+    from PIL import Image
+
+    def pil(image, fmt, **kw):
+        buf = io.BytesIO()
+        image.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rgb = Image.fromarray(seeded_rgb((16, 16), 190))
+    gray = np.asarray(rgb.convert("L"))
+    jp2 = pil(rgb, "JPEG2000")
+
+    def card(text: str) -> bytes:
+        return text.ljust(80).encode()
+
+    fits = (card("SIMPLE  =                    T") + card("BITPIX  =                    8")
+            + card("NAXIS   =                    2") + card("NAXIS1  =                   16")
+            + card("NAXIS2  =                   16") + card("END")).ljust(2880, b" ")
+    fli = bytearray(128)
+    struct.pack_into("<IHHHHHHI", fli, 0, 128 + 16 * 16, 0xAF11, 1, 16, 16, 8, 0, 5)
+    gbr = struct.pack(">7I", 28 + 5, 2, 16, 16, 1, 0x47494D50, 10) + b"seed\0" + gray.tobytes()
+    iptc = b"".join(b"\x1c\x03" + bytes([tag]) + struct.pack(">H", len(v)) + v
+                    for tag, v in ((60, b"\x01\x00"), (20, b"\x00\x10"), (30, b"\x00\x10"),
+                                   (120, b"\x01"))) + b"\x1c\x08\x0a\x01\x00" + gray.tobytes()
+    words = [0] * 64                    # PIL's w[k] is words[k - 1]
+    words[1], words[8], words[9], words[10], words[13], words[33] = 4, 16, 16, 1, 1, 256
+    mcidas = struct.pack(">64i", *words) + gray.tobytes()
+    pixar = bytearray(1024)
+    pixar[:4] = b"\200\350\000\000"
+    struct.pack_into("<HHxxxxHH", pixar, 416, 16, 16, 14, 2)
+    wmf = bytearray(b"\xd7\xcd\xc6\x9a\x00\x00") + struct.pack("<hhhhHIH", 0, 0, 160, 160, 1440,
+                                                               0, 0)
+    wmf += b"\x01\x00\x09\x00" + bytes(60)
+    ftex = b"FTEX" + struct.pack("<7i", 0, 16, 16, 1, 1, 0, 36) + struct.pack("<i", 768) + \
+        np.asarray(rgb).tobytes()
+    files = {
+        "AVIF": ("avif", pil(rgb, "AVIF")),
+        "BUFR (a PIL stub)": ("bufr", b"BUFR" + bytes(60)),
+        "EPS": ("eps", pil(rgb, "EPS")),
+        "FITS": ("fits", fits + gray.tobytes().ljust(2880, b"\0")),
+        "FLI/FLC animation": ("fli", bytes(fli) + bytes(16 * 16)),
+        "FTEX (Freeware texture)": ("ftc", ftex),
+        "GIMP brush (GBR)": ("gbr", gbr),
+        "GRIB (a PIL stub)": ("grib", b"GRIB\0\0\0\x01" + bytes(60)),
+        "HDF5 (a PIL stub)": ("h5", b"\x89HDF\r\n\x1a\n" + bytes(60)),
+        "JPEG 2000": ("jp2", jp2),
+        "JPEG 2000 in ICNS": ("icns", icns_file([(b"ic07", pil(rgb.resize((128, 128)),
+                                                                 "JPEG2000"))])),
+        "IM Tools (IMT)": ("imt", b"width 16\nheight 16\npixel n8\n\x0c" + gray.tobytes()),
+        "IPTC/NAA": ("iptc", iptc),
+        "McIdas area": ("area", mcidas),
+        "MPEG": ("mpg", b"\0\0\1\xb3\x01\x00\x10" + bytes(40)),
+        "Kodak PhotoCD (PCD)": ("pcd", bytes(2048) + b"PCD_" + bytes(1535)),
+        "PIXAR": ("pxr", bytes(pixar) + np.asarray(rgb).tobytes()),
+        "WMF/EMF": ("wmf", bytes(wmf)),
+        "XPM": ("xpm", b'/* XPM */\nstatic char *seed[] = {\n"4 2 2 1",\n"a c #FF0000",\n'
+                       b'"b c #00FF00",\n"abab",\n"baba"\n};\n'),
+        "XV thumbnail": ("xv", b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n16 16 255\n"
+                               + gray.tobytes()),
+        "PNM Pf": ("pfm", b"Pf\n16 16\n-1.0\n" + gray.astype("<f4").tobytes()),
+        "PNM Py": ("ppm", b"PyP\n16 16\n255\n" + gray.tobytes()),
+        "PNM P0": ("ppm", b"P0CMYK\n16 16\n255\n" + bytes(4 * 256)),
+    }
+    assert tuple(files) == REFUSED_FORMATS
+    return files
+
+
 def fixtures() -> dict:
     """{file name: (kind, bytes)}."""
     from PIL import Image
@@ -1082,6 +1405,7 @@ def fixtures() -> dict:
     out.update(jpeg_processes(jpeg))
     out.update(other_formats())
     out.update(new_formats())
+    out.update(small_formats())
     return out
 
 
@@ -1474,7 +1798,123 @@ def new_formats() -> dict:
     return out
 
 
-GZIPPED = ("atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds")
+def small_formats() -> dict:
+    """SGI (RLE and verbatim 16-bit), PCX (and 4 bit planes), DCX, ICO (PNG
+    and BMP members), CUR, QOI, XBM, IM (YCC, a Lut), ICNS (run-length
+    members), BLP (BLP1 palette and JPEG, BLP2 DXT5), Sun raster (RLE,
+    palette), MSP version 2, SPIDER and a bare DIB, small and posterised to
+    stay small; the chair's textures in six of them; the 2048 x 1536 atlas
+    as QOI and SGI RLE (stored gzip-compressed)."""
+    from PIL import Image
+
+    def pil(image, fmt, **kw):
+        buf = io.BytesIO()
+        (image if isinstance(image, Image.Image) else Image.fromarray(image)).save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(60)
+    rgb = seeded_rgb((12, 20), 61, noise=6) // 32 * 32
+    rgba = np.concatenate([rgb, np.where(rng.random((12, 20, 1)) < 0.8, 255, 40).astype(
+        np.uint8)], -1)
+    tex = seeded_rgb((24, 24), 62, noise=2) // 32 * 32
+    tex_a = np.concatenate([tex, np.full((24, 24, 1), 255, np.uint8)], -1)
+    idx4 = (rgb[..., 0] // 16).astype(np.uint8)
+    p4 = np.concatenate([np.packbits((idx4 >> k) & 1, axis=1) for k in range(4)], 1)
+    palette = rng.integers(0, 256, 1024).astype(np.uint8).tobytes()
+    page = pil(rgb, "PCX")
+    icon = Image.fromarray(tex_a[:16, :16])
+    cur = pil(icon, "ICO", bitmap_format="bmp", sizes=[(16, 16)])
+    jpg = pil(rgb, "JPEG", quality=80)
+    out = {
+        "sgi_rgb_rle.sgi": ("SGI RLE, RGB", sgi_file(rgb.transpose(2, 0, 1), rle=True)),
+        "sgi_l16_raw.sgi": ("SGI verbatim, 2 bytes a channel, gray",
+                            sgi_file(rgb[None, ..., 1].astype(np.uint16) * 255)),
+        "pcx_rgb.pcx": ("PCX RGB", page),
+        "pcx_p4_planes.pcx": ("PCX 4 bit planes (P)", pcx_file(p4, 20, 12, 1, 4,
+                                                              palette16=palette[:48])),
+        "dcx_two_pages.dcx": ("DCX, two PCX pages", dcx_file([page, pil(rgb[..., 2], "PCX")])),
+        "ico_png.ico": ("ICO, PNG members", pil(rgba, "ICO", sizes=[(16, 16), (12, 12)])),
+        "ico_bmp_p.ico": ("ICO, BMP member with AND mask", pil(
+            Image.fromarray(rgb[:, :12]).convert("P", palette=Image.Palette.ADAPTIVE, colors=12),
+            "ICO", bitmap_format="bmp", sizes=[(12, 12)])),
+        "cur_bgra.cur": ("CUR, 32-bit BGRA", cur[:2] + b"\2" + cur[3:]),
+        "qoi_rgba.qoi": ("QOI RGBA", pil(rgba, "QOI")),
+        "xbm_hotspot.xbm": ("XBM with hot spot", pil(rgb[..., 0] > 100, "XBM").replace(
+            b"#define im_height 12\n", b"#define im_height 12\n#define im_x_hot 2\n"
+                                       b"#define im_y_hot 5\n")),
+        "im_ycc.im": ("IM YCC (YCbCr)", pil(Image.fromarray(rgb).convert("YCbCr"), "IM")),
+        "im_p_lut.im": ("IM Lut (P)", pil(Image.fromarray(rgb).convert(
+            "P", palette=Image.Palette.ADAPTIVE, colors=7), "IM")),
+        "icns_is32.icns": ("ICNS is32 RLE with s8mk mask", icns_file([
+            (b"is32", icns_rgb(tex[:16, :16])),
+            (b"s8mk", (tex[:16, :16, 1] // 2 + 100).tobytes())])),
+        "blp1_palette.blp": ("BLP1 palette", pil(Image.fromarray(rgba).quantize(9), "BLP",
+                                                 blp_version="BLP1")),
+        "blp1_jpeg.blp": ("BLP1 JPEG", blp1_jpeg_file(jpg, 20, 12, 180, alpha_bits=8)),
+        "blp2_dxt5.blp": ("BLP2 DXT5", blp2_file(20, 12, 2, bc_blocks(20, 12, 16, 63), 8, 7)),
+        "sun_rle.ras": ("Sun raster RLE, 24-bit", sun_file(rgb[..., ::-1].reshape(12, -1), 20,
+                                                           24, 2)),
+        "sun_p8.ras": ("Sun raster 8-bit with colour map", sun_file(
+            idx4, 20, 8, 1, colour_map=palette[:48])),
+        "msp_v2.msp": ("MSP version 2 (RLE)", msp_file(rgb[..., 1] > 90)),
+        "spider_be.spi": ("SPIDER big-endian float", spider_file(
+            (rgb[:8, :10, 2].astype(np.float32) - 30) * 1.7)),
+        "dib_rgb.dib": ("bare DIB (BMP without its file header)", pil(rgb, "DIB")),
+        "refused_sgi_overrun.sgi": ("SGI RLE run past its row (refused)", _sgi_overrun(rgb)),
+        "refused_blp2_raw_bgra.blp": ("BLP2 raw BGRA (refused)", blp2_file(
+            4, 4, 3, rgba[:4, :4].tobytes(), 8)),
+        "chair_rle.sgi": ("chair texture, SGI RLE", sgi_file(tex.transpose(2, 0, 1), rle=True)),
+        "chair.pcx": ("chair texture, PCX", pil(tex[::-1], "PCX")),
+        "chair.qoi": ("chair texture, QOI", pil(tex_a[:, ::-1], "QOI")),
+        "chair.ico": ("chair texture, ICO", pil(tex.transpose(1, 0, 2), "ICO", sizes=[(24, 24)])),
+        "chair_dxt5.blp": ("chair texture, BLP2 DXT5", blp2_file(24, 24, 2, _dxt5(tex_a), 8, 7)),
+        "chair_rle.ras": ("chair texture, Sun raster RLE",
+                          sun_file(tex[::-1, ::-1, ::-1].reshape(24, -1), 24, 24, 2)),
+    }
+    atlas = texture_atlas(9)
+    out["atlas_2048x1536.qoi"] = ("2048 x 1536 atlas, QOI", pil(atlas, "QOI"))
+    out["atlas_rle_2048x1536.sgi"] = ("2048 x 1536 atlas, SGI RLE",
+                                      sgi_file(atlas.transpose(2, 0, 1), rle=True))
+    return out
+
+
+def _sgi_overrun(rgb: np.ndarray) -> bytes:
+    """An SGI RLE file whose first row's first packet runs past the row."""
+    data = bytearray(sgi_file(rgb[None, ..., 0], rle=True))
+    data[512 + 8 * rgb.shape[0]] = 0x7F
+    return bytes(data)
+
+
+def _dxt5(rgba: np.ndarray) -> bytes:
+    """DXT5 blocks of (H, W, 4), H and W multiples of 4: each block's
+    colours the endpoints of its darkest and lightest pixel, alpha its min
+    and max, indices to the nearest."""
+    h, w = rgba.shape[:2]
+    out = bytearray()
+    for by in range(0, h, 4):
+        for bx in range(0, w, 4):
+            blk = rgba[by:by + 4, bx:bx + 4].reshape(16, 4).astype(np.int32)
+            luma = blk[:, :3].sum(1)
+            hi, lo = blk[luma.argmax(), :3], blk[luma.argmin(), :3]
+            c = [int(v[0]) >> 3 << 11 | int(v[1]) >> 2 << 5 | int(v[2]) >> 3 for v in (hi, lo)]
+            ends = np.array([[(x >> 11) << 3, (x >> 5 & 63) << 2, (x & 31) << 3] for x in c])
+            if c[0] <= c[1]:
+                c, ends = [c[0], c[0]], ends[[0, 0]]
+            pal = np.stack([ends[0], ends[1], (2 * ends[0] + ends[1]) // 3,
+                            (2 * ends[1] + ends[0]) // 3])
+            colour = np.abs(blk[:, None, :3] - pal[None]).sum(-1).argmin(1)
+            a0, a1 = int(blk[:, 3].max()), int(blk[:, 3].min())
+            alpha = np.zeros(16, np.int64) if a0 == a1 else np.where(blk[:, 3] >= (a0 + a1) / 2,
+                                                                     0, 1)
+            abits = sum(int(v) << (3 * k) for k, v in enumerate(alpha))
+            cbits = sum(int(v) << (2 * k) for k, v in enumerate(colour))
+            out += bytes([a0, a1]) + abits.to_bytes(6, "little") + struct.pack("<HHI", c[0],
+                                                                                 c[1], cbits)
+    return bytes(out)
+
+
+GZIPPED = ("atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds", "atlas_2048x1536.qoi",
+           "atlas_rle_2048x1536.sgi")
 
 
 def _top_down(rows: bytes, height: int) -> bytes:
