@@ -2574,11 +2574,11 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to seventeen image files) give the back, then each
+    ``part_textures`` (up to eighteen image files) give the back, then each
     leg, then (past five) each of four stretchers between the legs, two
-    armrests, four trims under the seat's edges and two slats before the
-    back a material, UVs and a ``map_Kd`` of their own. Returns the OBJ's
-    path."""
+    armrests, four trims under the seat's edges, two slats before the back
+    and a footrest bar a material, UVs and a ``map_Kd`` of their own.
+    Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
     if texture is None:
@@ -2613,7 +2613,8 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((-0.25, 0.39, -0.21), (-0.21, 0.43, 0.21)),
               ((0.21, 0.39, -0.21), (0.25, 0.43, 0.21)),
               ((-0.15, 0.52, -0.20), (-0.11, 0.90, -0.17)),
-              ((0.11, 0.52, -0.20), (0.15, 0.90, -0.17))]
+              ((0.11, 0.52, -0.20), (0.15, 0.90, -0.17)),
+              ((-0.21, 0.05, 0.19), (0.19, 0.08, 0.22))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3661,14 +3662,17 @@ IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
 BEHAVE_COLOR = "behave_color_2048x1536.jpg"
 BEHAVE_MASK = "behave_mask_2048x1536.jpg"
 FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
-# the chair's back, legs, stretchers, armrests, seat trims and back slats in phase 16c:
-# arithmetic JPEG, TGA, BMP, TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS
-# BC7, DDS DXT1, PSD, YCbCr 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
+# the chair's back, legs, stretchers, armrests, seat trims, back slats and footrest in phase
+# 16c: arithmetic JPEG, TGA, BMP, TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP,
+# DDS BC7, DDS DXT1, PSD, YCbCr 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5, Sun RLE
+# and a damaged JPEG Pillow recovers (a wrong RSTn)
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
                  "chair_rle.sgi", "chair.pcx", "chair.qoi", "chair.ico", "chair_dxt5.blp",
-                 "chair_rle.ras")
+                 "chair_rle.ras", "damaged/jpeg_resync_next.jpg")
+# the damaged 2048 x 1536 atlas whose recovery phase 16a times
+DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
 TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_arith_2048x1536.jpg", "atlas_smoothed_2048x1536.jpg",
@@ -3687,6 +3691,20 @@ def image_manifest() -> dict:
     with open(os.path.join(IMAGE_FIXTURES, "manifest.json")) as fh:
         manifest = json.load(fh)
     return dict({e["file"]: e for e in manifest["files"]}, step_video=manifest["step_video"])
+
+
+def damaged_manifest() -> dict:
+    """The damaged fixtures' Pillow hashes (or refusals), by their path under
+    ``IMAGE_FIXTURES`` (``damaged/<file>``; ``stored`` likewise)."""
+    with open(os.path.join(IMAGE_FIXTURES, "damaged", "manifest.json")) as fh:
+        files = json.load(fh)["files"]
+    out = {}
+    for e in files:
+        e = dict(e, file="damaged/" + e["file"])
+        if "stored" in e:
+            e["stored"] = "damaged/" + e["stored"]
+        out[e["file"]] = e
+    return out
 
 
 def fixture_bytes(entry: dict) -> bytes:
@@ -3757,6 +3775,34 @@ def decode_phase(label: str) -> dict:
                 raise AssertionError(f"{name}: mode {mode} differs from Pillow's")
         equal.append(name)
 
+    damaged_equal, damaged_refused = [], []
+    damaged = damaged_manifest()
+    for name, entry in damaged.items():              # the native decoders, as above
+        try:
+            decoded = decode_image(fixture_bytes(entry), name)
+        except ValueError as err:
+            if not entry.get("raises") or name not in str(err):
+                raise AssertionError(f"{name}: refused ({err}), not as Pillow") from None
+            damaged_refused.append(name)
+            continue
+        if entry.get("raises"):
+            raise AssertionError(f"{name}: decoded, but Pillow refuses it")
+        for mode in (None, "RGB", "L"):
+            if image_sha(to_mode(decoded, mode)) != entry["sha256"][str(mode)]:
+                raise AssertionError(f"{name}: mode {mode} differs from Pillow's")
+        damaged_equal.append(name)
+    atlas = fixture_bytes(damaged["damaged/" + DAMAGED_ATLAS])
+    atlas_entropy_ms, atlas_recon_ms = [], []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        atlas_frame = jpeg.decode_coefficients(atlas, DAMAGED_ATLAS, native=True)
+        t1 = time.perf_counter()
+        atlas_image = jpeg.reconstruct(atlas_frame, native=True)
+        atlas_entropy_ms.append((t1 - t0) * 1e3)
+        atlas_recon_ms.append((time.perf_counter() - t1) * 1e3)
+    if image_sha(atlas_image) != damaged["damaged/" + DAMAGED_ATLAS]["sha256"]["None"]:
+        raise AssertionError(f"{DAMAGED_ATLAS}: the recovered atlas differs from Pillow's")
+
     def coefficients_equal(a, b) -> bool:
         return all(np.array_equal(x, y) for x, y in zip(a.coef, b.coef))
 
@@ -3800,7 +3846,13 @@ def decode_phase(label: str) -> dict:
                entropy_ms=statistics.median(entropy_ms), reconstruct_ms=statistics.median(recon_ms),
                entropy_ms_all=entropy_ms, reconstruct_ms_all=recon_ms,
                plain_entropy_s=plain_entropy_s, plain_reconstruct_s=plain_recon_s,
-               fabric_python_entropy_s=fabric_python_s, timed_decodes=timed)
+               fabric_python_entropy_s=fabric_python_s, timed_decodes=timed,
+               damaged_equal=len(damaged_equal), damaged_refused=damaged_refused,
+               damaged_atlas_bytes=len(atlas),
+               damaged_atlas_entropy_ms=statistics.median(atlas_entropy_ms),
+               damaged_atlas_reconstruct_ms=statistics.median(atlas_recon_ms),
+               damaged_atlas_entropy_ms_all=atlas_entropy_ms,
+               damaged_atlas_reconstruct_ms_all=atlas_recon_ms)
     log(f"phase 16a: {len(equal)} fixtures through read_image (native decoders and codecs) equal "
         f"to Pillow's hashes (modes None, RGB and L), {len(refused)} refused naming the file as "
         f"Pillow refuses them; {BEHAVE_COLOR} ({len(data)} bytes), median of {DECODE_REPS} "
@@ -3809,6 +3861,12 @@ def decode_phase(label: str) -> dict:
         f"{plain_entropy_s:.3f} s, numpy reconstruction {plain_recon_s:.3f} s, equal "
         f"coefficients and pixels; Python entropy on {FABRIC_JPEG} (512², progressive) "
         f"{fabric_python_s:.3f} s [{label}]")
+    log(f"phase 16a: {len(damaged_equal)} damaged fixtures equal to Pillow's hashes and "
+        f"{len(damaged_refused)} refused naming the file as Pillow refuses them (native "
+        f"decoders); the recovered {DAMAGED_ATLAS} ({len(atlas)} bytes), median of "
+        f"{DECODE_REPS}: entropy {out['damaged_atlas_entropy_ms']:.3f} ms, reconstruction "
+        f"{out['damaged_atlas_reconstruct_ms']:.3f} ms (host), beside the clean "
+        f"{BEHAVE_COLOR}'s {out['entropy_ms']:.3f} and {out['reconstruct_ms']:.3f} ms [{label}]")
     log("phase 16a: host decode of the 2048 x 1536 atlas through read_image, median of "
         f"{DECODE_REPS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['median_ms']:.3f} ms"
                                        for n, t in timed.items()) + f" [{label}]")
@@ -3869,9 +3927,9 @@ def jpeg_asset_phase(label: str) -> dict:
     """(c) Phase 13's chair with its fabric texture the committed progressive
     JPEG, its back an arithmetic JPEG, its legs TGA, BMP, TIFF-LZW and CMYK
     JPEG textures, its stretchers and armrests lossy WebP with alpha,
-    lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, and its
+    lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, its
     seat trims and back slats SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
-    ones, through
+    ones, and its footrest a damaged JPEG Pillow recovers, through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -3881,11 +3939,11 @@ def jpeg_asset_phase(label: str) -> dict:
 
     texture = os.path.join(IMAGE_FIXTURES, FABRIC_JPEG)
     parts = tuple(os.path.join(IMAGE_FIXTURES, n) for n in PART_TEXTURES)
-    manifest = image_manifest()
+    manifest = dict(image_manifest(), **damaged_manifest())
 
     def check(obj, mesh, batches):
         for k, path in enumerate((texture,) + parts):
-            name = os.path.basename(path)
+            name = os.path.relpath(path, IMAGE_FIXTURES)
             decoded = read_image(path, "RGB")
             if image_sha(decoded) != manifest[name]["sha256"]["RGB"]:
                 raise AssertionError(f"{name}: differs from Pillow's")
@@ -3953,9 +4011,10 @@ def step_video_seeded_phase(label: str) -> dict:
 
 
 def phase16(label: str) -> dict:
-    """Phase 16: (a) every image fixture against Pillow's hashes and the host
-    decode times, (b) the BEHAVE reader on JPEG frames, (c) an asset textured
-    in eighteen files of fourteen formats through stage 1 into K3, every
+    """Phase 16: (a) every image fixture, the damaged ones too, against
+    Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
+    frames, (c) an asset textured in nineteen files of fourteen formats (a
+    damaged JPEG among them) through stage 1 into K3, every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""
     t0 = time.perf_counter()

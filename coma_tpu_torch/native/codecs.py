@@ -20,7 +20,7 @@ BCN_SRC = native._SRC_DIR / "bcn_decode.cpp"
 def _declare(lib: ctypes.CDLL) -> None:
     lib.lzw_decode.restype = ctypes.c_int64
     lib.lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p, ctypes.c_int64]
+                               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
     lib.packbits_decode.restype = ctypes.c_int64
     lib.packbits_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                     ctypes.c_int64]
@@ -61,10 +61,12 @@ def _need():
     return lib
 
 
-def lzw_decode(data: bytes, min_code_size: int, tiff: bool, cap: int) -> bytes:
-    """GIF (``tiff`` False) or TIFF LZW of ``data``, at most ``cap`` bytes."""
+def lzw_decode(data: bytes, min_code_size: int, tiff: bool, cap: int, end_from: int = 0) -> bytes:
+    """GIF (``tiff`` False) or TIFF LZW of ``data``, at most ``cap`` bytes;
+    an end code ending before byte ``end_from`` is passed over."""
     out = np.zeros(max(cap, 1), np.uint8)
-    n = _need().lzw_decode(data, len(data), min_code_size, int(tiff), out.ctypes.data, cap)
+    n = _need().lzw_decode(data, len(data), min_code_size, int(tiff), out.ctypes.data, cap,
+                           end_from)
     if n < 0:
         raise ValueError("an LZW code that is not in the table (corrupt data)")
     return out[:n].tobytes()

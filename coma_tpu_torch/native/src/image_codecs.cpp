@@ -20,11 +20,13 @@ extern "C" {
 // grows when the next code reaches 2^width) or TIFF (``tiff`` 1: most
 // significant bit first, the width grows one code earlier). ``min_code_size``
 // is GIF's initial code size (8 for TIFF). Writes at most ``cap`` bytes to
-// ``out``; returns the count written, stopping at the end code, at the end
-// of the data, or (-1) at a code that is neither in the table nor the next
-// one.
+// ``out``; returns the count written, stopping at ``cap`` bytes, at an end
+// code that ends in byte ``end_from`` or later (one before it is passed over,
+// as Pillow's GIF decoder passes over one while more of the file is to come),
+// at the end of the data, or (-1) at a code that is neither in the table nor
+// the next one.
 int64_t lzw_decode(const uint8_t* data, int64_t n, int min_code_size, int tiff, uint8_t* out,
-                   int64_t cap) {
+                   int64_t cap, int64_t end_from) {
   const int clear = 1 << min_code_size, end = clear + 1;
   std::vector<int32_t> prefix(4096, -1);
   std::vector<uint8_t> suffix(4096, 0), first(4096, 0);
@@ -36,7 +38,7 @@ int64_t lzw_decode(const uint8_t* data, int64_t n, int min_code_size, int tiff, 
   int width = min_code_size + 1, next = end + 1, prev = -1;
   int64_t written = 0, bitpos = 0, total_bits = n * 8;
   const int early = tiff ? 1 : 0;
-  while (bitpos + width <= total_bits) {
+  while (bitpos + width <= total_bits && written < cap) {
     uint32_t code = 0;
     if (tiff) {
       for (int b = 0; b < width; ++b, ++bitpos)
@@ -51,7 +53,10 @@ int64_t lzw_decode(const uint8_t* data, int64_t n, int min_code_size, int tiff, 
       prev = -1;
       continue;
     }
-    if (static_cast<int>(code) == end) break;
+    if (static_cast<int>(code) == end) {
+      if ((bitpos - 1) >> 3 < end_from) continue;
+      break;
+    }
     int c = static_cast<int>(code);
     if (prev < 0) {
       if (c >= clear) return -1;
@@ -78,7 +83,8 @@ int64_t lzw_decode(const uint8_t* data, int64_t n, int min_code_size, int tiff, 
       length[next] = length[prev] + 1;
       if (entry < 0) entry = next;
       ++next;
-      if (next + early >= (1 << width) && width < 12) ++width;
+      // TIFF grows a code early; GIF (GifDecode.c) when the table reaches 2^width exactly
+      if ((tiff ? next + early >= (1 << width) : next == (1 << width)) && width < 12) ++width;
     } else if (entry < 0) {
       return -1;
     }
@@ -92,15 +98,18 @@ int64_t lzw_decode(const uint8_t* data, int64_t n, int min_code_size, int tiff, 
   return written < cap ? written : cap;
 }
 
-// PackBits (TIFF compression 32773) of ``n`` bytes into at most ``cap``;
-// returns the count written.
+// PackBits (TIFF compression 32773, as libtiff decodes it) of ``n`` bytes into
+// at most ``cap``; returns the count written.
 int64_t packbits_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_t cap) {
   int64_t pos = 0, written = 0;
   while (pos < n && written < cap) {
     int h = static_cast<int8_t>(data[pos++]);
     if (h >= 0) {
-      int64_t count = h + 1;
-      for (int64_t i = 0; i < count && pos < n && written < cap; ++i) out[written++] = data[pos++];
+      // libtiff's PackBitsDecode: a literal run (cut to the room left) the data
+      // cannot fill ends the decoding, none of it copied
+      int64_t count = h + 1 < cap - written ? h + 1 : cap - written;
+      if (n - pos < count) break;
+      for (int64_t i = 0; i < count; ++i) out[written++] = data[pos++];
     } else if (h != -128) {
       if (pos >= n) break;
       uint8_t v = data[pos++];

@@ -2,21 +2,35 @@
 // a lossless frame, samples), and the reconstruction of the pixels from them.
 //
 // The native half of coma_tpu_torch/utils/jpeg.py: the Python side parses the
-// markers, removes byte stuffing, splits the scan's data at its restart
-// markers and holds the coefficient arrays. jpeg_decode_scan decodes a
-// Huffman-coded scan into them, as libjpeg's jdhuff.c (sequential) and
-// jdphuff.c (progressive: DC first and refine, AC first and refine with
-// end-of-band runs) do; jpeg_decode_scan_arith an arithmetic-coded one
-// (jdarith.c: the QM decoder, its statistics bins and the DAC conditioning);
-// jpeg_decode_scan_lossless a lossless one (jdlhuff.c's differences, then
-// jdlossls.c's undifferencing and point transform). Each result equals the
-// plain Python decoder's (utils/jpeg.py) value for value. Reading past the end
-// of a segment yields zero bits, as libjpeg supplies zeros at a marker.
+// markers and holds the coefficient arrays; each jpeg_decode_scan* function
+// reads one scan's entropy-coded data from the file where the scan header
+// ends, as libjpeg-turbo 3.1.3 reads it through Pillow, and leaves the read
+// position, libjpeg's unread marker and the expected RSTn in ``state``:
+//
+// - jpeg_decode_scan: Huffman coding, jdhuff.c (sequential, with
+//   decode_mcu_fast's six-byte fills where more than 512 bytes a block are
+//   in hand) and jdphuff.c (progressive: DC first and refine, AC first and
+//   refine with end-of-band runs);
+// - jpeg_decode_scan_arith: arithmetic coding, jdarith.c (the QM decoder, its
+//   statistics bins and the DAC conditioning);
+// - jpeg_decode_scan_lossless: lossless, jdlhuff.c's differences an MCU row at
+//   a time, then jdlossls.c's undifferencing and point transform.
+//
+// libjpeg's recovery from corrupt data is followed: a marker inside the data
+// supplies zero bits and, once a bit past the data is used, the rest of the
+// restart interval is not decoded (insufficient_data); read_restart_marker and
+// jpeg_resync_to_restart decide what a wrong, missing or extra RSTn does; a
+// code no table entry starts is symbol 0 after 17 bits; arithmetic-coded data
+// that overflows ends the interval (ct = -1). The file arrives as Pillow hands
+// it over, 65536 bytes at a time (an MCU that runs past a block starts again
+// with the next; arithmetic decoding cannot suspend), and its end is a
+// truncation; libtiff's source (``libtiff``) supplies FF D9 past it. Each
+// result equals the plain Python decoder's (utils/jpeg.py) value for value.
 // jpeg_smooth is jdcoefct.c's block smoothing of a progressive frame, and
 // jpeg_reconstruct does what utils/jpeg.py:reconstruct does in numpy
-// (libjpeg's jidctint.c islow IDCT and range limit, jdsample.c's upsampling,
-// jdcolor.c's colour conversion), in the same integer arithmetic, so the
-// pixels are equal too.
+// (libjpeg-turbo's SIMD islow IDCT, jdsample.c's upsampling, jdcolor.c's
+// colour conversion), in the same integer arithmetic, so the pixels are equal
+// too.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 jpeg_decode.cpp (native/__init__.py
 // does it at first use).
@@ -37,74 +51,240 @@ const int kNatural[80] = {
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 constexpr int kTableBytes = 1 + 16 + 256;   // present, counts of lengths 1..16, values
+constexpr int64_t kChunk = 65536;           // Pillow's reads
+constexpr int kMinGetBits = 57;
 
-enum Status { kOk = 0, kBadCode = 1, kNoTable = 2, kFewSegments = 3, kBadTable = 4,
-              kArithOverflow = 5 };
+// Statuses; a negative one names a table: -(1 + 4 * kind + table), kind 0 an
+// undefined DC table, 1 an undefined AC table, 2 a bad DC table, 3 a bad AC one.
+enum Status { kOk = 0, kTruncated = 1, kCantSuspend = 2 };
 
 // int32 per component of a scan: h, v, blocks per row of its array, coded
 // blocks per row and column, DC table, AC table, sample rows and columns,
-// sample rows per restart interval (lossless)
+// MCU rows per restart interval (lossless)
 constexpr int kComp = 10;
 
-// A 16-bit lookahead table: entry (length << 8) | symbol, 0 where no code
-// starts with those bits.
-struct Table {
-  std::vector<uint16_t> lookup;
-  bool build(const uint8_t* spec) {
-    if (!spec[0]) return false;
-    lookup.assign(1 << 16, 0);
-    const uint8_t* counts = spec + 1;
-    const uint8_t* values = spec + 17;
-    uint32_t code = 0;
-    int k = 0;
-    for (int len = 1; len <= 16; ++len) {
-      for (int i = 0; i < counts[len - 1]; ++i, ++k, ++code) {
-        if (k >= 256 || code >= (1u << len)) return false;
-        uint32_t first = code << (16 - len), n = 1u << (16 - len);
-        for (uint32_t j = 0; j < n; ++j)
-          lookup[first + j] = static_cast<uint16_t>((len << 8) | values[k]);
+struct Suspend {};                 // the MCU starts again with the next block in hand
+struct Fail { int status; };       // libjpeg refuses (or the file ends)
+struct BadArith {};                // JWRN_ARITH_BAD_CODE: ct = -1
+
+// libjpeg's data source over the file: ``state`` is pos, end (what Pillow has
+// handed over), unread_marker, next restart number.
+struct Source {
+  const uint8_t* data;
+  int64_t size, pos, end;
+  int unread, restart;
+  bool libtiff;
+
+  int byte(bool in_mcu) {
+    int64_t p = pos;
+    if (p >= end) {
+      if (libtiff) {
+        pos = p + 1;
+        return (p - size) % 2 == 0 ? 0xFF : 0xD9;
       }
-      code <<= 1;
+      if (end >= size) throw Fail{kTruncated};
+      end = end + kChunk < size ? end + kChunk : size;
+      if (in_mcu) throw Suspend{};
     }
-    return true;
+    pos = p + 1;
+    return data[p];
+  }
+  int arith_byte() {
+    if (pos >= end && !libtiff) throw Fail{kCantSuspend};
+    return byte(false);
+  }
+  void next_marker(bool can_suspend) {
+    auto get = [&]() { return can_suspend ? byte(false) : arith_byte(); };
+    int c;
+    for (;;) {
+      c = get();
+      while (c != 0xFF) c = get();
+      do c = get(); while (c == 0xFF);
+      if (c) break;
+    }
+    unread = c;
+  }
+  // read_restart_marker and jpeg_resync_to_restart
+  void read_restart_marker(bool can_suspend) {
+    if (!unread) next_marker(can_suspend);
+    int desired = restart;
+    if (unread == 0xD0 + desired) {
+      unread = 0;
+    } else {
+      for (;;) {
+        int m = unread, action;
+        if (m < 0xC0)
+          action = 2;
+        else if (m < 0xD0 || m > 0xD7)
+          action = 3;
+        else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7))
+          action = 3;
+        else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7))
+          action = 2;
+        else
+          action = 1;
+        if (action == 1) {
+          unread = 0;
+          break;
+        }
+        if (action == 3) break;
+        next_marker(can_suspend);
+      }
+    }
+    restart = (desired + 1) & 7;
   }
 };
 
-struct BitReader {
-  const uint8_t* p = nullptr;
-  const uint8_t* end = nullptr;
-  uint64_t acc = 0;
-  int nbits = 0;
+// jpeg_make_d_derived_tbl
+struct Table {
+  int look[256];
+  int32_t maxcode[18];
+  int32_t valoffset[18];
+  uint8_t huffval[256];
+};
 
-  void reset(const uint8_t* begin, const uint8_t* stop) {
-    p = begin;
-    end = stop;
-    acc = 0;
-    nbits = 0;
+int derive(const uint8_t* tables, int which, bool dc, bool lossless, Table& t) {
+  const int kind = dc ? 0 : 1;
+  if (which > 3 || !tables[(which + (dc ? 0 : 4)) * kTableBytes]) return -(1 + 4 * kind + which);
+  const uint8_t* spec = tables + (which + (dc ? 0 : 4)) * kTableBytes;
+  const uint8_t* counts = spec + 1;
+  int n = 0;
+  for (int l = 0; l < 16; ++l) n += counts[l];
+  std::memset(t.huffval, 0, sizeof(t.huffval));
+  std::memcpy(t.huffval, spec + 17, n);
+  int sizes[257], codes[256];
+  int p = 0;
+  for (int l = 1; l <= 16; ++l)
+    for (int i = 0; i < counts[l - 1]; ++i) sizes[p++] = l;
+  int code = 0, si = n ? sizes[0] : 0;
+  p = 0;
+  while (p < n) {
+    while (p < n && sizes[p] == si) codes[p++] = code++;
+    if (code >= (1 << si)) return -(1 + 4 * (2 + kind) + which);
+    code <<= 1;
+    ++si;
   }
-  void fill() {
-    while (nbits <= 56) {
-      uint64_t byte = p < end ? *p++ : 0;
-      acc |= byte << (56 - nbits);
-      nbits += 8;
+  if (dc)
+    for (int i = 0; i < n; ++i)
+      if (t.huffval[i] > (lossless ? 16 : 15)) return -(1 + 4 * (2 + kind) + which);
+  p = 0;
+  for (int l = 1; l <= 16; ++l) {
+    if (counts[l - 1]) {
+      t.valoffset[l] = p - codes[p];
+      p += counts[l - 1];
+      t.maxcode[l] = codes[p - 1];
+    } else {
+      t.maxcode[l] = -1;
     }
   }
-  uint32_t get(int n) {
-    if (n == 0) return 0;
-    if (nbits < n) fill();
-    uint32_t v = static_cast<uint32_t>(acc >> (64 - n));
-    acc <<= n;
-    nbits -= n;
-    return v;
+  t.valoffset[17] = 0;
+  t.maxcode[17] = 0xFFFFF;
+  for (int i = 0; i < 256; ++i) t.look[i] = 9 << 8;
+  p = 0;
+  for (int l = 1; l <= 8; ++l)
+    for (int i = 0; i < counts[l - 1]; ++i, ++p) {
+      int first = codes[p] << (8 - l);
+      for (int j = 0; j < (1 << (8 - l)); ++j) t.look[first + j] = (l << 8) | t.huffval[p];
+    }
+  return kOk;
+}
+
+// libjpeg-turbo's bit reader (jdhuff.c / jdhuff.h)
+struct Bits {
+  Source* src;
+  uint64_t buf = 0;
+  int left = 0;
+  bool insufficient = false;
+
+  void fill(int nbits) {               // jpeg_fill_bit_buffer
+    if (!src->unread) {
+      while (left < kMinGetBits) {
+        int c = src->byte(true);
+        if (c == 0xFF) {
+          do c = src->byte(true); while (c == 0xFF);
+          if (c) {
+            src->unread = c;
+            goto no_more;
+          }
+          c = 0xFF;
+        }
+        buf = (buf << 8) | static_cast<uint64_t>(c);
+        left += 8;
+      }
+      return;
+    }
+  no_more:
+    if (nbits > left) {
+      insufficient = true;
+      buf <<= kMinGetBits - left;
+      left = kMinGetBits;
+    }
   }
-  int symbol(const Table& t) {
-    if (nbits < 16) fill();
-    uint16_t e = t.lookup[acc >> 48];
-    if (!e) return -1;
-    int len = e >> 8;
-    acc <<= len;
-    nbits -= len;
-    return e & 0xFF;
+  void fill_fast() {                   // FILL_BIT_BUFFER_FAST
+    if (left > 16) return;
+    const uint8_t* d = src->data;
+    int64_t p = src->pos;
+    for (int i = 0; i < 6; ++i) {
+      int c0 = d[p], c1 = d[p + 1];
+      ++p;
+      buf = (buf << 8) | static_cast<uint64_t>(c0);
+      if (c0 == 0xFF) {
+        ++p;
+        if (c1) {                        // a marker: zeros, and the MCU again slowly
+          src->unread = c1;
+          p -= 2;
+          buf &= ~static_cast<uint64_t>(0xFF);
+        }
+      }
+    }
+    left += 48;
+    src->pos = p;
+  }
+  uint32_t take(int n) {
+    left -= n;
+    return n ? static_cast<uint32_t>((buf >> left) & ((uint64_t{1} << n) - 1)) : 0;
+  }
+  uint32_t get(int n) {                // CHECK_BIT_BUFFER + GET_BITS
+    if (left < n) fill(n);
+    return take(n);
+  }
+  uint32_t get_fast(int n) {
+    fill_fast();
+    return take(n);
+  }
+  int walk(const Table& t, int l) {    // jpeg_huff_decode
+    int32_t code = static_cast<int32_t>(get(l));
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | static_cast<int32_t>(get(1));
+      ++l;
+    }
+    return l > 16 ? 0 : t.huffval[(code + t.valoffset[l]) & 0xFF];
+  }
+  int decode(const Table& t) {         // HUFF_DECODE
+    if (left < 8) {
+      fill(0);
+      if (left < 8) return walk(t, 1);
+    }
+    int e = t.look[(buf >> (left - 8)) & 0xFF];
+    if ((e >> 8) <= 8) {
+      left -= e >> 8;
+      return e & 0xFF;
+    }
+    return walk(t, 9);
+  }
+  int decode_fast(const Table& t) {    // HUFF_DECODE_FAST
+    fill_fast();
+    int e = t.look[(buf >> (left - 8)) & 0xFF];
+    int nb = e >> 8;
+    left -= nb;
+    if (nb <= 8) return e & 0xFF;
+    int32_t s = static_cast<int32_t>((buf >> left) & ((uint64_t{1} << nb) - 1));
+    while (s > t.maxcode[nb]) {
+      --left;
+      s = (s << 1) | static_cast<int32_t>((buf >> left) & 1);
+      ++nb;
+    }
+    return nb > 16 ? 0 : t.huffval[(s + t.valoffset[nb]) & 0xFF];
   }
 };
 
@@ -112,108 +292,8 @@ inline int extend(uint32_t v, int s) {
   return v < (1u << (s - 1)) ? static_cast<int>(v) - (1 << s) + 1 : static_cast<int>(v);
 }
 
-struct Scan {
-  int ss, se, ah, al;
-  bool progressive;
-  int eobrun = 0;
-};
-
-// One block of a scan; false on a code that no table entry starts.
-bool decode_block(BitReader& br, const Table* dc, const Table* ac, int16_t* block, int& pred,
-                  Scan& sc) {
-  if (!sc.progressive) {
-    int s = br.symbol(*dc);
-    if (s < 0) return false;
-    pred += s ? extend(br.get(s), s) : 0;
-    block[0] = static_cast<int16_t>(pred);
-    for (int k = 1; k < 64; ++k) {
-      int rs = br.symbol(*ac);
-      if (rs < 0) return false;
-      int r = rs >> 4;
-      s = rs & 15;
-      if (s) {
-        k += r;
-        block[kNatural[k]] = static_cast<int16_t>(extend(br.get(s), s));
-      } else {
-        if (r != 15) break;
-        k += 15;
-      }
-    }
-    return true;
-  }
-  if (sc.ss == 0) {                       // DC scans
-    if (sc.ah == 0) {
-      int s = br.symbol(*dc);
-      if (s < 0) return false;
-      pred += s ? extend(br.get(s), s) : 0;
-      block[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(pred) << sc.al));
-    } else if (br.get(1)) {
-      block[0] = static_cast<int16_t>(block[0] | (1 << sc.al));
-    }
-    return true;
-  }
-  if (sc.ah == 0) {                       // AC first
-    if (sc.eobrun > 0) {
-      --sc.eobrun;
-      return true;
-    }
-    for (int k = sc.ss; k <= sc.se; ++k) {
-      int rs = br.symbol(*ac);
-      if (rs < 0) return false;
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        k += r;
-        int v = extend(br.get(s), s);
-        block[kNatural[k]] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << sc.al));
-      } else if (r == 15) {
-        k += 15;
-      } else {
-        sc.eobrun = 1 << r;
-        if (r) sc.eobrun += br.get(r);
-        --sc.eobrun;
-        break;
-      }
-    }
-    return true;
-  }
-  // AC refine
-  const int p1 = 1 << sc.al, m1 = -(1 << sc.al);
-  int k = sc.ss;
-  auto correct = [&](int16_t* c) {
-    if (br.get(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
-  };
-  if (sc.eobrun == 0) {
-    for (; k <= sc.se; ++k) {
-      int rs = br.symbol(*ac);
-      if (rs < 0) return false;
-      int r = rs >> 4, s = rs & 15;
-      if (s) {
-        s = br.get(1) ? p1 : m1;   // a newly nonzero coefficient has size 1
-      } else if (r != 15) {
-        sc.eobrun = 1 << r;
-        if (r) sc.eobrun += br.get(r);
-        break;
-      }
-      do {
-        int16_t* c = block + kNatural[k];
-        if (*c != 0) {
-          correct(c);
-        } else if (--r < 0) {
-          break;
-        }
-        ++k;
-      } while (k <= sc.se);
-      if (s) block[kNatural[k]] = static_cast<int16_t>(s);
-    }
-  }
-  if (sc.eobrun > 0) {
-    for (; k <= sc.se; ++k) {
-      int16_t* c = block + kNatural[k];
-      if (*c != 0) correct(c);
-    }
-    --sc.eobrun;
-  }
-  return true;
+inline int16_t shl16(int v, int al) {
+  return static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(v) << al));
 }
 
 // The units of each MCU in coding order: (component, offset of the unit in
@@ -221,18 +301,21 @@ bool decode_block(BitReader& br, const Table* dc, const Table* ac, int16_t* bloc
 // samples). A one-component scan codes the component's own extent.
 std::vector<std::pair<int, int64_t>> mcu_units(int mcus_x, int mcus_y, int n_comps,
                                                const int32_t* comp, int64_t unit,
-                                               int64_t& n_mcus, int& per_mcu) {
+                                               int64_t& n_mcus, int& per_mcu,
+                                               int64_t& per_row) {
   std::vector<std::pair<int, int64_t>> units;
   if (n_comps == 1) {
     int64_t bw = comp[2], cw = comp[3], ch = comp[4];
     n_mcus = cw * ch;
     per_mcu = 1;
+    per_row = cw;
     units.reserve(n_mcus);
     for (int64_t y = 0; y < ch; ++y)
       for (int64_t x = 0; x < cw; ++x) units.emplace_back(0, (y * bw + x) * unit);
     return units;
   }
   n_mcus = static_cast<int64_t>(mcus_x) * mcus_y;
+  per_row = mcus_x;
   per_mcu = 0;
   for (int i = 0; i < n_comps; ++i) per_mcu += comp[i * kComp] * comp[i * kComp + 1];
   units.reserve(n_mcus * per_mcu);
@@ -247,63 +330,228 @@ std::vector<std::pair<int, int64_t>> mcu_units(int mcus_x, int mcus_y, int n_com
   return units;
 }
 
+struct ScanParams {
+  int ss, se, ah, al;
+  bool progressive;
+};
+
+// decode_mcu_fast (Fast) / decode_mcu_slow
+template <bool Fast>
+void sequential_mcu(Bits& br, const std::pair<int, int64_t>* units, int per_mcu,
+                    int16_t* const* coef, const Table* const* dc, const Table* const* ac,
+                    int* pred) {
+  for (int b = 0; b < per_mcu; ++b) {
+    int i = units[b].first;
+    int16_t* block = coef[i] + units[b].second;
+    int s = Fast ? br.decode_fast(*dc[i]) : br.decode(*dc[i]);
+    if (s) {
+      uint32_t r = Fast ? br.get_fast(s) : br.get(s);
+      s = extend(r, s);
+    }
+    pred[i] = static_cast<int>(static_cast<unsigned>(pred[i]) + static_cast<unsigned>(s));
+    block[0] = static_cast<int16_t>(pred[i]);
+    for (int k = 1; k < 64; ++k) {
+      int rs = Fast ? br.decode_fast(*ac[i]) : br.decode(*ac[i]);
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        k += r;
+        uint32_t v = Fast ? br.get_fast(s) : br.get(s);
+        block[kNatural[k]] = static_cast<int16_t>(extend(v, s));
+      } else {
+        if (r != 15) break;
+        k += 15;
+      }
+    }
+  }
+}
+
+// jdphuff.c's MCU decoders; ``eobrun`` the end-of-band run
+void progressive_mcu(Bits& br, const std::pair<int, int64_t>* units, int per_mcu,
+                     int16_t* const* coef, const Table* const* dc, const Table* ac, int* pred,
+                     int& eobrun, const ScanParams& sc) {
+  if (sc.ss == 0) {
+    for (int b = 0; b < per_mcu; ++b) {
+      int i = units[b].first;
+      int16_t* block = coef[i] + units[b].second;
+      if (sc.ah == 0) {
+        int s = br.decode(*dc[i]);
+        if (s) s = extend(br.get(s), s);
+        pred[i] += s;
+        block[0] = shl16(pred[i], sc.al);
+      } else if (br.get(1)) {
+        block[0] = static_cast<int16_t>(block[0] | (1 << sc.al));
+      }
+    }
+    return;
+  }
+  int16_t* block = coef[units[0].first] + units[0].second;
+  if (sc.ah == 0) {                       // AC first
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      int rs = br.decode(*ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        block[kNatural[k]] = shl16(extend(br.get(s), s), sc.al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += static_cast<int>(br.get(r));
+        --eobrun;
+        break;
+      }
+    }
+    return;
+  }
+  // AC refine
+  const int p1 = 1 << sc.al, m1 = -(1 << sc.al);
+  int k = sc.ss, newnz[64], n_new = 0, run = eobrun;
+  auto correct = [&](int16_t* c) {
+    if (br.get(1) && (*c & p1) == 0) *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
+  };
+  try {
+    if (run == 0) {
+      for (; k <= sc.se; ++k) {
+        int rs = br.decode(*ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          run = 1 << r;
+          if (r) run += static_cast<int>(br.get(r));
+          break;
+        }
+        do {
+          int16_t* c = block + kNatural[k];
+          if (*c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= sc.se);
+        if (s) {
+          block[kNatural[k]] = static_cast<int16_t>(s);
+          if (n_new < 64) newnz[n_new++] = kNatural[k];
+        }
+      }
+    }
+    if (run > 0) {
+      for (; k <= sc.se; ++k) {
+        int16_t* c = block + kNatural[k];
+        if (*c != 0) correct(c);
+      }
+      --run;
+    }
+  } catch (const Suspend&) {
+    while (n_new > 0) block[newnz[--n_new]] = 0;   // libjpeg undoes the newly nonzero ones
+    throw;
+  }
+  eobrun = run;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decodes one Huffman-coded scan. ``data`` holds the scan's segments (one per
-// restart interval, stuffing removed) back to back; segment i is
-// data[seg_start[i]:seg_start[i + 1]]. ``comp`` holds kComp int32 per
-// component of the scan (the tables index ``tables``: 0-3 DC, 4-7 AC, each
-// kTableBytes). ``coef[i]`` is component i's (rows, blocks per row, 64) int16
-// array in natural order. Returns a Status.
-int jpeg_decode_scan(const uint8_t* data, const int64_t* seg_start, int n_segments,
+// Decodes one Huffman-coded scan from data[state[0]:] (``size`` bytes in
+// all); state[4] receives the last MCU begun with data in hand. ``comp`` holds kComp int32 per component of the scan (the tables
+// index ``tables``: 0-3 DC, 4-7 AC, each kTableBytes). ``coef[i]`` is
+// component i's (rows, blocks per row, 64) int16 array in natural order.
+// Returns a Status.
+int jpeg_decode_scan(const uint8_t* data, int64_t size, int libtiff, int64_t* state,
                      int mcus_x, int mcus_y, int restart_interval, int n_comps,
                      const int32_t* comp, int16_t* const* coef, const uint8_t* tables,
                      int ss, int se, int ah, int al, int progressive) {
-  Table dc[4], ac[4];
-  bool dc_ok[4] = {false, false, false, false}, ac_ok[4] = {false, false, false, false};
-  Scan sc{ss, se, ah, al, progressive != 0};
+  ScanParams sc{ss, se, ah, al, progressive != 0};
   bool need_dc = !sc.progressive || (ss == 0 && ah == 0);
   bool need_ac = !sc.progressive || ss > 0;
+  Table dc_t[4], ac_t[4];
+  const Table* dc[4] = {nullptr, nullptr, nullptr, nullptr};
+  const Table* ac[4] = {nullptr, nullptr, nullptr, nullptr};
   for (int i = 0; i < n_comps; ++i) {
     int d = comp[i * kComp + 5], a = comp[i * kComp + 6];
-    if (need_dc && !dc_ok[d]) {
-      if (!tables[d * kTableBytes]) return kNoTable;
-      if (!dc[d].build(tables + d * kTableBytes)) return kBadTable;
-      dc_ok[d] = true;
+    if (need_dc) {
+      int st = derive(tables, d, true, false, dc_t[i]);
+      if (st) return st;
+      dc[i] = &dc_t[i];
     }
-    if (need_ac && !ac_ok[a]) {
-      if (!tables[(4 + a) * kTableBytes]) return kNoTable;
-      if (!ac[a].build(tables + (4 + a) * kTableBytes)) return kBadTable;
-      ac_ok[a] = true;
+    if (need_ac) {
+      int st = derive(tables, a, false, false, ac_t[i]);
+      if (st) return st;
+      ac[i] = &ac_t[i];
     }
   }
-  int64_t n_mcus;
+  Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
+             static_cast<int>(state[3]), libtiff != 0};
+  int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =
-      mcu_units(mcus_x, mcus_y, n_comps, comp, 64, n_mcus, per_mcu);
-  int64_t per_segment = restart_interval > 0 ? restart_interval : n_mcus;
-  int64_t needed = n_mcus ? (n_mcus + per_segment - 1) / per_segment : 0;
-  if (n_segments < needed) return kFewSegments;
-  BitReader br;
-  int pred[4];
-  for (int64_t m = 0; m < n_mcus; ++m) {
-    if (m % per_segment == 0) {
-      int64_t s = m / per_segment;
-      br.reset(data + seg_start[s], data + seg_start[s + 1]);
-      std::memset(pred, 0, sizeof(pred));
-      sc.eobrun = 0;
+      mcu_units(mcus_x, mcus_y, n_comps, comp, 64, n_mcus, per_mcu, per_row);
+  Bits br{&src};
+  int pred[4] = {0, 0, 0, 0}, eobrun = 0, to_go = restart_interval;
+  const bool refine_dc = sc.progressive && ss == 0 && ah > 0;
+  int status = kOk;
+  try {
+    for (int64_t m = 0; m < n_mcus; ++m) {
+      const std::pair<int, int64_t>* mu = units.data() + m * per_mcu;
+      if (!br.insufficient) state[4] = m;            // the last MCU begun with data in hand
+      if (restart_interval && to_go == 0) {          // process_restart
+        br.left = 0;
+        src.read_restart_marker(true);
+        std::memset(pred, 0, sizeof(pred));
+        eobrun = 0;
+        to_go = restart_interval;
+        if (!src.unread) br.insufficient = false;
+      }
+      for (;;) {
+        uint64_t buf = br.buf;
+        int left = br.left, unread = src.unread, save_pred[4], save_eob = eobrun;
+        int64_t pos = src.pos;
+        std::memcpy(save_pred, pred, sizeof(pred));
+        try {
+          if (br.insufficient && !refine_dc) {
+            // the rest of the interval stays as it was
+          } else if (sc.progressive) {
+            progressive_mcu(br, mu, per_mcu, coef, dc, ac[0], pred, eobrun, sc);
+          } else if (!restart_interval && !src.unread && src.end - src.pos >= 512 * per_mcu) {
+            sequential_mcu<true>(br, mu, per_mcu, coef, dc, ac, pred);
+            if (src.unread) {                          // the fast path met a marker
+              br.buf = buf;
+              br.left = left;
+              src.pos = pos;
+              src.unread = 0;
+              std::memcpy(pred, save_pred, sizeof(pred));
+              sequential_mcu<false>(br, mu, per_mcu, coef, dc, ac, pred);
+            }
+          } else {
+            sequential_mcu<false>(br, mu, per_mcu, coef, dc, ac, pred);
+          }
+          break;
+        } catch (const Suspend&) {
+          br.buf = buf;
+          br.left = left;
+          src.pos = pos;
+          src.unread = unread;
+          eobrun = save_eob;
+          std::memcpy(pred, save_pred, sizeof(pred));
+        }
+      }
+      --to_go;
     }
-    for (int b = 0; b < per_mcu; ++b) {
-      const auto& u = units[m * per_mcu + b];
-      int i = u.first;
-      const Table* d = need_dc ? &dc[comp[i * kComp + 5]] : nullptr;
-      const Table* a = need_ac ? &ac[comp[i * kComp + 6]] : nullptr;
-      if (!decode_block(br, d, a, coef[i] + u.second, pred[i], sc)) return kBadCode;
-    }
+  } catch (const Fail& f) {
+    status = f.status;
   }
-  return kOk;
+  state[0] = src.pos;
+  state[1] = src.end;
+  state[2] = src.unread;
+  state[3] = src.restart;
+  return status;
 }
 
 }  // extern "C"
@@ -342,23 +590,26 @@ const uint8_t kNextMps[114] = {
     96,  97,  98,  99,  100, 93,  102, 103, 104, 99,  106, 107, 103, 109, 107, 111, 109, 111, 113};
 
 struct ArithDecoder {
-  const uint8_t* p = nullptr;
-  const uint8_t* end = nullptr;
+  Source* src;
   int64_t c = 0, a = 0;
   int ct = -16;
 
-  void reset(const uint8_t* begin, const uint8_t* stop) {
-    p = begin;
-    end = stop;
-    c = 0;
-    a = 0;
-    ct = -16;
-  }
   int bit(uint8_t* st) {
     while (a < 0x8000) {                         // renormalisation and input, D.2.6
       if (--ct < 0) {
-        int data = p < end ? *p : 0;
-        ++p;
+        int data = 0;
+        if (!src->unread) {
+          data = src->arith_byte();
+          if (data == 0xFF) {
+            do data = src->arith_byte(); while (data == 0xFF);
+            if (data) {
+              src->unread = data;
+              data = 0;
+            } else {
+              data = 0xFF;
+            }
+          }
+        }
         c = (c << 8) | data;
         if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
       }
@@ -389,15 +640,14 @@ struct ArithDecoder {
   }
 };
 
-// Figures F.23 and F.24 from bin ``st`` (then ``big`` onwards): the signed
-// value, or false on a magnitude overflow.
-bool arith_value(ArithDecoder& d, uint8_t* stats, int st, int sign, int big, int& out) {
+// Figures F.23 and F.24 from bin ``st`` (then ``big`` onwards): the signed value.
+int arith_value(ArithDecoder& d, uint8_t* stats, int st, int sign, int big) {
   int m = d.bit(stats + st);
   if (m && d.bit(stats + st)) {
     m = 2;
     st = big;
     while (d.bit(stats + st)) {
-      if ((m <<= 1) == 0x8000) return false;
+      if ((m <<= 1) == 0x8000) throw BadArith{};
       ++st;
     }
   }
@@ -406,17 +656,15 @@ bool arith_value(ArithDecoder& d, uint8_t* stats, int st, int sign, int big, int
   while (m >>= 1)
     if (d.bit(stats + st)) v |= m;
   ++v;
-  out = sign ? -v : v;
-  return true;
+  return sign ? -v : v;
 }
 
 // Figure F.19 with F.1.4.4.1.2's conditioning: one DC difference.
-bool arith_dc_diff(ArithDecoder& d, uint8_t* stats, int& ctx, int lo, int hi, int& out) {
+int arith_dc_diff(ArithDecoder& d, uint8_t* stats, int& ctx, int lo, int hi) {
   int st = ctx;
   if (d.bit(stats + st) == 0) {
     ctx = 0;
-    out = 0;
-    return true;
+    return 0;
   }
   int sign = d.bit(stats + st + 1);
   st += 2 + sign;
@@ -424,7 +672,7 @@ bool arith_dc_diff(ArithDecoder& d, uint8_t* stats, int& ctx, int lo, int hi, in
   if (m) {
     st = 20;
     while (d.bit(stats + st)) {
-      if ((m <<= 1) == 0x8000) return false;
+      if ((m <<= 1) == 0x8000) throw BadArith{};
       ++st;
     }
   }
@@ -439,8 +687,7 @@ bool arith_dc_diff(ArithDecoder& d, uint8_t* stats, int& ctx, int lo, int hi, in
   while (m >>= 1)
     if (d.bit(stats + st)) v |= m;
   ++v;
-  out = sign ? -v : v;
-  return true;
+  return sign ? -v : v;
 }
 
 }  // namespace
@@ -450,143 +697,195 @@ extern "C" {
 // Decodes one arithmetic-coded scan (sequential or progressive), as
 // jpeg_decode_scan does a Huffman-coded one. ``cond`` holds 48 int32: the DC
 // conditioning L and U of tables 0-15, then the AC K of tables 0-15.
-int jpeg_decode_scan_arith(const uint8_t* data, const int64_t* seg_start, int n_segments,
+int jpeg_decode_scan_arith(const uint8_t* data, int64_t size, int libtiff, int64_t* state,
                            int mcus_x, int mcus_y, int restart_interval, int n_comps,
                            const int32_t* comp, int16_t* const* coef, const int32_t* cond,
                            int ss, int se, int ah, int al, int progressive) {
-  int64_t n_mcus;
+  Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
+             static_cast<int>(state[3]), libtiff != 0};
+  int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =
-      mcu_units(mcus_x, mcus_y, n_comps, comp, 64, n_mcus, per_mcu);
-  int64_t per_segment = restart_interval > 0 ? restart_interval : n_mcus;
-  int64_t needed = n_mcus ? (n_mcus + per_segment - 1) / per_segment : 0;
-  if (n_segments < needed) return kFewSegments;
+      mcu_units(mcus_x, mcus_y, n_comps, comp, 64, n_mcus, per_mcu, per_row);
   const bool sequential = !progressive;
   const int p1 = 1 << al, m1 = -(1 << al);
-  uint8_t dc_stats[4][64], ac_stats[4][256], fixed = 113;
-  int pred[4], ctx[4];
-  ArithDecoder d;
-  for (int64_t m = 0; m < n_mcus; ++m) {
-    if (m % per_segment == 0) {
-      int64_t s = m / per_segment;
-      d.reset(data + seg_start[s], data + seg_start[s + 1]);
-      std::memset(dc_stats, 0, sizeof(dc_stats));
-      std::memset(ac_stats, 0, sizeof(ac_stats));
-      std::memset(pred, 0, sizeof(pred));
-      std::memset(ctx, 0, sizeof(ctx));
-      fixed = 113;
-    }
-    for (int b = 0; b < per_mcu; ++b) {
-      const auto& u = units[m * per_mcu + b];
-      int i = u.first;
-      int16_t* block = coef[i] + u.second;
-      int td = comp[i * kComp + 5], ta = comp[i * kComp + 6];
-      if (sequential || (ss == 0 && ah == 0)) {                    // DC
-        int diff;
-        if (!arith_dc_diff(d, dc_stats[td], ctx[i], cond[td], cond[16 + td], diff))
-          return kArithOverflow;
-        if (sequential) {
-          pred[i] = (pred[i] + diff) & 0xFFFF;
-          block[0] = static_cast<int16_t>(pred[i]);
-        } else {
-          pred[i] += diff;
-          block[0] = static_cast<int16_t>(static_cast<int>(static_cast<unsigned>(pred[i]) << al));
+  static thread_local uint8_t dc_stats[16][64], ac_stats[16][256];
+  uint8_t fixed = 113;
+  int pred[4], ctx[4], to_go = restart_interval;
+  ArithDecoder d{&src};
+  auto fresh = [&]() {
+    std::memset(dc_stats, 0, sizeof(dc_stats));
+    std::memset(ac_stats, 0, sizeof(ac_stats));
+    std::memset(pred, 0, sizeof(pred));
+    std::memset(ctx, 0, sizeof(ctx));
+    fixed = 113;
+  };
+  fresh();
+  int status = kOk;
+  try {
+    for (int64_t m = 0; m < n_mcus; ++m) {
+      if (restart_interval) {
+        if (to_go == 0) {                                      // process_restart
+          src.read_restart_marker(false);
+          fresh();
+          d.c = d.a = 0;
+          d.ct = -16;
+          to_go = restart_interval;
         }
-      } else if (ss == 0) {                                        // DC refine
-        if (d.bit(&fixed)) block[0] = static_cast<int16_t>(block[0] | p1);
+        --to_go;
       }
-      if (sequential || (ss > 0 && ah == 0)) {                     // AC (first)
-        uint8_t* stats = ac_stats[ta];
-        int kx = cond[32 + ta], last = sequential ? 63 : se;
-        for (int k = sequential ? 1 : ss; k <= last; ++k) {
-          int st = 3 * (k - 1);
-          if (d.bit(stats + st)) break;                            // end of block
-          while (d.bit(stats + st + 1) == 0) {
-            st += 3;
-            if (++k > last) return kArithOverflow;
-          }
-          int sign = d.bit(&fixed), v;
-          if (!arith_value(d, stats, st + 2, sign, k <= kx ? 189 : 217, v))
-            return kArithOverflow;
-          block[kNatural[k]] = static_cast<int16_t>(
-              sequential ? v : static_cast<int>(static_cast<unsigned>(v) << al));
-        }
-      } else if (ss > 0) {                                         // AC refine
-        uint8_t* stats = ac_stats[ta];
-        int kex = se;
-        while (kex > 0 && block[kNatural[kex]] == 0) --kex;
-        for (int k = ss; k <= se; ++k) {
-          int st = 3 * (k - 1);
-          if (k > kex && d.bit(stats + st)) break;
-          for (;;) {
-            int16_t* c = block + kNatural[k];
-            if (*c) {
-              if (d.bit(stats + st + 2)) *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
-              break;
+      if (d.ct == -1) continue;
+      try {
+        for (int b = 0; b < per_mcu; ++b) {
+          const auto& u = units[m * per_mcu + b];
+          int i = u.first;
+          int16_t* block = coef[i] + u.second;
+          int td = comp[i * kComp + 5], ta = comp[i * kComp + 6];
+          if (sequential || (ss == 0 && ah == 0)) {                    // DC
+            int diff = arith_dc_diff(d, dc_stats[td], ctx[i], cond[td], cond[16 + td]);
+            if (sequential) {
+              pred[i] = (pred[i] + diff) & 0xFFFF;
+              block[0] = static_cast<int16_t>(pred[i]);
+            } else {
+              pred[i] += diff;
+              block[0] = shl16(pred[i], al);
             }
-            if (d.bit(stats + st + 1)) {
-              *c = static_cast<int16_t>(d.bit(&fixed) ? m1 : p1);
-              break;
+          } else if (ss == 0) {                                        // DC refine
+            if (d.bit(&fixed)) block[0] = static_cast<int16_t>(block[0] | p1);
+          }
+          if (sequential || (ss > 0 && ah == 0)) {                     // AC (first)
+            uint8_t* stats = ac_stats[ta];
+            int kx = cond[32 + ta], last = sequential ? 63 : se;
+            for (int k = sequential ? 1 : ss; k <= last; ++k) {
+              int st = 3 * (k - 1);
+              if (d.bit(stats + st)) break;                            // end of block
+              while (d.bit(stats + st + 1) == 0) {
+                st += 3;
+                if (++k > last) throw BadArith{};
+              }
+              int sign = d.bit(&fixed);
+              int v = arith_value(d, stats, st + 2, sign, k <= kx ? 189 : 217);
+              block[kNatural[k]] = sequential ? static_cast<int16_t>(v) : shl16(v, al);
             }
-            st += 3;
-            if (++k > se) return kArithOverflow;
+          } else if (ss > 0) {                                         // AC refine
+            uint8_t* stats = ac_stats[ta];
+            int kex = se;
+            while (kex > 0 && block[kNatural[kex]] == 0) --kex;
+            for (int k = ss; k <= se; ++k) {
+              int st = 3 * (k - 1);
+              if (k > kex && d.bit(stats + st)) break;
+              for (;;) {
+                int16_t* c = block + kNatural[k];
+                if (*c) {
+                  if (d.bit(stats + st + 2)) *c = static_cast<int16_t>(*c + (*c < 0 ? m1 : p1));
+                  break;
+                }
+                if (d.bit(stats + st + 1)) {
+                  *c = static_cast<int16_t>(d.bit(&fixed) ? m1 : p1);
+                  break;
+                }
+                st += 3;
+                if (++k > se) throw BadArith{};
+              }
+            }
           }
         }
+      } catch (const BadArith&) {
+        d.ct = -1;
       }
     }
+  } catch (const Fail& f) {
+    status = f.status;
   }
-  return kOk;
+  state[0] = src.pos;
+  state[1] = src.end;
+  state[2] = src.unread;
+  state[3] = src.restart;
+  return status;
 }
 
 // Decodes one lossless (SOF3) scan: the Huffman-coded differences of each
-// sample, then each component's undifferencing with predictor ``ss`` (the
-// first row of the scan and of each restart interval from the left, the
-// first column from above, sums modulo 2^16) and the point transform ``al``,
-// into ``samples[i]``, component i's (rows, columns) int32 array.
-int jpeg_decode_scan_lossless(const uint8_t* data, const int64_t* seg_start, int n_segments,
-                              int mcus_x, int mcus_y, int restart_interval, int n_comps,
+// sample, an MCU row at a time (a row that starts with the data run out is
+// zeros, predicted afresh), then each component's undifferencing with
+// predictor ``ss`` (the first row of the scan, of each restart interval and
+// of each such row from the left, the first column from above, sums modulo
+// 2^16) and the point transform ``al``, into ``samples[i]``, component i's
+// (rows, columns) int32 array.
+int jpeg_decode_scan_lossless(const uint8_t* data, int64_t size, int libtiff, int64_t* state,
+                              int mcus_x, int mcus_y, int, int n_comps,
                               const int32_t* comp, int32_t* const* samples,
                               const uint8_t* tables, int ss, int, int, int al, int) {
-  Table dc[4];
-  bool ok[4] = {false, false, false, false};
+  Table dc_t[4];
   for (int i = 0; i < n_comps; ++i) {
-    int t = comp[i * kComp + 5];
-    if (!ok[t]) {
-      if (!tables[t * kTableBytes]) return kNoTable;
-      if (!dc[t].build(tables + t * kTableBytes)) return kBadTable;
-      ok[t] = true;
-    }
+    int st = derive(tables, comp[i * kComp + 5], true, true, dc_t[i]);
+    if (st) return st;
   }
-  int64_t n_mcus;
+  Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
+             static_cast<int>(state[3]), libtiff != 0};
+  int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =
-      mcu_units(mcus_x, mcus_y, n_comps, comp, 1, n_mcus, per_mcu);
-  int64_t per_segment = restart_interval > 0 ? restart_interval : n_mcus;
-  int64_t needed = n_mcus ? (n_mcus + per_segment - 1) / per_segment : 0;
-  if (n_segments < needed) return kFewSegments;
-  BitReader br;
-  for (int64_t m = 0; m < n_mcus; ++m) {
-    if (m % per_segment == 0) {
-      int64_t s = m / per_segment;
-      br.reset(data + seg_start[s], data + seg_start[s + 1]);
+      mcu_units(mcus_x, mcus_y, n_comps, comp, 1, n_mcus, per_mcu, per_row);
+  const int64_t rows = per_row ? n_mcus / per_row : 0;
+  const int restart_rows = comp[9];
+  std::vector<uint8_t> fresh(rows, 0);
+  Bits br{&src};
+  int to_go = restart_rows, status = kOk;   // the caller hands over zeroed arrays
+  try {
+    for (int64_t r = 0; r < rows; ++r) {
+      if (r == 0) fresh[r] = 1;
+      if (restart_rows) {
+        if (to_go == 0) {                               // process_restart
+          br.left = 0;
+          src.read_restart_marker(true);
+          to_go = restart_rows;
+          if (!src.unread) br.insufficient = false;
+          fresh[r] = 1;
+        }
+        --to_go;
+      }
+      if (br.insufficient) {
+        fresh[r] = 1;
+        continue;
+      }
+      for (int64_t m = r * per_row; m < (r + 1) * per_row; ++m) {
+        for (;;) {
+          uint64_t buf = br.buf;
+          int left = br.left;
+          int64_t pos = src.pos;
+          try {
+            for (int b = 0; b < per_mcu; ++b) {
+              const auto& u = units[m * per_mcu + b];
+              int i = u.first;
+              int sym = br.decode(dc_t[i]);
+              samples[i][u.second] = sym == 16 ? 32768 : sym ? extend(br.get(sym), sym) : 0;
+            }
+            break;
+          } catch (const Suspend&) {
+            br.buf = buf;
+            br.left = left;
+            src.pos = pos;
+          }
+        }
+      }
     }
-    for (int b = 0; b < per_mcu; ++b) {
-      const auto& u = units[m * per_mcu + b];
-      int i = u.first;
-      int sym = br.symbol(dc[comp[i * kComp + 5]]);
-      if (sym < 0) return kBadCode;
-      samples[i][u.second] = sym == 16 ? 32768 : sym ? extend(br.get(sym), sym) : 0;
-    }
+  } catch (const Fail& f) {
+    status = f.status;
   }
+  state[0] = src.pos;
+  state[1] = src.end;
+  state[2] = src.unread;
+  state[3] = src.restart;
+  if (status) return status;
   for (int i = 0; i < n_comps; ++i) {
     const int32_t* p = comp + i * kComp;
     int64_t bw = p[2];
-    int rows = p[7], cols = p[8], restart_rows = p[9];
+    int rows_i = p[7], cols = p[8], v = n_comps == 1 ? 1 : p[1];
     int32_t* out = samples[i];
     std::vector<int32_t> prev(cols), cur(cols);
-    for (int y = 0; y < rows; ++y) {
+    for (int y = 0; y < rows_i; ++y) {
       const int32_t* diff = out + y * bw;
-      if (y == 0 || (restart_rows && y % restart_rows == 0)) {
+      if (y % v == 0 && fresh[y / v]) {
         int ra = (diff[0] + (1 << (7 - al))) & 0xFFFF;
         cur[0] = ra;
         for (int x = 1; x < cols; ++x) cur[x] = ra = (diff[x] + ra) & 0xFFFF;
@@ -605,6 +904,11 @@ int jpeg_decode_scan_lossless(const uint8_t* data, const int64_t* seg_start, int
       for (int x = 0; x < cols; ++x) out[y * bw + x] = (cur[x] << al) & 0xFF;
       std::swap(prev, cur);
     }
+    // the padding of the coded extent holds no samples (zeros, as the plain decoder)
+    int64_t coded_rows = n_comps == 1 ? p[4] : static_cast<int64_t>(mcus_y) * p[1];
+    int64_t coded_cols = n_comps == 1 ? p[3] : static_cast<int64_t>(mcus_x) * p[0];
+    for (int64_t y = 0; y < coded_rows; ++y)
+      for (int64_t x = y < rows_i ? cols : 0; x < coded_cols; ++x) out[y * bw + x] = 0;
   }
   return kOk;
 }
@@ -618,18 +922,21 @@ extern "C" {
 // Writes into ``out`` (a copy of ``in``, (rows_held, bw, 64) int16) the
 // blocks a progressive frame's IDCT receives after libjpeg's block smoothing:
 // hb x wb real blocks, ``v`` block rows per iMCU row, ``quant`` the (64,)
-// table in natural order, ``bits`` coef_bits of zig-zag positions 0-9. The
+// table in natural order, ``latched`` coef_bits of zig-zag positions 0-9 then
+// the earlier ones, which block rows from ``first_prev`` on take (the rows
+// below the last iMCU row the latest scan began with data in hand). The
 // neighbourhood follows utils/jpeg.py:_smoothing_rows and _smoothing_cols.
 void jpeg_smooth(const int16_t* in, int16_t* out, int bw, int rows_held, int hb, int wb, int v,
-                 const int64_t* quant, const int32_t* bits) {
+                 const int64_t* quant, const int32_t* latched, int first_prev) {
   static const int kPos[9] = {1, 8, 16, 9, 2, 3, 10, 17, 24};
   const int padded = (hb + v - 1) / v * v, last_start = (hb - 1) / v * v;
   auto dc = [&](int r, int c) -> int64_t {
     return r < rows_held ? in[(static_cast<int64_t>(r) * bw + c) * 64] : 0;
   };
-  bool change_dc = true;
-  for (int k = 1; k <= 9; ++k) change_dc = change_dc && bits[k] == -1;
   for (int r = 0; r < hb; ++r) {
+    const int32_t* bits = latched + (r >= first_prev ? 10 : 0);
+    bool change_dc = true;
+    for (int k = 1; k <= 9; ++k) change_dc = change_dc && bits[k] == -1;
     int rr[5];
     rr[0] = r >= 2 ? r - 2 : 0;
     rr[1] = r >= 1 ? r - 1 : 0;
@@ -709,68 +1016,69 @@ const int64_t F0298 = kFix(0.298631336, 13), F0390 = kFix(0.390180644, 13),
               F1961 = kFix(1.961570560, 13), F2053 = kFix(2.053119869, 13),
               F2562 = kFix(2.562915447, 13), F3072 = kFix(3.072711026, 13);
 
-inline int64_t descale(int64_t x, int n) { return (x + (int64_t{1} << (n - 1))) >> n; }
+inline int64_t wrap32(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+inline int64_t wrap16(int64_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
 
-// One pass of jpeg_idct_islow over 8 values d[0], d[step], ..., d[7 step].
-void idct_1d(const int64_t* d, int step, int64_t* out, int ostep, bool final) {
-  int64_t z2 = d[2 * step], z3 = d[6 * step];
-  int64_t z1 = (z2 + z3) * F0541;
-  int64_t tmp2 = z1 + z3 * (-F1847), tmp3 = z1 + z2 * F0765;
-  int64_t tmp0 = (d[0] + d[4 * step]) * (int64_t{1} << 13);
-  int64_t tmp1 = (d[0] - d[4 * step]) * (int64_t{1} << 13);
-  int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  tmp0 = d[7 * step];
-  tmp1 = d[5 * step];
-  tmp2 = d[3 * step];
-  tmp3 = d[step];
-  z1 = tmp0 + tmp3;
-  z2 = tmp1 + tmp2;
-  z3 = tmp0 + tmp2;
-  int64_t z4 = tmp1 + tmp3, z5 = (z3 + z4) * F1175;
-  tmp0 *= F0298;
-  tmp1 *= F2053;
-  tmp2 *= F3072;
-  tmp3 *= F1501;
-  z1 *= -F0899;
-  z2 *= -F2562;
-  z3 = z3 * (-F1961) + z5;
-  z4 = z4 * (-F0390) + z5;
-  tmp0 += z1 + z3;
-  tmp1 += z2 + z4;
-  tmp2 += z2 + z3;
-  tmp3 += z1 + z4;
-  int shift = final ? 13 + 2 + 3 : 13 - 2;
-  out[0] = descale(tmp10 + tmp3, shift);
-  out[ostep] = descale(tmp11 + tmp2, shift);
-  out[2 * ostep] = descale(tmp12 + tmp1, shift);
-  out[3 * ostep] = descale(tmp13 + tmp0, shift);
-  out[4 * ostep] = descale(tmp13 - tmp0, shift);
-  out[5 * ostep] = descale(tmp12 - tmp1, shift);
-  out[6 * ostep] = descale(tmp11 - tmp2, shift);
-  out[7 * ostep] = descale(tmp10 - tmp3, shift);
+// One pass of libjpeg-turbo's SIMD jsimd_idct_islow (the AVX2 and SSE2
+// kernels, bit-exact with jpeg_idct_islow while values stay in range) over 8
+// int16 values d[0], d[step], ..., d[7 step]: in0 +- in4, in7 + in3 and in5 + in1
+// in 16-bit lanes, the products (pmaddwd) and sums in 32-bit ones, the
+// descale, and the outputs saturated to int16 (packssdw).
+void idct_pass(const int16_t* d, int step, int16_t* out, int ostep, int shift) {
+  int64_t i0 = d[0], i1 = d[step], i2 = d[2 * step], i3 = d[3 * step], i4 = d[4 * step],
+          i5 = d[5 * step], i6 = d[6 * step], i7 = d[7 * step];
+  int64_t tmp3 = wrap32(i2 * (F0541 + F0765) + i6 * F0541);
+  int64_t tmp2 = wrap32(i2 * F0541 + i6 * (F0541 - F1847));
+  int64_t tmp0 = wrap16(i0 + i4) * (int64_t{1} << 13), tmp1 = wrap16(i0 - i4) * (int64_t{1} << 13);
+  int64_t tmp10 = wrap32(tmp0 + tmp3), tmp13 = wrap32(tmp0 - tmp3);
+  int64_t tmp11 = wrap32(tmp1 + tmp2), tmp12 = wrap32(tmp1 - tmp2);
+  int64_t z3 = wrap16(i7 + i3), z4 = wrap16(i5 + i1);
+  int64_t z3p = wrap32(z3 * (F1175 - F1961) + z4 * F1175);
+  int64_t z4p = wrap32(z3 * F1175 + z4 * (F1175 - F0390));
+  int64_t t0 = wrap32(wrap32(i7 * (F0298 - F0899) - i1 * F0899) + z3p);
+  int64_t t3 = wrap32(wrap32(-i7 * F0899 + i1 * (F1501 - F0899)) + z4p);
+  int64_t t1 = wrap32(wrap32(i5 * (F2053 - F2562) - i3 * F2562) + z4p);
+  int64_t t2 = wrap32(wrap32(-i5 * F2562 + i3 * (F3072 - F2562)) + z3p);
+  const int64_t sums[8] = {tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3};
+  for (int k = 0; k < 8; ++k) {
+    int64_t x = wrap32(wrap32(sums[k]) + (int64_t{1} << (shift - 1))) >> shift;
+    out[k * ostep] = static_cast<int16_t>(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
+  }
 }
 
-// IDCT_range_limit indexed by x & 1023 (x the centred output)
-inline uint8_t range_limit(int64_t x) {
-  int v = static_cast<int>(x & 1023);
-  return static_cast<uint8_t>(v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896);
-}
-
-// One component's samples (rows x cols) from its coefficients.
+// One component's samples (rows x cols) from its coefficients: the products
+// wrapped to 16 bits (pmullw), the columns (a block whose rows 1-7 are zero
+// takes the kernel's shortcut: the dequantised first row << 2 in 16-bit
+// lanes), the rows, the samples saturated to [-128, 127] and centred.
 std::vector<uint8_t> component_samples(const int16_t* coef, int64_t blocks_per_row, int rows,
                                        int cols, const int64_t* quant) {
   std::vector<uint8_t> out(static_cast<size_t>(rows) * cols);
   int nby = (rows + 7) / 8, nbx = (cols + 7) / 8;
-  int64_t d[64], ws[64], px[64];
+  int16_t deq[64], ws[64], px[64];
   for (int by = 0; by < nby; ++by)
     for (int bx = 0; bx < nbx; ++bx) {
       const int16_t* c = coef + (by * blocks_per_row + bx) * 64;
-      for (int k = 0; k < 64; ++k) d[k] = static_cast<int64_t>(c[k]) * quant[k];
-      for (int col = 0; col < 8; ++col) idct_1d(d + col, 8, ws + col, 8, false);
-      for (int row = 0; row < 8; ++row) idct_1d(ws + row * 8, 1, px + row * 8, 1, true);
+      bool flat = true;
+      for (int k = 0; k < 64; ++k) {
+        deq[k] = static_cast<int16_t>(wrap16(static_cast<int64_t>(c[k]) * quant[k]));
+        if (k >= 8 && c[k]) flat = false;
+      }
+      if (flat) {
+        for (int col = 0; col < 8; ++col) {
+          int16_t v = static_cast<int16_t>(wrap16(static_cast<int64_t>(deq[col]) * 4));
+          for (int row = 0; row < 8; ++row) ws[row * 8 + col] = v;
+        }
+      } else {
+        for (int col = 0; col < 8; ++col) idct_pass(deq + col, 8, ws + col, 8, 11);
+      }
+      for (int row = 0; row < 8; ++row) idct_pass(ws + row * 8, 1, px + row * 8, 1, 18);
       for (int r = 0; r < 8 && by * 8 + r < rows; ++r)
-        for (int x = 0; x < 8 && bx * 8 + x < cols; ++x)
-          out[static_cast<size_t>(by * 8 + r) * cols + bx * 8 + x] = range_limit(px[r * 8 + x]);
+        for (int x = 0; x < 8 && bx * 8 + x < cols; ++x) {
+          int v = px[r * 8 + x];
+          out[static_cast<size_t>(by * 8 + r) * cols + bx * 8 + x] =
+              static_cast<uint8_t>((v < -128 ? -128 : v > 127 ? 127 : v) + 128);
+        }
     }
   return out;
 }

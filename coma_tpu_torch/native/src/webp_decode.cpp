@@ -359,11 +359,21 @@ class BoolDecoder {
  public:
   BoolDecoder() = default;
   BoolDecoder(const uint8_t* data, int64_t start, int64_t end)
-      : data_(data), pos_(start), end_(end) {
+      : data_(data), pos_(start), end_(end), limit_(8 * (end - start) - 8) {
     value_ = next() << 8;
     value_ |= next();
   }
+  // VP8GetSigned's bit: libwebp always shifts once there (``ahead_``)
+  int sign() {
+    int64_t before = shifts_;
+    int b = bit(128);
+    ahead_ = shifts_ == before ? 1 : 0;
+    return b;
+  }
   int bit(int prob) {
+    // libwebp's eof_: a bit wanted after more than 8 * size - 8 shifts
+    if (shifts_ + ahead_ > limit_) throw Error("a VP8 partition ends early (libwebp: premature end of data)");
+    ahead_ = 0;
     unsigned split = 1 + (((range_ - 1) * static_cast<unsigned>(prob)) >> 8);
     unsigned big = split << 8;
     int bit;
@@ -378,6 +388,7 @@ class BoolDecoder {
     while (range_ < 128) {
       value_ <<= 1;
       range_ <<= 1;
+      ++shifts_;
       if (++count_ == 8) {
         count_ = 0;
         value_ |= next();
@@ -398,12 +409,11 @@ class BoolDecoder {
  private:
   unsigned next() {
     ++pos_;
-    if (pos_ <= end_) return data_[pos_ - 1];
-    if (pos_ > end_ + 8) throw Error("a VP8 partition ends early");
-    return 0;
+    return pos_ <= end_ ? data_[pos_ - 1] : 0;
   }
   const uint8_t* data_ = nullptr;
-  int64_t pos_ = 0, end_ = 0;
+  int64_t pos_ = 0, end_ = 0, limit_ = 0, shifts_ = 0;
+  int ahead_ = 0;
   unsigned value_ = 0, range_ = 255;
   int count_ = 0;
 };
@@ -536,7 +546,8 @@ int get_coeffs(BoolDecoder& br, const Header& h, int t, int ctx, const int* dq, 
       }
       p = proba_at(h, t, kBands[n + 1], 2);
     }
-    out[kZigzag[n]] = (br.bit(128) ? -v : v) * dq[n > 0];
+    // libwebp keeps the dequantised coefficient in an int16_t
+    out[kZigzag[n]] = static_cast<int16_t>((br.sign() ? -v : v) * dq[n > 0]);
     ++n;
   }
   return 16;
@@ -567,6 +578,53 @@ void idct_add(const int* in, int* dst, int stride) {
     row[3] = clip255(row[3] + ((a - d) >> 3));
   }
 }
+
+inline int w16(int x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int mulhi(int x, int k) { return (x * k) >> 16; }
+
+// One pass of libwebp's Transform_SSE2 over rows r0..r3 (4 lanes): every sum
+// in 16-bit lanes, the constants' products by mulhi.
+void pass_sse2(const int* r0, const int* r1, const int* r2, const int* r3, int out[4][4]) {
+  for (int i = 0; i < 4; ++i) {
+    int a = w16(r0[i] + r2[i]), b = w16(r0[i] - r2[i]);
+    int c = w16(w16(r1[i] - r3[i]) + w16(mulhi(r1[i], -30068) - mulhi(r3[i], 20091)));
+    int d = w16(w16(r1[i] + r3[i]) + w16(mulhi(r1[i], 20091) + mulhi(r3[i], -30068)));
+    out[0][i] = w16(a + d);
+    out[1][i] = w16(b + c);
+    out[2][i] = w16(b - c);
+    out[3][i] = w16(a - d);
+  }
+}
+
+// libwebp's Transform_SSE2 (the full transform on x86): as idct_add while
+// values stay in 16 bits, else wrapped there.
+void idct_add_sse2(const int* in, int* dst, int stride) {
+  int v[4][4], t[4][4], o[4][4];
+  pass_sse2(in, in + 4, in + 8, in + 12, v);                // v[k][col]
+  for (int i = 0; i < 4; ++i) {
+    t[0][i] = w16(v[i][0] + 4);
+    t[1][i] = v[i][1];
+    t[2][i] = v[i][2];
+    t[3][i] = v[i][3];
+  }
+  pass_sse2(t[0], t[1], t[2], t[3], o);                     // o[k][row]
+  for (int i = 0; i < 4; ++i) {
+    int* row = dst + i * stride;
+    for (int k = 0; k < 4; ++k) row[k] = clip255(row[k] + (o[k][i] >> 3));
+  }
+}
+
+// libwebp's DoTransform by the block's class (NzCodeBits): 3 the full SSE2
+// transform, 2 and 1 TransformAC3/TransformDC (C, as the full one in int
+// arithmetic), 0 none.
+void transform(const int* in, int* dst, int stride, int kind) {
+  if (kind == 3)
+    idct_add_sse2(in, dst, stride);
+  else if (kind)
+    idct_add(in, dst, stride);
+}
+
+inline int nz_class(int nz, int dc) { return nz > 3 ? 3 : nz > 1 ? 2 : dc != 0; }
 
 void iwht(const int* in, int out[16]) {
   int tmp[16];
@@ -764,7 +822,7 @@ struct Planes {
 };
 
 void reconstruct(Planes& P, int mb_x, int mb_y, int mbw, bool is4, const int* ymodes, int uvmode,
-                 const int* coeffs) {
+                 const int* coeffs, const int* kinds) {
   const int S = 21;
   int w[17 * 21];
   const int y0 = 16 * mb_y, x0 = 16 * mb_x, W = P.w;
@@ -784,12 +842,12 @@ void reconstruct(Planes& P, int mb_x, int mb_y, int mbw, bool is4, const int* ym
     for (int n = 0; n < 16; ++n) {
       int* d = w + (1 + 4 * (n >> 2)) * S + 1 + 4 * (n & 3);
       predict4(ymodes[n], d, S);
-      idct_add(coeffs + 16 * n, d, S);
+      transform(coeffs + 16 * n, d, S, kinds[n]);
     }
   } else {
     predict_block(ymodes[0], w + S + 1, S, 16, mb_x, mb_y);
     for (int n = 0; n < 16; ++n)
-      idct_add(coeffs + 16 * n, w + (1 + 4 * (n >> 2)) * S + 1 + 4 * (n & 3), S);
+      transform(coeffs + 16 * n, w + (1 + 4 * (n >> 2)) * S + 1 + 4 * (n & 3), S, kinds[n]);
   }
   for (int r = 0; r < 16; ++r)
     for (int c = 0; c < 16; ++c) P.y[(y0 + r) * W + x0 + c] = static_cast<uint8_t>(w[(r + 1) * S + 1 + c]);
@@ -805,8 +863,12 @@ void reconstruct(Planes& P, int mb_x, int mb_y, int mbw, bool is4, const int* ym
     }
     for (int r = 1; r <= 8; ++r) cwk[r * 9] = mb_x > 0 ? C[(r0 + r - 1) * CW + c0 - 1] : 129;
     predict_block(uvmode, cwk + 10, 9, 8, mb_x, mb_y);
+    const int* plane = kinds + 16 + 4 * k;      // DoUVTransform: all four full past a DC
+    bool full = false;
+    for (int n = 0; n < 4; ++n) full = full || plane[n] >= 2;
     for (int n = 0; n < 4; ++n)
-      idct_add(coeffs + 16 * (16 + 4 * k + n), cwk + (1 + 4 * (n >> 1)) * 9 + 1 + 4 * (n & 1), 9);
+      transform(coeffs + 16 * (16 + 4 * k + n), cwk + (1 + 4 * (n >> 1)) * 9 + 1 + 4 * (n & 1),
+                9, full ? 3 : plane[n]);
     for (int r = 0; r < 8; ++r)
       for (int c = 0; c < 8; ++c)
         C[(r0 + r) * CW + c0 + c] = static_cast<uint8_t>(cwk[(r + 1) * 9 + 1 + c]);
@@ -906,6 +968,7 @@ void decode_vp8(const uint8_t* data, int64_t n, Planes& P, int& width, int& heig
       }
       int uvmode = !br.bit(142) ? DC : !br.bit(114) ? VE : br.bit(183) ? TM : HE;
       std::fill(coeffs.begin(), coeffs.end(), 0);
+      int kinds[24] = {0};                      // each block's NzCodeBits
       const Quant& q = h.quant[segment];
       if (!skip) {
         int first, ac;
@@ -917,9 +980,9 @@ void decode_vp8(const uint8_t* data, int64_t n, Planes& P, int& width, int& heig
           if (nz > 1) {
             int out[16];
             iwht(dc, out);
-            for (int i = 0; i < 16; ++i) coeffs[16 * i] = out[i];
+            for (int i = 0; i < 16; ++i) coeffs[16 * i] = static_cast<int16_t>(out[i]);
           } else {
-            int dc0 = (dc[0] + 3) >> 3;
+            int dc0 = static_cast<int16_t>((dc[0] + 3) >> 3);
             for (int i = 0; i < 16; ++i) coeffs[16 * i] = dc0;
           }
           first = 1;
@@ -934,6 +997,7 @@ void decode_vp8(const uint8_t* data, int64_t n, Planes& P, int& width, int& heig
           for (int x = 0; x < 4; ++x) {
             int* blk = &coeffs[16 * (4 * y + x)];
             int nz = get_coeffs(tb, h, ac, l + (tnz & 1), q.y1, first, blk);
+            kinds[4 * y + x] = nz_class(nz, blk[0]);
             l = nz > first;
             tnz = (tnz >> 1) | (l << 7);
             any_nz |= nz > 1 || blk[0] != 0;
@@ -950,6 +1014,7 @@ void decode_vp8(const uint8_t* data, int64_t n, Planes& P, int& width, int& heig
             for (int x = 0; x < 2; ++x) {
               int* blk = &coeffs[16 * (16 + 2 * ch + 2 * y + x)];
               int nz = get_coeffs(tb, h, 2, l + (tnz & 1), q.uv, 0, blk);
+              kinds[16 + 2 * ch + 2 * y + x] = nz_class(nz, blk[0]);
               l = nz > 0;
               tnz = (tnz >> 1) | (l << 3);
               any_nz |= nz > 1 || blk[0] != 0;
@@ -972,7 +1037,7 @@ void decode_vp8(const uint8_t* data, int64_t n, Planes& P, int& width, int& heig
         f.inner = is4 || !skip;
         finfo[mb_y * mbw + mb_x] = f;
       }
-      reconstruct(P, mb_x, mb_y, mbw, is4, modes, uvmode, coeffs.data());
+      reconstruct(P, mb_x, mb_y, mbw, is4, modes, uvmode, coeffs.data(), kinds);
     }
   }
   if (h.filter_type) loop_filter(P, finfo, mbw, mbh, h.filter_type == 1);

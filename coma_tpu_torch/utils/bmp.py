@@ -201,6 +201,9 @@ def bitmap(data: bytes, at: int, offset: int = 0, height_div: int = 1, raw_alpha
         gray = all(i < len(entries) and (entries[i] == v).all() for i, v in enumerate(ramp))
         if gray:
             mode = rawmode = "1" if colors == 2 else "L"
+        elif len(entries) > 256:                # Pillow's putpalette refuses it
+            raise ValueError(f"{name}: a BMP palette of {len(entries)} entries (invalid "
+                             "palette size)")
         else:
             palette = np.ascontiguousarray(entries)
     offset = offset or pos

@@ -467,6 +467,8 @@ def _decode(data: bytes, native) -> Decoded:
         pos += 1024
     elif pfflags & _DDPF_FOURCC:
         if fourcc == b"DX10":
+            if len(data) < 132:             # Pillow's read of the DXGI format fails
+                raise ValueError("a DX10 header cut short")
             dxgi = struct.unpack_from("<I", data, 128)[0]
             pos += 20
             if dxgi not in _DXGI:

@@ -24,15 +24,16 @@ from coma_tpu_torch.utils.modes import Decoded
 MAX_CODE = 4096            # GIF's 12-bit LZW table
 
 
-def lzw_decode_python(data: bytes, min_code_size: int, cap: int) -> bytes:
+def lzw_decode_python(data: bytes, min_code_size: int, cap: int, end_from: int = 0) -> bytes:
     """GIF's variable-width LZW: codes least-significant bit first from
-    ``min_code_size + 1`` bits, growing when the table reaches 2^width (12
+    ``min_code_size + 1`` bits, growing when the table reaches 2^width exactly (12
     bits at most, no entries added past 4096), a clear code resetting, the
-    end code or the end of the data stopping. At most ``cap`` bytes."""
+    end of the data stopping, and an end code ending in byte ``end_from`` or
+    later (one before it is passed over). At most ``cap`` bytes."""
     clear, end = 1 << min_code_size, (1 << min_code_size) + 1
     padded = data + bytes(3)
     total = len(data) * 8
-    table: list = [bytes([i]) for i in range(clear)] + [b"", b""]
+    table: list = [bytes([i & 0xFF]) for i in range(clear)] + [b"", b""]   # UINT8 past 8 bits
     width, pos, prev = min_code_size + 1, 0, None
     out = bytearray()
     while pos + width <= total and len(out) < cap:
@@ -45,6 +46,8 @@ def lzw_decode_python(data: bytes, min_code_size: int, cap: int) -> bytes:
             width, prev = min_code_size + 1, None
             continue
         if code == end:
+            if (pos - 1) >> 3 < end_from:
+                continue
             break
         if prev is None:
             if code >= clear:
@@ -59,14 +62,15 @@ def lzw_decode_python(data: bytes, min_code_size: int, cap: int) -> bytes:
             table.append(entry)
         else:
             raise ValueError("an LZW code that is not in the table (corrupt data)")
-        if len(table) >= 1 << width and width < 12:
+        if len(table) == 1 << width and width < 12:     # GifDecode.c: next == codemask
             width += 1
         out += entry
         prev = entry
     return bytes(out[:cap])
 
 
-def lzw_decode(data: bytes, min_code_size: int, cap: int, native=None) -> bytes:
+def lzw_decode(data: bytes, min_code_size: int, cap: int, native=None,
+               end_from: int = 0) -> bytes:
     """:func:`lzw_decode_python`, or its C++ twin (``native`` None: where it
     builds)."""
     from coma_tpu_torch.native import codecs
@@ -74,8 +78,49 @@ def lzw_decode(data: bytes, min_code_size: int, cap: int, native=None) -> bytes:
     if native is None:
         native = codecs.available()
     if not native:
-        return lzw_decode_python(data, min_code_size, cap)
-    return codecs.lzw_decode(data, min_code_size, False, cap)
+        return lzw_decode_python(data, min_code_size, cap, end_from)
+    return codecs.lzw_decode(data, min_code_size, False, cap, end_from)
+
+
+CHUNK = 65536              # Pillow's ImageFile.load reads a file in blocks of this
+
+
+def _pillow_stream(data: bytes, offset: int, to_end: bool) -> tuple:
+    """The LZW bytes Pillow's GIF decoder (``libImaging/GifDecode.c``) takes
+    from ``data[offset:]``: every data sub-block it has whole, read as a
+    length byte and that many bytes with no regard for terminators (past the
+    frame's own ones only where ``to_end``); and the first of those bytes in
+    Pillow's last read of the file, from which on an end code stops it
+    (before that one, it reads on)."""
+    n, pos, out = len(data), offset, bytearray()
+    last_read = offset + max(-(-(n - offset) // CHUNK) - 1, 0) * CHUNK
+    end_from = None
+    while pos < n and (to_end or data[pos]):
+        c = data[pos]
+        if pos + 1 + c > n:
+            break
+        if end_from is None and pos + 1 + c > last_read:
+            end_from = len(out)
+        out += data[pos + 1:pos + 1 + c]
+        pos += 1 + c
+    return bytes(out), len(out) if end_from is None else end_from
+
+
+def _frame_indices(data: bytes, offset: int, min_code_size: int, w: int, h: int, name: str,
+                   native) -> bytes:
+    """A frame's w x h palette indices as Pillow's decoder gives them; a
+    ``ValueError`` where it wants bytes past the end of the file (Pillow:
+    "image file is truncated") or meets a code not in the table."""
+    for to_end in (False, True):
+        stream, end_from = _pillow_stream(data, offset, to_end)
+        try:
+            raw = lzw_decode(stream, min_code_size, w * h, native, end_from)
+        except ValueError as err:
+            raise ValueError(f"{name}: {err}") from None
+        if len(raw) >= w * h:
+            return raw
+    raise ValueError(f"{name}: the GIF image data ends before its {w} x {h} pixels "
+                     "(truncated; Pillow refuses it)")
 
 
 class _Frame(NamedTuple):
@@ -127,10 +172,16 @@ def _parse(data: bytes, name: str, native, first_only: bool):
     while pos < len(data) and data[pos] != 0x3B:
         kind = data[pos]
         if kind == 0x21:
+            if pos + 1 >= len(data):
+                raise ValueError(f"{name}: the GIF file ends inside an extension")
             label = data[pos + 1]
             first = data[pos + 3:pos + 3 + data[pos + 2]] if pos + 2 < len(data) else b""
             body, pos = sub_blocks(pos + 2)
-            if label == 0xF9 and len(first) >= 4:
+            if label == 0xF9 and first:
+                # PIL reads the duration (and, flagged, the transparency) unchecked
+                if len(first) < 3 or (first[0] & 1 and len(first) < 4):
+                    raise ValueError(f"{name}: a GIF graphic control extension cut short "
+                                     "(PIL refuses it)")
                 transparency = first[3] if first[0] & 1 else None
                 duration = (first[1] | first[2] << 8) * 10
                 disposal = (first[0] >> 2) & 7 or disposal
@@ -149,17 +200,14 @@ def _parse(data: bytes, name: str, native, first_only: bool):
                 p = np.frombuffer(data[pos:pos + n], np.uint8).reshape(-1, 3)
                 pos += n
                 palette = p if _palette_needed(p) else None
+            if pos >= len(data):
+                raise ValueError(f"{name}: the GIF file ends before a frame's LZW code size")
             min_code_size = data[pos]
-            if not 1 <= min_code_size <= 11:
+            if min_code_size > 12:                   # GifDecode.c's only check
                 raise ValueError(f"{name}: a GIF LZW code size of {min_code_size}")
+            raw = _frame_indices(data, pos + 1, min_code_size, w, h, name, native)
             body, pos = sub_blocks(pos + 1)
-            try:
-                raw = lzw_decode(body, min_code_size, w * h, native)
-            except ValueError as err:
-                raise ValueError(f"{name}: {err}") from None
-            idx = np.zeros(w * h, np.uint8)
-            idx[:len(raw)] = np.frombuffer(raw, np.uint8)
-            idx = idx.reshape(h, w)
+            idx = np.frombuffer(raw, np.uint8)[:w * h].reshape(h, w).copy()
             if fl & 0x40:
                 idx = _deinterlace(idx)
             frames.append(_Frame((x0, y0, x0 + w, y0 + h), idx, palette, transparency,

@@ -136,6 +136,9 @@ def decode_tga(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
         entries = raw[:len(raw) // nbytes * nbytes].reshape(-1, nbytes)
         colours = _bgra15z(entries)[:, :3] if map_depth == 16 else entries[:, ::-1]
         palette = np.concatenate([np.zeros((start, 3), np.uint8), colours])
+        if len(palette) > 256 and itype & 7 == 1:   # Pillow's putpalette refuses it
+            raise ValueError(f"{name}: a TGA colour map of {len(palette)} entries (invalid "
+                             "palette size)")
     rawmode = _RAWMODES.get((itype & 7, depth))
     if rawmode is None:
         raise ValueError(f"{name}: PIL cannot decode a TGA of type {itype} at {depth} bits")

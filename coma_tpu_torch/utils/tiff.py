@@ -33,6 +33,9 @@ from coma_tpu_torch.utils.modes import Decoded
 
 _TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
           9: ("i", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+# the bytes per value of every type Pillow's directory reader loads (ASCII,
+# rationals, floats and IFDs too, which the port does not decode)
+_UNIT = {**{k: size for k, (_, size) in _TYPES.items()}, 2: 1, 5: 8, 10: 8, 11: 4, 12: 8, 13: 4}
 _REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
             34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
             50001: "WebP"}
@@ -82,15 +85,20 @@ def lzw_decode_python(data: bytes, cap: int) -> bytes:
 
 
 def packbits_decode_python(data: bytes, cap: int) -> bytes:
-    """PackBits: a header n in 0..127 copies n + 1 bytes, -1..-127 repeats
-    the next byte 1 - n times, -128 does nothing. At most ``cap`` bytes."""
+    """PackBits as libtiff's ``PackBitsDecode`` reads it: a header n in
+    0..127 copies n + 1 bytes (cut to the room left; a run the data cannot
+    fill ends the decoding, none of it copied), -1..-127 repeats the next
+    byte 1 - n times, -128 does nothing. At most ``cap`` bytes."""
     out, pos, n = bytearray(), 0, len(data)
     while pos < n and len(out) < cap:
         h = data[pos] - 256 if data[pos] > 127 else data[pos]
         pos += 1
         if h >= 0:
-            out += data[pos:pos + h + 1]
-            pos += h + 1
+            count = min(h + 1, cap - len(out))
+            if n - pos < count:
+                break
+            out += data[pos:pos + count]
+            pos += count
         elif h != -128 and pos < n:
             out += data[pos:pos + 1] * (1 - h)
             pos += 1
@@ -105,7 +113,9 @@ def _decompress(chunk: bytes, compression: int, cap: int, native) -> bytes:
     if compression == 1:
         return chunk[:cap]
     if compression in (8, 32946):
-        return zlib.decompress(chunk)[:cap]
+        # libtiff's ZIPDecode inflates until the strip is full: what lies
+        # past that (the stream's check value too) is never looked at
+        return zlib.decompressobj().decompress(chunk, cap)
     if compression == 5:
         if chunk[:2] == b"\x00\x01":
             raise ValueError("old-style (LSB-first) TIFF LZW is not read")
@@ -129,21 +139,26 @@ class _Ifd:
             raise ValueError(f"{name}: a BigTIFF header with offsets other than 8 bytes")
         word, entry = (8, 20) if big else (4, 12)
         at = self._int(8, 8) if big else self._int(4, 4)
-        count = self._int(at, 8 if big else 2)
         first = at + (8 if big else 2)
-        if first + entry * count > len(data):
-            raise ValueError(f"{name}: the TIFF directory runs past the end of the file")
+        # Pillow's ImageFileDirectory_v2.load: the entries in order, until one
+        # (or its data) runs past the end of the file; those read stay
+        count = self._int(at, 8 if big else 2) if first <= len(data) else 0
         self.tags = {}
         for k in range(count):
             e = first + entry * k
+            if e + entry > len(data):
+                break
             tag, kind, n = self._int(e, 2), self._int(e + 2, 2), self._int(e + 4, word)
-            if kind not in _TYPES:
+            if kind not in _UNIT:
                 continue
-            code, size = _TYPES[kind]
-            where = e + 4 + word if n * size <= word else self._int(e + 4 + word, word)
-            if where + n * size > len(data):
-                raise ValueError(f"{name}: TIFF tag {tag} runs past the end of the file")
-            self.tags[tag] = tuple(np.frombuffer(data, self.order + code, n, where).tolist())
+            size = n * _UNIT[kind]
+            where = e + 4 + word if size <= word else self._int(e + 4 + word, word)
+            if where + size > len(data):
+                break
+            if kind not in _TYPES or not n:
+                continue
+            self.tags[tag] = tuple(np.frombuffer(data, self.order + _TYPES[kind][0], n,
+                                                 where).tolist())
 
     def _int(self, at: int, n: int) -> int:
         return int.from_bytes(self.data[at:at + n], "little" if self.order == "<" else "big")
@@ -161,6 +176,12 @@ def _undo_predictor(raw: np.ndarray, width: int, spp: int, bits: int, order: str
     rows = raw.view(order + "u2").reshape(raw.shape[0], width, spp)
     return np.cumsum(rows, axis=1, dtype=np.uint16).astype(order + "u2").view(np.uint8).reshape(
         raw.shape)
+
+
+# the (photometric, bits, extra samples) of OPEN_INFO's keys with fill order 2
+_FILL2 = {(0, (1,), ()), (0, (2,), ()), (0, (4,), ()), (0, (8,), ()), (1, (1,), ()),
+          (1, (2,), ()), (1, (4,), ()), (1, (8,), ()), (1, (16,), ()), (2, (8, 8, 8), ()),
+          (3, (1,), ()), (3, (2,), ()), (3, (4,), ()), (3, (8,), ())}
 
 
 def _mode(photometric: int, bps: tuple, extra: tuple, name: str):
@@ -223,18 +244,28 @@ def _unpack(raw: np.ndarray, rawmode: str, width: int, order: str) -> np.ndarray
 _REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
 
 
-def _jpeg_block(chunk: bytes, tables, photometric: int, spp: int, name: str,
-                native) -> np.ndarray:
+def _jpeg_block(chunk: bytes, tables, photometric: int, spp: int, name: str, native,
+                segment: tuple, sampling: tuple, last_strip: bool) -> np.ndarray:
     """One JPEG strip or tile, after the JPEGTables stream, as libtiff's codec
-    decodes it: (rows, columns * spp) uint8."""
+    decodes it: (rows, columns * spp) uint8. ``segment`` is the (columns,
+    rows) libtiff expects, ``sampling`` the first component's factors (the
+    YCbCr subsampling, else 1 x 1); ``JPEGPreDecode``'s checks refuse the
+    rest."""
     from coma_tpu_torch.utils import jpeg
 
-    if tables is not None and len(tables) >= 4 and chunk[:2] == b"\xff\xd8":
-        chunk = bytes(tables)[:-2] + chunk[2:]      # the tables, then the strip after its SOI
-    frame = jpeg.decode_coefficients(chunk, name, native)
+    frame = jpeg.decode_coefficients(chunk, name, native, libtiff=True,
+                                     tables_stream=None if tables is None else bytes(tables))
     if len(frame.coef) != spp:
         raise ValueError(f"{name}: a JPEG strip of {len(frame.coef)} components in a TIFF of "
                          f"{spp} samples")
+    if tuple(frame.raw_sampling[0]) != tuple(sampling) or \
+            any(tuple(f) != (1, 1) for f in frame.raw_sampling[1:]):
+        raise ValueError(f"{name}: improper JPEG sampling factors {frame.raw_sampling} in a "
+                         "TIFF strip (libtiff refuses them)")
+    (w, h), (seg_w, seg_h) = (frame.width, frame.height), segment
+    if (w > seg_w or h > seg_h) and not (w == seg_w and h > seg_h and last_strip):
+        raise ValueError(f"{name}: a JPEG strip of {w} x {h} exceeds its {seg_w} x {seg_h} "
+                         "(libtiff refuses it)")
     if spp == 1:
         colour = jpeg.GRAY
     elif photometric == 6:
@@ -261,19 +292,39 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
         by, bx = divmod(k, across)
         if by * bh >= height:
             break
+        # a strip holds the rows left in the image, a tile all of its own (to
+        # Pillow's raw decoder too the rows left)
+        need = block_row_bytes * (bh if tile and compression != 1 else
+                                  min(bh, height - by * bh))
+        if compression == 1:
+            # Pillow's raw decoder reads the rows from the offset, whatever
+            # the byte count says, and the file must hold them
+            count = need
+            if offset + need > len(data):
+                raise ValueError(f"{name}: a TIFF strip or tile runs past the end of the file "
+                                 "(truncated; Pillow refuses it)")
+        elif not count or offset + count > len(data):
+            raise ValueError(f"{name}: a TIFF strip or tile of {count} bytes at {offset} is "
+                             "not in the file (libtiff refuses it)")
         chunk = data[offset:offset + count]
         if fill == 2:
             chunk = chunk.translate(_REVERSED)
         try:
             if compression == 7:
-                piece = _jpeg_block(chunk, tables, photometric, samples, name, native)
+                sampling = tuple(ifd.get(530, (2, 2)))[:2] if photometric == 6 else (1, 1)
+                piece = _jpeg_block(chunk, tables, photometric, samples, name, native,
+                                    (bw, need // block_row_bytes), sampling,
+                                    not tile and by * bh + bh >= height)
                 piece = piece[:bh, :block_row_bytes]
             else:
-                block = _decompress(chunk, compression, block_row_bytes * bh, native)
-                rows = len(block) // block_row_bytes
-                piece = np.frombuffer(block[:rows * block_row_bytes], np.uint8).reshape(
-                    rows, block_row_bytes)
+                block = _decompress(chunk, compression, need, native)
+                if len(block) < need:
+                    raise ValueError(f"a TIFF strip or tile decodes to {len(block)} of its "
+                                     f"{need} bytes (libtiff refuses it)")
+                piece = np.frombuffer(block, np.uint8).reshape(-1, block_row_bytes)
         except (ValueError, zlib.error) as err:
+            if str(err).startswith(name):
+                raise
             raise ValueError(f"{name}: {err}") from None
         if predictor == 2:
             piece = _undo_predictor(piece, bw, samples, bps, ifd.order)
@@ -299,17 +350,32 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     photometric = ifd.get(262, (0,))[0]
     spp = ifd.get(277, (1,))[0]
     bps = tuple(ifd.get(258, (1,)))
-    if len(bps) == 1 and spp > 1:
+    if spp < len(bps):                  # Pillow drops the extra bit counts
+        bps = bps[:spp]
+    elif len(bps) == 1 and spp > 1:
         bps = bps * spp
+    if len(bps) != spp:
+        raise ValueError(f"{name}: {spp} samples a pixel with bit counts {bps} (Pillow "
+                         "refuses it)")
     extra = tuple(ifd.get(338, ()))
     fill = ifd.get(266, (1,))[0]
+    if compression != 1 and ifd.get(284, (1,))[0] not in (1, 2):
+        raise ValueError(f"{name}: planar configuration {ifd.get(284)[0]} (libtiff refuses it)")
     planar = ifd.get(284, (1,))[0] == 2 and spp > 1
     if any(f != 1 for f in ifd.get(339, (1,))) and not (bps == (8,) and photometric == 1):
         raise ValueError(f"{name}: TIFF samples other than unsigned integers are not read")
     if compression == 7 and photometric == 6 and bps == (8, 8, 8) and not planar:
         mode, rawmode = "RGB", "RGB"                # libtiff's JPEGCOLORMODE_RGB
+        sub = tuple(ifd.get(530, (2, 2)))[:2]
+        if len(sub) < 2 or any(f not in (1, 2, 4) for f in sub):
+            raise ValueError(f"{name}: YCbCr subsampling {sub} (libtiff refuses it)")
     else:
         mode, rawmode = _mode(photometric, bps, extra, name)
+        # Pillow's OPEN_INFO key holds the fill order and the byte order too
+        if fill not in (1, 2) or (fill == 2 and (photometric, bps, extra) not in _FILL2) \
+                or (photometric, bps, ifd.order) == (0, (16,), ">"):
+            raise ValueError(f"{name}: a TIFF of photometric {photometric}, bits {bps}, fill "
+                             f"order {fill} has no mode in Pillow")
     if compression == 7 and (any(b != 8 for b in bps) or planar):
         raise ValueError(f"{name}: a JPEG TIFF of {bps} bits (planar {planar}) is not read")
     predictor = ifd.get(317, (1,))[0] if compression != 7 else 1
@@ -318,13 +384,17 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     if planar and (rawmode not in ("RGB", "RGBA", "CMYK") or bps[0] != 8):
         # PIL unpacks each plane with one letter of the raw mode
         raise ValueError(f"{name}: separate planes of raw mode {rawmode} are not read")
-    tiled = 322 in ifd.tags
+    tiled = 273 not in ifd.tags and 324 in ifd.tags     # as Pillow chooses
     if tiled:
+        if 322 not in ifd.tags or 323 not in ifd.tags:
+            raise ValueError(f"{name}: a tiled TIFF without its tile size")
         bw, bh = ifd.get(322)[0], ifd.get(323)[0]
         offsets, counts = ifd.get(324), ifd.get(325)
     else:
         bw, bh = width, min(ifd.get(278, (height,))[0], height) or height
         offsets, counts = ifd.get(273), ifd.get(279)
+    if compression == 1 and counts is None and offsets is not None:
+        counts = (0,) * len(offsets)              # Pillow's raw decoder does not read them
     if not width or not height or offsets is None or counts is None:
         raise ValueError(f"{name}: a TIFF without size or image data")
     planes = len(bps) if planar else 1
@@ -344,4 +414,14 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
         if cmap is None:
             raise ValueError(f"{name}: a palette TIFF without a ColorMap")
         palette = (np.asarray(cmap, np.int64).reshape(3, -1).T // 256).astype(np.uint8)
-    return Decoded(_unpack(raw, rawmode, width, ifd.order), mode, palette)
+    pixels = _unpack(raw, rawmode, width, ifd.order)
+    if compression == 1:
+        # Pillow's raw tiles leave what they do not cover as the new image's zeros
+        covered = np.zeros((-(-height // bh) * bh, -(-width // bw) * bw), bool)
+        across = -(-width // bw)
+        for k in range(min(per_plane, covered.size // (bw * bh))):
+            by, bx = divmod(k, across)
+            covered[by * bh:(by + 1) * bh, bx * bw:(bx + 1) * bw] = True
+        pixels = np.where(covered[:height, :width].reshape(
+            (height, width) + (1,) * (pixels.ndim - 2)), pixels, 0).astype(pixels.dtype)
+    return Decoded(pixels, mode, palette)

@@ -39,24 +39,33 @@ DC, TM, VE, HE = 0, 1, 2, 3
 
 
 class BoolDecoder:
-    """RFC 6386's boolean entropy decoder over ``data[start:end]``; past the
-    end it reads zeros, and a stream that needs more than a few of them is
-    refused."""
+    """RFC 6386's boolean entropy decoder over ``data[start:end]``, zeros
+    past the end. libwebp's reader (``VP8GetBit``) refuses the partition
+    (``eof_``) when a bit is wanted after more than 8 * size - 8 shifts;
+    its ``VP8GetSigned`` (:meth:`sign`) always shifts once, where the RFC's
+    decoder may not until the next bit, so ``ahead`` holds that shift."""
 
     def __init__(self, data: bytes, start: int, end: int):
         self.data, self.pos, self.end = data, start, end
         self.value = self._byte() << 8 | self._byte()
         self.range, self.count = 255, 0
+        self.shifts, self.ahead, self.limit = 0, 0, 8 * (end - start) - 8
 
     def _byte(self) -> int:
         self.pos += 1
-        if self.pos <= self.end:
-            return self.data[self.pos - 1]
-        if self.pos > self.end + 8:
-            raise ValueError("a VP8 partition ends early")
-        return 0
+        return self.data[self.pos - 1] if self.pos <= self.end else 0
+
+    def sign(self) -> int:
+        """``VP8GetSigned``'s bit: one of probability 1/2."""
+        before = self.shifts
+        bit = self.bit(128)
+        self.ahead = int(self.shifts == before)
+        return bit
 
     def bit(self, prob: int) -> int:
+        if self.shifts + self.ahead > self.limit:
+            raise ValueError("a VP8 partition ends early (libwebp: premature end of data)")
+        self.ahead = 0
         split = 1 + (((self.range - 1) * prob) >> 8)
         big = split << 8
         if self.value >= big:
@@ -66,6 +75,7 @@ class BoolDecoder:
         while self.range < 128:
             self.value <<= 1
             self.range <<= 1
+            self.shifts += 1
             self.count += 1
             if self.count == 8:
                 self.count = 0
@@ -235,7 +245,8 @@ def _coeffs(br: BoolDecoder, proba, ctx: int, dq, n: int, out: np.ndarray) -> in
                     v = v + v + br.bit(prob)
                 v += 3 + (8 << cat)
             p = proba[BANDS[n + 1]][2]
-        out[ZIGZAG[n]] = (-v if br.bit(128) else v) * dq[n > 0]
+        # libwebp keeps the dequantised coefficient in an int16_t
+        out[ZIGZAG[n]] = ((-v if br.sign() else v) * dq[n > 0] + 0x8000) % 0x10000 - 0x8000
         n += 1
     return 16
 
@@ -260,6 +271,44 @@ def idct_add(coeffs: np.ndarray, dst: np.ndarray) -> None:
     c, d = _mul2(v[:, 1]) - _mul1(v[:, 3]), _mul1(v[:, 1]) + _mul2(v[:, 3])
     res = np.stack([a + d, b + c, b - c, a - d], 1) >> 3
     dst[:] = np.clip(dst.astype(np.int64) + res, 0, 255)
+
+
+def _w16(x):
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _pass_sse2(r0, r1, r2, r3) -> tuple:
+    """One pass of libwebp's ``Transform_SSE2`` over rows r0..r3 (4 lanes):
+    every sum in 16-bit lanes, the constants' products by ``mulhi``."""
+    a, b = _w16(r0 + r2), _w16(r0 - r2)
+    c = _w16(_w16(r1 - r3) + _w16(((r1 * -30068) >> 16) - ((r3 * 20091) >> 16)))
+    d = _w16(_w16(r1 + r3) + _w16(((r1 * 20091) >> 16) + ((r3 * -30068) >> 16)))
+    return _w16(a + d), _w16(b + c), _w16(b - c), _w16(a - d)
+
+
+def idct_add_sse2(coeffs: np.ndarray, dst: np.ndarray) -> None:
+    """libwebp's ``Transform_SSE2`` (the full transform on x86): as
+    :func:`idct_add` while values stay in 16 bits, else wrapped there."""
+    x = coeffs.reshape(4, 4).astype(np.int64)
+    v = np.stack(_pass_sse2(x[0], x[1], x[2], x[3]))          # [row, col]
+    out = _pass_sse2(_w16(v[:, 0] + 4), v[:, 1], v[:, 2], v[:, 3])
+    res = np.stack([o >> 3 for o in out], 1)
+    dst[:] = np.clip(dst.astype(np.int64) + res, 0, 255)
+
+
+def _transform(coeffs: np.ndarray, dst: np.ndarray, kind: int) -> None:
+    """libwebp's ``DoTransform`` by the block's class: 3 the full (SSE2)
+    transform, 2 and 1 ``TransformAC3``/``TransformDC`` (C, as the full one
+    in int arithmetic), 0 none."""
+    if kind == 3:
+        idct_add_sse2(coeffs, dst)
+    elif kind:
+        idct_add(coeffs, dst)
+
+
+def _nz_class(nz: int, dc: int) -> int:
+    """libwebp's ``NzCodeBits``."""
+    return 3 if nz > 3 else 2 if nz > 1 else int(dc != 0)
 
 
 def iwht(dc: np.ndarray) -> np.ndarray:
@@ -413,13 +462,15 @@ def decode(data: bytes) -> tuple:
                 TM if br.bit(183) else HE
             # the residuals, in the row's token partition
             coeffs = np.zeros((24, 16), np.int64)
+            kinds = [0] * 24                                    # each block's NzCodeBits
             y1q, y2q, uvq = h.quant[segment]
             if not skip:
                 if not is4:
                     dc = np.zeros(16, np.int64)
                     nz = _coeffs(tb, h.proba[1], nzdc_top[mb_x] + nzdc_left, y2q, 0, dc)
                     nzdc_top[mb_x] = nzdc_left = int(nz > 0)
-                    coeffs[:, 0][:16] = iwht(dc) if nz > 1 else (int(dc[0]) + 3) >> 3
+                    coeffs[:, 0][:16] = ((iwht(dc) if nz > 1 else (int(dc[0]) + 3) >> 3)
+                                         + 0x8000) % 0x10000 - 0x8000     # int16_t
                     first, ac = 1, h.proba[0]
                 else:
                     first, ac = 0, h.proba[3]
@@ -430,6 +481,7 @@ def decode(data: bytes) -> tuple:
                     for x in range(4):
                         blk = coeffs[4 * y + x]
                         nz = _coeffs(tb, ac, l + (tnz & 1), y1q, first, blk)
+                        kinds[4 * y + x] = _nz_class(nz, blk[0])
                         l = int(nz > first)
                         tnz = (tnz >> 1) | (l << 7)
                         any_nz |= int(nz > 1 or blk[0] != 0)      # libwebp's NzCodeBits
@@ -443,6 +495,7 @@ def decode(data: bytes) -> tuple:
                         for x in range(2):
                             blk = coeffs[16 + 2 * ch + 2 * y + x]
                             nz = _coeffs(tb, h.proba[2], l + (tnz & 1), uvq, 0, blk)
+                            kinds[16 + 2 * ch + 2 * y + x] = _nz_class(nz, blk[0])
                             l = int(nz > 0)
                             tnz = (tnz >> 1) | (l << 3)
                             any_nz |= int(nz > 1 or blk[0] != 0)
@@ -459,17 +512,20 @@ def decode(data: bytes) -> tuple:
             if h.filter_type:
                 limit, ilevel, hev = strengths[segment][int(is4)]
                 finfo[mb_y, mb_x] = (limit, ilevel, hev, int(is4) | int(not skip))
-            _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, modes if is4 else ymode, uvmode, coeffs)
+            _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, modes if is4 else ymode, uvmode, coeffs,
+                         kinds)
     if h.filter_type:
         _loop_filter(Y, U, V, finfo, h.filter_type)
     cw, ch_ = (h.width + 1) >> 1, (h.height + 1) >> 1
     return Y[:h.height, :h.width], U[:ch_, :cw], V[:ch_, :cw]
 
 
-def _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, ymodes, uvmode, coeffs) -> None:
+def _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, ymodes, uvmode, coeffs, kinds) -> None:
     """Predict and add the residuals of one macroblock into the unfiltered
     planes, from a work block with the row above (and, for luma, 4 pixels
-    above-right) and the column left, as libwebp's ``ReconstructRow``."""
+    above-right) and the column left, as libwebp's ``ReconstructRow``; each
+    block's transform by its class (``kinds``), a chroma plane's four by the
+    full transform where one needs more than its DC (``DoUVTransform``)."""
     y0, x0 = 16 * mb_y, 16 * mb_x
     w = np.zeros((17, 21), np.int64)
     if mb_y > 0:
@@ -485,13 +541,12 @@ def _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, ymodes, uvmode, coeffs) -> None:
         for n in range(16):
             by, bx = 1 + 4 * (n >> 2), 1 + 4 * (n & 3)
             _predict4(ymodes[n], w, by, bx)
-            view = w[by:by + 4, bx:bx + 4]
-            idct_add(coeffs[n], view)
+            _transform(coeffs[n], w[by:by + 4, bx:bx + 4], kinds[n])
     else:
         _predict_block(ymodes, w, 16, mb_x, mb_y)
         for n in range(16):
             by, bx = 1 + 4 * (n >> 2), 1 + 4 * (n & 3)
-            idct_add(coeffs[n], w[by:by + 4, bx:bx + 4])
+            _transform(coeffs[n], w[by:by + 4, bx:bx + 4], kinds[n])
     Y[y0:y0 + 16, x0:x0 + 16] = w[1:17, 1:17]
     for k, P in enumerate((U, V)):
         c0, r0 = 8 * mb_x, 8 * mb_y
@@ -503,9 +558,11 @@ def _reconstruct(Y, U, V, mb_x, mb_y, mbw, is4, ymodes, uvmode, coeffs) -> None:
             w[0, :] = 127
         w[1:, 0] = P[r0:r0 + 8, c0 - 1] if mb_x > 0 else 129
         _predict_block(uvmode, w, 8, mb_x, mb_y)
+        plane = kinds[16 + 4 * k:20 + 4 * k]
         for n in range(4):
             by, bx = 1 + 4 * (n >> 1), 1 + 4 * (n & 1)
-            idct_add(coeffs[16 + 4 * k + n], w[by:by + 4, bx:bx + 4])
+            _transform(coeffs[16 + 4 * k + n], w[by:by + 4, bx:bx + 4],
+                       3 if max(plane) >= 2 else plane[n])
         P[r0:r0 + 8, c0:c0 + 8] = w[1:, 1:]
 
 

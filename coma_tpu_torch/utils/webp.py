@@ -80,17 +80,20 @@ def _parse(data: bytes) -> tuple:
         fw, fh = _le(data, fat + 6, 3) + 1, _le(data, fat + 9, 3) + 1
         if x + fw > cw or y + fh > ch:
             raise ValueError("a frame outside the canvas")
-        image, alph = _image(data, _chunks(data, fat + 16, fat + fsize))
+        image, alph = _image(data, _chunks(data, fat + 16, fat + fsize), in_frame=True)
         return cw, ch, has_alpha, (x, y, image, alph, fw, fh)
     image, alph = _image(data, chunks[1:])
     has_alpha |= alph is not None
     return cw, ch, has_alpha, (0, 0, image, alph, cw, ch)
 
 
-def _image(data: bytes, chunks: list) -> tuple:
-    """The image chunk and the ALPH before it (None) among ``chunks``."""
+def _image(data: bytes, chunks: list, in_frame: bool = False) -> tuple:
+    """The image chunk and the ALPH before it (None) among ``chunks``; in an
+    ANMF frame libwebp's demuxer stops at a chunk of another kind."""
     alph = None
     for c in chunks:
+        if in_frame and c[0] not in (b"ALPH", b"VP8 ", b"VP8L"):
+            break
         if c[0] == b"ALPH" and alph is None:
             alph = c
         elif c[0] in (b"VP8 ", b"VP8L"):
@@ -207,7 +210,8 @@ def yuv420_to_rgb(Y: np.ndarray, U: np.ndarray, V: np.ndarray) -> np.ndarray:
 def _frame_rgba(data: bytes, frame: tuple, native: bool) -> np.ndarray:
     """One image (with its ALPH) -> (h, w, 4) RGBA."""
     _, _, (kind, at, size), alph = frame[:4]
-    payload = data[at:at + size]
+    # libwebp's demuxer hands the decoder the chunk with its padding byte
+    payload = data[at:at + size + (size & 1)]
     if native:
         from coma_tpu_torch.native import codecs
 

@@ -789,6 +789,40 @@ def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
 
 
 @pytest.mark.cuda
+def test_damaged_fixtures_on_the_card_machine_match_pillow():
+    """The damaged files of ``tests/data/images/damaged/`` through
+    ``decode_image`` with the native decoders built by the card machine's
+    g++: Pillow's hashes for modes None, RGB and L, or refused naming the
+    file as Pillow refuses them."""
+    need_card()
+    import gzip
+    import json
+    import os
+
+    from coma_tpu_torch.utils import jpeg
+    from coma_tpu_torch.utils.image_io import decode_image
+    from coma_tpu_torch.utils.modes import to_mode
+
+    assert jpeg.native_available()
+    root = os.path.join(REPO, "tests", "data", "images", "damaged")
+    with open(os.path.join(root, "manifest.json")) as fh:
+        entries = json.load(fh)["files"]
+    for entry in entries:
+        name = entry["file"]
+        with open(os.path.join(root, entry.get("stored", name)), "rb") as fh:
+            data = fh.read()
+        if "stored" in entry:
+            data = gzip.decompress(data)
+        if entry.get("raises"):
+            with pytest.raises(ValueError, match=name.replace(".", r"\.")):
+                decode_image(data, name)
+            continue
+        decoded = decode_image(data, name)
+        for mode in (None, "RGB", "L"):
+            assert _sha(to_mode(decoded, mode)) == entry["sha256"][str(mode)], (name, mode)
+
+
+@pytest.mark.cuda
 def test_routed_readers_on_the_card_machine_read_jpegs(tmp_path):
     """The readers that ``coma_tpu`` runs through PIL, on JPEG inputs: the
     BEHAVE reader's colour frames and masks, a JPEG ``map_Kd`` and

@@ -3,21 +3,24 @@
 Pillow on the results.
 
     python3 tools/fuzz_image_readers.py [--seed 0] [--trials 20] [--jpeg-scan 300]
+                                        [--formats jpg,gif,tif,webp,blp]
 
 Needs Pillow (the CPU test host has it). Each small fixture of
 ``tests/data/images/`` (its manifest's files under 64 kB, not the gzipped
-atlases) is changed ``--trials`` times from a numpy seed: one to three bytes
-overwritten (mostly in the first 600, where the headers are), the file cut
-at a random length, or a byte inserted or dropped. Pillow opens and loads
-each result from memory and converts it to modes None, RGB and L;
+atlases nor the damaged set) is changed ``--trials`` times from a numpy
+seed: one to three bytes overwritten (mostly in the first 600, where the
+headers are), the file cut at a random length, or a byte inserted or
+dropped. ``--formats`` keeps the fixtures with those extensions. Pillow opens
+and loads each result from memory and converts it to modes None, RGB and L;
 ``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same.
 Every outcome falls in one of: equal arrays, both refuse, different arrays,
 Pillow reads and the port refuses, the port reads and Pillow refuses. The
-counts are printed by outcome and, for the last three, by format.
-``--jpeg-scan N`` also changes one byte in the scan of a seeded JPEG N times
-(the damaged-data entry of ROADMAP Queue 3). Files whose size passes 4
-million pixels are skipped; the process caps its address space at 6 GiB,
-and a port decode that runs out of it counts as a refusal.
+counts are printed by outcome, then each divergence class by format, outcome
+and the refusing side's message (digits folded to ``#``), with one example
+input. ``--jpeg-scan N`` also changes one byte in the scan of a seeded JPEG N
+times. Files whose size passes 4 million pixels are skipped; the process caps
+its address space at 6 GiB, and a port decode that runs out of it counts as
+a refusal. The exit status is 1 when any divergence remains, else 0.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import collections
 import io
 import json
 import os
+import re
 import resource
 import sys
 import warnings
@@ -35,10 +39,11 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 MODES = (None, "RGB", "L")
+AGREE = ("equal", "both refuse")
 
 
 def pillow(data: bytes):
-    """Pillow's three arrays, "big", or None where it refuses."""
+    """Pillow's three arrays, "big", or its refusal's message (a str)."""
     from PIL import Image
 
     try:
@@ -47,31 +52,41 @@ def pillow(data: bytes):
                 return "big"
             im.load()
             return [np.asarray(im if m is None else im.convert(m)) for m in MODES]
-    except Exception:                       # every refusal of Pillow's counts as one
-        return None
+    except Image.DecompressionBombError:    # past this tool's own pixel limit: skipped too
+        return "big"
+    except Exception as err:                # every refusal of Pillow's counts as one
+        return f"{type(err).__name__}: {err}"
 
 
 def port(data: bytes):
+    """The port's three arrays, or its refusal's message (a str)."""
     from coma_tpu_torch.utils.image_io import decode_image
     from coma_tpu_torch.utils.modes import to_mode
 
     try:
         decoded = decode_image(data, "fuzzed")
         return [to_mode(decoded, m) for m in MODES]
-    except (ValueError, MemoryError):
-        return None
+    except (ValueError, MemoryError) as err:
+        return f"{type(err).__name__}: {err}"
 
 
-def outcome(want, got) -> str:
-    if want is None and got is None:
-        return "both refuse"
-    if want is None:
-        return "port reads, Pillow refuses"
-    if got is None:
-        return "Pillow reads, port refuses"
+def outcome(want, got) -> tuple:
+    """(outcome, the refusing side's message or "")."""
+    if isinstance(want, str) and isinstance(got, str):
+        return "both refuse", ""
+    if isinstance(want, str):
+        return "port reads, Pillow refuses", want
+    if isinstance(got, str):
+        return "Pillow reads, port refuses", got
     same = all(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
                for a, b in zip(want, got))
-    return "equal" if same else "different arrays"
+    return ("equal" if same else "different arrays"), ""
+
+
+def fold(message: str) -> str:
+    """A message as a class: the file name dropped, digits folded."""
+    message = re.sub(r" at 0x[0-9a-f]+", "", message.replace("fuzzed: ", ""))
+    return re.sub(r"\d+", "#", message)[:110]
 
 
 def damage(data: bytes, rng) -> bytes:
@@ -94,6 +109,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trials", type=int, default=20)
     parser.add_argument("--jpeg-scan", type=int, default=0)
+    parser.add_argument("--formats", default="",
+                        help="comma-separated extensions to keep (default: every fixture)")
     args = parser.parse_args()
     resource.setrlimit(resource.RLIMIT_AS, (6 << 30, 6 << 30))
     warnings.simplefilter("ignore")
@@ -102,43 +119,56 @@ def main() -> int:
     Image.MAX_IMAGE_PIXELS = 4_000_000
     sys.path.insert(0, REPO)
     rng = np.random.default_rng(args.seed)
+    keep = {"." + e.strip(".").lower() for e in args.formats.split(",") if e.strip()}
     with open(os.path.join(FIXTURES, "manifest.json")) as fh:
         files = [e["file"] for e in json.load(fh)["files"]
                  if "stored" not in e and e["bytes"] < 64_000]
-    counts, by_format = collections.Counter(), collections.Counter()
+    if keep:
+        files = [f for f in files if os.path.splitext(f)[1].lower() in keep]
+    counts, classes, examples = collections.Counter(), collections.Counter(), {}
     for name in files:
         with open(os.path.join(FIXTURES, name), "rb") as fh:
             data = fh.read()
-        for _ in range(args.trials):
+        for trial in range(args.trials):
             damaged = damage(data, rng)
             want = pillow(damaged)
-            if want == "big":
+            if isinstance(want, str) and want == "big":
                 continue
-            result = outcome(want, port(damaged))
+            result, message = outcome(want, port(damaged))
             counts[result] += 1
-            if result not in ("equal", "both refuse"):
-                by_format[(os.path.splitext(name)[1], result)] += 1
+            if result not in AGREE:
+                key = (os.path.splitext(name)[1], result, fold(message))
+                classes[key] += 1
+                examples.setdefault(key, f"{name} trial {trial}")
     print(f"fixtures: {len(files)}, damaged files: {sum(counts.values())}")
     for result, n in counts.most_common():
         print(f"  {result}: {n}")
-    for (ext, result), n in sorted(by_format.items()):
-        print(f"  {ext} {result}: {n}")
-    if args.jpeg_scan:
+    for (ext, result, message), n in sorted(classes.items()):
+        print(f"  {ext} {result}: {n}  [{message or '-'}]  e.g. {examples[ext, result, message]}")
+    diverged = sum(classes.values())
+    if args.jpeg_scan and (not keep or ".jpg" in keep):
         sys.path.insert(0, os.path.join(REPO, "tools"))
         from make_image_fixtures import seeded_rgb
 
         buf = io.BytesIO()
         Image.fromarray(seeded_rgb((24, 40), 160)).save(buf, "JPEG", quality=85)
         data = buf.getvalue()
-        scan = collections.Counter()
+        scan, scan_classes = collections.Counter(), collections.Counter()
         for _ in range(args.jpeg_scan):
             b = bytearray(data)
             b[rng.integers(len(data) // 3, len(data) - 2)] = rng.integers(0, 256)
-            scan[outcome(pillow(bytes(b)), port(bytes(b)))] += 1
+            result, message = outcome(pillow(bytes(b)), port(bytes(b)))
+            scan[result] += 1
+            if result not in AGREE:
+                scan_classes[result, fold(message)] += 1
         print(f"a seeded JPEG with one scan byte changed, {args.jpeg_scan} times:")
         for result, n in scan.most_common():
             print(f"  {result}: {n}")
-    return 0
+        for (result, message), n in sorted(scan_classes.items()):
+            print(f"  {result}: {n}  [{message or '-'}]")
+        diverged += sum(scan_classes.values())
+    print(f"divergences: {diverged}")
+    return 1 if diverged else 0
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Write the image fixtures of ``tests/data/images/`` and their manifest.
 
-    python3 tools/make_image_fixtures.py
+    python3 tools/make_image_fixtures.py [--damaged]
 
+``--damaged`` writes only the damaged set of ``tests/data/images/damaged/``
+(:func:`damaged_fixtures`: libjpeg-turbo's recovery from corrupt data and
+the refusals of Pillow, libtiff and libwebp, with its own ``manifest.json``).
 Needs Pillow and gcc with libjpeg-turbo's headers and library (the CPU test
 host has them; the card machine has neither, which is why the files and the
 manifest are committed). Every image is made from a numpy seed. Pillow
@@ -1981,6 +1984,279 @@ def step_video_entry() -> dict:
     return dict(STEP_VIDEO, decoded_shape=list(stack.shape), durations=durations, loop=loop,
                 sha256=array_sha(stack))
 
+# ---------------------------------------------------------------------------
+# Damaged files: what Pillow recovers from or refuses (tests/data/images/damaged)
+# ---------------------------------------------------------------------------
+
+DAMAGED = os.path.join(OUT, "damaged")
+DAMAGED_GZIPPED = ("atlas_damaged_restart_2048x1536.jpg",)
+
+
+def jpeg_segments(data: bytes) -> list:
+    """(marker, start, end) of each segment of a JPEG file; a scan runs to
+    the next marker other than RSTn."""
+    out, pos = [], 2
+    while pos < len(data) - 1:
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            out.append((marker, pos, pos + 2))
+            break
+        end = pos + 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:
+            while not (data[end] == 0xFF and data[end + 1] not in (0,) + tuple(range(0xD0, 0xD8))):
+                end += 1
+        out.append((marker, pos, end))
+        pos = end
+    return out
+
+
+def scan_span(data: bytes, k: int = 0) -> tuple:
+    """(start, end) of the entropy-coded data of scan ``k``."""
+    _, at, end = [s for s in jpeg_segments(data) if s[0] == 0xDA][k]
+    return at + 2 + int.from_bytes(data[at + 2:at + 4], "big"), end
+
+
+def restart_markers(data: bytes) -> list:
+    """Offsets of the RSTn markers in the first scan."""
+    start, end = scan_span(data)
+    return [i for i in range(start, end - 1) if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7]
+
+
+def spliced(data: bytes, at: int, remove: int = 0, insert: bytes = b"") -> bytes:
+    return data[:at] + insert + data[at + remove:]
+
+
+def patched_byte(data: bytes, at: int, value: int) -> bytes:
+    return spliced(data, at, 1, bytes([value]))
+
+
+def without_segments(data: bytes, marker: int) -> bytes:
+    out = bytearray(data[:2])
+    for m, a, b in jpeg_segments(data):
+        if m != marker:
+            out += data[a:b]
+    return bytes(out)
+
+
+def segment_start(data: bytes, marker: int, k: int = 0) -> int:
+    return [a for m, a, _ in jpeg_segments(data) if m == marker][k]
+
+
+def riff_resized(data: bytes) -> bytes:
+    """A simple WebP with its RIFF and first chunk sizes set to what is left."""
+    out = bytearray(data)
+    out[4:8] = (len(out) - 8).to_bytes(4, "little")
+    out[16:20] = (len(out) - 20).to_bytes(4, "little")
+    return bytes(out)
+
+
+def damaged_fixtures() -> dict:
+    """{file name: (kind, bytes)}: small files damaged on purpose, one or
+    more for each rule of libjpeg-turbo's recovery from corrupt data,
+    Pillow's refusals of damaged and truncated files, libtiff's and
+    libwebp's, each made from a committed fixture or a seeded image; then
+    seeded single-byte changes of scans; and a 2048 x 1536 atlas JPEG with
+    restart markers and three damaged intervals."""
+    from PIL import Image
+
+    def fixture(name: str) -> bytes:
+        with open(os.path.join(OUT, name), "rb") as fh:
+            return fh.read()
+
+    def jpeg(image, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    base = fixture("baseline_420_q75.jpg")          # Pillow's standard tables
+    s0, s1 = scan_span(base)
+    mid = (s0 + s1) // 2
+    restart = jpeg(seeded_rgb((64, 96), 31), quality=80, restart_marker_blocks=2)
+    rst = restart_markers(restart)
+    prog = fixture("progressive_420.jpg")
+    p0, p1 = scan_span(prog, -1)
+    out = {
+        "jpeg_bad_huffman_code.jpg": ("a run of 1 bits no code starts (symbol 0 after 17 bits)",
+                                      spliced(base, mid, 0, b"\xff\x00" * 4)),
+        "jpeg_marker_mid_scan.jpg": ("an RST3 inside a scan without restarts: zeros, the rest "
+                                     "of the scan not decoded", spliced(base, mid, 0, b"\xff\xd3")),
+        "jpeg_eoi_mid_scan.jpg": ("an EOI over two bytes of the scan", spliced(base, mid, 2,
+                                                                               b"\xff\xd9")),
+        "jpeg_ff_ff_00.jpg": ("FF FF 00 in a scan: one FF data byte to libjpeg, a marker to its "
+                              "fast path", spliced(base, mid, 0, b"\xff\xff\x00")),
+        "jpeg_resync_far.jpg": ("an RSTn four ahead of the expected one (resync action 1)",
+                                patched_byte(restart, rst[3] + 1, 0xD0 + (3 + 4) % 8)),
+        "jpeg_resync_earlier.jpg": ("the previous RSTn again (resync action 2: scan ahead)",
+                                    patched_byte(restart, rst[3] + 1, 0xD0 + (3 - 1) % 8)),
+        "jpeg_resync_next.jpg": ("the RSTn after the expected one (resync action 3: an empty "
+                                 "interval)", patched_byte(restart, rst[3] + 1, 0xD0 + 4 % 8)),
+        "jpeg_restart_missing.jpg": ("an RSTn left out", spliced(restart, rst[4], 2)),
+        "jpeg_restart_duplicated.jpg": ("an RSTn written twice", spliced(
+            restart, rst[4], 0, restart[rst[4]:rst[4] + 2])),
+        "jpeg_restart_garbage.jpg": ("stray bytes before an RSTn (discarded by next_marker)",
+                                     spliced(restart, rst[5], 0, b"\x12\x34\xff\x00\x56")),
+        "jpeg_restart_bad_code.jpg": ("a bad code in one restart interval", spliced(
+            restart, (rst[1] + rst[2]) // 2, 0, b"\xff\x00" * 3)),
+        "jpeg_no_dht.jpg": ("a baseline file without DHT: libjpeg's standard tables",
+                            without_segments(base, 0xC4)),
+        "jpeg_not_sequential.jpg": ("a sequential scan with Se 20 (only a warning)",
+                                    patched_byte(base, s0 - 2, 20)),
+        "jpeg_bogus_progression.jpg": ("a progressive file without its first DC scan (an "
+                                       "inconsistent progression, only a warning)",
+                                       drop_scans(prog, lambda h: not (h[0] == 3 and
+                                                                       h[1 + 2 * h[0]] == 0
+                                                                       and h[3 + 2 * h[0]] >> 4
+                                                                       == 0))),
+        "jpeg_progressive_marker.jpg": ("an RST inside the last scan of a progressive file "
+                                        "(smoothing below it with the earlier bits)",
+                                        spliced(prog, (p0 + p1) // 2, 0, b"\xff\xd5")),
+        "jpeg_arith_bad_code.jpg": ("arithmetic-coded data that overflows (ct = -1)",
+                                    patched_byte(fixture("arith_420.jpg"), 712, 169)),
+        "jpeg_arith_restart_damaged.jpg": ("a damaged interval of an arithmetic file with "
+                                           "restarts", patched_byte(fixture(
+                                               "arith_dac_restart.jpg"), 700, 0x5A)),
+        "jpeg_lossless_damaged.jpg": ("a marker inside a lossless scan with restarts: rows "
+                                      "predicted afresh as zeros", spliced(
+                                          fixture("lossless_rgb_p7_restart.jpg"), 700, 0,
+                                          b"\xff\xd9")),
+        "jpeg_extraneous_bytes.jpg": ("bytes before a marker (skipped with a warning)",
+                                      spliced(base, segment_start(base, 0xC0), 0,
+                                              b"\x00\x11\x22")),
+        "jpeg_dnl_after_scan.jpg": ("a DNL segment after the scan (skipped)", spliced(
+            base, len(base) - 2, 0, b"\xff\xdc\x00\x04\x00\x30")),
+        "jpeg_no_eoi_trailing_bytes.jpg": ("a single-scan file without its EOI, 24 bytes after "
+                                           "its data (Pillow stops at the last line)",
+                                           base[:-2] + bytes(range(1, 25))),
+        "jpeg_tables_first.jpg": ("an abbreviated stream of tables before the image",
+                                  base[:segment_start(base, 0xC0)] + b"\xff\xd9" + base),
+        "jpeg_idct_overflow.jpg": ("quantisation values of 255 (the SIMD IDCT's 16-bit "
+                                   "products)", spliced(base, segment_start(base, 0xDB) + 5, 64,
+                                                        b"\xff" * 64)),
+        "jpeg_16bit_dqt.jpg": ("a DQT with precision nibble 2 (16-bit values)", spliced(
+            base, segment_start(base, 0xDB), 69,
+            b"\xff\xdb\x00\x83\x20" + b"\x00\x10" * 64)),
+        "refused_jpeg_unknown_marker.jpg": ("a JPG7 marker before the scan (libjpeg refuses "
+                                            "it)", spliced(base, segment_start(base, 0xDA), 0,
+                                                           b"\xff\xf7\x00\x04\x00\x00")),
+        "refused_jpeg_undefined_dqt.jpg": ("a component whose quantisation table is never "
+                                           "defined", patched_byte(
+                                               base, segment_start(base, 0xC0) + 12, 3)),
+        "refused_jpeg_unknown_after_scan.jpg": ("an unknown marker after the scan", spliced(
+            base, len(base) - 2, 0, b"\xff\x05")),
+        "refused_jpeg_pillow_tem.jpg": ("a TEM marker (Pillow's parse: no marker found)",
+                                        spliced(base, segment_start(base, 0xC0), 0, b"\xff\x01")),
+        "refused_jpeg_short_jfif.jpg": ("a JFIF segment of 5 bytes (Pillow's parse fails)",
+                                        spliced(base, 2, segment_start(base, 0xDB) - 2,
+                                                b"\xff\xe0\x00\x07JFIF\x00")),
+        "refused_jpeg_dht_length.jpg": ("a DHT segment of length 1", spliced(
+            base, segment_start(base, 0xC4), 0, b"\xff\xc4\x00\x01")),
+        "refused_jpeg_truncated.jpg": ("a baseline file cut inside its scan", base[:mid]),
+        "refused_jpeg_sof_in_scan.jpg": ("an SOF marker inside the scan (a second frame "
+                                         "header)", spliced(base, mid, 2, b"\xff\xc0")),
+    }
+    # GIF: Pillow refuses a frame whose LZW data ends before its pixels
+    gif = fixture("gif_p.gif")
+    out["refused_gif_truncated.gif"] = ("a GIF cut inside its LZW data", gif[:len(gif) * 2 // 3])
+    out["gif_lzw_byte_changed.gif"] = ("one LZW byte changed", patched_byte(gif, len(gif) // 2,
+                                                                             0x5C))
+    # TIFF: Pillow's raw strips, libtiff's codecs
+    raw = fixture("tiff_rgb_none.tif")
+    out["refused_tiff_raw_truncated.tif"] = ("an uncompressed TIFF cut inside its strips",
+                                             raw[:len(raw) // 2])
+    lzw = fixture("tiff_rgb_lzw.tif")
+    out["refused_tiff_lzw_truncated.tif"] = ("an LZW TIFF cut inside a strip (libtiff refuses "
+                                             "it)", lzw[:len(lzw) // 2])
+    deflate = bytearray(fixture("tiff_rgb_deflate.tif"))
+    with Image.open(io.BytesIO(bytes(deflate))) as im:
+        offsets, counts = im.tag_v2[273], im.tag_v2[279]
+    check = offsets[0] + counts[0] - 4                  # the first strip's Adler-32
+    deflate[check:check + 4] = bytes(b ^ 0x5A for b in deflate[check:check + 4])
+    out["tiff_deflate_bad_check.tif"] = ("a Deflate strip whose Adler-32 is wrong (libtiff "
+                                         "never reads it)", bytes(deflate))
+    tj = fixture("tiff_jpeg_ycbcr_strips.tif")
+    with Image.open(io.BytesIO(tj)) as im:
+        offsets, counts = im.tag_v2[273], im.tag_v2[279]
+    strip = offsets[1] + counts[1] // 2
+    out["tiff_jpeg_strip_marker.tif"] = ("an unknown marker inside a JPEG strip (libtiff "
+                                         "ignores what jpeg_finish_decompress raises)",
+                                         spliced(tj, strip, 2, b"\xff\x51"))
+    out["tiff_jpeg_strip_bad_code.tif"] = ("a bad code in a JPEG strip", spliced(
+        tj, strip, 4, b"\xff\x00\xff\x00"))
+    # WebP: libwebp's end of data, with the chunk's padding byte
+    lossy = fixture("webp_lossy_q75.webp")
+    out["refused_webp_lossy_short.webp"] = ("a lossy WebP short of its last partition's data "
+                                            "(libwebp: premature end)", riff_resized(lossy[:-40]))
+    lossless = fixture("webp_lossless.webp")
+    out["webp_lossless_into_padding.webp"] = ("a lossless WebP with a byte inserted: its last "
+                                              "bits in the chunk's padding byte",
+                                              spliced(lossless, 1033, 0, b"\x57"))
+    out["webp_lossy_token_changed.webp"] = ("a changed byte in a lossy WebP's tokens (16-bit "
+                                            "coefficients, libwebp's SSE2 transform)",
+                                            patched_byte(lossy, len(lossy) * 3 // 4, 0xC5))
+    # BLP1: its mips are JPEG data decoded by libjpeg
+    blp = bytearray(fixture("blp1_jpeg.blp"))
+    blp[-30] ^= 0x5A
+    out["blp1_jpeg_damaged.blp"] = ("a changed byte in a BLP1 mip's JPEG data", bytes(blp))
+    # seeded single-byte changes of scans, kept whatever Pillow makes of them
+    rng = np.random.default_rng(17)
+    for name in ("baseline_444_q95.jpg", "progressive_gray.jpg", "arith_progressive.jpg",
+                 "lossless_gray_p4_pt2.jpg", "optimized.jpg", "sampling_mixed.jpg", "cmyk.jpg",
+                 "smoothed_420.jpg"):
+        data = fixture(name)
+        a, b = scan_span(data)
+        for k in range(3):
+            at = int(rng.integers(a, b))
+            stem = name.rsplit(".", 1)[0]
+            out[f"seeded_{stem}_{k}.jpg"] = (f"{name} with byte {at} changed (seed 17)",
+                                            patched_byte(data, at, int(rng.integers(0, 256))))
+    # a 2048 x 1536 atlas with restart markers and three damaged intervals
+    atlas = jpeg(texture_atlas(9), quality=90, restart_marker_rows=4)
+    marks = restart_markers(atlas)
+    atlas = spliced(atlas, marks[17], 2)                                    # a missing RSTn
+    atlas = spliced(atlas, marks[11] + 1, 1, bytes([0xD0 + (11 + 1) % 8]))  # resync: the next
+    atlas = spliced(atlas, (marks[5] + marks[6]) // 2, 0, b"\xff\x00" * 4)  # a bad code
+    out["atlas_damaged_restart_2048x1536.jpg"] = (
+        "2048 x 1536 atlas, q90, restarts every 4 MCU rows, a bad code, a wrong RSTn and a "
+        "missing RSTn", atlas)
+    return out
+
+
+def write_damaged() -> int:
+    """Write ``damaged_fixtures()`` and their Pillow hashes under ``DAMAGED``."""
+    import PIL
+    from PIL import Image, features
+
+    os.makedirs(DAMAGED, exist_ok=True)
+    entries = []
+    for name, (kind, data) in damaged_fixtures().items():
+        stored = name + ".gz" if name in DAMAGED_GZIPPED else name
+        blob = gzip.compress(data, 9, mtime=0) if name in DAMAGED_GZIPPED else data
+        with open(os.path.join(DAMAGED, stored), "wb") as fh:
+            fh.write(blob)
+        entry = dict(file=name, kind=kind, bytes=len(blob))
+        if name in DAMAGED_GZIPPED:
+            entry.update(stored=stored, raw_bytes=len(data))
+        try:
+            with Image.open(io.BytesIO(data)) as im:
+                im.load()
+                own = np.asarray(im)
+                arrays = {"None": own, "RGB": np.asarray(im.convert("RGB")),
+                          "L": np.asarray(im.convert("L"))}
+                entry.update(mode=im.mode, shape=list(own.shape), dtype=str(own.dtype),
+                             sha256={m: array_sha(a) for m, a in arrays.items()})
+        except Exception as err:                  # every refusal of Pillow's
+            entry.update(raises=True, pillow_error=f"{type(err).__name__}: {err}")
+        entries.append(entry)
+    manifest = dict(pillow=PIL.__version__, libjpeg_turbo=features.version("libjpeg_turbo"),
+                    libwebp=features.version("webp"), libtiff=features.version("libtiff"),
+                    files=entries)
+    with open(os.path.join(DAMAGED, "manifest.json"), "w") as fh:
+        json.dump(manifest, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {len(entries)} damaged fixtures, {sum(e['bytes'] for e in entries)} bytes, "
+          f"under {DAMAGED}")
+    return 0
+
 
 def main() -> int:
     try:
@@ -1989,6 +2265,8 @@ def main() -> int:
     except ImportError:
         print("make_image_fixtures: needs Pillow", file=sys.stderr)
         return 2
+    if "--damaged" in sys.argv[1:]:
+        return write_damaged()
     os.makedirs(OUT, exist_ok=True)
     entries = []
     for name, (kind, data) in fixtures().items():
