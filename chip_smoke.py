@@ -2574,10 +2574,11 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to eighteen image files) give the back, then each
-    leg, then (past five) each of four stretchers between the legs, two
-    armrests, four trims under the seat's edges, two slats before the back
-    and a footrest bar a material, UVs and a ``map_Kd`` of their own.
+    ``part_textures`` (up to twenty-four image files) give the back, then
+    each leg, then (past five) each of four stretchers between the legs, two
+    armrests, four trims under the seat's edges, two slats before the back,
+    a footrest bar, a headrest, two back posts, two armrest posts and a rear
+    stretcher a material, UVs and a ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
@@ -2614,7 +2615,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((0.21, 0.39, -0.21), (0.25, 0.43, 0.21)),
               ((-0.15, 0.52, -0.20), (-0.11, 0.90, -0.17)),
               ((0.11, 0.52, -0.20), (0.15, 0.90, -0.17)),
-              ((-0.21, 0.05, 0.19), (0.19, 0.08, 0.22))]
+              ((-0.21, 0.05, 0.19), (0.19, 0.08, 0.22)),
+              ((-0.22, 0.95, -0.25), (0.22, 1.00, -0.19)),
+              ((-0.27, 0.48, -0.25), (-0.25, 0.95, -0.21)),
+              ((0.25, 0.48, -0.25), (0.27, 0.95, -0.21)),
+              ((-0.27, 0.48, 0.14), (-0.24, 0.62, 0.17)),
+              ((0.24, 0.48, 0.14), (0.27, 0.62, 0.17)),
+              ((-0.21, 0.25, -0.23), (0.19, 0.28, -0.20))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3662,15 +3669,19 @@ IMAGE_FIXTURES = os.path.join(REPO, "tests", "data", "images")
 BEHAVE_COLOR = "behave_color_2048x1536.jpg"
 BEHAVE_MASK = "behave_mask_2048x1536.jpg"
 FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16's chair
-# the chair's back, legs, stretchers, armrests, seat trims, back slats and footrest in phase
-# 16c: arithmetic JPEG, TGA, BMP, TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP,
-# DDS BC7, DDS DXT1, PSD, YCbCr 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5, Sun RLE
-# and a damaged JPEG Pillow recovers (a wrong RSTn)
+# the chair's back, legs, stretchers, armrests, seat trims, back slats, footrest, headrest,
+# back posts, armrest posts and rear stretcher in phase 16c: arithmetic JPEG, TGA, BMP,
+# TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS BC7, DDS DXT1, PSD, YCbCr
+# 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5, Sun RLE, a damaged JPEG Pillow recovers
+# (a wrong RSTn), and TIFFs in CCITT Group 4 (fill order 2), Group 3 2-D, LZMA, Zstandard,
+# old-style JPEG and ThunderScan
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
                  "chair_rle.sgi", "chair.pcx", "chair.qoi", "chair.ico", "chair_dxt5.blp",
-                 "chair_rle.ras", "damaged/jpeg_resync_next.jpg")
+                 "chair_rle.ras", "damaged/jpeg_resync_next.jpg", "chair_g4_fill2.tif",
+                 "chair_g3_2d.tif", "chair_lzma.tif", "chair_zstd.tif", "chair_ojpeg.tif",
+                 "chair_thunderscan.tif")
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3679,7 +3690,8 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_lossy_2048x1536.webp", "atlas_lossless_2048x1536.webp",
                  "atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds",
                  "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif",
-                 "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi")
+                 "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi", "atlas_zstd_2048x1536.tif",
+                 "atlas_g4_2048x1536.tif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3735,7 +3747,8 @@ def decode_phase(label: str) -> dict:
     Python entropy decoder on the 512² texture, and the host decode of the
     2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive JPEG,
     lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-    TIFF-JPEG, QOI and SGI RLE (median of 5)."""
+    TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard and (thresholded) TIFF CCITT
+    Group 4 (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3744,10 +3757,10 @@ def decode_phase(label: str) -> dict:
     from coma_tpu_torch.utils.modes import to_mode
 
     if not (jpeg.native_available() and codecs.available() and codecs.bcn_available()
-            and codecs.webp_available()):
+            and codecs.webp_available() and codecs.tiff_available()):
         raise AssertionError("a native image decoder (native/src/jpeg_decode.cpp, "
-                             "image_codecs.cpp, bcn_decode.cpp, webp_decode.cpp) did not build "
-                             "or load")
+                             "image_codecs.cpp, bcn_decode.cpp, webp_decode.cpp, "
+                             "tiff_codecs.cpp) did not build or load")
     manifest = image_manifest()
     equal, refused = [], []
     for name, entry in manifest.items():
@@ -3929,7 +3942,10 @@ def jpeg_asset_phase(label: str) -> dict:
     JPEG textures, its stretchers and armrests lossy WebP with alpha,
     lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, its
     seat trims and back slats SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
-    ones, and its footrest a damaged JPEG Pillow recovers, through
+    ones, its footrest a damaged JPEG Pillow recovers, and its headrest,
+    back posts, armrest posts and rear stretcher TIFFs in CCITT Group 4
+    (fill order 2), Group 3 2-D, LZMA, Zstandard, old-style JPEG and
+    ThunderScan, through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4013,8 +4029,9 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in nineteen files of fourteen formats (a
-    damaged JPEG among them) through stage 1 into K3, every
+    frames, (c) an asset textured in twenty-five files of fourteen formats
+    and six more TIFF compressions (a damaged JPEG among them) through stage
+    1 into K3, every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""
     t0 = time.perf_counter()

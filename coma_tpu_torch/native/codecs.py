@@ -2,7 +2,8 @@
 and QOI decoders of the image readers (``utils/gif_reader.py``,
 ``utils/tiff.py``, ``utils/psd.py``, ``utils/tga.py``, ``utils/{sgi,pcx,
 icns,sun,msp,qoi}.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's
-blocks) and of ``src/webp_decode.cpp``, built with ``g++`` at first use like
+blocks), of ``src/webp_decode.cpp`` and of ``src/tiff_codecs.cpp`` (TIFF's
+CCITT and Zstandard strips), built with ``g++`` at first use like
 the other native sources. Each reader keeps its plain Python decoder as the
 reference and falls back to it where :func:`available` is false."""
 from __future__ import annotations
@@ -221,3 +222,59 @@ def webp_decode_image(payload: bytes, lossless: bool, alph, width: int,
                              err, len(err)):
         raise ValueError(err.value.decode())
     return out
+
+
+TIFF_SRC = native._SRC_DIR / "tiff_codecs.cpp"
+
+
+def _declare_tiff(lib: ctypes.CDLL) -> None:
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    lib.fax_decode.restype = ctypes.c_int
+    lib.fax_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               i64, i64, i64, ptr, ptr, i64, ctypes.POINTER(ctypes.c_int)]
+    lib.zstd_decode.restype = ctypes.c_int
+    lib.zstd_decode.argtypes = [ctypes.c_char_p, i64, i64, ptr, ctypes.c_char_p, i64]
+
+
+def _tiff_lib():
+    lib = native.load_library(TIFF_SRC, _declare_tiff)
+    if lib is None:
+        raise RuntimeError("the native TIFF codecs are not available (no g++)")
+    return lib
+
+
+def tiff_available() -> bool:
+    """Whether ``src/tiff_codecs.cpp`` builds and loads in this process."""
+    return native.load_library(TIFF_SRC, _declare_tiff) is not None
+
+
+_FAX_ERRORS = {1: "premature end of CCITT data (libtiff fails the strip)",
+               2: "CCITT Group 4 data ends before its first row (libtiff fails the strip)",
+               3: "a run array overflow (libtiff fails the strip)"}
+
+
+def fax_decode(data: bytes, parity: int, compression: int, width: int, rows: int,
+               buf: np.ndarray, carry) -> None:
+    """libtiff's CCITT decoder of one strip into ``buf`` ((rows, row bytes)
+    uint8, C-contiguous), ``carry`` (``utils.tiff_codecs.FaxCarry``) the
+    codec's state from strip to strip: ``utils/tiff_codecs.fax_decode_python``."""
+    mode = ctypes.c_int(int(carry.no_eol))
+    try:
+        status = _tiff_lib().fax_decode(data, len(data), parity, compression, int(carry.two_d),
+                                        width, rows, buf.shape[1], buf.ctypes.data,
+                                        carry.runs.ctypes.data, carry.runs.shape[1] - 1,
+                                        ctypes.byref(mode))
+    finally:
+        carry.no_eol = bool(mode.value)
+    if status:
+        raise ValueError(_FAX_ERRORS[status])
+
+
+def zstd_decode(data: bytes, cap: int) -> bytes:
+    """One Zstandard TIFF strip of ``cap`` bytes:
+    ``utils/tiff_codecs.zstd_decode_python``."""
+    out = np.zeros(max(cap, 1), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _tiff_lib().zstd_decode(data, len(data), cap, out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out[:cap].tobytes()

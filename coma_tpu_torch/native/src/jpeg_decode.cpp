@@ -24,7 +24,9 @@
 // that overflows ends the interval (ct = -1). The file arrives as Pillow hands
 // it over, 65536 bytes at a time (an MCU that runs past a block starts again
 // with the next; arithmetic decoding cannot suspend), and its end is a
-// truncation; libtiff's source (``libtiff``) supplies FF D9 past it. Each
+// truncation; libtiff's source (``libtiff`` nonzero) supplies FF D9 past it,
+// and its old-style JPEG source (``libtiff`` 2) fails where libjpeg would
+// resynchronise to a restart marker. Each
 // result equals the plain Python decoder's (utils/jpeg.py) value for value.
 // jpeg_smooth is jdcoefct.c's block smoothing of a progressive frame, and
 // jpeg_reconstruct does what utils/jpeg.py:reconstruct does in numpy
@@ -56,7 +58,7 @@ constexpr int kMinGetBits = 57;
 
 // Statuses; a negative one names a table: -(1 + 4 * kind + table), kind 0 an
 // undefined DC table, 1 an undefined AC table, 2 a bad DC table, 3 a bad AC one.
-enum Status { kOk = 0, kTruncated = 1, kCantSuspend = 2 };
+enum Status { kOk = 0, kTruncated = 1, kCantSuspend = 2, kNoResync = 3 };
 
 // int32 per component of a scan: h, v, blocks per row of its array, coded
 // blocks per row and column, DC table, AC table, sample rows and columns,
@@ -74,6 +76,7 @@ struct Source {
   int64_t size, pos, end;
   int unread, restart;
   bool libtiff;
+  bool no_resync;                  // libtiff's old-style JPEG: a resync fails the strip
 
   int byte(bool in_mcu) {
     int64_t p = pos;
@@ -111,6 +114,7 @@ struct Source {
     if (unread == 0xD0 + desired) {
       unread = 0;
     } else {
+      if (no_resync) throw Fail{kNoResync};
       for (;;) {
         int m = unread, action;
         if (m < 0xC0)
@@ -488,7 +492,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t size, int libtiff, int64_t* st
     }
   }
   Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
-             static_cast<int>(state[3]), libtiff != 0};
+             static_cast<int>(state[3]), libtiff != 0, libtiff == 2};
   int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =
@@ -497,9 +501,11 @@ int jpeg_decode_scan(const uint8_t* data, int64_t size, int libtiff, int64_t* st
   int pred[4] = {0, 0, 0, 0}, eobrun = 0, to_go = restart_interval;
   const bool refine_dc = sc.progressive && ss == 0 && ah > 0;
   int status = kOk;
+  int64_t at = 0;
   try {
     for (int64_t m = 0; m < n_mcus; ++m) {
       const std::pair<int, int64_t>* mu = units.data() + m * per_mcu;
+      at = m;
       if (!br.insufficient) state[4] = m;            // the last MCU begun with data in hand
       if (restart_interval && to_go == 0) {          // process_restart
         br.left = 0;
@@ -546,6 +552,7 @@ int jpeg_decode_scan(const uint8_t* data, int64_t size, int libtiff, int64_t* st
     }
   } catch (const Fail& f) {
     status = f.status;
+    if (status == kNoResync) state[4] = at;          // the MCU whose restart was refused
   }
   state[0] = src.pos;
   state[1] = src.end;
@@ -702,7 +709,7 @@ int jpeg_decode_scan_arith(const uint8_t* data, int64_t size, int libtiff, int64
                            const int32_t* comp, int16_t* const* coef, const int32_t* cond,
                            int ss, int se, int ah, int al, int progressive) {
   Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
-             static_cast<int>(state[3]), libtiff != 0};
+             static_cast<int>(state[3]), libtiff != 0, libtiff == 2};
   int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =
@@ -821,7 +828,7 @@ int jpeg_decode_scan_lossless(const uint8_t* data, int64_t size, int libtiff, in
     if (st) return st;
   }
   Source src{data, size, state[0], state[1], static_cast<int>(state[2]),
-             static_cast<int>(state[3]), libtiff != 0};
+             static_cast<int>(state[3]), libtiff != 0, libtiff == 2};
   int64_t n_mcus, per_row;
   int per_mcu;
   std::vector<std::pair<int, int64_t>> units =

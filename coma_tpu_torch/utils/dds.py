@@ -409,14 +409,20 @@ def _bcn(data: bytes, fmt: str, width: int, height: int, native) -> np.ndarray:
 def _masked(data: bytes, pos: int, bitcount: int, masks: tuple, width: int,
             height: int) -> np.ndarray:
     """Pillow's ``DdsRgbDecoder``: each channel ``int(v / max * 255)`` of its
-    mask, the pixels little-endian words of ``bitcount`` bits."""
+    mask, the pixels little-endian words of ``bitcount // 8`` bytes, whatever
+    the bit count (none: every pixel 0); past the end of the file they read
+    as zeros."""
     nbytes = bitcount // 8
     count = width * height
-    raw = data[pos:pos + count * nbytes].ljust(count * nbytes, b"\0")
-    words = np.frombuffer(raw, np.uint8).reshape(count, nbytes).astype(np.uint64)
+    buf = np.frombuffer(data, np.uint8)
+    start = pos + np.arange(count, dtype=np.int64) * nbytes
     value = np.zeros(count, np.uint64)
-    for k in range(nbytes):
-        value |= words[:, k] << np.uint64(8 * k)
+    for k in range(min(nbytes, 4)):                # the masks are 32 bits: no more bytes reach them
+        at = start + k
+        inside = at < len(data)
+        byte = np.zeros(count, np.uint64)
+        byte[inside] = buf[at[inside]]
+        value |= byte << np.uint64(8 * k)
     out = []
     for mask in masks:
         if mask == 0:
@@ -450,8 +456,6 @@ def _decode(data: bytes, native) -> Decoded:
     if pfflags & _DDPF_RGB:
         n = 4 if pfflags & _DDPF_ALPHAPIXELS else 3
         masks = struct.unpack_from(f"<{n}I", data, 92)
-        if bitcount % 8 or not 8 <= bitcount <= 32:
-            raise ValueError(f"bit count {bitcount} is not read")
         px = _masked(data, pos, bitcount, masks, width, height)
         return Decoded(px, "RGBA" if n == 4 else "RGB")
     palette = None

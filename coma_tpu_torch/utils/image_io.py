@@ -20,8 +20,9 @@ gives it up. Read:
 - DDS (``utils/dds.py``): BC1-BC7, bit masks, luminance, palettes;
 - PSD (``utils/psd.py``): the composite image of every mode PIL reads;
 - BMP and bare DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``, first page,
-  JPEG compression included), PBM/PGM/PPM (``utils/pnm.py``), TGA
-  (``utils/tga.py``);
+  every compression Pillow's libtiff reads: none, PackBits, LZW, Deflate,
+  JPEG, CCITT RLE/RLEW, Group 3, Group 4, ThunderScan, LZMA, Zstandard and
+  old-style JPEG), PBM/PGM/PPM (``utils/pnm.py``), TGA (``utils/tga.py``);
 - SGI (``utils/sgi.py``), PCX and DCX (``utils/pcx.py``), ICO and CUR
   (``utils/ico.py``), QOI (``utils/qoi.py``), XBM (``utils/xbm.py``), IM
   (``utils/im.py``), ICNS (``utils/icns.py``), BLP (``utils/blp.py``), Sun
@@ -30,7 +31,7 @@ gives it up. Read:
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
 and the format, though PIL reads them: JPEG 2000 (and as an ICNS member),
-TIFFs with CCITT or old-style JPEG compression, a Lab PSD's conversions,
+a Lab PSD's conversions,
 PFM and Pillow's other PNM magics, AVIF, XPM, FTEX, GBR, PIXAR, FLI/FLC,
 PCD, McIdas, IMT, FITS, XV thumbnails, IPTC/NAA, MPEG, EPS, WMF/EMF and the
 BUFR, GRIB and HDF5 stubs. What PIL itself refuses raises a ``ValueError``

@@ -401,6 +401,7 @@ class JpegCoefficients:
         self.last_good = 0
         self.jfif = False
         self.adobe_transform = None
+        self.resync_failed = None      # the MCU where a resync was refused (``resync=False``)
         # DAC conditioning per table: DC (L, U), AC K (libjpeg's defaults)
         self.dc_l, self.dc_u, self.ac_k = [0] * 16, [1] * 16, [5] * 16
 
@@ -476,15 +477,20 @@ class _Truncated(ValueError):
     """The file ends where libjpeg wants more bytes."""
 
 
+class _NoResync(ValueError):
+    """A marker other than the RSTn due where the source allows no resync."""
+
+
 class _Source:
     """The bytes libjpeg's data source hands it, from ``pos``. ``end`` is the
     end of what Pillow has handed over so far; ``unread`` libjpeg's
     ``unread_marker``; ``restart`` the RSTn expected next."""
 
-    __slots__ = ("data", "size", "name", "pos", "end", "unread", "restart", "libtiff")
+    __slots__ = ("data", "size", "name", "pos", "end", "unread", "restart", "libtiff", "resync")
 
-    def __init__(self, data: bytes, name: str, libtiff: bool):
+    def __init__(self, data: bytes, name: str, libtiff: bool, resync: bool = True):
         self.data, self.size, self.name, self.libtiff = data, len(data), name, libtiff
+        self.resync = resync
         self.pos = self.unread = self.restart = 0
         self.end = self.size if libtiff else min(self.size, CHUNK)
 
@@ -554,6 +560,8 @@ class _Source:
         if self.unread == 0xD0 + desired:
             self.unread = 0
         else:
+            if not self.resync:
+                raise _NoResync(f"{self.name}: {_NATIVE_ERRORS[3]}")
             marker = self.unread
             while True:
                 if marker < 0xC0:
@@ -855,7 +863,11 @@ def _huffman_scan(scan: _ScanSpec, src: _Source) -> None:
             f.last_good = scan.imcu_row(m)
         if restart and to_go == 0:                  # process_restart
             bits.left = 0
-            src.read_restart_marker()
+            try:
+                src.read_restart_marker()
+            except _NoResync:
+                f.resync_failed = m                 # the caller keeps what came before
+                return
             state = [0] * len(state)
             to_go = restart
             if not src.unread:
@@ -1284,7 +1296,9 @@ def native_available() -> bool:
 # kind 0 an undefined DC table, 1 an undefined AC table, 2 a bad DC table, 3 a bad AC table
 _NATIVE_ERRORS = {1: "the file ends where libjpeg wants more data (truncated)",
                   2: "arithmetic-coded data runs past the bytes libjpeg is handed (libjpeg "
-                     "cannot suspend there)"}
+                     "cannot suspend there)",
+                  3: "a restart marker out of place (libtiff's old-style JPEG reader fails "
+                     "where libjpeg would resynchronise)"}
 
 
 def _native_error(status: int) -> str:
@@ -1325,7 +1339,8 @@ def _entropy_native(scan: _ScanSpec, src: _Source) -> None:
         fn = lib.jpeg_decode_scan_lossless if f.lossless else lib.jpeg_decode_scan
     state = np.array([src.pos, src.end, src.unread, src.restart, -1], np.int64)
     data = np.frombuffer(src.data, np.uint8) if src.size else np.zeros(1, np.uint8)
-    status = fn(data.ctypes.data, src.size, int(src.libtiff), state.ctypes.data, f.mcus_x,
+    status = fn(data.ctypes.data, src.size, int(src.libtiff) + int(not src.resync),
+                state.ctypes.data, f.mcus_x,
                 f.mcus_y, scan.restart, len(scan.comps), comp.ctypes.data,
                 ctypes.cast(pointers, ctypes.c_void_p), tables.ctypes.data, scan.ss, scan.se,
                 scan.ah, scan.al, int(f.progressive))
@@ -1334,6 +1349,9 @@ def _entropy_native(scan: _ScanSpec, src: _Source) -> None:
     f.last_good = scan.imcu_row(int(state[4]) if state[4] >= 0 else max(n_units - 1, 0))
     if status == 1:
         raise _Truncated(f"{f.name}: {_native_error(status)}")
+    if status == 3 and not (f.arithmetic or f.lossless):
+        f.resync_failed = int(state[4])
+        return
     if status:
         raise ValueError(f"{f.name}: {_native_error(status)}")
 
@@ -1438,13 +1456,17 @@ def _pillow_segment(marker: int, s: bytes, refuse, size: list) -> None:
 
 
 def decode_coefficients(data: bytes, name: str = "<bytes>", native=None,
-                        libtiff: bool = False, tables_stream=None) -> JpegCoefficients:
+                        libtiff: bool = False, tables_stream=None,
+                        resync: bool = True) -> JpegCoefficients:
     """Parse a JPEG file and entropy-decode every scan, as libjpeg-turbo
     reads it through Pillow. ``libtiff=True``: as libtiff's JPEG codec hands
     it a strip, after the abbreviated stream of its JPEGTables tag
     (``tables_stream``), which must hold tables only; an error past the
     scan's last line is then ignored, as libtiff ignores what
-    ``jpeg_finish_decompress`` raises. ``native``: True the C++ decoder,
+    ``jpeg_finish_decompress`` raises; ``resync=False``: a wrong marker
+    where a restart marker is due fails, as libtiff's old-style JPEG source
+    makes libjpeg's resync do, and decoding stops there with the MCU in
+    ``resync_failed``. ``native``: True the C++ decoder,
     False the plain Python one, None the C++ one where it builds. What
     Pillow or libjpeg-turbo refuses (hierarchical, arithmetic lossless,
     12-bit, sampling ratios that are not whole numbers, unknown markers, bad
@@ -1458,7 +1480,7 @@ def decode_coefficients(data: bytes, name: str = "<bytes>", native=None,
             raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
         _pillow_header(data, name)
     streams = [data] if tables_stream is None else [bytes(tables_stream), data]
-    src = _Source(streams.pop(0), name, libtiff)
+    src = _Source(streams.pop(0), name, libtiff, resync)
     in_tables = tables_stream is not None
     frame, quant, restart, jfif, adobe = None, {}, 0, False, None
     tables = np.zeros((8, _TABLE_BYTES), np.uint8)
@@ -1521,6 +1543,8 @@ def decode_coefficients(data: bytes, name: str = "<bytes>", native=None,
                     _arith_scan(scan, src)
                 else:
                     _huffman_scan(scan, src)
+                if frame.resync_failed is not None:
+                    break                   # the caller takes the rows decoded before it
                 complete = single
             elif marker in _SOF_REFUSED:
                 raise ValueError(f"{name}: {_SOF_REFUSED[marker]} is not read (libjpeg "

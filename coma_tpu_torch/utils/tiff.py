@@ -2,9 +2,11 @@
 
 Classic and (little-endian, as PIL reads them) BigTIFF headers, strips or
 tiles, samples interleaved (planar configuration 1) or, for RGB, RGBA and CMYK, in planes of their own (2), uncompressed, PackBits,
-LZW, Deflate or JPEG, with or without horizontal differencing (predictor
-2), either fill order (2: the stored bytes' bits reversed first, as libtiff
-does). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
+LZW, Deflate, JPEG, CCITT (RLE, RLEW, Group 3 1-D and 2-D, Group 4),
+ThunderScan, LZMA, Zstandard or old-style JPEG, with or without horizontal
+differencing (predictor 2, undone for LZW, Deflate, LZMA and Zstandard, as
+libtiff does), either fill order (2: the stored bytes' bits reversed first,
+as libtiff does). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
 photometric), "L" (2, 4 and 8-bit gray, white-is-zero inverted, scaled to
 0..255), "I;16" (16-bit gray), "LA", "RGB" (with or without one unused
 extra sample), "RGBA" (unassociated alpha, or associated alpha divided out
@@ -15,13 +17,19 @@ an abbreviated stream of tables, and each strip or tile a JPEG of its own
 (so chroma upsampling stops at its edges) decoded by ``utils/jpeg.py``:
 YCbCr photometric converted to RGB (libtiff's ``JPEGCOLORMODE_RGB``, with
 libjpeg's fancy upsampling), any other photometric taken as stored.
-CCITT (2, 3, 4), old-style JPEG (6) and the other compressions, and sample
-formats other than unsigned integers, raise a ``ValueError`` naming the
-file and the compression.
+CCITT, ThunderScan, LZMA and Zstandard strips are decoded by
+``utils/tiff_codecs.py`` as libtiff 4.7.1 decodes them, old-style JPEG by
+``utils/ojpeg.py``. Where a compressed strip goes through libtiff, its
+directory must be whole and its size, sample and layout tags numbers
+libtiff takes; a one-strip file without a byte count gets libtiff's
+estimate. NeXT, PixarLog, JPEG 2000, LERC, WebP and SGILog compressions,
+and sample formats other than unsigned integers, raise a ``ValueError``
+naming the file and the compression; Pillow 12.1.0 refuses those
+compressions too.
 
-LZW and PackBits have native twins in ``native/src/image_codecs.cpp``,
-taken where they build; the plain Python versions here are their
-references.
+LZW and PackBits have native twins in ``native/src/image_codecs.cpp``, the
+CCITT and Zstandard decoders in ``native/src/tiff_codecs.cpp``, taken where
+they build; the plain Python versions are their references.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import zlib
 
 import numpy as np
 
+from coma_tpu_torch.utils import tiff_codecs
 from coma_tpu_torch.utils.modes import Decoded
 
 _TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
@@ -36,10 +45,26 @@ _TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 6: ("b", 1), 7: ("B", 1), 8: ("
 # the bytes per value of every type Pillow's directory reader loads (ASCII,
 # rationals, floats and IFDs too, which the port does not decode)
 _UNIT = {**{k: size for k, (_, size) in _TYPES.items()}, 2: 1, 5: 8, 10: 8, 11: 4, 12: 8, 13: 4}
-_REFUSED = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-            34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA", 50000: "Zstandard",
-            50001: "WebP"}
-_COMPRESSIONS = (1, 5, 7, 8, 32946, 32773)     # none, LZW, JPEG, Deflate (twice), PackBits
+# the tags TIFFReadDirectory reads as numbers first, failing on a bad one, and
+# the types it takes for them; TIFFDataWidth of every type it knows
+_LIBTIFF_NUMBERS = (256, 257, 258, 259, 277, 278, 280, 281, 284, 322, 323, 338, 339)
+_INTEGER_TYPES = (1, 3, 4, 6, 8, 9, 16, 17)
+_WIDTH = {1: 1, 2: 1, 6: 1, 7: 1, 3: 2, 8: 2, 4: 4, 9: 4, 11: 4, 13: 4, 5: 8, 10: 8, 12: 8, 16: 8,
+          17: 8, 18: 8}
+# the counts libtiff reads these tags with, passing over an entry of another
+# (the sizes, samples and layout tags above fail the directory instead)
+_LIBTIFF_COUNT = {262: 1, 266: 1, 274: 1, 292: 1, 293: 1, 317: 1, 512: 1, 513: 1, 514: 1,
+                  515: 1, 530: 2}
+# the compressions Pillow 12.1.0 refuses too: absent from its COMPRESSION_INFO
+# (the file is not identified), not configured in its libtiff, or SGILog,
+# whose LogL and LogLuv photometrics have no mode in PIL's OPEN_INFO
+_REFUSED = {32766: "NeXT", 32909: "PixarLog", 34712: "JPEG 2000", 34887: "LERC",
+            50001: "WebP", 34676: "SGILog", 34677: "SGILog24"}
+# none, CCITT RLE, Group 3, Group 4, old-style JPEG, LZW, JPEG, Deflate (twice),
+# RLEW, PackBits, ThunderScan, LZMA, Zstandard
+_COMPRESSIONS = (1, 2, 3, 4, 6, 5, 7, 8, 32946, 32771, 32773, 32809, 34925, 50000)
+_CCITT = (2, 3, 4, 32771)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 
 
 def lzw_decode_python(data: bytes, cap: int) -> bytes:
@@ -112,6 +137,11 @@ def _decompress(chunk: bytes, compression: int, cap: int, native) -> bytes:
         native = codecs.available()
     if compression == 1:
         return chunk[:cap]
+    if compression == 34925:
+        return tiff_codecs.lzma_decode(chunk, cap)
+    if compression == 50000:
+        return codecs.zstd_decode(chunk, cap) if native else \
+            tiff_codecs.zstd_decode_python(chunk, cap)
     if compression in (8, 32946):
         # libtiff's ZIPDecode inflates until the strip is full: what lies
         # past that (the stream's check value too) is never looked at
@@ -126,9 +156,12 @@ def _decompress(chunk: bytes, compression: int, cap: int, native) -> bytes:
 class _Ifd:
     """The first image file directory: tag -> tuple of values (a classic
     TIFF's 12-byte entries, or BigTIFF's 20-byte ones with 8-byte counts and
-    offsets)."""
+    offsets). Pillow's view (``libtiff`` False) keeps the entries up to the
+    first whose data runs past the end of the file; libtiff's reads a
+    directory whole or not at all and passes over each entry whose data
+    lies outside the file."""
 
-    def __init__(self, data: bytes, name: str):
+    def __init__(self, data: bytes, name: str, libtiff: bool = False):
         if data[:4] not in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
             raise ValueError(f"{name}: not a TIFF file")
         self.order = "<" if data[:2] == b"II" else ">"
@@ -143,18 +176,41 @@ class _Ifd:
         # Pillow's ImageFileDirectory_v2.load: the entries in order, until one
         # (or its data) runs past the end of the file; those read stay
         count = self._int(at, 8 if big else 2) if first <= len(data) else 0
-        self.tags = {}
-        for k in range(count):
+        # libtiff's TIFFFetchDirectory reads every entry or none
+        self.whole = 0 < count <= 4096 and first + entry * count <= len(data)
+        self.tags, self.rationals = {}, {}
+        # libtiff's view of the entries: (tag, type, count) of every one
+        self.entries = [(self._int(first + entry * k, 2), self._int(first + entry * k + 2, 2),
+                         self._int(first + entry * k + 4, word))
+                        for k in range(count)] if self.whole else []
+        self.big = big
+        self.arrays, seen = {}, set()
+        for k in range(count if self.whole or not libtiff else 0):
             e = first + entry * k
             if e + entry > len(data):
                 break
             tag, kind, n = self._int(e, 2), self._int(e + 2, 2), self._int(e + 4, word)
+            if libtiff:                     # libtiff ignores a tag's later entries
+                if tag in seen:
+                    continue
+                seen.add(tag)
+                if n != _LIBTIFF_COUNT.get(tag, n):
+                    continue                # and a tag of another count than its own
+            size = n * _UNIT.get(kind, 0)
+            where = e + 4 + word if size <= word else self._int(e + 4 + word, word)
+            if libtiff and tag in (273, 279, 324, 325):
+                # strips and tiles share libtiff's two entries; the later one wins
+                self.arrays["counts" if tag in (279, 325) else "offsets"] = (kind, n, where)
             if kind not in _UNIT:
                 continue
-            size = n * _UNIT[kind]
-            where = e + 4 + word if size <= word else self._int(e + 4 + word, word)
             if where + size > len(data):
+                if libtiff:
+                    continue
                 break
+            if kind in (5, 10) and n:          # rationals: (numerator, denominator) pairs
+                pairs = np.frombuffer(data, self.order + ("u4" if kind == 5 else "i4"), 2 * n,
+                                      where).reshape(n, 2).tolist()
+                self.rationals[tag] = [tuple(p) for p in pairs]
             if kind not in _TYPES or not n:
                 continue
             self.tags[tag] = tuple(np.frombuffer(data, self.order + _TYPES[kind][0], n,
@@ -162,6 +218,71 @@ class _Ifd:
 
     def _int(self, at: int, n: int) -> int:
         return int.from_bytes(self.data[at:at + n], "little" if self.order == "<" else "big")
+
+    def strip_array(self, which: str, nstrips: int):
+        """``TIFFFetchStripThing``: the first ``nstrips`` values of the strip
+        or tile ``"offsets"`` or ``"counts"`` (its data where the whole count
+        puts it, only those in the file), zeros for those it lacks; None
+        where it is not there."""
+        if which not in self.arrays:
+            return None
+        kind, n, where = self.arrays[which]
+        if kind not in (3, 4, 16):
+            raise ValueError(f"{self.name}: a strip array of type {kind} (libtiff refuses it)")
+        take = min(n, nstrips)
+        unit = _UNIT[kind]
+        if where + take * unit > len(self.data):
+            raise ValueError(f"{self.name}: a strip array past the end of the file (libtiff "
+                             "refuses it)")
+        values = np.frombuffer(self.data, self.order + _TYPES[kind][0], take, where).tolist()
+        return tuple(values) + (0,) * (nstrips - take)
+
+    def libtiff_refusal(self):
+        """Why ``TIFFReadDirectory`` fails where Pillow's parser does not,
+        or None: a tag it reads as a number before all others (sizes,
+        samples, planes, rows per strip, extra samples; compression, bits
+        and sample format, one value or one a sample) of a type that is not
+        an integer, of a count it does not take, or out of its range."""
+        spp = self.get(277, (1,))[0]
+        seen = set()
+        for tag, kind, n in self.entries:
+            if tag not in _LIBTIFF_NUMBERS or tag in seen:
+                continue
+            seen.add(tag)
+            if kind not in _INTEGER_TYPES:
+                return f"a tag {tag} of type {kind} (libtiff refuses it)"
+            per_sample = tag in (258, 259, 280, 281, 339)
+            if tag != 338 and n != 1 and not (per_sample and n >= spp):
+                return f"a tag {tag} of {n} values (libtiff refuses it)"
+            values = self.tags.get(tag, ())[:spp if per_sample else None]
+            if any(v < 0 for v in values) or (tag not in (256, 257, 278, 322, 323) and
+                                              any(v > 0xFFFF for v in values)):
+                return f"a tag {tag} out of range (libtiff refuses it)"
+            if per_sample and len(set(values)) > 1:
+                return f"a tag {tag} of differing values a sample (libtiff refuses it)"
+            # _TIFFVSetField's bad values
+            if (tag in (277, 278) and 0 in values) or (tag == 284 and values[:1] not in
+                                                       ((1,), (2,))) or \
+                    (tag == 339 and any(not 1 <= v <= 6 for v in values)) or \
+                    (tag == 338 and (n > spp or any(v > 2 for v in values))):
+                return f"a bad value of tag {tag} (libtiff refuses it)"
+        return None
+
+    def estimated_count(self, offset: int):
+        """``EstimateStripByteCounts`` for one compressed strip: the file
+        less its header, directory and the tags' data, cut at the end of
+        the file; None where a tag's type is one libtiff does not know."""
+        word = 8 if self.big else 4
+        space = (16 + 8 + 20 * len(self.entries) + 8) if self.big else \
+            (8 + 2 + 12 * len(self.entries) + 4)
+        for _, kind, n in self.entries:
+            if kind not in _WIDTH:
+                return None
+            size = _WIDTH[kind] * n
+            space += size if size > word else 0
+        size = len(self.data)
+        space = size if size < space else size - space
+        return 0 if offset >= size else min(space, size - offset)
 
     def get(self, tag: int, default=None):
         return self.tags.get(tag, default)
@@ -278,6 +399,18 @@ def _jpeg_block(chunk: bytes, tables, photometric: int, spp: int, name: str, nat
     return px.reshape(px.shape[0], -1)
 
 
+def _fax(chunk: bytes, parity: int, compression: int, width: int, rows: int, buf: np.ndarray,
+         carry, native) -> None:
+    from coma_tpu_torch.native import codecs
+
+    if native is None:
+        native = codecs.tiff_available()
+    if native:
+        codecs.fax_decode(chunk, parity, compression, width, rows, buf, carry)
+    else:
+        tiff_codecs.fax_decode_python(chunk, parity, compression, width, rows, buf, carry)
+
+
 def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: int, bits: int,
               samples: int, tile, bw: int, bh: int, width: int, height: int, predictor: int,
               bps: int, photometric: int, native, name: str) -> np.ndarray:
@@ -288,6 +421,11 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
     across = -(-width // bw)
     raw = np.zeros((-(-height // bh) * bh, across * block_row_bytes), np.uint8)
     tables = ifd.get(347)
+    # CCITT decodes into Pillow's strip buffer, which one strip's rows left
+    # unwritten (Group 4 ended early) keep from the strip before
+    carried = np.zeros((bh, block_row_bytes), np.uint8) if compression in _CCITT else None
+    fax_carry = tiff_codecs.FaxCarry(compression, ifd.get(292, (0,))[0], bw) \
+        if compression in _CCITT else None
     for k, (offset, count) in enumerate(zip(offsets, counts)):
         by, bx = divmod(k, across)
         if by * bh >= height:
@@ -303,9 +441,12 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
             if offset + need > len(data):
                 raise ValueError(f"{name}: a TIFF strip or tile runs past the end of the file "
                                  "(truncated; Pillow refuses it)")
-        elif not count or offset + count > len(data):
-            raise ValueError(f"{name}: a TIFF strip or tile of {count} bytes at {offset} is "
-                             "not in the file (libtiff refuses it)")
+        else:
+            if count > 1 << 20 and (count - 4096) // 10 > block_row_bytes * bh:
+                count = block_row_bytes * bh * 10 + 4096   # TIFFFillStrip's limit
+            if not count or offset + count > len(data):
+                raise ValueError(f"{name}: a TIFF strip or tile of {count} bytes at {offset} is "
+                                 "not in the file (libtiff refuses it)")
         chunk = data[offset:offset + count]
         if fill == 2:
             chunk = chunk.translate(_REVERSED)
@@ -316,6 +457,13 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
                                     (bw, need // block_row_bytes), sampling,
                                     not tile and by * bh + bh >= height)
                 piece = piece[:bh, :block_row_bytes]
+            elif compression in _CCITT:
+                _fax(chunk, offset & 1, compression, bw, need // block_row_bytes, carried,
+                     fax_carry, native)
+                piece = carried[:need // block_row_bytes].copy()
+            elif compression == 32809:
+                piece = np.frombuffer(tiff_codecs.thunder_decode(chunk, bw, need // block_row_bytes),
+                                      np.uint8).reshape(-1, block_row_bytes)
             else:
                 block = _decompress(chunk, compression, need, native)
                 if len(block) < need:
@@ -337,6 +485,64 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
     return np.ascontiguousarray(raw[:height, :row_bytes])
 
 
+def _libtiff_view(data: bytes, ifd: _Ifd, name: str, compression: int, width: int,
+                  height: int) -> _Ifd:
+    """libtiff's view of the directory, which it decodes every compressed
+    strip by (Pillow's gives the mode): its refusals, Pillow's where the two
+    views part, and its strip or tile arrays as many as its layout has."""
+    lt = _Ifd(data, name, libtiff=True)
+    if not lt.whole:
+        raise ValueError(f"{name}: libtiff cannot read the TIFF directory (its entries run "
+                         "past the end of the file; Pillow refuses it)")
+    if lt.libtiff_refusal():
+        raise ValueError(f"{name}: {lt.libtiff_refusal()}")
+    if lt.get(259, (1,))[0] != compression:
+        raise ValueError(f"{name}: libtiff's directory gives compression "
+                         f"{lt.get(259, (1,))[0]}, Pillow's {compression}; not read")
+    pillow_spp = ifd.get(277, (3 if compression == 6 else 1,))[0]
+    if lt.get(277, (1,))[0] != pillow_spp and compression != 6:
+        raise ValueError(f"{name}: libtiff's directory gives {lt.get(277, (1,))[0]} samples "
+                         f"a pixel, Pillow's {pillow_spp} (Pillow refuses it)")
+    # the strip or tile arrays, as many values as libtiff's layout has
+    tiled_lt = 322 in lt.tags                       # libtiff's TIFF_ISTILED
+    spp_lt = lt.get(277, (1,))[0]
+    if tiled_lt:
+        tw, th = lt.get(322, (0,))[0], lt.get(323, (0,))[0]
+        nstrips = -(-width // tw) * -(-height // th) if tw and th else 0
+    else:
+        rps = min(lt.get(278, (height,))[0], height) or height
+        nstrips = -(-height // rps) if height else 0
+    if lt.get(284, (1,))[0] == 2:
+        nstrips *= spp_lt
+    for which, tag, other in (("offsets", 324, 273), ("counts", 325, 279)):
+        if not tiled_lt:
+            tag, other = other, tag
+        values = lt.strip_array(which, nstrips)
+        lt.tags.pop(other, None)
+        if values is not None:
+            lt.tags[tag] = values
+        else:
+            lt.tags.pop(tag, None)
+    if not tiled_lt and 0x7FFFFFFF < lt.get(278, (0,))[0] < 0xFFFFFFFF:
+        # Pillow sizes its strip buffer from libtiff's rows per strip, a
+        # negative count past 2^31 - 1 (2^32 - 1 means the whole image)
+        raise ValueError(f"{name}: {lt.get(278)[0]} rows per strip (Pillow refuses it)")
+    if compression == 6 and not tiled_lt and nstrips == 1 and 273 not in lt.tags:
+        lt.tags[273], lt.tags[279] = (0,), (0,)    # libtiff's old-style JPEG tolerates it
+    if not tiled_lt and nstrips == 1 and lt.get(273, (0,))[0] and \
+            lt.get(279, (0,)) == (0,):
+        # one strip whose byte count is missing or 0: libtiff estimates it
+        estimate = lt.estimated_count(lt.tags[273][0])
+        if estimate is None:
+            raise ValueError(f"{name}: a tag of unknown type where libtiff estimates the "
+                             "strip's byte count (it refuses it)")
+        lt.tags[279] = (estimate,)
+    elif lt.get(279 if not tiled_lt else 325) is None and nstrips > 1:
+        raise ValueError(f"{name}: no strip byte counts for {nstrips} strips (libtiff "
+                         "refuses it)")
+    return lt
+
+
 def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     """A TIFF file's first page -> what ``np.asarray(PIL.Image.open(f))``
     gives, and its mode; a ``ValueError`` naming ``name`` where it is not read."""
@@ -344,9 +550,18 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     width, height = ifd.get(256, (0,))[0], ifd.get(257, (0,))[0]
     compression = ifd.get(259, (1,))[0]
     if compression in _REFUSED:
-        raise ValueError(f"{name}: TIFF with {_REFUSED[compression]} compression is not read")
+        raise ValueError(f"{name}: TIFF with {_REFUSED[compression]} compression is not read "
+                         "(Pillow refuses it too)")
     if compression not in _COMPRESSIONS:
-        raise ValueError(f"{name}: TIFF compression {compression} is not read")
+        raise ValueError(f"{name}: TIFF compression {compression} is not read (Pillow refuses "
+                         "it too)")
+    # Pillow's directory gives the mode; libtiff, which decodes every strip
+    # but a raw one, reads its own for the layout and the codec's tags
+    lt = ifd if compression == 1 else _libtiff_view(data, ifd, name, compression, width, height)
+    if compression == 6:
+        from coma_tpu_torch.utils import ojpeg
+
+        return ojpeg.decode_ojpeg(data, ifd, lt, name, native)
     photometric = ifd.get(262, (0,))[0]
     spp = ifd.get(277, (1,))[0]
     bps = tuple(ifd.get(258, (1,)))
@@ -378,29 +593,37 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
                              f"order {fill} has no mode in Pillow")
     if compression == 7 and (any(b != 8 for b in bps) or planar):
         raise ValueError(f"{name}: a JPEG TIFF of {bps} bits (planar {planar}) is not read")
-    predictor = ifd.get(317, (1,))[0] if compression != 7 else 1
+    if compression in _CCITT and bps != (1,):
+        raise ValueError(f"{name}: CCITT compression of {bps}-bit samples (libtiff reads 1 bit "
+                         "only; Pillow refuses it)")
+    if compression == 32809 and bps != (4,):
+        raise ValueError(f"{name}: ThunderScan compression of {bps}-bit samples (libtiff reads "
+                         "4 bits only; Pillow refuses it)")
+    # libtiff undoes the predictor for the codecs that set it up
+    predictor = lt.get(317, (1,))[0] if compression in _PREDICTED else 1
     if predictor not in (1, 2) or (predictor == 2 and bps[0] not in (8, 16)):
         raise ValueError(f"{name}: TIFF predictor {predictor} at {bps[0]} bits is not read")
     if planar and (rawmode not in ("RGB", "RGBA", "CMYK") or bps[0] != 8):
         # PIL unpacks each plane with one letter of the raw mode
         raise ValueError(f"{name}: separate planes of raw mode {rawmode} are not read")
-    tiled = 273 not in ifd.tags and 324 in ifd.tags     # as Pillow chooses
+    tiled = 273 not in lt.tags and 324 in lt.tags     # as Pillow, or libtiff, chooses
     if tiled:
-        if 322 not in ifd.tags or 323 not in ifd.tags:
+        if 322 not in lt.tags or 323 not in lt.tags:
             raise ValueError(f"{name}: a tiled TIFF without its tile size")
-        bw, bh = ifd.get(322)[0], ifd.get(323)[0]
-        offsets, counts = ifd.get(324), ifd.get(325)
+        bw, bh = lt.get(322)[0], lt.get(323)[0]
+        offsets, counts = lt.get(324), lt.get(325)
     else:
-        bw, bh = width, min(ifd.get(278, (height,))[0], height) or height
-        offsets, counts = ifd.get(273), ifd.get(279)
+        bw, bh = width, min(lt.get(278, (height,))[0], height) or height
+        offsets, counts = lt.get(273), lt.get(279)
     if compression == 1 and counts is None and offsets is not None:
         counts = (0,) * len(offsets)              # Pillow's raw decoder does not read them
     if not width or not height or offsets is None or counts is None:
         raise ValueError(f"{name}: a TIFF without size or image data")
     planes = len(bps) if planar else 1
     per_plane = -(-len(offsets) // planes)
-    raws = [_assemble(data, ifd, offsets[p * per_plane:(p + 1) * per_plane],
-                      counts[p * per_plane:(p + 1) * per_plane], compression, fill,
+    raws = [_assemble(data, lt, offsets[p * per_plane:(p + 1) * per_plane],
+                      counts[p * per_plane:(p + 1) * per_plane], compression,
+                      lt.get(266, (1,))[0],
                       bps[p] if planar else sum(bps), 1 if planar else len(bps), tiled, bw, bh,
                       width, height, predictor, bps[0], photometric, native, name)
             for p in range(planes)]

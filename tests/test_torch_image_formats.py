@@ -371,9 +371,6 @@ def _gif_lzw(idx: np.ndarray):
 
 LEFT_OUT = [
     ("jp2", "JPEG2000", {}, "JPEG 2000"),
-    ("tif", "TIFF", {"compression": "group4"}, "CCITT Group 4"),
-    ("tif", "TIFF", {"compression": "group3"}, "CCITT Group 3"),
-    ("tif", "TIFF", {"compression": "tiff_ccitt"}, "CCITT RLE"),
 ]
 
 
@@ -399,15 +396,23 @@ ONCE_LEFT_OUT = [
     ("webp", "WEBP", {}, "WebP"),
     ("dds", "DDS", {}, "DDS"),
     ("tif", "TIFF", {"compression": "jpeg"}, "JPEG compression"),
+    ("tif", "TIFF", {"compression": "group4"}, "CCITT Group 4"),
+    ("tif", "TIFF", {"compression": "group3"}, "CCITT Group 3"),
+    ("tif", "TIFF", {"compression": "tiff_ccitt"}, "CCITT RLE"),
+    ("tif", "TIFF", {"compression": "lzma"}, "LZMA"),
+    ("tif", "TIFF", {"compression": "zstd"}, "Zstandard"),
 ]
 
 
 @pytest.mark.parametrize("ext,fmt,kw,word", ONCE_LEFT_OUT, ids=[c[3] for c in ONCE_LEFT_OUT])
 def test_formats_once_left_out_equal_pillow(tmp_path, ext, fmt, kw, word):
-    """The files the port refused before it read WebP, DDS and TIFF-JPEG:
-    now every mode equal to Pillow's."""
+    """The files the port refused before it read WebP, DDS, TIFF-JPEG and
+    the CCITT, LZMA and Zstandard TIFFs: now every mode equal to Pillow's."""
     path = tmp_path / f"once_left_out.{ext}"
-    Image.fromarray(seeded_rgb((16, 16), 81)).save(path, fmt, **kw)
+    image = Image.fromarray(seeded_rgb((16, 16), 81))
+    if kw.get("compression") in ("group3", "group4", "tiff_ccitt"):
+        image = image.convert("1")
+    image.save(path, fmt, **kw)
     assert_equal_to_pillow(path)
 
 

@@ -3,14 +3,16 @@
 Pillow on the results.
 
     python3 tools/fuzz_image_readers.py [--seed 0] [--trials 20] [--jpeg-scan 300]
-                                        [--formats jpg,gif,tif,webp,blp]
+                                        [--formats jpg,gif,tif,webp,blp,ccitt,zstd]
 
 Needs Pillow (the CPU test host has it). Each small fixture of
 ``tests/data/images/`` (its manifest's files under 64 kB, not the gzipped
 atlases nor the damaged set) is changed ``--trials`` times from a numpy
 seed: one to three bytes overwritten (mostly in the first 600, where the
 headers are), the file cut at a random length, or a byte inserted or
-dropped. ``--formats`` keeps the fixtures with those extensions. Pillow opens
+dropped. ``--formats`` keeps the fixtures with those extensions, or the
+TIFF fixtures of those compressions (``ccitt``, ``thunderscan``, ``lzma``,
+``zstd``, ``ojpeg``; see :data:`TIFF_CODECS`). Pillow opens
 and loads each result from memory and converts it to modes None, RGB and L;
 ``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same.
 Every outcome falls in one of: equal arrays, both refuse, different arrays,
@@ -40,6 +42,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 MODES = (None, "RGB", "L")
 AGREE = ("equal", "both refuse")
+# --formats names for the TIFF compressions: their tag values
+TIFF_CODECS = {"ccitt": (2, 3, 4, 32771), "thunderscan": (32809,), "lzma": (34925,),
+               "zstd": (50000,), "ojpeg": (6,)}
 
 
 def pillow(data: bytes):
@@ -89,6 +94,17 @@ def fold(message: str) -> str:
     return re.sub(r"\d+", "#", message)[:110]
 
 
+def tiff_compression(name: str) -> int:
+    """A TIFF fixture's compression tag (0 where its directory is unread)."""
+    from coma_tpu_torch.utils.tiff import _Ifd
+
+    with open(os.path.join(FIXTURES, name), "rb") as fh:
+        try:
+            return _Ifd(fh.read(), name).get(259, (1,))[0]
+        except ValueError:
+            return 0
+
+
 def damage(data: bytes, rng) -> bytes:
     b = bytearray(data)
     kind = rng.integers(0, 3)
@@ -110,7 +126,8 @@ def main() -> int:
     parser.add_argument("--trials", type=int, default=20)
     parser.add_argument("--jpeg-scan", type=int, default=0)
     parser.add_argument("--formats", default="",
-                        help="comma-separated extensions to keep (default: every fixture)")
+                        help="comma-separated extensions, or TIFF compressions (ccitt, "
+                        "thunderscan, lzma, zstd, ojpeg), to keep (default: every fixture)")
     args = parser.parse_args()
     resource.setrlimit(resource.RLIMIT_AS, (6 << 30, 6 << 30))
     warnings.simplefilter("ignore")
@@ -119,12 +136,15 @@ def main() -> int:
     Image.MAX_IMAGE_PIXELS = 4_000_000
     sys.path.insert(0, REPO)
     rng = np.random.default_rng(args.seed)
-    keep = {"." + e.strip(".").lower() for e in args.formats.split(",") if e.strip()}
+    names = [e.strip(".").lower() for e in args.formats.split(",") if e.strip()]
+    keep = {"." + e for e in names if e not in TIFF_CODECS}
+    codecs = {c for e in names for c in TIFF_CODECS.get(e, ())}
     with open(os.path.join(FIXTURES, "manifest.json")) as fh:
         files = [e["file"] for e in json.load(fh)["files"]
                  if "stored" not in e and e["bytes"] < 64_000]
-    if keep:
-        files = [f for f in files if os.path.splitext(f)[1].lower() in keep]
+    if names:
+        files = [f for f in files if os.path.splitext(f)[1].lower() in keep
+                 or (codecs and f.endswith(".tif") and tiff_compression(f) in codecs)]
     counts, classes, examples = collections.Counter(), collections.Counter(), {}
     for name in files:
         with open(os.path.join(FIXTURES, name), "rb") as fh:

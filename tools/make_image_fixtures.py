@@ -15,7 +15,9 @@ system's libjpeg-turbo 2.1.5 (``C_ARITH_CODING_SUPPORTED``), writes the
 arithmetic-coded, odd-sampled, YCCK and block-smoothed JPEGs; the Python
 writers below write what neither can: Adam7 PNGs, lossless (SOF3), 12-bit,
 DNL and hierarchical JPEGs, RLE and bitfield BMPs, tiled and predicted
-TIFFs, and TGAs and PNMs of every type. ``manifest.json`` records, per file,
+TIFFs, TIFFs in CCITT RLEW and Group 3 with EOLs, ThunderScan, tiled LZMA
+and Zstandard (through the libzstd bundled with Pillow) and old-style JPEG,
+and TGAs and PNMs of every type. ``manifest.json`` records, per file,
 Pillow's mode, the shape and dtype of ``np.asarray(Image.open(f))`` and the
 SHA-256 of it and of ``convert(m)`` for m in RGB and L, or ``"raises": true``
 where Pillow refuses the file (the port must refuse it too), with the
@@ -499,7 +501,8 @@ def tiff_file(pixels: np.ndarray, bits: tuple, photometric: int, compression: in
     reverses the bits of every stored byte, ``bigtiff`` writes the BigTIFF
     header and 8-byte offsets. ``chunks`` gives the stored strips or tiles
     as they are (a JPEG's, compression 7) and ``tags`` more entries: tag ->
-    (type, values), type 7 (undefined) taking bytes."""
+    (type, values), type 7 (undefined) taking bytes and type 5 (rational)
+    (numerator, denominator) pairs."""
     o = ">" if big_endian else "<"
     px = pixels if pixels.ndim == 3 else pixels[..., None]
     H, W = px.shape[0], width or px.shape[1]
@@ -571,6 +574,8 @@ def tiff_file(pixels: np.ndarray, bits: tuple, photometric: int, compression: in
         kind, values = entries[tag]
         if kind == 7:
             packed = bytes(values)
+        elif kind == 5:                    # rationals: (numerator, denominator) pairs
+            packed = struct.pack(o + "II" * len(values), *(v for pair in values for v in pair))
         else:
             packed = struct.pack(o + {3: "H", 4: "I", 16: "Q"}[kind] * len(values), *values)
         count = len(packed) if kind == 7 else len(values)
@@ -1409,6 +1414,7 @@ def fixtures() -> dict:
     out.update(other_formats())
     out.update(new_formats())
     out.update(small_formats())
+    out.update(tiff_codec_formats())
     return out
 
 
@@ -1798,6 +1804,339 @@ def new_formats() -> dict:
                                              pil(Image.fromarray(atlas).convert("YCbCr"), "TIFF",
                                                  compression="jpeg", quality=75,
                                                  tiffinfo={278: 64}))
+    return out
+
+
+# ---------------------------------------------------------------- TIFF codecs
+
+_MH_CODES = None
+
+
+def _mh_codes():
+    """T.4's modified Huffman code words: ({run: white code}, {run: black
+    code}), make-up runs 64-2560 included."""
+    global _MH_CODES
+    if _MH_CODES is None:
+        from coma_tpu_torch.utils import tiff_codecs as tc
+        tables = []
+        for term, makeup in ((tc._WHITE_TERM, tc._WHITE_MAKEUP), (tc._BLACK_TERM, tc._BLACK_MAKEUP)):
+            codes = dict(enumerate(term))
+            codes.update({64 * (k + 1): c for k, c in enumerate(makeup)})
+            codes.update({1792 + 64 * k: c for k, c in enumerate(tc._COMMON_MAKEUP)})
+            tables.append(codes)
+        _MH_CODES = tuple(tables)
+    return _MH_CODES
+
+
+def mh_row(row: np.ndarray) -> str:
+    """One row of bits (1 black) as modified Huffman code words: runs from
+    white, each a make-up code (if 64 or more) and a terminating code."""
+    codes = _mh_codes()
+    out, x, colour, width = [], 0, 0, len(row)
+    while x < width or colour == 1:
+        end = x
+        while end < width and row[end] == colour:
+            end += 1
+        run = end - x
+        while run >= 2560:
+            out.append(codes[colour][2560])
+            run -= 2560
+        if run >= 64:
+            out.append(codes[colour][run // 64 * 64])
+        out.append(codes[colour][run % 64])
+        x, colour = end, 1 - colour
+        if x >= width:
+            break
+    return "".join(out)
+
+
+def ccitt_rle(bits: np.ndarray, word: bool = False) -> bytes:
+    """CCITT modified Huffman (compression 2) of (H, W) bits, each row padded
+    to a byte, or (RLEW, 32771) to a 16-bit word of the strip."""
+    stream = ""
+    for row in bits:
+        code = mh_row(row)
+        stream += code + "0" * (-len(stream + code) % (16 if word else 8))
+    return int(stream, 2).to_bytes(len(stream) // 8, "big") if stream else b""
+
+
+def g3_file(bits: np.ndarray, fill_bits: bool = True) -> bytes:
+    """T.4 1-D data of (H, W) bits: an EOL before each row, its zeros padded
+    so that the EOL ends a byte (T4Options fill bits)."""
+    stream = ""
+    for row in bits:
+        if fill_bits:
+            stream += "0" * ((-len(stream) - 12) % 8)
+        stream += "000000000001" + mh_row(row)
+    stream += "0" * (-len(stream) % 8)
+    return int(stream, 2).to_bytes(len(stream) // 8, "big")
+
+
+def thunder_rows(levels: np.ndarray) -> bytes:
+    """ThunderScan (32809) codes of (H, W) 4-bit levels: runs of the last
+    level, 2-bit and 3-bit deltas where they reach, raw codes otherwise."""
+    out = bytearray()
+    for row in levels.tolist():
+        last, x = 0, 0
+        while x < len(row):
+            run = 0
+            while x + run < len(row) and row[x + run] == last and run < 63:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                x += run
+                continue
+            d = row[x] - last
+            if d in (-1, 0, 1) and x + 1 < len(row) and row[x + 1] - row[x] in (-1, 0, 1) \
+                    and d != 0:
+                two = {0: 0, 1: 1, -1: 3}
+                e = row[x + 1] - row[x]
+                out.append(0x40 | two[d] << 4 | two[e] << 2 | 2)       # 2: skip
+                last, x = row[x + 1], x + 2
+            elif -3 <= d <= 3 and d != 0:
+                out.append(0x80 | (d & 7) << 3 | 4)                    # 4: skip
+                last, x = row[x], x + 1
+            else:
+                out.append(0xC0 | row[x])
+                last, x = row[x], x + 1
+    return bytes(out)
+
+
+def libzstd_compress(raw: bytes, level: int = 9, checksum: bool = False) -> bytes:
+    """A Zstandard frame of ``raw`` by the libzstd bundled with Pillow
+    (``pillow.libs``), with its content checksum if ``checksum``."""
+    import ctypes
+    import glob
+
+    import PIL
+    from PIL import Image  # noqa: F401  (loads the bundled libraries)
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                                             "pillow.libs", "libzstd-*.so*"))[0])
+    lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+    lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.ZSTD_compress2.restype = ctypes.c_size_t
+    lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+                                   ctypes.c_char_p, ctypes.c_size_t]
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+    cctx = lib.ZSTD_createCCtx()
+    lib.ZSTD_CCtx_setParameter(cctx, 100, level)           # ZSTD_c_compressionLevel
+    lib.ZSTD_CCtx_setParameter(cctx, 201, int(checksum))   # ZSTD_c_checksumFlag
+    cap = lib.ZSTD_compressBound(len(raw))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress2(cctx, out, cap, raw, len(raw))
+    lib.ZSTD_freeCCtx(cctx)
+    return out.raw[:n]
+
+
+def codec_tiff(pixels: np.ndarray, compression: int, tile=None, rows_per_strip: int = 0,
+               predictor: int = 1, checksum: bool = False) -> bytes:
+    """An 8-bit gray or RGB TIFF with LZMA (34925: Python's xz) or Zstandard
+    (50000: libzstd) strips or tiles."""
+    import lzma
+
+    px = pixels if pixels.ndim == 3 else pixels[..., None]
+    H, W, C = px.shape
+
+    def encode(block: np.ndarray) -> bytes:
+        b = block.copy()
+        if predictor == 2:
+            b[:, 1:] = (b[:, 1:].astype(np.int16) - block[:, :-1]).astype(np.uint8)
+        raw = b.tobytes()
+        return lzma.compress(raw, lzma.FORMAT_XZ) if compression == 34925 else \
+            libzstd_compress(raw, checksum=checksum)
+
+    chunks = []
+    if tile:
+        tw, th = tile
+        for ty in range(0, H, th):
+            for tx in range(0, W, tw):
+                block = np.zeros((th, tw, C), np.uint8)
+                part = px[ty:ty + th, tx:tx + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+                chunks.append(encode(block))
+    else:
+        rps = rows_per_strip or H
+        chunks = [encode(px[y:y + rps]) for y in range(0, H, rps)]
+    return tiff_file(pixels, (8,) * C, 2 if C == 3 else 1, compression=compression, tile=tile,
+                     rows_per_strip=rows_per_strip, predictor=predictor, chunks=chunks)
+
+
+def _jpeg_tables(jpg: bytes):
+    """A baseline JPEG's quantisation tables (64 bytes each, zigzag), its
+    Huffman tables ((class, id) -> counts + values) and the scan's data
+    between its restart markers."""
+    qt, ht, scan = {}, {}, None
+    for marker, start, end in jpeg_segments(jpg):
+        body = jpg[start + 4:end] if marker != 0xDA else None
+        if marker == 0xDB:
+            pos = 0
+            while pos < len(body):
+                qt[body[pos] & 15] = body[pos + 1:pos + 65]
+                pos += 65
+        elif marker == 0xC4:
+            pos = 0
+            while pos < len(body):
+                n = sum(body[pos + 1:pos + 17])
+                ht[(body[pos] >> 4, body[pos] & 15)] = body[pos + 1:pos + 17 + n]
+                pos += 17 + n
+        elif marker == 0xDA:
+            head = start + 2 + int.from_bytes(jpg[start + 2:start + 4], "big")
+            scan = jpg[head:end]
+    intervals, pos, last = [], 0, 0
+    while pos < len(scan) - 1:
+        if scan[pos] == 0xFF and 0xD0 <= scan[pos + 1] <= 0xD7:
+            intervals.append(scan[last:pos])
+            last = pos = pos + 2
+        else:
+            pos += 1
+    intervals.append(scan[last:])
+    return qt, ht, intervals
+
+
+def ojpeg_tiff(jpg: bytes, width: int, height: int, sampling: tuple, layout: str = "jif",
+               rows_per_strip: int = 0, photometric: int = 6, tags=None) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of the baseline JFIF ``jpg``.
+    ``layout`` "jif": JPEGInterchangeFormat points at the whole stream and
+    the strip at its scan data; "tags": the tables in JPEGQTables,
+    JPEGDCTables and JPEGACTables (Y the first of each, Cb and Cr the
+    second) and each strip one restart interval of the scan (``jpg`` coded
+    with one interval a strip)."""
+    spp = 1 if photometric != 6 else 3
+    entries = {262: (3, [photometric]), 530: (3, list(sampling)), **(tags or {})}
+    if layout == "jif":
+        scan = next(s for m, s, e in jpeg_segments(jpg) if m == 0xDA)
+        head = scan + 2 + int.from_bytes(jpg[scan + 2:scan + 4], "big")
+        at = 8                          # the JIF the only chunk, after the 8-byte header
+        entries.update({513: (4, [at]), 514: (4, [len(jpg)])})
+        data = bytearray(tiff_file(np.zeros((height, width * spp), np.uint8), (8,) * spp,
+                                   photometric, compression=6, width=width,
+                                   rows_per_strip=rows_per_strip or height, chunks=[jpg],
+                                   tags=entries))
+        # the strip: the scan data inside the JIF
+        ifd = int.from_bytes(data[4:8], "little")
+        for k in range(int.from_bytes(data[ifd:ifd + 2], "little")):
+            e = ifd + 2 + 12 * k
+            tag = int.from_bytes(data[e:e + 2], "little")
+            if tag == 273:
+                data[e + 8:e + 12] = (at + head).to_bytes(4, "little")
+            elif tag == 279:
+                data[e + 8:e + 12] = (len(jpg) - head).to_bytes(4, "little")
+        return bytes(data)
+    qt, ht, intervals = _jpeg_tables(jpg)
+    blobs = [qt[0], qt.get(1, qt[0]), ht[(0, 0)], ht.get((0, 1), ht[(0, 0)]), ht[(1, 0)],
+             ht.get((1, 1), ht[(1, 0)])]
+    # the tables after the strips: placed once the file's size is known
+    entries.update({512: (3, [1]), 519: (4, [0] * spp), 520: (4, [0] * spp),
+                    521: (4, [0] * spp)})
+    start = len(tiff_file(np.zeros((height, width * spp), np.uint8), (8,) * spp, photometric,
+                          compression=6, width=width, rows_per_strip=rows_per_strip or height,
+                          chunks=intervals, tags=entries))
+    offsets, at = [], start
+    for b in blobs:
+        offsets.append(at)
+        at += len(b)
+    q = [offsets[0]] + [offsets[1]] * (spp - 1)
+    dc = [offsets[2]] + [offsets[3]] * (spp - 1)
+    ac = [offsets[4]] + [offsets[5]] * (spp - 1)
+    entries.update({519: (4, q), 520: (4, dc), 521: (4, ac)})
+    body = tiff_file(np.zeros((height, width * spp), np.uint8), (8,) * spp, photometric,
+                     compression=6, width=width, rows_per_strip=rows_per_strip or height,
+                     chunks=intervals, tags=entries)
+    assert len(body) == start, "the table offsets moved"
+    return body + b"".join(blobs)
+
+
+def tiff_codec_formats() -> dict:
+    """TIFFs of the compressions libtiff decodes beside LZW, PackBits,
+    Deflate and JPEG: CCITT RLE and RLEW, Group 3 (1-D with fill bits, 2-D),
+    Group 4 (fill order 2, min-is-white), ThunderScan, LZMA and Zstandard
+    (strips, tiles, predictor 2, a content checksum) and old-style JPEG
+    (a JPEGInterchangeFormat stream, tables in tags); the chair's six
+    textures in six of them; the 2048 x 1536 atlas as Zstandard and,
+    thresholded, as Group 4. Group 4 files of more than one row keep a row a
+    strip: where a damaged strip ends early libtiff leaves the rest of
+    Pillow's strip buffer unwritten, uninitialised memory for the first
+    strip of a small file, which no reader can match."""
+    from PIL import Image
+
+    def pil(image, **kw):
+        buf = io.BytesIO()
+        (image if isinstance(image, Image.Image) else Image.fromarray(image)).save(buf, "TIFF",
+                                                                                    **kw)
+        return buf.getvalue()
+
+    def jfif(image, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, "JPEG", **kw)
+        return buf.getvalue()
+
+    rgb = seeded_rgb((37, 53), 90, noise=8) // 8 * 8
+    bits = rgb[..., 1] > 120
+    levels = (rgb[..., 0] // 16).astype(np.uint8)
+    tex = seeded_rgb((32, 32), 91, noise=4) // 16 * 16
+    tex_bits = tex[..., 0] > 110
+    out = {
+        "ccitt_rle.tif": ("TIFF CCITT RLE (compression 2)",
+                          pil(bits, compression="tiff_ccitt")),
+        "ccitt_rlew.tif": ("TIFF CCITT RLEW (32771), rows word-aligned",
+                           tiff_file(np.packbits(bits, axis=1), (1,), 0, compression=32771,
+                                     width=53, chunks=[ccitt_rle(bits, word=True)])),
+        "ccitt_g3_1d_fill.tif": ("TIFF CCITT Group 3 1-D, EOLs after fill bits",
+                                 tiff_file(np.packbits(bits, axis=1), (1,), 0, compression=3,
+                                           width=53, chunks=[g3_file(bits)],
+                                           tags={292: (4, [4])})),
+        "ccitt_g3_2d.tif": ("TIFF CCITT Group 3 2-D, strips of 8",
+                            pil(bits, compression="group3", tiffinfo={292: 1, 278: 8})),
+        "ccitt_g4.tif": ("TIFF CCITT Group 4", pil(bits, compression="group4",
+                                                   tiffinfo={278: 1})),
+        "ccitt_g4_fill2_miniswhite.tif": ("TIFF CCITT Group 4, fill order 2, min-is-white",
+                                          pil(bits, compression="group4",
+                                              tiffinfo={266: 2, 262: 0, 278: 1})),
+        "thunderscan.tif": ("TIFF ThunderScan 4-bit, strips of 16",
+                            tiff_file(np.zeros((37, 27), np.uint8), (4,), 1, compression=32809,
+                                      width=53, rows_per_strip=16,
+                                      chunks=[thunder_rows(levels[y:y + 16])
+                                              for y in range(0, 37, 16)])),
+        "lzma_rgb.tif": ("TIFF LZMA, RGB, strips of 16",
+                         pil(rgb, compression="lzma", tiffinfo={278: 16})),
+        "lzma_tiles_predictor.tif": ("TIFF LZMA, tiles, predictor 2",
+                                     codec_tiff(rgb, 34925, tile=(16, 16), predictor=2)),
+        "zstd_rgb.tif": ("TIFF Zstandard, RGB", pil(rgb, compression="zstd")),
+        "zstd_gray_predictor.tif": ("TIFF Zstandard, gray, predictor 2, strips of 10",
+                                    codec_tiff(rgb[..., 0], 50000, rows_per_strip=10,
+                                               predictor=2)),
+        "zstd_tiles_checksum.tif": ("TIFF Zstandard, tiles, content checksum",
+                                    codec_tiff(rgb, 50000, tile=(16, 16), checksum=True)),
+        "ojpeg_jif_420.tif": ("TIFF old-style JPEG, JPEGInterchangeFormat, YCbCr 4:2:0",
+                              ojpeg_tiff(jfif(rgb, quality=90, subsampling=2), 53, 37, (2, 2))),
+        "ojpeg_tags_422.tif": ("TIFF old-style JPEG, tables in tags, YCbCr 4:2:2, strips of 8",
+                               ojpeg_tiff(jfif(rgb, quality=85, subsampling=1,
+                                               restart_marker_rows=1), 53, 37, (2, 1), "tags",
+                                          rows_per_strip=8)),
+        "ojpeg_gray.tif": ("TIFF old-style JPEG, gray",
+                           ojpeg_tiff(jfif(rgb[..., 1], quality=80), 53, 37, (1, 1),
+                                      photometric=1)),
+        "chair_g4_fill2.tif": ("chair texture, TIFF CCITT Group 4, fill order 2",
+                               pil(tex_bits, compression="group4", tiffinfo={266: 2, 278: 1})),
+        "chair_g3_2d.tif": ("chair texture, TIFF CCITT Group 3 2-D",
+                            pil(tex_bits[::-1], compression="group3", tiffinfo={292: 1})),
+        "chair_lzma.tif": ("chair texture, TIFF LZMA", pil(tex[:, ::-1], compression="lzma")),
+        "chair_zstd.tif": ("chair texture, TIFF Zstandard", pil(tex[::-1], compression="zstd")),
+        "chair_ojpeg.tif": ("chair texture, TIFF old-style JPEG 4:2:0",
+                            ojpeg_tiff(jfif(tex, quality=90, subsampling=2), 32, 32, (2, 2))),
+        "chair_thunderscan.tif": ("chair texture, TIFF ThunderScan",
+                                  tiff_file(np.zeros((32, 16), np.uint8), (4,), 1,
+                                            compression=32809, width=32,
+                                            chunks=[thunder_rows(tex[..., 2] // 16)])),
+    }
+    atlas = texture_atlas(9)
+    out["atlas_zstd_2048x1536.tif"] = ("2048 x 1536 atlas, TIFF Zstandard",
+                                       pil(atlas, compression="zstd"))
+    gray = np.asarray(Image.fromarray(atlas).convert("L"))
+    out["atlas_g4_2048x1536.tif"] = ("2048 x 1536 atlas thresholded, TIFF CCITT Group 4",
+                                     pil(gray >= 128, compression="group4"))
     return out
 
 
