@@ -2574,11 +2574,12 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to twenty-four image files) give the back, then
+    ``part_textures`` (up to twenty-nine image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
-    a footrest bar, a headrest, two back posts, two armrest posts and a rear
-    stretcher a material, UVs and a ``map_Kd`` of their own.
+    a footrest bar, a headrest, two back posts, two armrest posts, a rear
+    stretcher, three low stretchers, a lumbar bar and a front apron a
+    material, UVs and a ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
@@ -2621,7 +2622,12 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((0.25, 0.48, -0.25), (0.27, 0.95, -0.21)),
               ((-0.27, 0.48, 0.14), (-0.24, 0.62, 0.17)),
               ((0.24, 0.48, 0.14), (0.27, 0.62, 0.17)),
-              ((-0.21, 0.25, -0.23), (0.19, 0.28, -0.20))]
+              ((-0.21, 0.25, -0.23), (0.19, 0.28, -0.20)),
+              ((-0.21, 0.30, 0.19), (0.19, 0.33, 0.22)),
+              ((-0.23, 0.30, -0.19), (-0.20, 0.33, 0.19)),
+              ((0.20, 0.30, -0.19), (0.23, 0.33, 0.19)),
+              ((-0.20, 0.70, -0.21), (0.20, 0.74, -0.19)),
+              ((-0.22, 0.35, 0.22), (0.18, 0.38, 0.25))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3673,15 +3679,17 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # back posts, armrest posts and rear stretcher in phase 16c: arithmetic JPEG, TGA, BMP,
 # TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS BC7, DDS DXT1, PSD, YCbCr
 # 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5, Sun RLE, a damaged JPEG Pillow recovers
-# (a wrong RSTn), and TIFFs in CCITT Group 4 (fill order 2), Group 3 2-D, LZMA, Zstandard,
-# old-style JPEG and ThunderScan
+# (a wrong RSTn), TIFFs in CCITT Group 4 (fill order 2), Group 3 2-D, LZMA, Zstandard,
+# old-style JPEG and ThunderScan, and a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
+# TIFF and a PFM
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
                  "chair_rle.sgi", "chair.pcx", "chair.qoi", "chair.ico", "chair_dxt5.blp",
                  "chair_rle.ras", "damaged/jpeg_resync_next.jpg", "chair_g4_fill2.tif",
                  "chair_g3_2d.tif", "chair_lzma.tif", "chair_zstd.tif", "chair_ojpeg.tif",
-                 "chair_thunderscan.tif")
+                 "chair_thunderscan.tif", "chair_lossless.jp2", "chair_lossy_tiles.j2k",
+                 "chair_lab.psd", "chair_cielab.tif", "chair.pfm")
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3691,7 +3699,8 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds",
                  "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif",
                  "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi", "atlas_zstd_2048x1536.tif",
-                 "atlas_g4_2048x1536.tif")
+                 "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
+                 "atlas_lossy_2048x1536.j2k")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3747,8 +3756,9 @@ def decode_phase(label: str) -> dict:
     Python entropy decoder on the 512² texture, and the host decode of the
     2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive JPEG,
     lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-    TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard and (thresholded) TIFF CCITT
-    Group 4 (median of 5)."""
+    TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
+    Group 4, lossless JPEG 2000 (JP2, 5/3) and lossy JPEG 2000 (J2K, 9/7,
+    tiles, layers, RPCL) (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3757,10 +3767,11 @@ def decode_phase(label: str) -> dict:
     from coma_tpu_torch.utils.modes import to_mode
 
     if not (jpeg.native_available() and codecs.available() and codecs.bcn_available()
-            and codecs.webp_available() and codecs.tiff_available()):
+            and codecs.webp_available() and codecs.tiff_available()
+            and codecs.j2k_available()):
         raise AssertionError("a native image decoder (native/src/jpeg_decode.cpp, "
                              "image_codecs.cpp, bcn_decode.cpp, webp_decode.cpp, "
-                             "tiff_codecs.cpp) did not build or load")
+                             "tiff_codecs.cpp, j2k_decode.cpp) did not build or load")
     manifest = image_manifest()
     equal, refused = [], []
     for name, entry in manifest.items():
@@ -3784,6 +3795,12 @@ def decode_phase(label: str) -> dict:
                 raise AssertionError(f"{name}: read_image is not the native decoder's")
         decoded = decode_image(fixture_bytes(entry), path)     # read_image's decode, once
         for mode in (None, "RGB", "L"):
+            if entry["sha256"][str(mode)] is None:        # Pillow refuses "LAB" to "L"
+                try:
+                    to_mode(decoded, mode)
+                except ValueError:
+                    continue
+                raise AssertionError(f"{name}: converted to {mode}, which Pillow refuses")
             if image_sha(to_mode(decoded, mode)) != entry["sha256"][str(mode)]:
                 raise AssertionError(f"{name}: mode {mode} differs from Pillow's")
         equal.append(name)
@@ -3942,10 +3959,12 @@ def jpeg_asset_phase(label: str) -> dict:
     JPEG textures, its stretchers and armrests lossy WebP with alpha,
     lossless WebP, DDS BC7, DDS DXT1, PSD and YCbCr TIFF-JPEG ones, its
     seat trims and back slats SGI RLE, PCX, QOI, ICO, BLP2 DXT5 and Sun RLE
-    ones, its footrest a damaged JPEG Pillow recovers, and its headrest,
+    ones, its footrest a damaged JPEG Pillow recovers, its headrest,
     back posts, armrest posts and rear stretcher TIFFs in CCITT Group 4
     (fill order 2), Group 3 2-D, LZMA, Zstandard, old-style JPEG and
-    ThunderScan, through
+    ThunderScan, and its low stretchers, lumbar bar and front apron a
+    lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab TIFF and a PFM,
+    through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4029,9 +4048,9 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in twenty-five files of fourteen formats
-    and six more TIFF compressions (a damaged JPEG among them) through stage
-    1 into K3, every
+    frames, (c) an asset textured in thirty files of sixteen formats (a
+    damaged JPEG, a Lab PSD and a CIELab TIFF among them) and six more TIFF
+    compressions through stage 1 into K3, every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""
     t0 = time.perf_counter()

@@ -6,8 +6,9 @@ ray-parity point-in-mesh test. ``src/jpeg_decode.cpp`` is the JPEG decoder's
 native half (``utils/jpeg.py`` loads it), ``src/image_codecs.cpp`` the LZW,
 PackBits, run-length (TGA, SGI, PCX, ICNS, Sun, MSP) and QOI decoders of the
 other image readers, ``src/bcn_decode.cpp`` the block decoders of DDS and
-BLP and ``src/webp_decode.cpp`` WebP's (``codecs.py`` loads them). This is
-host code, not a device kernel.
+BLP, ``src/webp_decode.cpp`` WebP's, ``src/tiff_codecs.cpp`` TIFF's CCITT
+and Zstandard and ``src/j2k_decode.cpp`` JPEG 2000's (``codecs.py`` loads
+them). This is host code, not a device kernel.
 
 Each source is compiled with ``g++`` at first use into
 ``coma_tpu_torch/_build/`` (ignored by git), named by a hash of the source

@@ -1,9 +1,11 @@
 """ctypes bindings of ``src/image_codecs.cpp``: the LZW, PackBits, run-length
 and QOI decoders of the image readers (``utils/gif_reader.py``,
 ``utils/tiff.py``, ``utils/psd.py``, ``utils/tga.py``, ``utils/{sgi,pcx,
-icns,sun,msp,qoi}.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's
-blocks), of ``src/webp_decode.cpp`` and of ``src/tiff_codecs.cpp`` (TIFF's
-CCITT and Zstandard strips), built with ``g++`` at first use like
+icns,sun,msp,qoi}.py``) and Little CMS's Lab interpolation
+(``utils/lcms.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's blocks), of
+``src/webp_decode.cpp``, of ``src/tiff_codecs.cpp`` (TIFF's CCITT and
+Zstandard strips) and of ``src/j2k_decode.cpp`` (JPEG 2000's tier-1 and
+reconstruction, ``utils/j2k.py``), built with ``g++`` at first use like
 the other native sources. Each reader keeps its plain Python decoder as the
 reference and falls back to it where :func:`available` is false."""
 from __future__ import annotations
@@ -41,7 +43,8 @@ def _declare(lib: ctypes.CDLL) -> None:
              ctypes.c_int),
             ("icns_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
             ("sun_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
-            ("msp_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr, i64], i64)):
+            ("msp_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr, i64], i64),
+            ("lab_tetra_interp", [ptr, i64, ptr, ctypes.c_int, ptr], None)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
 
@@ -153,6 +156,19 @@ def msp_rle_decode(data: bytes, width: int, height: int) -> bytes:
     if n == -2:
         raise ValueError("corrupted MSP file (a run cut short)")
     return out[:min(n, cap)].tobytes()
+
+
+def lab_tetra_interp(lab: np.ndarray, table: np.ndarray, grid: int) -> np.ndarray:
+    """(N, 3) uint8 Lab bytes (a and b offset) -> (N, 3) uint8 sRGB through
+    the (grid^3 * 3,) int32 CLUT: ``utils/lcms.tetra_interp_python`` and
+    Little CMS's ``FROM_16_TO_8``."""
+    lab = np.ascontiguousarray(lab, np.uint8)
+    table = np.ascontiguousarray(table, np.int32)
+    if lab.ndim != 2 or lab.shape[1] != 3 or table.size != 3 * grid ** 3:
+        raise ValueError(f"Lab {lab.shape}, CLUT {table.shape} at grid {grid}")
+    out = np.zeros(lab.shape, np.uint8)
+    _need().lab_tetra_interp(lab.ctypes.data, len(lab), table.ctypes.data, grid, out.ctypes.data)
+    return out
 
 
 def _declare_bcn(lib: ctypes.CDLL) -> None:
@@ -278,3 +294,119 @@ def zstd_decode(data: bytes, cap: int) -> bytes:
     if _tiff_lib().zstd_decode(data, len(data), cap, out.ctypes.data, err, len(err)):
         raise ValueError(err.value.decode())
     return out[:cap].tobytes()
+
+
+J2K_SRC = native._SRC_DIR / "j2k_decode.cpp"
+
+
+def _declare_j2k(lib: ctypes.CDLL) -> None:
+    i64, ptr, i32 = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+    lib.j2k_reconstruct_comp.restype = i32
+    lib.j2k_reconstruct_comp.argtypes = [ctypes.c_char_p, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                         i32, i32, i32, i32, ptr, ptr]
+    lib.j2k_tier2.restype = i32
+    lib.j2k_tier2.argtypes = [ctypes.c_char_p, i64, ctypes.c_char_p, i64, ptr, i32, ptr, i64,
+                              ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr,
+                              ctypes.c_char_p, i32]
+    lib.j2k_mct.restype = None
+    lib.j2k_mct.argtypes = [ptr, ptr, ptr, i64, i32]
+    lib.j2k_level_shift.restype = None
+    lib.j2k_level_shift.argtypes = [ptr, i64, i32, i32, i32, ptr]
+
+
+def _j2k_lib():
+    lib = native.load_library(J2K_SRC, _declare_j2k)
+    if lib is None:
+        raise RuntimeError("the native JPEG 2000 decoder is not available (no g++)")
+    return lib
+
+
+def j2k_available() -> bool:
+    """Whether ``src/j2k_decode.cpp`` builds and loads in this process."""
+    return native.load_library(J2K_SRC, _declare_j2k) is not None
+
+
+def j2k_reconstruct_comp(data: bytes, blocks: np.ndarray, lens: np.ndarray,
+                         passes: np.ndarray, roishift: int, cblksty: int, w: int, h: int,
+                         dims, reversible: bool) -> np.ndarray:
+    """A tile-component's code-blocks decoded, dequantised and placed, then
+    the inverse DWT over ``dims`` (each resolution's x0, y0, x1, y1):
+    ``utils/j2k``'s plain path, sample for sample. ``blocks`` (N, 10)
+    int64: x, y, w, h, band, numbps, segments, first segment, offset of the
+    bytes in ``data`` and the step size's float32 bits; ``lens``/``passes``
+    each segment's bytes and passes."""
+    blocks = np.ascontiguousarray(blocks, np.int64).reshape(-1, 10)
+    info = np.ascontiguousarray(blocks[:, :8], np.int32)
+    offsets = np.ascontiguousarray(blocks[:, 8])
+    steps = np.ascontiguousarray(blocks[:, 9].astype(np.uint32)).view(np.float32)
+    lens = np.ascontiguousarray(lens, np.int32) if len(lens) else np.zeros(1, np.int32)
+    passes = np.ascontiguousarray(passes, np.int32) if len(passes) else np.zeros(1, np.int32)
+    if len(info) and (int((info[:, 6] + info[:, 7]).max()) > len(lens)
+                      or int(offsets.max()) > len(data)):
+        raise ValueError("code-block segments past their arrays")
+    dims_a = np.ascontiguousarray(dims, np.int32)
+    out = np.zeros((h, w), np.int32 if reversible else np.float32)
+    status = _j2k_lib().j2k_reconstruct_comp(
+        data, offsets.ctypes.data, info.ctypes.data, steps.ctypes.data, lens.ctypes.data,
+        passes.ctypes.data, len(info), roishift, cblksty, int(reversible), w, h,
+        len(dims_a), dims_a.ctypes.data, out.ctypes.data)
+    if status:
+        raise ValueError("opj_t1_decode_cblk(): unsupported bpno_plus_one >= 31")
+    return out
+
+
+def j2k_tier2(data: bytes, hdr, csty: int, packets: np.ndarray, pk_recs: np.ndarray,
+              recs: np.ndarray, ncblk: int):
+    """Every packet of a tile (``utils/j2k._read_packet`` in turn):
+    ``packets`` (layer, first record, records) rows, ``pk_recs`` their band
+    precincts, ``recs`` (cw, ch, first code-block, numbps, code-block style)
+    rows; ``hdr`` None, or a dict of the PPM/PPT stream (``data``, ``pos``,
+    which moves on). Returns per code-block (numbps, segments, first
+    segment, offset of its bytes), each segment's bytes and passes, and the
+    code-blocks' bytes joined."""
+    packets = np.ascontiguousarray(packets, np.int32).reshape(-1, 3)
+    pk_recs = np.ascontiguousarray(pk_recs, np.int32) if len(pk_recs) else np.zeros(1, np.int32)
+    recs = np.ascontiguousarray(recs, np.int32).reshape(-1, 5)
+    if len(recs) and int((recs[:, 2] + recs[:, 0] * recs[:, 1]).max()) > ncblk:
+        raise ValueError("band precincts past the code-blocks")
+    if len(packets) and int((packets[:, 1] + packets[:, 2]).max()) > len(pk_recs):
+        raise ValueError("packets past their band precincts")
+    numbps = np.zeros(max(ncblk, 1), np.int32)
+    nsegs = np.zeros(max(ncblk, 1), np.int32)
+    first = np.zeros(max(ncblk, 1), np.int64)
+    offset = np.zeros(max(ncblk, 1), np.int64)
+    hbuf = b"" if hdr is None else hdr["data"]
+    hpos = ctypes.c_int64(0 if hdr is None else hdr["pos"])
+    cap = 3 * (len(data) + len(hbuf) + 16)
+    lens = np.zeros(cap, np.int32)
+    passes = np.zeros(cap, np.int32)
+    out = np.zeros(max(len(data), 1), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    if _j2k_lib().j2k_tier2(data, len(data), hbuf if hdr is not None else None, len(hbuf),
+                            ctypes.byref(hpos), csty, packets.ctypes.data, len(packets),
+                            pk_recs.ctypes.data, recs.ctypes.data, len(recs), ncblk,
+                            numbps.ctypes.data, nsegs.ctypes.data, first.ctypes.data,
+                            offset.ctypes.data, lens.ctypes.data, passes.ctypes.data, cap,
+                            out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    if hdr is not None:
+        hdr["pos"] = hpos.value
+    return (np.stack([numbps[:ncblk], nsegs[:ncblk], first[:ncblk], offset[:ncblk]], 1), lens,
+            passes, out.tobytes())
+
+
+def j2k_mct(planes, reversible: bool) -> None:
+    """The RCT or ICT in place on three C-contiguous planes."""
+    dtype = np.int32 if reversible else np.float32
+    for p in planes[:3]:
+        assert p.dtype == dtype and p.flags.c_contiguous
+    _j2k_lib().j2k_mct(planes[0].ctypes.data, planes[1].ctypes.data, planes[2].ctypes.data,
+                       planes[0].size, int(reversible))
+
+
+def j2k_level_shift(plane: np.ndarray, prec: int, sgnd: bool, reversible: bool) -> np.ndarray:
+    plane = np.ascontiguousarray(plane, np.int32 if reversible else np.float32)
+    out = np.zeros(plane.shape, np.int32)
+    _j2k_lib().j2k_level_shift(plane.ctypes.data, plane.size, prec, int(sgnd), int(reversible),
+                               out.ctypes.data)
+    return out

@@ -1,6 +1,7 @@
 // The byte-stream decoders of the image readers in coma_tpu_torch/utils/:
 // GIF's and TIFF's LZW, TIFF's PackBits, TGA's, SGI's, PCX's, ICNS's, Sun
-// raster's and MSP's run-length codes and QOI's opcodes. Each equals its
+// raster's and MSP's run-length codes, QOI's opcodes and Little CMS's
+// tetrahedral interpolation of Lab pixels (utils/lcms.py). Each equals its
 // plain Python twin byte for byte (utils/gif_reader.py: lzw_decode_python,
 // utils/tiff.py: lzw_decode_python and packbits_decode_python,
 // utils/tga.py, sgi.py, pcx.py, icns.py, sun.py, msp.py:
@@ -435,6 +436,45 @@ int64_t msp_rle_decode(const uint8_t* data, int64_t n, int64_t width, int64_t he
     }
   }
   return written;
+}
+
+// Little CMS's TetrahedralInterp16 of 8-bit Lab pixels (each byte widened
+// as x * 257, a and b already offset) on a (grid^3, 3) 16-bit CLUT, each
+// output narrowed by FROM_16_TO_8: utils/lcms.py, tetra_interp_python.
+void lab_tetra_interp(const uint8_t* in, int64_t n, const int32_t* table, int grid,
+                      uint8_t* out) {
+  const int32_t opta[3] = {3, 3 * grid, 3 * grid * grid};
+  for (int64_t p = 0; p < n; ++p) {
+    int32_t input[3], rest[3], node[3], step[3];
+    for (int k = 0; k < 3; ++k) {
+      input[k] = in[3 * p + k] * 257;
+      int32_t f = input[k] * (grid - 1);
+      f += (f + 0x7FFF) / 0xFFFF;
+      node[k] = f >> 16;
+      rest[k] = f & 0xFFFF;
+      step[k] = input[k] == 0xFFFF ? 0 : opta[2 - k];
+    }
+    const int32_t* base = table + node[0] * opta[2] + node[1] * opta[1] + node[2] * opta[0];
+    const int32_t rx = rest[0], ry = rest[1], rz = rest[2];
+    int order[3];
+    if (rx >= ry) {
+      if (ry >= rz) { order[0] = 0; order[1] = 1; order[2] = 2; }
+      else if (rz >= rx) { order[0] = 2; order[1] = 0; order[2] = 1; }
+      else { order[0] = 0; order[1] = 2; order[2] = 1; }
+    } else {
+      if (rx >= rz) { order[0] = 1; order[1] = 0; order[2] = 2; }
+      else if (ry >= rz) { order[0] = 1; order[1] = 2; order[2] = 0; }
+      else { order[0] = 2; order[1] = 1; order[2] = 0; }
+    }
+    const int32_t p1 = step[order[0]], p2 = p1 + step[order[1]], p3 = p2 + step[order[2]];
+    for (int ch = 0; ch < 3; ++ch) {
+      const int32_t c0 = base[ch], c1 = base[p1 + ch], c2 = base[p2 + ch], c3 = base[p3 + ch];
+      const int32_t total = (c1 - c0) * rest[order[0]] + (c2 - c1) * rest[order[1]] +
+                            (c3 - c2) * rest[order[2]] + 0x8001;
+      const uint32_t v = static_cast<uint16_t>(c0 + ((total + (total >> 16)) >> 16));
+      out[3 * p + ch] = static_cast<uint8_t>(((v * 65281u + 8388608u) >> 24) & 0xFF);
+    }
+  }
 }
 
 }  // extern "C"

@@ -755,6 +755,33 @@ int64_t fast_loop_x1(const int64_t* starts, const int64_t* sizes,
   return j;
 }
 
+// HUF_decompress4X2_usingDTable_internal_fast's bounds (see _fast_loop_x2):
+// two symbols a lookup where both codes fit in 11 bits; corruption where a
+// stream passes its segment or reads more than 8 bytes below its start
+void fast_loop_x2(const int64_t* starts, const int64_t* sizes, const std::vector<int64_t>* reads,
+                  int64_t lowest, const int64_t* counts) {
+  int64_t done[4] = {0, 0, 0, 0};
+  auto ip = [&](int k) { return starts[k] + sizes[k] - 8 - reads[k][done[k]] / 8; };
+  auto lookup = [&](int k) {
+    const std::vector<int64_t>& r = reads[k];
+    const size_t j = static_cast<size_t>(done[k]);
+    const int64_t first = r[j + 1] - r[j];
+    done[k] += (j + 2 < r.size() && first + r[j + 2] - r[j + 1] <= 11) ? 2 : 1;
+  };
+  for (;;) {
+    int64_t iters = std::max<int64_t>(0, (ip(0) - lowest) / 7);
+    for (int k = 0; k < 4; ++k) iters = std::min(iters, (counts[k] - done[k]) / 10);
+    const int64_t olimit = done[3] + 5 * iters;
+    if (done[3] == olimit || ip(1) < ip(0) || ip(2) < ip(1) || ip(3) < ip(2)) break;
+    while (done[3] < olimit)
+      for (int t = 0; t < 5; ++t)
+        for (int k = 0; k < 4; ++k) lookup(k);
+  }
+  for (int k = 0; k < 4; ++k)
+    if (done[k] > counts[k] || ip(k) < starts[k] - 8)
+      zfail("a Huffman stream read past its start (libzstd's fast decoder)");
+}
+
 // HUF_decodeStreamX1 after the fast loop (see _tail_x1)
 void tail_x1(const uint8_t* data, int64_t lowest, int64_t end, int64_t read, const Huffman& h,
              int64_t count, uint8_t* out) {
@@ -942,7 +969,10 @@ struct Frame {
                        fast ? start : -1, &reads[k]);
         at += sizes[k];
       }
-      if (fast && !huffman.x2) {
+      if (fast && huffman.x2) {
+        const int64_t counts[4] = {segment, segment, segment, n - 3 * segment};
+        fast_loop_x2(starts, sizes, reads, start, counts);
+      } else if (fast) {
         const int64_t done = fast_loop_x1(starts, sizes, reads, start, n - 3 * segment);
         for (int k = 0; k < 4; ++k) {  // the rest of each stream, as HUF_decodeStreamX1
           const int64_t first = k * segment + done;

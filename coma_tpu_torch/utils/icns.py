@@ -10,7 +10,9 @@ three bytes a pixel, else each channel run-length coded in turn (a byte
 n < 128 is n + 1 literal bytes, n >= 128 repeats the next byte n - 125
 times; a channel that overshoots is refused), gives "RGB", and a mask
 (``s8mk``/``l8mk``/``h8mk``/``t8mk``) makes it "RGBA". A JPEG 2000 member
-is not read here (``FormatNotRead``).
+(a codestream, a JP2 file, or bytes starting ``\r\n\x87\n``, which
+Pillow hands to its JPEG 2000 plugin too) is read by ``utils/jp2.py`` and
+converted to "RGBA" as ``IcnsImagePlugin`` converts it.
 
 The run-length loop has a native twin in ``native/src/image_codecs.cpp``
 (``icns_rle_decode``); :func:`rle_decode` picks it, or
@@ -20,7 +22,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, NotThisFormat
+from coma_tpu_torch.utils import jp2
+from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, NotThisFormat, to_mode
 from coma_tpu_torch.utils.png import decode_png_pil
 
 # (width, height, scale) -> the block types PIL reads for it, in its order
@@ -79,6 +82,21 @@ def rle_decode(data: bytes, pos: int, pixels: int, native=None) -> bytes:
     return codecs.icns_rle_decode(data, pos, pixels)
 
 
+def _jp2_rgba(member: bytes, name: str, native) -> Decoded:
+    """A JPEG 2000 member, ``convert("RGBA")`` unless it is "RGBA" already."""
+    try:
+        img = jp2.decode_jp2(member, name, native)
+    except NotThisFormat as err:              # Jpeg2KImageFile's SyntaxError
+        raise ValueError(f"a JPEG 2000 member Pillow's plugin does not open ({err})") from None
+    if img.mode == "RGBA":
+        return img
+    alpha = np.full(img.pixels.shape[:2], 255, np.uint8)
+    if img.mode in ("LA", "PA"):
+        alpha = img.pixels[..., 1]
+    rgb = to_mode(img, "RGB")
+    return Decoded(np.concatenate([rgb, alpha[..., None]], -1), "RGBA")
+
+
 def blocks(data: bytes, name: str) -> dict:
     """``IcnsFile.__init__``: block type -> (start, length) of its data."""
     if len(data) < 8 or data[:4] != b"icns":
@@ -117,7 +135,7 @@ def decode_icns(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
                 if head.startswith(b"\x89PNG\r\n\x1a\n"):
                     channels["RGBA"] = decode_png_pil(data[start:], name)
                 elif head.startswith(_JP2[:2]) or head == _JP2[2]:
-                    raise FormatNotRead(name, "JPEG 2000 in ICNS")
+                    channels["RGBA"] = _jp2_rgba(data[start:start + length], name, native)
                 else:
                     raise ValueError("an icon member that is neither PNG nor JPEG 2000")
             elif reader == "mask":

@@ -19,22 +19,27 @@ gives it up. Read:
   first frame;
 - DDS (``utils/dds.py``): BC1-BC7, bit masks, luminance, palettes;
 - PSD (``utils/psd.py``): the composite image of every mode PIL reads;
+- PSD and TIFF "LAB" images to "RGB" through Little CMS's transform
+  (``utils/lcms.py``);
+- JPEG 2000 (``utils/jp2.py`` over ``utils/j2k.py``, OpenJPEG's decoder):
+  JP2 and bare codestreams, reversible and irreversible, every progression,
+  POC, tiles, precincts, quality layers, code-block styles, ROI, SOP/EPH,
+  PPM/PPT, subsampled components, palettes; HTJ2K code-blocks refused;
 - BMP and bare DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``, first page,
   every compression Pillow's libtiff reads: none, PackBits, LZW, Deflate,
   JPEG, CCITT RLE/RLEW, Group 3, Group 4, ThunderScan, LZMA, Zstandard and
-  old-style JPEG), PBM/PGM/PPM (``utils/pnm.py``), TGA (``utils/tga.py``);
+  old-style JPEG; CIELab too), PBM/PGM/PPM and Pillow's PFM, P0 and Py
+  magics (``utils/pnm.py``), TGA (``utils/tga.py``);
 - SGI (``utils/sgi.py``), PCX and DCX (``utils/pcx.py``), ICO and CUR
   (``utils/ico.py``), QOI (``utils/qoi.py``), XBM (``utils/xbm.py``), IM
-  (``utils/im.py``), ICNS (``utils/icns.py``), BLP (``utils/blp.py``), Sun
-  raster (``utils/sun.py``), MSP (``utils/msp.py``) and SPIDER
-  (``utils/spider.py``).
+  (``utils/im.py``), ICNS (``utils/icns.py``, PNG and JPEG 2000 members),
+  BLP (``utils/blp.py``), Sun raster (``utils/sun.py``), MSP
+  (``utils/msp.py``) and SPIDER (``utils/spider.py``).
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
-and the format, though PIL reads them: JPEG 2000 (and as an ICNS member),
-a Lab PSD's conversions,
-PFM and Pillow's other PNM magics, AVIF, XPM, FTEX, GBR, PIXAR, FLI/FLC,
-PCD, McIdas, IMT, FITS, XV thumbnails, IPTC/NAA, MPEG, EPS, WMF/EMF and the
-BUFR, GRIB and HDF5 stubs. What PIL itself refuses raises a ``ValueError``
+and the format, though PIL reads them: HTJ2K code-blocks, AVIF, XPM, FTEX,
+GBR, PIXAR, FLI/FLC, PCD, McIdas, IMT, FITS, XV thumbnails, IPTC/NAA, MPEG,
+EPS, WMF/EMF and the BUFR, GRIB and HDF5 stubs. What PIL itself refuses raises a ``ValueError``
 naming the file. The card machine has no PIL.
 """
 from __future__ import annotations
@@ -44,8 +49,8 @@ from typing import Optional
 
 import numpy as np
 
-from coma_tpu_torch.utils import (blp, bmp, dds, gif_reader, icns, ico, im, jpeg, msp, pcx, pnm,
-                                  psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm)
+from coma_tpu_torch.utils import (blp, bmp, dds, gif_reader, icns, ico, im, jp2, jpeg, msp, pcx,
+                                  pnm, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm)
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, NotThisFormat, to_mode
 from coma_tpu_torch.utils.png import decode_png_pil
 
@@ -55,13 +60,6 @@ def _jpeg(data: bytes, name: str) -> Decoded:
     if pixels.shape[-1] == 1:
         return Decoded(pixels[..., 0], "L")
     return Decoded(pixels, "CMYK" if pixels.shape[-1] == 4 else "RGB")
-
-
-def _pnm(data: bytes, name: str) -> Decoded:
-    if data[1:2] not in b"123456":
-        raise FormatNotRead(name, f"PNM {data[:2].decode('latin-1')} (Pillow's PFM/P0/Py "
-                                  "magics)")
-    return pnm.decode_pnm(data, name)
 
 
 def _refuse(fmt: str):
@@ -188,7 +186,7 @@ PLUGINS = (
     ("DIB", bmp.dib_accept, bmp.decode_dib),
     ("GIF", lambda d: d[:6] in (b"GIF87a", b"GIF89a"), gif_reader.decode_gif),
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", _jpeg),
-    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1] in b"0123456fy", _pnm),
+    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1] in b"0123456fy", pnm.decode_pnm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", decode_png_pil),
     ("AVIF", _avif, _refuse("AVIF")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
@@ -207,8 +205,7 @@ PLUGINS = (
     ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1,
      _refuse("GRIB (a PIL stub)")),
     ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", _refuse("HDF5 (a PIL stub)")),
-    ("JPEG2000", lambda d: d[:4] == b"\xffO\xffQ" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n",
-     _refuse("JPEG 2000")),
+    ("JPEG2000", jp2.accept, jp2.decode_jp2),
     ("ICNS", lambda d: d[:4] == b"icns", icns.decode_icns),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", ico.decode_ico),
     ("IM", None, im.decode_im),

@@ -18,9 +18,9 @@ in PIL's integer arithmetic:
   the -0.34414 (Cb) and -0.71414 (Cr) entries;
 - "CMYK" to "RGB" is ``cmyk2rgb``: ``nk - nk C / 255`` with ``nk = 255 - K``,
   in PIL's ``MULDIV255`` rounding;
-- "LAB" (a Photoshop file's) is not converted: PIL refuses "L" and takes
-  "RGB" through Little CMS's Lab -> sRGB transform, which the port does
-  not carry, so both raise.
+- "LAB" (a Photoshop or CIELab TIFF file's) to "RGB" is Little CMS's
+  Lab -> sRGB transform as Pillow builds it (``utils/lcms.py``); to "L" it
+  raises, as PIL refuses it.
 """
 from __future__ import annotations
 
@@ -129,8 +129,11 @@ def to_mode(img: Decoded, mode: Optional[str]) -> np.ndarray:
     if mode is None:
         return img.pixels
     if img.mode == "LAB":
-        raise ValueError(f"conversion from LAB to {mode} is not done here (PIL takes RGB through "
-                         "Little CMS and refuses L)")
+        if mode == "RGB":
+            from coma_tpu_torch.utils import lcms
+
+            return lcms.lab_to_rgb(img.pixels)
+        raise ValueError(f"conversion from LAB to {mode} not supported (PIL refuses it too)")
     if img.mode not in GRAY_MODES + COLOUR_MODES:
         raise ValueError(f"PIL mode {img.mode!r} is not converted here")
     if img.mode in GRAY_MODES:

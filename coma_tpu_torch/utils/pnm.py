@@ -1,21 +1,30 @@
-"""Netpbm files (PBM, PGM, PPM; P1-P6), as Pillow's ``PpmImagePlugin``
-reads them.
+"""Netpbm files (PBM, PGM, PPM; P1-P6) and Pillow's own magics, as
+Pillow's ``PpmImagePlugin`` reads them.
 
 P1 and P4 give "1"; P2 and P5 "L", or "I" (int32, scaled to 0..65535) when
 maxval exceeds 255; P3 and P6 "RGB". A maxval other than 255 (65535 for
 16-bit gray) is scaled as PIL scales it: ``round(v / maxval * out_max)``
 with Python's rounding, at most ``out_max``. The header's tokens may carry
-``#`` comments; one whitespace byte ends it. Pillow's other magics (Pf, P0,
-Py) are refused.
+``#`` comments; one whitespace byte ends it. Pillow's extensions: ``Pf``
+(PFM) is "F", float32 rows stored bottom-up, little-endian where the scale
+is negative, big-endian where it is positive (a scale of 0 or not finite is
+refused); ``P0CMYK`` and ``PyCMYK`` are "CMYK", ``PyRGBA`` "RGBA" and
+``PyP`` "P" (with no palette, so every index converts to black), each
+with a maxval as P5/P6 take it. A magic Pillow does not know
+hands the file on (``NotThisFormat``).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-from coma_tpu_torch.utils.modes import Decoded
+from coma_tpu_torch.utils.modes import Decoded, NotThisFormat
 
 _WHITESPACE = b" \t\n\x0b\x0c\r"
-_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+          b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+_BANDS = {"1": 1, "L": 1, "I": 1, "P": 1, "F": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}
 
 
 def _token(data: bytes, pos: int, name: str):
@@ -61,16 +70,28 @@ def decode_pnm(data: bytes, name: str = "<bytes>") -> Decoded:
     """A PBM/PGM/PPM file's bytes -> what ``np.asarray(PIL.Image.open(f))``
     gives, and its mode; a ``ValueError`` naming ``name`` where PIL refuses."""
     magic, pos = b"", 0
-    while pos < min(len(data), 6) and data[pos:pos + 1] not in _WHITESPACE:
-        magic += data[pos:pos + 1]
+    while pos < min(len(data), 6):              # PIL reads at most six bytes of magic
+        c = data[pos:pos + 1]
         pos += 1
-    pos += 1
+        if c in _WHITESPACE:
+            break
+        magic += c
     if magic not in _MODES:
-        raise ValueError(f"{name}: a Netpbm magic {magic!r} that is not read (P1-P6 only)")
+        raise NotThisFormat(f"{name}: not a PPM file (magic {magic!r})")
     mode = _MODES[magic]
     w, pos = _token(data, pos, name)
     h, pos = _token(data, pos, name)
     width, height = int(w), int(h)
+    if mode == "F":
+        token, pos = _token(data, pos, name)
+        scale = float(token)
+        if scale == 0.0 or not math.isfinite(scale):
+            raise ValueError(f"{name}: scale must be finite and non-zero")
+        need = width * height * 4
+        if len(data) - pos < need:
+            raise ValueError(f"{name}: image file is truncated")
+        rows = np.frombuffer(data, "<f4" if scale < 0 else ">f4", width * height, pos)
+        return Decoded(rows.reshape(height, width)[::-1].astype(np.float32), "F")
     maxval = 1
     if mode != "1":
         token, pos = _token(data, pos, name)
@@ -79,7 +100,7 @@ def decode_pnm(data: bytes, name: str = "<bytes>") -> Decoded:
             raise ValueError(f"{name}: maxval must be greater than 0 and less than 65536")
         if maxval > 255 and mode == "L":
             mode = "I"
-    bands = 3 if mode == "RGB" else 1
+    bands = _BANDS[mode]
     count = width * height * bands
     out_max = 65535 if mode == "I" else 255
     body = data[pos:]
@@ -115,5 +136,6 @@ def decode_pnm(data: bytes, name: str = "<bytes>") -> Decoded:
         if not (maxval == 255 or (maxval == 65535 and mode == "I")):
             values = _scale(values, maxval, out_max)
     dtype = np.int32 if mode == "I" else np.uint8
-    shape = (height, width, 3) if mode == "RGB" else (height, width)
-    return Decoded(np.asarray(values).astype(dtype).reshape(shape), mode)
+    shape = (height, width, bands) if bands > 1 else (height, width)
+    palette = np.zeros((0, 3), np.uint8) if mode == "P" else None
+    return Decoded(np.asarray(values).astype(dtype).reshape(shape), mode, palette)

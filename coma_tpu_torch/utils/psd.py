@@ -14,7 +14,8 @@ channel), "CMYK" (stored inverted) and "LAB" (a and b signed bytes). 16-
 and 32-bit depths, PSB (version 2), ZIP compression and too few channels
 are refused, as PIL refuses them; so is a file whose image data ends
 early. ``utils.modes.to_mode`` converts the result as PIL's ``convert``
-does; "LAB" to "RGB" (Little CMS in PIL) is refused there.
+does: "LAB" to "RGB" through Little CMS's transform (``utils/lcms.py``),
+"LAB" to "L" refused as PIL refuses it.
 
 PackBits runs as PIL's decoder runs it (rows, a packet cut at a row's end)
 through ``native/codecs.packbits_rows_decode`` where it builds, else

@@ -10,7 +10,10 @@ as libtiff does). Modes, from PIL's ``OPEN_INFO``: "1" (1-bit gray, either
 photometric), "L" (2, 4 and 8-bit gray, white-is-zero inverted, scaled to
 0..255), "I;16" (16-bit gray), "LA", "RGB" (with or without one unused
 extra sample), "RGBA" (unassociated alpha, or associated alpha divided out
-as PIL does), "P" (1 to 8 bits, the ColorMap's high bytes) and "CMYK".
+as PIL does), "P" (1 to 8 bits, the ColorMap's high bytes), "CMYK" and
+"LAB" (CIELab, photometric 8, 3 x 8 bits: L, then a and b as the signed
+bytes PIL's "LAB" array holds; ICCLab and ITULab are refused, as Pillow
+refuses them).
 
 JPEG (compression 7) as libtiff's codec decodes it: the JPEGTables tag is
 an abbreviated stream of tables, and each strip or tile a JPEG of its own
@@ -321,6 +324,7 @@ def _mode(photometric: int, bps: tuple, extra: tuple, name: str):
         (3, (1,), ()): ("P", "P;1"), (3, (2,), ()): ("P", "P;2"), (3, (4,), ()): ("P", "P;4"),
         (3, (8,), ()): ("P", "P"),
         (5, (8, 8, 8, 8), ()): ("CMYK", "CMYK"),
+        (8, (8, 8, 8), ()): ("LAB", "LAB"),
     }
     if key not in table:
         raise ValueError(f"{name}: a TIFF of photometric {photometric}, bits {bps}, extra "
@@ -351,7 +355,7 @@ def _unpack(raw: np.ndarray, rawmode: str, width: int, order: str) -> np.ndarray
         return 255 - raw[:, :width]
     if rawmode == "I;16":
         return raw[:, :2 * width].view(order + "u2").reshape(H, width).astype(np.uint16)
-    n = {"LA": 2, "RGB": 3}.get(rawmode, 4)
+    n = {"LA": 2, "RGB": 3, "LAB": 3}.get(rawmode, 4)
     px = raw[:, :n * width].reshape(H, width, n)
     if rawmode == "RGBX":
         return np.ascontiguousarray(px[..., :3])
@@ -639,12 +643,14 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
         palette = (np.asarray(cmap, np.int64).reshape(3, -1).T // 256).astype(np.uint8)
     pixels = _unpack(raw, rawmode, width, ifd.order)
     if compression == 1:
-        # Pillow's raw tiles leave what they do not cover as the new image's zeros
+        # Pillow's raw tiles leave what they do not cover as the new image's zeros (which a
+        # "LAB" array shows as a and b of 128: PIL's packer flips their sign bits)
         covered = np.zeros((-(-height // bh) * bh, -(-width // bw) * bw), bool)
         across = -(-width // bw)
         for k in range(min(per_plane, covered.size // (bw * bh))):
             by, bx = divmod(k, across)
             covered[by * bh:(by + 1) * bh, bx * bw:(bx + 1) * bw] = True
+        blank = np.array([0, 128, 128], np.uint8) if mode == "LAB" else 0
         pixels = np.where(covered[:height, :width].reshape(
-            (height, width) + (1,) * (pixels.ndim - 2)), pixels, 0).astype(pixels.dtype)
+            (height, width) + (1,) * (pixels.ndim - 2)), pixels, blank).astype(pixels.dtype)
     return Decoded(pixels, mode, palette)

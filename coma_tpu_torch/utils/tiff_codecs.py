@@ -15,9 +15,9 @@ them:
 - Zstandard (50000, ``tif_zstd.c``): the first frame of RFC 8878, decoded
   here: raw, RLE and compressed blocks, Huffman literals and FSE-coded
   sequences, the content checksum (XXH64), with libzstd 1.5.7's checks;
-  for 4-stream literals its single-symbol decoder's fast loop and tail
-  are followed where ``HUF_selectDecoder`` takes it (a damaged stream read
-  past its start), not yet its double-symbol decoder's.
+  for 4-stream literals the fast loop of the decoder ``HUF_selectDecoder``
+  takes, single-symbol (with its tail) or double-symbol, is followed (a
+  damaged stream read past its start).
 
 The CCITT run decoder and the Zstandard frame decoder have native twins in
 ``native/src/tiff_codecs.cpp``; the plain versions here are their
@@ -939,6 +939,41 @@ def _fast_loop_x1(starts: list, sizes: list, reads: list, lowest: int, last: int
     return j
 
 
+def _fast_loop_x2(starts: list, sizes: list, reads: list, lowest: int, counts: list) -> None:
+    """``HUF_decompress4X2_usingDTable_internal_fast``'s bounds: the
+    double-symbol table (11 bits) decodes two symbols a lookup where both
+    codes fit in its 11 bits, else one; the loop runs chunks of at most
+    ``min((ip[0] - lowest) / 7, room / 10)`` iterations of five lookups a
+    stream until stream 3's output reaches five a iteration, stopping where
+    one stream's bytes pass below the one before it. After it, a stream
+    past its segment or whose window lies more than 8 bytes below its start
+    is corruption. The symbols are those of the plain decode."""
+    ends = [s + z for s, z in zip(starts, sizes)]
+    done = [0, 0, 0, 0]
+
+    def ip(k):
+        return ends[k] - 8 - reads[k][done[k]] // 8
+
+    def lookup(k):
+        j, r = done[k], reads[k]
+        first = r[j + 1] - r[j]
+        done[k] += 2 if j + 2 < len(r) and first + r[j + 2] - r[j + 1] <= 11 else 1
+
+    while True:
+        iters = max(0, (ip(0) - lowest) // 7)
+        for k in range(4):
+            iters = min(iters, (counts[k] - done[k]) // 10)
+        olimit = done[3] + 5 * iters
+        if done[3] == olimit or any(ip(k) < ip(k - 1) for k in (1, 2, 3)):
+            break
+        while done[3] < olimit:
+            for _ in range(5):
+                for k in range(4):
+                    lookup(k)
+    if any(done[k] > counts[k] or ip(k) < starts[k] - 8 for k in range(4)):
+        raise ZstdError("a Huffman stream read past its start (libzstd's fast decoder)")
+
+
 def _tail_x1(data: bytes, lowest: int, end: int, read: int, table: list, log: int,
              count: int) -> bytes:
     """``HUF_decodeStreamX1`` after the fast loop, ``read`` bits from the
@@ -1079,7 +1114,10 @@ class _Frame:
                                              segment if k < 3 else n - 3 * segment, out,
                                              start if fast else None))
                 at += size
-            if fast and not huffman[2]:
+            if fast and huffman[2]:
+                _fast_loop_x2(starts, sizes, reads, start,
+                              [segment] * 3 + [n - 3 * segment])
+            elif fast:
                 done = _fast_loop_x1(starts, sizes, reads, start, n - 3 * segment)
                 for k in range(4):          # the rest of each stream, as HUF_decodeStreamX1
                     first = k * segment + done

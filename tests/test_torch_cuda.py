@@ -784,6 +784,10 @@ def test_native_jpeg_decoder_on_the_card_machine_matches_pillow_hashes():
             with open(f"{root}/{entry['stored']}", "rb") as fh:
                 decoded = decode_image(gzip.decompress(fh.read()), name)
         for mode in (None, "RGB", "L"):
+            if entry["sha256"][str(mode)] is None:          # Pillow refuses "LAB" to "L"
+                with pytest.raises(ValueError):
+                    read_image(path, mode)
+                continue
             got = to_mode(decoded, mode) if "stored" in entry else read_image(path, mode)
             assert _sha(got) == entry["sha256"][str(mode)], (name, mode)
 

@@ -143,7 +143,7 @@ def test_plain_and_native_agree(entry):
         np.testing.assert_array_equal(plain_out[1], native_out[1])
 
 
-FUZZ_FORMATS = (".jpg", ".gif", ".tif", ".webp", ".blp")
+FUZZ_FORMATS = (".jpg", ".gif", ".tif", ".webp", ".blp", ".jp2", ".j2k", ".psd", ".pfm", ".ppm")
 
 
 @pytest.mark.parametrize("ext", FUZZ_FORMATS)

@@ -11,8 +11,8 @@ with no tolerance:
 - PSD: every colour mode Pillow reads, raw and PackBits, with image
   resources and a layer, files with more channels than the mode uses (PIL
   takes the PackBits counts of the channels it reads only), "LAB" (its own
-  array; its conversions refused, PIL's "RGB" being Little CMS's), and the
-  files Pillow refuses;
+  array, "RGB" through Little CMS's transform, "L" refused as PIL refuses
+  it), and the files Pillow refuses;
 - the plain and native paths equal, modes None, RGB and L through
   ``read_image``, and the 2048 x 1536 atlas as DDS BC7, DDS DXT1 and PSD.
 """
@@ -29,7 +29,7 @@ import pytest
 from PIL import Image
 
 from coma_tpu_torch.native import codecs
-from coma_tpu_torch.utils import dds, psd
+from coma_tpu_torch.utils import dds, lcms, psd
 from coma_tpu_torch.utils.image_io import read_image
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -217,20 +217,23 @@ def test_psd_equals_pillow(tmp_path, name):
 
 
 def test_psd_lab_own_array_and_refused_conversions(tmp_path):
-    """A Lab PSD: ``np.asarray`` as PIL holds it (a and b signed); PIL refuses
-    "L" and converts "RGB" through Little CMS, which the port does not carry,
-    so both conversions raise naming the file."""
+    """A Lab PSD: ``np.asarray`` as PIL holds it (a and b signed); "RGB"
+    equals PIL's conversion through Little CMS, on both paths; PIL refuses
+    "L", and so does the port, naming the file."""
     planes = np.ascontiguousarray(seeded_rgb((13, 19), 82).transpose(2, 0, 1))
     path = tmp_path / "lab.psd"
     path.write_bytes(psd_file(planes, 9, rle=True))
     with Image.open(path) as im:
         assert im.mode == "LAB"
         np.testing.assert_array_equal(read_image(str(path)), np.asarray(im))
+        want = np.asarray(im.convert("RGB"))
         with pytest.raises(ValueError):
             im.convert("L")
-    for mode in ("RGB", "L"):
-        with pytest.raises(ValueError, match=r"lab\.psd.*LAB"):
-            read_image(str(path), mode)
+    np.testing.assert_array_equal(read_image(str(path), "RGB"), want)
+    decoded = psd.decode_psd(path.read_bytes(), "lab.psd", native=False)
+    np.testing.assert_array_equal(lcms.lab_to_rgb(decoded.pixels, native=False), want)
+    with pytest.raises(ValueError, match=r"lab\.psd.*LAB"):
+        read_image(str(path), "L")
 
 
 def test_psd_packbits_rows_native_equals_plain():

@@ -13,9 +13,9 @@ tolerance:
   JPEGTables), separate planes, fill order 2 and BigTIFF;
 - the native codecs (``native/src/image_codecs.cpp``: LZW, PackBits, TGA
   run-length) against their plain Python versions;
-- WebP, DDS and TIFF-JPEG files, once left out, equal to Pillow; the formats
-  still left out (JPEG 2000, TIFF with CCITT RLE, Group 3 or Group 4
-  compression) raise a ``ValueError`` naming the file and the format;
+- JPEG 2000, WebP, DDS and TIFF-JPEG files, once left out, equal to Pillow;
+  a format still left out (AVIF) raises a ``ValueError`` naming the file and
+  the format;
 - ``load_obj_textured`` on an OBJ whose materials take TGA, BMP, TIFF-LZW,
   CMYK and arithmetic JPEG, WebP (lossy with alpha, lossless), DDS (BC1,
   BC3, BC7), PSD and TIFF-JPEG textures, and ``BehaveSequence`` on a YCCK
@@ -182,6 +182,18 @@ def test_tga_variants_equal_pillow(tmp_path, name):
 
 
 PNM = {
+    "pf_little_endian_nan_inf": b"Pf 3 2 -0.5\n" + np.array(
+        [np.nan, np.inf, -np.inf, 254.9, 255.0, -1e-3], "<f4").tobytes(),
+    "pf_big_endian_rows_up": b"Pf\n2 3\n1e3\n" + np.arange(6, dtype=">f4").tobytes() * 40,
+    "pf_zero_scale_refused": b"Pf\n1 1\n0\n" + bytes(4),
+    "pf_truncated_refused": b"Pf\n4 4\n-1\n" + bytes(20),
+    "pyp_no_palette": b"PyP\n3 1\n255\n\x00\x07\xff",
+    "pyp_maxval_1000": b"PyP\n4 1\n1000\n" + np.array([0, 1000, 5, 500], ">u2").tobytes(),
+    "pyrgba_maxval_7": b"PyRGBA\n2 1\n7\n" + bytes([0, 1, 2, 3, 4, 5, 6, 7]),
+    "pycmyk": b"PyCMYK 1 2 255 " + bytes([0, 64, 128, 255, 9, 8, 7, 6]),
+    "p0cmyk_maxval_65535": b"P0CMYK\n1 1\n65535\n" + np.array([0, 257, 65535, 30000],
+                                                                 ">u2").tobytes(),
+    "p0rgb_not_a_magic": b"P0RGB\n1 1\n255\n\x00\x00\x00",
     "p1_runs_together": b"P1\n4 2\n0110\n1001\n",
     "p2_comment_in_data": b"P2\n3 2\n7\n0 1 2 # a comment\n3 5 7\n",
     "p3_maxval_3": b"P3 2 1 3 0 1 2 3 3 1\n",
@@ -193,7 +205,10 @@ PNM = {
 
 @pytest.mark.parametrize("name", list(PNM))
 def test_pnm_variants_equal_pillow(tmp_path, name):
-    """maxval scaling (Python's rounding), 16-bit samples, comments."""
+    """maxval scaling (Python's rounding), 16-bit samples, comments; Pillow's
+    own magics: PFM (either byte order, rows bottom-up, NaN and infinities,
+    its "F" converted to "RGB" and "L"), PyP, PyRGBA, PyCMYK and P0CMYK, and
+    the ones it refuses."""
     path = tmp_path / f"{name}.pnm"
     path.write_bytes(PNM[name])
     assert_equal_to_pillow(path)
@@ -370,7 +385,7 @@ def _gif_lzw(idx: np.ndarray):
 
 
 LEFT_OUT = [
-    ("jp2", "JPEG2000", {}, "JPEG 2000"),
+    ("avif", "AVIF", {}, "AVIF"),
 ]
 
 
@@ -393,6 +408,7 @@ def test_left_out_formats_raise_naming_the_file(tmp_path, ext, fmt, kw, word):
 
 
 ONCE_LEFT_OUT = [
+    ("jp2", "JPEG2000", {}, "JPEG 2000"),
     ("webp", "WEBP", {}, "WebP"),
     ("dds", "DDS", {}, "DDS"),
     ("tif", "TIFF", {"compression": "jpeg"}, "JPEG compression"),
@@ -406,8 +422,9 @@ ONCE_LEFT_OUT = [
 
 @pytest.mark.parametrize("ext,fmt,kw,word", ONCE_LEFT_OUT, ids=[c[3] for c in ONCE_LEFT_OUT])
 def test_formats_once_left_out_equal_pillow(tmp_path, ext, fmt, kw, word):
-    """The files the port refused before it read WebP, DDS, TIFF-JPEG and
-    the CCITT, LZMA and Zstandard TIFFs: now every mode equal to Pillow's."""
+    """The files the port refused before it read JPEG 2000, WebP, DDS,
+    TIFF-JPEG and the CCITT, LZMA and Zstandard TIFFs: now every mode equal
+    to Pillow's."""
     path = tmp_path / f"once_left_out.{ext}"
     image = Image.fromarray(seeded_rgb((16, 16), 81))
     if kw.get("compression") in ("group3", "group4", "tiff_ccitt"):

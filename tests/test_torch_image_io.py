@@ -72,7 +72,7 @@ def need_gpp():
 
 
 def test_manifest_is_small_and_covers_every_kind():
-    assert sum(e["bytes"] for e in MANIFEST["files"]) <= 1_559_662
+    assert sum(e["bytes"] for e in MANIFEST["files"]) <= 1_852_000
     kinds = " ".join(e["kind"] for e in MANIFEST["files"])
     for word in ("baseline 420", "baseline 422", "baseline 444", "q30", "q75", "q95",
                  "grayscale", "odd size", "optimize", "restart", "progressive 4:2:0",
@@ -97,12 +97,17 @@ def test_manifest_is_small_and_covers_every_kind():
                  "Sun raster RLE", "Sun raster 8-bit", "MSP version 2", "SPIDER", "bare DIB",
                  "CCITT RLE", "RLEW", "Group 3 1-D", "Group 3 2-D", "CCITT Group 4",
                  "ThunderScan", "LZMA", "Zstandard", "content checksum", "old-style JPEG",
-                 "JPEGInterchangeFormat", "tables in tags"):
+                 "JPEGInterchangeFormat", "tables in tags", "JPEG 2000 JP2 RGB, 5/3",
+                 "9/7, ICT", "JPEG 2000 I;16", "progression RPCL", "progression PCRL",
+                 "progression CPRL", "code-block style bypass", "code-block style vsc",
+                 "POC", "4:2:0 subsampled", "ROI maxshift", "SOP and EPH", "PPM", "PPT",
+                 "JP2 palette", "ICNS ic07 JPEG 2000 member", "PSD Lab", "TIFF CIELab",
+                 "big-endian", "PFM", "PyP", "PyRGBA", "PyCMYK", "P0CMYK"):
         assert word in kinds, word
     big = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("behave")]
     assert big == [[1536, 2048], [1536, 2048]]
     atlas = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("atlas")]
-    assert atlas == [[1536, 2048]] * 14
+    assert atlas == [[1536, 2048]] * 16
     assert MANIFEST["step_video"]["decoded_shape"] == [17, 256, 512, 3]
 
 
@@ -123,6 +128,12 @@ def test_fixture_equals_pillow(entry):
                 np.asarray(im)
         return
     for mode in ("RGB", "L"):
+        if entry["sha256"][mode] is None:          # Pillow refuses "LAB" to "L"; so does the port
+            with pytest.raises(ValueError, match=re.escape(entry["file"])):
+                read_image(path, mode)
+            with pytest.raises(ValueError):
+                pillow(data, mode)
+            continue
         got = read_image(path, mode)
         assert got.dtype == np.uint8
         assert sha(got) == entry["sha256"][mode]

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from coma_tpu_torch.utils import blp, icns, im, msp, pcx, qoi, sgi, sun
+from coma_tpu_torch.utils import blp, icns, im, jp2, msp, pcx, qoi, sgi, sun
 from coma_tpu_torch.utils.image_io import PLUGINS, decode_image, read_image
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, to_mode
 
@@ -593,10 +593,13 @@ def test_weak_accept_order(tmp_path):
 
 NATIVE_READERS = {".sgi": sgi.decode_sgi, ".pcx": pcx.decode_pcx, ".dcx": pcx.decode_dcx,
                   ".qoi": qoi.decode_qoi, ".icns": icns.decode_icns, ".blp": blp.decode_blp,
-                  ".ras": sun.decode_sun, ".msp": msp.decode_msp}
+                  ".ras": sun.decode_sun, ".msp": msp.decode_msp, ".jp2": jp2.decode_jp2,
+                  ".j2k": jp2.decode_jp2}
 with open(os.path.join(FIXTURES, "manifest.json")) as _fh:
+    # the 2048 x 1536 JPEG 2000 atlases are held in tests/test_torch_jpeg2000.py
     NATIVE_FIXTURES = [e for e in json.load(_fh)["files"] if "stored" not in e
-                       and os.path.splitext(e["file"])[1] in NATIVE_READERS]
+                       and os.path.splitext(e["file"])[1] in NATIVE_READERS
+                       and not e["file"].startswith("atlas")]
 
 
 @pytest.mark.parametrize("entry", NATIVE_FIXTURES, ids=[e["file"] for e in NATIVE_FIXTURES])

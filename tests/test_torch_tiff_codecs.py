@@ -532,3 +532,22 @@ def test_damaged_zstd_literals_against_pillow(monkeypatch, tmp_path):
         k = int(rng.integers(0, len(offsets)))
         b[offsets[k] + int(rng.integers(9, 20))] = int(rng.integers(0, 256))
         assert_equal_to_pillow(bytes(b), monkeypatch, tmp_path, may_refuse=True)
+
+
+def test_damaged_zstd_double_symbol_literals_against_pillow(monkeypatch, tmp_path):
+    """The committed ``zstd_rgb.tif``, whose 4-stream literal section libzstd
+    decodes with its double-symbol Huffman decoder (``HUF_selectDecoder``),
+    with one byte of its literals header, jump table or streams changed
+    (seed 308; the fuzz's seeds 10 and 11, trials 50 and 103, among them):
+    libzstd's double-symbol fast loop and its check of a stream read past
+    its start are followed, on both paths."""
+    need_gpp()
+    with open(os.path.join(REPO, "tests", "data", "images", "zstd_rgb.tif"), "rb") as fh:
+        data = fh.read()
+    rng = np.random.default_rng(308)
+    changes = [(18, 248), (58, 95)] + [(int(rng.integers(9, 120)), int(rng.integers(0, 256)))
+                                       for _ in range(40)]
+    for at, value in changes:
+        b = bytearray(data)
+        b[at] = value
+        assert_equal_to_pillow(bytes(b), monkeypatch, tmp_path, may_refuse=True)

@@ -3,7 +3,7 @@
 Pillow on the results.
 
     python3 tools/fuzz_image_readers.py [--seed 0] [--trials 20] [--jpeg-scan 300]
-                                        [--formats jpg,gif,tif,webp,blp,ccitt,zstd]
+                                        [--formats jpg,gif,tif,webp,blp,ccitt,zstd,jp2,lab]
 
 Needs Pillow (the CPU test host has it). Each small fixture of
 ``tests/data/images/`` (its manifest's files under 64 kB, not the gzipped
@@ -12,9 +12,11 @@ seed: one to three bytes overwritten (mostly in the first 600, where the
 headers are), the file cut at a random length, or a byte inserted or
 dropped. ``--formats`` keeps the fixtures with those extensions, or the
 TIFF fixtures of those compressions (``ccitt``, ``thunderscan``, ``lzma``,
-``zstd``, ``ojpeg``; see :data:`TIFF_CODECS`). Pillow opens
+``zstd``, ``ojpeg``; see :data:`TIFF_CODECS`), or, for ``lab``, the fixtures
+Pillow opens as "LAB" (PSD and CIELab TIFF). Pillow opens
 and loads each result from memory and converts it to modes None, RGB and L;
-``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same.
+``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same (a
+conversion both refuse, as "LAB" to "L", agrees).
 Every outcome falls in one of: equal arrays, both refuse, different arrays,
 Pillow reads and the port refuses, the port reads and Pillow refuses. The
 counts are printed by outcome, then each divergence class by format, outcome
@@ -56,11 +58,25 @@ def pillow(data: bytes):
             if im.size[0] * im.size[1] > 4_000_000:
                 return "big"
             im.load()
-            return [np.asarray(im if m is None else im.convert(m)) for m in MODES]
+            return [_convert(lambda m: np.asarray(im if m is None else im.convert(m)), m)
+                    for m in MODES]
     except Image.DecompressionBombError:    # past this tool's own pixel limit: skipped too
         return "big"
     except Exception as err:                # every refusal of Pillow's counts as one
         return f"{type(err).__name__}: {err}"
+
+
+def _convert(convert, mode):
+    """``convert(mode)``, or None where that conversion is refused (a
+    decoded image of a mode that does not convert, as "LAB" to "L")."""
+    if mode is None:
+        return convert(mode)
+    try:
+        return convert(mode)
+    except ValueError as err:
+        if "conversion from" in str(err):
+            return None
+        raise
 
 
 def port(data: bytes):
@@ -70,7 +86,7 @@ def port(data: bytes):
 
     try:
         decoded = decode_image(data, "fuzzed")
-        return [to_mode(decoded, m) for m in MODES]
+        return [_convert(lambda m: to_mode(decoded, m), m) for m in MODES]
     except (ValueError, MemoryError) as err:
         return f"{type(err).__name__}: {err}"
 
@@ -83,8 +99,9 @@ def outcome(want, got) -> tuple:
         return "port reads, Pillow refuses", want
     if isinstance(got, str):
         return "Pillow reads, port refuses", got
-    same = all(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b, equal_nan=True)
-               for a, b in zip(want, got))
+    same = all((a is None and b is None) or (
+        a is not None and b is not None and a.shape == b.shape and a.dtype == b.dtype
+        and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")) for a, b in zip(want, got))
     return ("equal" if same else "different arrays"), ""
 
 
@@ -126,8 +143,9 @@ def main() -> int:
     parser.add_argument("--trials", type=int, default=20)
     parser.add_argument("--jpeg-scan", type=int, default=0)
     parser.add_argument("--formats", default="",
-                        help="comma-separated extensions, or TIFF compressions (ccitt, "
-                        "thunderscan, lzma, zstd, ojpeg), to keep (default: every fixture)")
+                        help="comma-separated extensions, TIFF compressions (ccitt, "
+                        "thunderscan, lzma, zstd, ojpeg) or lab, to keep (default: every "
+                        "fixture)")
     args = parser.parse_args()
     resource.setrlimit(resource.RLIMIT_AS, (6 << 30, 6 << 30))
     warnings.simplefilter("ignore")
@@ -137,13 +155,14 @@ def main() -> int:
     sys.path.insert(0, REPO)
     rng = np.random.default_rng(args.seed)
     names = [e.strip(".").lower() for e in args.formats.split(",") if e.strip()]
-    keep = {"." + e for e in names if e not in TIFF_CODECS}
+    keep = {"." + e for e in names if e not in TIFF_CODECS and e != "lab"}
     codecs = {c for e in names for c in TIFF_CODECS.get(e, ())}
     with open(os.path.join(FIXTURES, "manifest.json")) as fh:
-        files = [e["file"] for e in json.load(fh)["files"]
-                 if "stored" not in e and e["bytes"] < 64_000]
+        entries = [e for e in json.load(fh)["files"] if "stored" not in e and e["bytes"] < 64_000]
+    lab = {e["file"] for e in entries if e.get("mode") == "LAB"} if "lab" in names else set()
+    files = [e["file"] for e in entries]
     if names:
-        files = [f for f in files if os.path.splitext(f)[1].lower() in keep
+        files = [f for f in files if os.path.splitext(f)[1].lower() in keep or f in lab
                  or (codecs and f.endswith(".tif") and tiff_compression(f) in codecs)]
     counts, classes, examples = collections.Counter(), collections.Counter(), {}
     for name in files:

@@ -19,8 +19,9 @@ TIFFs, TIFFs in CCITT RLEW and Group 3 with EOLs, ThunderScan, tiled LZMA
 and Zstandard (through the libzstd bundled with Pillow) and old-style JPEG,
 and TGAs and PNMs of every type. ``manifest.json`` records, per file,
 Pillow's mode, the shape and dtype of ``np.asarray(Image.open(f))`` and the
-SHA-256 of it and of ``convert(m)`` for m in RGB and L, or ``"raises": true``
-where Pillow refuses the file (the port must refuse it too), with the
+SHA-256 of it and of ``convert(m)`` for m in RGB and L (null where Pillow
+refuses that conversion, as "LAB" to "L"), or ``"raises": true`` where
+Pillow refuses the file (the port must refuse it too), with the
 Pillow and libjpeg-turbo versions that decoded them. ``step_video`` records
 the hash of Pillow's decoding of the seeded step-video frames
 (:func:`step_video_frames`) written by ``coma_tpu``'s PIL call. The readers'
@@ -1285,16 +1286,17 @@ def im_file(lines: list, body: bytes, lut: bytes = b"") -> bytes:
 # the formats Pillow 12.1.0 opens on this host and the port names when it refuses them
 REFUSED_FORMATS = ("AVIF", "BUFR (a PIL stub)", "EPS", "FITS", "FLI/FLC animation",
                    "FTEX (Freeware texture)", "GIMP brush (GBR)", "GRIB (a PIL stub)",
-                   "HDF5 (a PIL stub)", "JPEG 2000", "JPEG 2000 in ICNS", "IM Tools (IMT)",
+                   "HDF5 (a PIL stub)", "HTJ2K (JPEG 2000 Part 15)", "IM Tools (IMT)",
                    "IPTC/NAA", "McIdas area", "MPEG", "Kodak PhotoCD (PCD)", "PIXAR", "WMF/EMF",
-                   "XPM", "XV thumbnail", "PNM Pf", "PNM Py", "PNM P0")
+                   "XPM", "XV thumbnail")
 
 
 def refused_format_files() -> dict:
     """Seeded files of every format Pillow 12.1.0 opens on this host that the
     port does not read: {the format as the port's refusal names it: (file
-    extension, bytes)}. Pillow writes the AVIF, JPEG 2000 and EPS ones; the
-    rest are the smallest headers (and data) Pillow's plugins open."""
+    extension, bytes)}. Pillow writes the AVIF and EPS ones and the
+    codestream whose COD marks its code-blocks HTJ2K; the rest are the
+    smallest headers (and data) Pillow's plugins open."""
     from PIL import Image
 
     def pil(image, fmt, **kw):
@@ -1304,7 +1306,7 @@ def refused_format_files() -> dict:
 
     rgb = Image.fromarray(seeded_rgb((16, 16), 190))
     gray = np.asarray(rgb.convert("L"))
-    jp2 = pil(rgb, "JPEG2000")
+    htj2k = with_cblk_style(pil(rgb, "JPEG2000", no_jp2=True), 0x40)
 
     def card(text: str) -> bytes:
         return text.ljust(80).encode()
@@ -1339,9 +1341,7 @@ def refused_format_files() -> dict:
         "GIMP brush (GBR)": ("gbr", gbr),
         "GRIB (a PIL stub)": ("grib", b"GRIB\0\0\0\x01" + bytes(60)),
         "HDF5 (a PIL stub)": ("h5", b"\x89HDF\r\n\x1a\n" + bytes(60)),
-        "JPEG 2000": ("jp2", jp2),
-        "JPEG 2000 in ICNS": ("icns", icns_file([(b"ic07", pil(rgb.resize((128, 128)),
-                                                                 "JPEG2000"))])),
+        "HTJ2K (JPEG 2000 Part 15)": ("j2k", htj2k),
         "IM Tools (IMT)": ("imt", b"width 16\nheight 16\npixel n8\n\x0c" + gray.tobytes()),
         "IPTC/NAA": ("iptc", iptc),
         "McIdas area": ("area", mcidas),
@@ -1353,9 +1353,6 @@ def refused_format_files() -> dict:
                        b'"b c #00FF00",\n"abab",\n"baba"\n};\n'),
         "XV thumbnail": ("xv", b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n16 16 255\n"
                                + gray.tobytes()),
-        "PNM Pf": ("pfm", b"Pf\n16 16\n-1.0\n" + gray.astype("<f4").tobytes()),
-        "PNM Py": ("ppm", b"PyP\n16 16\n255\n" + gray.tobytes()),
-        "PNM P0": ("ppm", b"P0CMYK\n16 16\n255\n" + bytes(4 * 256)),
     }
     assert tuple(files) == REFUSED_FORMATS
     return files
@@ -1415,6 +1412,8 @@ def fixtures() -> dict:
     out.update(new_formats())
     out.update(small_formats())
     out.update(tiff_codec_formats())
+    out.update(jpeg2000_formats())
+    out.update(lab_and_pnm_formats())
     return out
 
 
@@ -2140,6 +2139,399 @@ def tiff_codec_formats() -> dict:
     return out
 
 
+# --- JPEG 2000, Lab and Pillow's PNM magics ----------------------------------
+
+def _openjp2():
+    """ctypes bindings of the libopenjp2 bundled with Pillow (``pillow.libs``):
+    its encoder's parameter, image and component structs (OpenJPEG 2.5's
+    layouts) and the functions :func:`openjpeg_encode` calls."""
+    import ctypes
+    import glob
+
+    import PIL
+    from PIL import Image  # noqa: F401  (loads the bundled libraries)
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                                             "pillow.libs", "libopenjp2-*.so*"))[0])
+    u32, i32, vp = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+
+    class Poc(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("resno0", "compno0", "layno1", "resno1", "compno1",
+                                       "layno0", "precno0", "precno1")] + [
+            ("prg1", i32), ("prg", i32), ("progorder", ctypes.c_char * 5), ("tile", u32),
+            ("rest", ctypes.c_int32 * 24)]
+
+    class Params(ctypes.Structure):
+        _fields_ = [(n, i32) for n in ("tile_size_on", "cp_tx0", "cp_ty0", "cp_tdx", "cp_tdy",
+                                       "cp_disto_alloc", "cp_fixed_alloc",
+                                       "cp_fixed_quality")] + [
+            ("cp_matrice", vp), ("cp_comment", vp), ("csty", i32), ("prog_order", i32),
+            ("POC", Poc * 32), ("numpocs", u32), ("tcp_numlayers", i32),
+            ("tcp_rates", ctypes.c_float * 100), ("tcp_distoratio", ctypes.c_float * 100)] + [
+            (n, i32) for n in ("numresolution", "cblockw_init", "cblockh_init", "mode",
+                               "irreversible", "roi_compno", "roi_shift", "res_spec")] + [
+            ("prcw_init", i32 * 33), ("prch_init", i32 * 33), ("infile", ctypes.c_char * 4096),
+            ("outfile", ctypes.c_char * 4096), ("index_on", i32),
+            ("index", ctypes.c_char * 4096)] + [
+            (n, i32) for n in ("image_offset_x0", "image_offset_y0", "subsampling_dx",
+                               "subsampling_dy", "decod_format", "cod_format")] + [
+            ("jpwl", i32 * 118), ("cp_cinema", i32), ("max_comp_size", i32), ("cp_rsiz", i32),
+            ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char), ("tcp_mct", ctypes.c_char),
+            ("jpip_on", i32), ("mct_data", vp), ("max_cs_size", i32), ("rsiz", ctypes.c_uint16)]
+
+    class CmptParm(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+    class Comp(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                                       "resno_decoded", "factor")] + [
+            ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+    class Img(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("x0", "y0", "x1", "y1", "numcomps")] + [
+            ("color_space", i32), ("comps", ctypes.POINTER(Comp)), ("icc", vp), ("icclen", u32)]
+
+    img_p = ctypes.POINTER(Img)
+    for fn, res, args in (
+            ("opj_set_default_encoder_parameters", None, [ctypes.POINTER(Params)]),
+            ("opj_image_create", img_p, [u32, ctypes.POINTER(CmptParm), i32]),
+            ("opj_create_compress", vp, [i32]),
+            ("opj_setup_encoder", i32, [vp, ctypes.POINTER(Params), img_p]),
+            ("opj_stream_create_default_file_stream", vp, [ctypes.c_char_p, i32]),
+            ("opj_start_compress", i32, [vp, img_p, vp]), ("opj_encode", i32, [vp, vp]),
+            ("opj_end_compress", i32, [vp, vp]), ("opj_stream_destroy", None, [vp]),
+            ("opj_destroy_codec", None, [vp]), ("opj_image_destroy", None, [img_p])):
+        getattr(lib, fn).restype = res
+        getattr(lib, fn).argtypes = args
+    return lib, Params, CmptParm
+
+
+def openjpeg_encode(planes, sub=None, jp2: bool = False, color_space: int = 1, offset=(0, 0),
+                    prec: int = 8, sgnd: bool = False, rates=(0,), pocs=(), precincts=(),
+                    tile=None, mct: int = 0, **params) -> bytes:
+    """A codestream (or, with ``jp2``, a JP2 file) of ``planes`` (2-D integer
+    arrays, component by component, each already at its subsampled size) by
+    Pillow's libopenjp2, with what Pillow's encoder does not pass: code-block
+    styles (``mode``), POC changes (``pocs``: resno0, compno0, layno1, resno1,
+    compno1, progression), component subsampling (``sub``: (dx, dy) each),
+    ROI (``roi_compno``, ``roi_shift``), SOP/EPH (``csty`` 2 and 4), any
+    precision, signed samples. ``color_space`` is OpenJPEG's (1 sRGB, 2 gray,
+    3 sYCC, 5 CMYK), written into a JP2's colr box."""
+    import ctypes
+
+    lib, Params, CmptParm = _openjp2()
+    n = len(planes)
+    sub = sub or [(1, 1)] * n
+    parms = (CmptParm * n)()
+    for i, (plane, (dx, dy)) in enumerate(zip(planes, sub)):
+        parms[i].dx, parms[i].dy = dx, dy
+        parms[i].h, parms[i].w = plane.shape
+        parms[i].x0, parms[i].y0 = -(-offset[0] // dx), -(-offset[1] // dy)
+        parms[i].prec, parms[i].bpp, parms[i].sgnd = prec, prec, int(sgnd)
+    img = lib.opj_image_create(n, parms, color_space)
+    img.contents.x0, img.contents.y0 = offset
+    img.contents.x1 = offset[0] + (planes[0].shape[1] - 1) * sub[0][0] + 1
+    img.contents.y1 = offset[1] + (planes[0].shape[0] - 1) * sub[0][1] + 1
+    for i, plane in enumerate(planes):
+        a = np.ascontiguousarray(plane, np.int32)
+        ctypes.memmove(img.contents.comps[i].data, a.ctypes.data, a.nbytes)
+    p = Params()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.tcp_numlayers, p.cp_disto_alloc = len(rates), 1
+    for i, r in enumerate(rates):
+        p.tcp_rates[i] = r
+    p.numpocs = len(pocs)
+    for i, (r0, c0, l1, r1, c1, prg) in enumerate(pocs):
+        q = p.POC[i]
+        q.resno0, q.compno0, q.layno1, q.resno1, q.compno1, q.prg1, q.tile = r0, c0, l1, r1, c1, \
+            prg, 1
+    if precincts:
+        p.res_spec = len(precincts)
+        p.csty |= 1
+        for i, (w, h) in enumerate(precincts):
+            p.prcw_init[i], p.prch_init[i] = w, h
+    if tile:
+        p.tile_size_on = 1
+        p.cp_tdx, p.cp_tdy = tile
+    p.tcp_mct = bytes([mct])
+    for k, v in params.items():
+        setattr(p, k, getattr(p, k) | v if k == "csty" else v)
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    ok = lib.opj_setup_encoder(codec, ctypes.byref(p), img)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "out").encode()
+        stream = lib.opj_stream_create_default_file_stream(path, 0)
+        ok = ok and lib.opj_start_compress(codec, img, stream) and lib.opj_encode(
+            codec, stream) and lib.opj_end_compress(codec, stream)
+        lib.opj_stream_destroy(stream)
+        with open(path, "rb") as fh:
+            data = fh.read()
+    lib.opj_destroy_codec(codec)
+    lib.opj_image_destroy(img)
+    if not ok:
+        raise RuntimeError("libopenjp2 refused to encode")
+    return data
+
+
+def packet_spans(cs: bytes) -> tuple:
+    """A codestream of one tile-part per tile, cut where ``utils/j2k.py``'s
+    tier-2 finds its packets: (main header, [(tile index, tile-part header
+    markers, [(packet header, packet body)])])."""
+    sys.path.insert(0, REPO)
+    from coma_tpu_torch.utils import j2k
+
+    hdr, pos = j2k.read_header(cs)
+    parts, order = j2k.tile_parts(cs, hdr, pos)
+    tiles = []
+    for index in order:
+        entry = parts[index]
+        tcp = hdr.tcp.copy()
+        for marker, start, end in entry["segments"]:
+            j2k._read_marker(marker, j2k._Reader(cs, start, end), len(hdr.comps), tcp, {})
+        p, q = index % hdr.tiles_across, index // hdr.tiles_across
+        tx0, ty0 = max(hdr.tx0 + p * hdr.tdx, hdr.x0), max(hdr.ty0 + q * hdr.tdy, hdr.y0)
+        tx1 = min(hdr.tx0 + (p + 1) * hdr.tdx, hdr.x1)
+        ty1 = min(hdr.ty0 + (q + 1) * hdr.tdy, hdr.y1)
+        tilecs = [j2k._init_tilec(c, t, tx0, ty0, tx1, ty1) for c, t in zip(hdr.comps, tcp.tccps)]
+        data = bytes(entry["data"])
+        at, packets = 0, []
+        for key in j2k._packets(hdr, tcp, tilecs, tx0, ty0, tx1, ty1):
+            header_end, end = j2k._read_packet(data, at, len(data), None, tcp, tilecs, key)
+            packets.append((data[at:header_end], data[header_end:end]))
+            at = end
+        markers = b"".join(cs[s - 4:e] for _, s, e in entry["segments"])
+        tiles.append((index, markers, packets))
+    return cs[:pos], tiles
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">HH", marker, len(body) + 2) + body
+
+
+def repack_headers(cs: bytes, where: str) -> bytes:
+    """The codestream with its packet headers moved out of the tile data:
+    into the main header's PPM markers (``where`` "ppm") or each tile's PPT
+    markers ("ppt"), markers of at most ``chunk`` bytes each."""
+    main, tiles = packet_spans(cs)
+    out = bytearray(main)
+    if where == "ppm":
+        stream = b"".join(struct.pack(">I", sum(len(h) for h, _ in packets))
+                          + b"".join(h for h, _ in packets) for _, _, packets in tiles)
+        for z, k in enumerate(range(0, len(stream), 4000)):
+            out += _segment(0xFF60, bytes([z]) + stream[k:k + 4000])
+    for index, markers, packets in tiles:
+        headers = b"".join(h for h, _ in packets)
+        if where == "ppt":
+            markers += b"".join(_segment(0xFF61, bytes([z]) + headers[k:k + 3000])
+                                for z, k in enumerate(range(0, len(headers), 3000)))
+        body = b"".join(b for _, b in packets)
+        sot_len = 12 + len(markers) + 2 + len(body)
+        out += struct.pack(">HHHIBB", 0xFF90, 10, index, sot_len, 0, 1) + markers + b"\xff\x93" \
+            + body
+    return bytes(out + b"\xff\xd9")
+
+
+def with_cblk_style(cs: bytes, bits: int) -> bytes:
+    """The codestream with ``bits`` set in its main COD's code-block style
+    byte (0x40 marks HTJ2K code-blocks)."""
+    at = cs.index(b"\xff\x52")
+    out = bytearray(cs)
+    out[at + 4 + 5 + 3] |= bits          # Scod, SGcod (4), then NL, xcb, ycb, cblksty
+    return bytes(out)
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def jp2_file(cs: bytes, height: int, width: int, nc: int, bpc: int, enumcs: int = 16,
+             palette=None) -> bytes:
+    """A JP2 file around a codestream: signature, file type, a jp2h of ihdr,
+    colr (enumerated ``enumcs``) and, with ``palette`` ((N, C) uint8), pclr
+    and cmap mapping component 0 through its C columns."""
+    head = _box(b"ihdr", struct.pack(">IIHBBBB", height, width, nc, bpc - 1, 7, 0, 0))
+    head += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        columns = pal.shape[1]
+        head += _box(b"pclr", struct.pack(">HB", len(pal), columns) + bytes([7] * columns)
+                     + pal.tobytes())
+        head += _box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k) for k in range(columns)))
+    return (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + _box(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + _box(b"jp2h", head) + _box(b"jp2c", cs))
+
+
+def jpeg2000_formats() -> dict:
+    """JPEG 2000 files, 64 x 64 or smaller: Pillow's encoder (reversible and
+    irreversible, the five progressions, tiles with offsets, precincts,
+    code-block sizes, quality layers by rate and by dB, no MCT, signed, PLT,
+    L/LA/RGBA/I;16), libopenjp2's through ctypes (the code-block styles, POC,
+    4:2:0 sYCC, ROI, SOP/EPH, 12-bit signed, CMYK), Pillow's packets
+    repacked into PPM and PPT, a JP2 palette, ICNS JPEG 2000 members; the
+    chair's textures as a lossless JP2 and a lossy tiled J2K; the 2048 x 1536
+    atlas as a lossless JP2 (5/3, RCT, 6 resolutions, LRCP) and a lossy J2K
+    (9/7, ICT, 64 x 64 blocks, 512² tiles, precincts, 3 layers, RPCL)."""
+    from PIL import Image
+
+    def pil(image, **kw):
+        buf = io.BytesIO()
+        (image if isinstance(image, Image.Image) else Image.fromarray(image)).save(
+            buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    rgb = seeded_rgb((37, 53), 200, noise=12)
+    small = seeded_rgb((24, 31), 201, noise=12)
+    planes = [rgb[..., c].astype(np.int32) for c in range(3)]
+    rng = np.random.default_rng(202)
+    tex = seeded_rgb((32, 32), 203, noise=4) // 16 * 16
+    out = {
+        "j2k_rgb_lossless.jp2": ("JPEG 2000 JP2 RGB, 5/3, RCT", pil(rgb)),
+        "j2k_rgb_irreversible.jp2": ("JPEG 2000 JP2 RGB, 9/7, ICT", pil(rgb, irreversible=True)),
+        "j2k_gray.j2k": ("JPEG 2000 codestream gray (no_jp2)", pil(rgb[..., 1], no_jp2=True)),
+        "j2k_la.jp2": ("JPEG 2000 LA", pil(Image.fromarray(small[..., :2], "LA"))),
+        "j2k_rgba_irreversible.jp2": ("JPEG 2000 RGBA, 9/7", pil(
+            np.concatenate([small, small[..., :1] // 2 + 100], -1), irreversible=True)),
+        "j2k_i16.jp2": ("JPEG 2000 I;16", pil(Image.frombytes(
+            "I;16", (31, 24), (small[..., 0].astype("<u2") * 251).tobytes()))),
+        "j2k_signed.j2k": ("JPEG 2000 signed", pil(small[..., 2], no_jp2=True, signed=True)),
+        "j2k_no_mct.jp2": ("JPEG 2000 no MCT", pil(small, mct=0)),
+        "j2k_plt_1res.j2k": ("JPEG 2000 PLT, one resolution", pil(small, no_jp2=True, plt=True,
+                                                                  num_resolutions=1)),
+        "j2k_tiles_offsets.j2k": ("JPEG 2000 tiles 16 x 12, tile and image offsets", pil(
+            rgb, no_jp2=True, tile_size=(16, 12), tile_offset=(3, 5), offset=(7, 9),
+            num_resolutions=3)),
+        "j2k_cblk8_prec16.jp2": ("JPEG 2000 code-blocks 8 x 8, precincts 16 x 16", pil(
+            rgb, codeblock_size=(8, 8), precinct_size=(16, 16), num_resolutions=3)),
+        "j2k_layers_rates.j2k": ("JPEG 2000 quality layers by rate, 9/7", pil(
+            rgb, no_jp2=True, irreversible=True, quality_mode="rates",
+            quality_layers=[40, 15, 5])),
+        "j2k_layers_db.jp2": ("JPEG 2000 quality layers by dB", pil(
+            rgb, quality_mode="dB", quality_layers=[28, 36, 44])),
+    }
+    for prog in ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL"):
+        out[f"j2k_{prog.lower()}.j2k"] = (f"JPEG 2000 progression {prog}, precincts, layers", pil(
+            rgb, no_jp2=True, progression=prog, precinct_size=(16, 16), num_resolutions=3,
+            quality_mode="rates", quality_layers=[30, 10, 3]))
+    for mode, tag in ((1, "bypass"), (2, "reset"), (4, "termall"), (8, "vsc"), (16, "pterm"),
+                      (32, "segsym"), (63, "all_styles")):
+        out[f"j2k_style_{tag}.j2k"] = (f"JPEG 2000 code-block style {tag} (libopenjp2)",
+                                       openjpeg_encode(planes, mode=mode, mct=1,
+                                                       irreversible=int(mode == 63),
+                                                       rates=(30, 10, 1)))
+    for tag, pocs in (("rpcl_pcrl", [(0, 0, 2, 2, 3, 2), (0, 0, 3, 4, 3, 3)]),
+                      ("rlcp_cprl", [(0, 0, 3, 4, 2, 1), (0, 2, 3, 4, 3, 4)]),
+                      # packets no POC covers: libopenjp2 writes a stream it cannot read
+                      ("refused_uncovered", [(0, 0, 2, 2, 3, 2), (0, 0, 3, 4, 2, 3),
+                                             (1, 2, 3, 4, 3, 4)])):
+        name = f"refused_j2k_poc_{tag[8:]}.j2k" if tag.startswith("refused") else \
+            f"j2k_poc_{tag}.j2k"
+        out[name] = (f"JPEG 2000 POC {tag.replace('_', ', ')} (libopenjp2)", openjpeg_encode(
+            planes, rates=(20, 5, 1), numresolution=4, precincts=[(16, 16)] * 4, mct=1,
+            pocs=pocs))
+    sub = [planes[0], planes[1][::2, ::2], planes[2][::2, ::2]]
+    out["j2k_sycc420_rpcl.j2k"] = ("JPEG 2000 4:2:0 subsampled, RPCL (libopenjp2)",
+                                   openjpeg_encode(sub, sub=[(1, 1), (2, 2), (2, 2)],
+                                                   prog_order=2, numresolution=3,
+                                                   precincts=[(16, 16)] * 3, rates=(10, 1),
+                                                   color_space=3))
+    out["j2k_sycc420_pcrl.jp2"] = ("JPEG 2000 JP2 sYCC 4:2:0, PCRL (libopenjp2)",
+                                   openjpeg_encode(sub, sub=[(1, 1), (2, 2), (2, 2)],
+                                                   prog_order=3, numresolution=3,
+                                                   precincts=[(16, 16)] * 3, jp2=True,
+                                                   color_space=3))
+    out["j2k_roi.j2k"] = ("JPEG 2000 ROI maxshift (libopenjp2)", openjpeg_encode(
+        planes, roi_compno=1, roi_shift=4, irreversible=1, mct=1, rates=(20, 1)))
+    out["j2k_sop_eph.j2k"] = ("JPEG 2000 SOP and EPH markers (libopenjp2)", openjpeg_encode(
+        planes, csty=6, mct=1, rates=(20, 5, 1)))
+    out["j2k_signed12.j2k"] = ("JPEG 2000 12-bit signed gray (libopenjp2)", openjpeg_encode(
+        [rng.integers(-2048, 2048, (20, 30))], prec=12, sgnd=True, numresolution=3))
+    out["j2k_cmyk.jp2"] = ("JPEG 2000 JP2 CMYK (libopenjp2)", openjpeg_encode(
+        [small[..., c].astype(np.int32) for c in (0, 1, 2, 0)], jp2=True, color_space=5,
+        numresolution=3))
+    layered = pil(rgb, no_jp2=True, progression="RLCP", precinct_size=(16, 16),
+                  num_resolutions=3, quality_mode="rates", quality_layers=[30, 10, 3],
+                  tile_size=(32, 32))
+    out["j2k_ppm.j2k"] = ("JPEG 2000 packet headers in PPM", repack_headers(layered, "ppm"))
+    out["j2k_ppt.j2k"] = ("JPEG 2000 packet headers in PPT", repack_headers(layered, "ppt"))
+    idx = (small[..., 0] // 32).astype(np.uint8)
+    pal = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    pal[5] = pal[2]                                # Pillow's palette drops the repeat
+    out["j2k_palette.jp2"] = ("JPEG 2000 JP2 palette (pclr)", jp2_file(
+        pil(idx, no_jp2=True), 24, 31, 1, 8, palette=pal))
+    out["icns_jp2_member.icns"] = ("ICNS ic07 JPEG 2000 member", icns_file([
+        (b"ic07", pil(seeded_rgb((64, 64), 204, noise=6), irreversible=True,
+                      quality_mode="rates", quality_layers=[20]))]))
+    out["icns_j2k_gray_member.icns"] = ("ICNS ic11 JPEG 2000 codestream member, gray",
+                                        icns_file([(b"ic11", pil(small[:16, :16, 1],
+                                                                 no_jp2=True))]))
+    out["refused_j2k_truncated.j2k"] = ("JPEG 2000 cut short (refused)",
+                                        pil(rgb, no_jp2=True)[:-400])
+    out["chair_lossless.jp2"] = ("chair texture, JPEG 2000 lossless JP2", pil(tex[:, ::-1]))
+    out["chair_lossy_tiles.j2k"] = ("chair texture, JPEG 2000 lossy tiled J2K", pil(
+        tex[::-1], no_jp2=True, irreversible=True, tile_size=(16, 16), num_resolutions=3,
+        quality_mode="rates", quality_layers=[8, 4]))
+    atlas = texture_atlas(9)
+    out["atlas_lossless_2048x1536.jp2"] = ("2048 x 1536 atlas, JPEG 2000 lossless JP2", pil(
+        atlas, num_resolutions=6, progression="LRCP"))
+    out["atlas_lossy_2048x1536.j2k"] = ("2048 x 1536 atlas, JPEG 2000 lossy J2K", pil(
+        atlas, no_jp2=True, irreversible=True, codeblock_size=(64, 64), tile_size=(512, 512),
+        precinct_size=(128, 128), quality_mode="rates", quality_layers=[600, 300, 150],
+        progression="RPCL"))
+    return out
+
+
+def lab_and_pnm_formats() -> dict:
+    """Lab images (PSD and CIELab TIFFs, both byte orders, raw, LZW,
+    Deflate, PackBits) and Pillow's PNM magics (PFM both byte orders with
+    NaN, infinities and out-of-range values; PyP, PyRGBA, PyCMYK, P0CMYK);
+    the chair's textures as a Lab PSD, a CIELab TIFF and a PFM."""
+    from PIL import Image
+
+    def pil_tiff(lab, **kw):
+        buf = io.BytesIO()
+        Image.frombytes("LAB", lab.shape[1::-1], lab.tobytes()).save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(210)
+    lab = rng.integers(0, 256, (19, 23, 3)).astype(np.uint8)
+    tex = seeded_rgb((32, 32), 211, noise=4) // 16 * 16
+    pfm = (seeded_rgb((11, 13), 212)[..., 0].astype(np.float32) - 20) * 1.3
+    pfm[0, :4] = [np.nan, np.inf, -np.inf, 1e9]
+    out = {
+        "lab_raw.psd": ("PSD Lab, raw", psd_file(np.ascontiguousarray(lab.transpose(2, 0, 1)),
+                                                 9)),
+        "lab_rle.psd": ("PSD Lab, PackBits", psd_file(np.ascontiguousarray(
+            lab.transpose(2, 0, 1)), 9, rle=True)),
+        "cielab_raw.tif": ("TIFF CIELab, raw", pil_tiff(lab)),
+        "cielab_lzw.tif": ("TIFF CIELab, LZW", pil_tiff(lab, compression="tiff_lzw")),
+        "cielab_deflate_be.tif": ("TIFF CIELab, big-endian, Deflate",
+                                  tiff_file(lab, (8, 8, 8), 8, compression=8, big_endian=True)),
+        "cielab_packbits_be.tif": ("TIFF CIELab, big-endian, PackBits, strips of 5",
+                                   tiff_file(lab, (8, 8, 8), 8, compression=32773,
+                                             big_endian=True, rows_per_strip=5)),
+        "pfm_le.pfm": ("PFM (Pf), little-endian, NaN and infinities",
+                       b"Pf\n13 11\n-1.0\n" + pfm[::-1].astype("<f4").tobytes()),
+        "pfm_be.pfm": ("PFM (Pf), big-endian", b"Pf\n13 11\n2.5\n" + pfm[::-1].astype(
+            ">f4").tobytes()),
+        "pnm_pyp.ppm": ("PNM PyP", b"PyP\n13 11\n255\n" + lab[:11, :13, 0].tobytes()),
+        "pnm_pyrgba.ppm": ("PNM PyRGBA, maxval 1000", b"PyRGBA 13 11 1000\n" + (
+            lab[:11, :13, :].repeat(2, -1)[..., :4].astype(">u2") * 3).tobytes()),
+        "pnm_pycmyk.ppm": ("PNM PyCMYK", b"PyCMYK\n13 11\n255\n" + lab[:11, :13].repeat(
+            2, -1)[..., :4].tobytes()),
+        "pnm_p0cmyk.ppm": ("PNM P0CMYK, maxval 31", b"P0CMYK\n13 11\n31\n" + (lab[:11, :13].repeat(
+            2, -1)[..., :4] // 8).tobytes()),
+        "refused_pfm_zero_scale.pfm": ("PFM with a scale of 0 (refused)",
+                                       b"Pf\n2 2\n0.0\n" + bytes(16)),
+        "chair_lab.psd": ("chair texture, PSD Lab", psd_file(np.ascontiguousarray(
+            tex.transpose(2, 0, 1)), 9, rle=True)),
+        "chair_cielab.tif": ("chair texture, TIFF CIELab", pil_tiff(tex[::-1],
+                                                                    compression="tiff_lzw")),
+        "chair.pfm": ("chair texture, PFM", b"Pf\n32 32\n-1.0\n" + tex[..., 1].astype(
+            "<f4").tobytes()),
+    }
+    return out
+
+
 def small_formats() -> dict:
     """SGI (RLE and verbatim 16-bit), PCX (and 4 bit planes), DCX, ICO (PNG
     and BMP members), CUR, QOI, XBM, IM (YCC, a Lut), ICNS (run-length
@@ -2619,10 +3011,14 @@ def main() -> int:
         try:
             with Image.open(io.BytesIO(data) if name in GZIPPED else os.path.join(OUT, name)) as im:
                 own = np.asarray(im)
-                arrays = {"None": own, "RGB": np.asarray(im.convert("RGB")),
-                          "L": np.asarray(im.convert("L"))}
+                hashes = {"None": array_sha(own)}
+                for m in ("RGB", "L"):
+                    try:
+                        hashes[m] = array_sha(np.asarray(im.convert(m)))
+                    except ValueError:          # Pillow refuses "LAB" to "L": a null hash
+                        hashes[m] = None
                 entry.update(mode=im.mode, shape=list(own.shape), dtype=str(own.dtype),
-                             sha256={m: array_sha(a) for m, a in arrays.items()})
+                             sha256=hashes)
         except (OSError, SyntaxError, ValueError, NotImplementedError) as err:
             entry.update(raises=True, pillow_error=f"{type(err).__name__}: {err}")
         entries.append(entry)

@@ -7,10 +7,12 @@ PIL, on the card's machine.
 Builds the CUDA kernels (the inpainting batch runs K3), then runs
 ``chip_smoke.phase16``: (a) every fixture of ``tests/data/images/`` through
 ``read_image`` (the native JPEG decoder and image codecs, TIFF's CCITT and
-Zstandard decoders among them, built with ``g++`` at first use) against
-Pillow's hashes, with the 2048 x 1536 decodes timed; (b) the BEHAVE reader
-on JPEG colour frames and masks; (c) a chair textured in twenty-five files
-(fourteen formats, and TIFFs in six more compressions) through stage 1 at
+Zstandard decoders and the JPEG 2000 decoder among them, built with ``g++``
+at first use) against
+Pillow's hashes, with the 2048 x 1536 decodes timed (the JPEG 2000 atlases
+among them); (b) the BEHAVE reader on JPEG colour frames and masks; (c) a
+chair textured in thirty files (sixteen formats, TIFFs in six more
+compressions, JPEG 2000, Lab and PFM) through stage 1 at
 384² and one inpainting batch of 4 at 512², with the same checks and kernel
 counters as the full script; (d) the seeded
 step-video GIF written as PIL writes it. Needs a card; prints its name and
