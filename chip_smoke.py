@@ -2574,12 +2574,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to twenty-nine image files) give the back, then
+    ``part_textures`` (up to forty image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
-    stretcher, three low stretchers, a lumbar bar and a front apron a
-    material, UVs and a ``map_Kd`` of their own.
+    stretcher, three low stretchers, a lumbar bar, a front apron, two seat
+    knobs, a cross of two bars under the seat, four foot pads, a back emblem
+    and two armrest pads a material, UVs and a ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
@@ -2627,7 +2628,18 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((-0.23, 0.30, -0.19), (-0.20, 0.33, 0.19)),
               ((0.20, 0.30, -0.19), (0.23, 0.33, 0.19)),
               ((-0.20, 0.70, -0.21), (0.20, 0.74, -0.19)),
-              ((-0.22, 0.35, 0.22), (0.18, 0.38, 0.25))]
+              ((-0.22, 0.35, 0.22), (0.18, 0.38, 0.25)),
+              ((-0.20, 0.48, 0.20), (-0.16, 0.52, 0.24)),
+              ((0.16, 0.48, 0.20), (0.20, 0.52, 0.24)),
+              ((-0.10, 0.20, -0.02), (0.10, 0.23, 0.02)),
+              ((-0.02, 0.20, -0.10), (0.02, 0.23, 0.10)),
+              ((-0.25, 0.00, -0.25), (-0.19, 0.02, -0.19)),
+              ((0.19, 0.00, -0.25), (0.25, 0.02, -0.19)),
+              ((-0.25, 0.00, 0.19), (-0.19, 0.02, 0.25)),
+              ((0.19, 0.00, 0.19), (0.25, 0.02, 0.25)),
+              ((-0.05, 0.80, -0.22), (0.05, 0.88, -0.19)),
+              ((-0.27, 0.66, -0.20), (-0.23, 0.68, 0.20)),
+              ((0.23, 0.66, -0.20), (0.27, 0.68, 0.20))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3680,8 +3692,9 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # TIFF-LZW, CMYK JPEG, lossy WebP with alpha, lossless WebP, DDS BC7, DDS DXT1, PSD, YCbCr
 # 4:2:0 TIFF-JPEG, SGI RLE, PCX, QOI, ICO, BLP2 DXT5, Sun RLE, a damaged JPEG Pillow recovers
 # (a wrong RSTn), TIFFs in CCITT Group 4 (fill order 2), Group 3 2-D, LZMA, Zstandard,
-# old-style JPEG and ThunderScan, and a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
-# TIFF and a PFM
+# old-style JPEG and ThunderScan, a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
+# TIFF and a PFM, and XPM, FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD (stored gzipped: written
+# out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3689,7 +3702,10 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_rle.ras", "damaged/jpeg_resync_next.jpg", "chair_g4_fill2.tif",
                  "chair_g3_2d.tif", "chair_lzma.tif", "chair_zstd.tif", "chair_ojpeg.tif",
                  "chair_thunderscan.tif", "chair_lossless.jp2", "chair_lossy_tiles.j2k",
-                 "chair_lab.psd", "chair_cielab.tif", "chair.pfm")
+                 "chair_lab.psd", "chair_cielab.tif", "chair.pfm", "chair.xpm",
+                 "chair_dxt1.ftc", "chair_rgba.gbr", "chair.pxr", "chair.flc", "pcd_base.pcd",
+                 "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
+                 "chair_tiled_1bit.tif")
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3700,7 +3716,8 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_rle_2048x1536.psd", "atlas_ycbcr_jpeg_2048x1536.tif",
                  "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi", "atlas_zstd_2048x1536.tif",
                  "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
-                 "atlas_lossy_2048x1536.j2k")
+                 "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
+                 "atlas_gzip_2048x1536.fits")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3757,8 +3774,9 @@ def decode_phase(label: str) -> dict:
     2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive JPEG,
     lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
-    Group 4, lossless JPEG 2000 (JP2, 5/3) and lossy JPEG 2000 (J2K, 9/7,
-    tiles, layers, RPCL) (median of 5)."""
+    Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
+    tiles, layers, RPCL), FLC (BRUN) and FITS (a GZIP_1 table) (median of
+    5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3962,9 +3980,11 @@ def jpeg_asset_phase(label: str) -> dict:
     ones, its footrest a damaged JPEG Pillow recovers, its headrest,
     back posts, armrest posts and rear stretcher TIFFs in CCITT Group 4
     (fill order 2), Group 3 2-D, LZMA, Zstandard, old-style JPEG and
-    ThunderScan, and its low stretchers, lumbar bar and front apron a
-    lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab TIFF and a PFM,
-    through
+    ThunderScan, its low stretchers, lumbar bar and front apron a
+    lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab TIFF and a PFM, and
+    its seat knobs, cross bars, foot pads, back emblem and armrest pads XPM,
+    FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail,
+    IPTC/NAA and 1-bit tiled TIFF ones, through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -3973,12 +3993,22 @@ def jpeg_asset_phase(label: str) -> dict:
     from coma_tpu_torch.utils.resize import resize_bicubic, resize_bilinear
 
     texture = os.path.join(IMAGE_FIXTURES, FABRIC_JPEG)
-    parts = tuple(os.path.join(IMAGE_FIXTURES, n) for n in PART_TEXTURES)
     manifest = dict(image_manifest(), **damaged_manifest())
+    unpacked = os.path.join(SCRATCH, "part_textures")
+    os.makedirs(unpacked, exist_ok=True)
+    parts = []
+    for n in PART_TEXTURES:              # a gzip-stored fixture is written out as Pillow read it
+        if "stored" in manifest[n]:
+            with open(os.path.join(unpacked, os.path.basename(n)), "wb") as fh:
+                fh.write(fixture_bytes(manifest[n]))
+            parts.append(os.path.join(unpacked, os.path.basename(n)))
+        else:
+            parts.append(os.path.join(IMAGE_FIXTURES, n))
+    parts = tuple(parts)
 
     def check(obj, mesh, batches):
-        for k, path in enumerate((texture,) + parts):
-            name = os.path.relpath(path, IMAGE_FIXTURES)
+        for k, (name, path) in enumerate(zip((FABRIC_JPEG,) + PART_TEXTURES,
+                                             (texture,) + parts)):
             decoded = read_image(path, "RGB")
             if image_sha(decoded) != manifest[name]["sha256"]["RGB"]:
                 raise AssertionError(f"{name}: differs from Pillow's")
@@ -4002,8 +4032,11 @@ def jpeg_asset_phase(label: str) -> dict:
                 raise AssertionError(f"{w['render']}: the inpainting's inputs are not the "
                                      "host's read_image and PIL's bicubic resize")
 
-    out = stage1_phase(label, texture=texture, res=PHASE16_RES, timings=False, check=check,
-                       part_textures=parts)
+    try:
+        out = stage1_phase(label, texture=texture, res=PHASE16_RES, timings=False, check=check,
+                           part_textures=parts)
+    finally:
+        shutil.rmtree(unpacked, ignore_errors=True)
     log(f"phase 16c: the chair textured with {FABRIC_JPEG} and {', '.join(PART_TEXTURES)} at "
         f"{PHASE16_RES}², resized to {INPAINT_RES}² for inpainting: launches {out['launches']} "
         f"({out['by_source']}) [{label}]")
@@ -4048,9 +4081,10 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in thirty files of sixteen formats (a
-    damaged JPEG, a Lab PSD and a CIELab TIFF among them) and six more TIFF
-    compressions through stage 1 into K3, every
+    frames, (c) an asset textured in forty-one files of twenty-six formats (a
+    damaged JPEG, a Lab PSD, a CIELab TIFF and a PhotoCD among them), six
+    more TIFF compressions and a 1-bit tiled TIFF through stage 1 into K3,
+    every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""
     t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 """ctypes bindings of ``src/image_codecs.cpp``: the LZW, PackBits, run-length
 and QOI decoders of the image readers (``utils/gif_reader.py``,
 ``utils/tiff.py``, ``utils/psd.py``, ``utils/tga.py``, ``utils/{sgi,pcx,
-icns,sun,msp,qoi}.py``) and Little CMS's Lab interpolation
-(``utils/lcms.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's blocks), of
+icns,sun,msp,qoi}.py``), FLI/FLC's frame decoder (``utils/fli.py``), the
+sub-byte TIFF tile gathering (``utils/tiff.py``) and Little CMS's Lab
+interpolation (``utils/lcms.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's blocks), of
 ``src/webp_decode.cpp``, of ``src/tiff_codecs.cpp`` (TIFF's CCITT and
 Zstandard strips) and of ``src/j2k_decode.cpp`` (JPEG 2000's tier-1 and
 reconstruction, ``utils/j2k.py``), built with ``g++`` at first use like
@@ -44,7 +45,9 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("icns_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
             ("sun_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr], ctypes.c_int),
             ("msp_rle_decode", [ctypes.c_char_p, i64, i64, i64, ptr, i64], i64),
-            ("lab_tetra_interp", [ptr, i64, ptr, ctypes.c_int, ptr], None)):
+            ("lab_tetra_interp", [ptr, i64, ptr, ctypes.c_int, ptr], None),
+            ("fli_decode", [ctypes.c_char_p, i64, i64, i64, ptr, ptr], i64),
+            ("tile_bits_gather", [ptr, i64, i64, i64, i64, ctypes.c_int, i64, ptr], None)):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = res
 
@@ -168,6 +171,32 @@ def lab_tetra_interp(lab: np.ndarray, table: np.ndarray, grid: int) -> np.ndarra
         raise ValueError(f"Lab {lab.shape}, CLUT {table.shape} at grid {grid}")
     out = np.zeros(lab.shape, np.uint8)
     _need().lab_tetra_interp(lab.ctypes.data, len(lab), table.ctypes.data, grid, out.ctypes.data)
+    return out
+
+
+def fli_decode(buf: bytes, width: int, height: int, img: np.ndarray) -> tuple:
+    """libImaging's ``FliDecode`` on ``buf`` into ``img`` ((height, width)
+    uint8, C-contiguous, written in place): (status, error), as
+    ``utils/fli.frame_decode_python`` returns them."""
+    if img.shape != (height, width) or img.dtype != np.uint8 or not img.flags.c_contiguous:
+        raise ValueError(f"an FLI image buffer of {img.shape} {img.dtype}")
+    error = ctypes.c_int(0)
+    status = _need().fli_decode(buf, len(buf), width, height, img.ctypes.data,
+                                ctypes.addressof(error))
+    return int(status), error.value
+
+
+def tile_bits_gather(raw: np.ndarray, across: int, tile_row_bytes: int, tile_width: int,
+                     bits: int, width: int) -> np.ndarray:
+    """``utils/tiff.tile_bits_gather_python``: sub-byte tiles side by side
+    -> the image's rows of ``ceil(width * bits / 8)`` bytes."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.ndim != 2 or raw.shape[1] != across * tile_row_bytes or \
+            tile_row_bytes * 8 < tile_width * bits:
+        raise ValueError(f"sub-byte tiles {raw.shape}, {across} across of {tile_row_bytes} bytes")
+    out = np.zeros((raw.shape[0], (width * bits + 7) // 8), np.uint8)
+    _need().tile_bits_gather(raw.ctypes.data, raw.shape[0], across, tile_row_bytes, tile_width,
+                             bits, width, out.ctypes.data)
     return out
 
 

@@ -1,12 +1,14 @@
 // The byte-stream decoders of the image readers in coma_tpu_torch/utils/:
 // GIF's and TIFF's LZW, TIFF's PackBits, TGA's, SGI's, PCX's, ICNS's, Sun
-// raster's and MSP's run-length codes, QOI's opcodes and Little CMS's
-// tetrahedral interpolation of Lab pixels (utils/lcms.py). Each equals its
-// plain Python twin byte for byte (utils/gif_reader.py: lzw_decode_python,
-// utils/tiff.py: lzw_decode_python and packbits_decode_python,
-// utils/tga.py, sgi.py, pcx.py, icns.py, sun.py, msp.py:
-// rle_decode_python, utils/qoi.py: decode_ops_python); these exist because
-// a 2048 x 1536 file takes seconds in Python.
+// raster's and MSP's run-length codes, QOI's opcodes, Little CMS's
+// tetrahedral interpolation of Lab pixels (utils/lcms.py), FLI/FLC's frame
+// chunks and the gathering of sub-byte TIFF tiles. Each equals its plain
+// Python twin byte for byte (utils/gif_reader.py: lzw_decode_python,
+// utils/tiff.py: lzw_decode_python, packbits_decode_python and
+// tile_bits_gather_python, utils/tga.py, sgi.py, pcx.py, icns.py, sun.py,
+// msp.py: rle_decode_python, utils/qoi.py: decode_ops_python, utils/fli.py:
+// frame_decode_python); these exist because a 2048 x 1536 file takes
+// seconds in Python.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 image_codecs.cpp (native/__init__.py
 // does it at first use).
@@ -473,6 +475,166 @@ void lab_tetra_interp(const uint8_t* in, int64_t n, const int32_t* table, int gr
                             (c3 - c2) * rest[order[2]] + 0x8001;
       const uint32_t v = static_cast<uint16_t>(c0 + ((total + (total >> 16)) >> 16));
       out[3 * p + ch] = static_cast<uint8_t>(((v * 65281u + 8388608u) >> 24) & 0xFF);
+    }
+  }
+}
+
+// libImaging's FliDecode.c on buf[0:n] into the zeroed or partly decoded
+// (height, width) image ``img``: utils/fli.py, frame_decode_python.
+// Returns libImaging's status (-1 at the frame's end, else the bytes
+// consumed before it asks for more) and sets *error to its code (0, or
+// -1 overrun, -2 broken, -3 unknown).
+int64_t fli_decode(const uint8_t* buf, int64_t n, int64_t width, int64_t height, uint8_t* img,
+                   int* error) {
+  auto i16 = [&](int64_t at) -> int64_t { return buf[at] | buf[at + 1] << 8; };
+  auto i32 = [&](int64_t at) -> int64_t {
+    return static_cast<int32_t>(static_cast<uint32_t>(buf[at]) | buf[at + 1] << 8 |
+                                buf[at + 2] << 16 | static_cast<uint32_t>(buf[at + 3]) << 24);
+  };
+  *error = 0;
+  if (n < 4) return 0;
+  if (n + n % 2 < i32(0)) return 0;
+  if (n < 8) { *error = -1; return -1; }
+  if (i16(4) != 0xF1FA) { *error = -3; return -1; }
+  const int64_t chunks = i16(6);
+  int64_t ptr = 16, left = n - 16;
+  const int64_t end = n;
+  for (int64_t c = 0; c < chunks; ++c) {
+    if (left < 10) { *error = -1; return -1; }
+    int64_t data = ptr + 6;
+    const int64_t kind = i16(ptr + 4);
+    if (kind == 7) {                                  // SS2, word delta
+      const int64_t lines = i16(data);
+      data += 2;
+      int64_t l = 0, y = 0;
+      while (l < lines && y < height) {
+        uint8_t* row = img + y * width;
+        if (data + 2 > end) { *error = -1; return -1; }
+        int64_t packets = i16(data);
+        data += 2;
+        while (packets & 0x8000) {
+          if (packets & 0x4000) {
+            y += 65536 - packets;
+            if (y >= height) { *error = -1; return -1; }
+            row = img + y * width;
+          } else {
+            row[width - 1] = static_cast<uint8_t>(packets);
+          }
+          if (data + 2 > end) { *error = -1; return -1; }
+          packets = i16(data);
+          data += 2;
+        }
+        int64_t x = 0, p = 0;
+        for (; p < packets; ++p) {
+          if (data + 2 > end) { *error = -1; return -1; }
+          x += buf[data];
+          if (buf[data + 1] >= 128) {
+            if (data + 4 > end) { *error = -1; return -1; }
+            const int64_t i = 256 - buf[data + 1];
+            if (x + 2 * i > width) break;
+            for (int64_t j = 0; j < i; ++j) {
+              row[x++] = buf[data + 2];
+              row[x++] = buf[data + 3];
+            }
+            data += 4;
+          } else {
+            const int64_t i = 2 * static_cast<int64_t>(buf[data + 1]);
+            if (x + i > width) break;
+            if (data + 2 + i > end) { *error = -1; return -1; }
+            std::memcpy(row + x, buf + data + 2, i);
+            data += 2 + i;
+            x += i;
+          }
+        }
+        if (p < packets) break;
+        ++l;
+        ++y;
+      }
+      if (l < lines) { *error = -1; return -1; }
+    } else if (kind == 12) {                          // LC, byte delta
+      int64_t y = i16(data);
+      const int64_t ymax = y + i16(data + 2);
+      data += 4;
+      for (; y < ymax && y < height; ++y) {
+        uint8_t* row = img + y * width;
+        if (data + 1 > end) { *error = -1; return -1; }
+        const int64_t packets = buf[data++];
+        int64_t x = 0, p = 0, i = 0;
+        for (; p < packets; ++p, x += i) {
+          if (data + 2 > end) { *error = -1; return -1; }
+          x += buf[data];
+          if (buf[data + 1] & 0x80) {
+            i = 256 - buf[data + 1];
+            if (x + i > width) break;
+            if (data + 3 > end) { *error = -1; return -1; }
+            std::memset(row + x, buf[data + 2], i);
+            data += 3;
+          } else {
+            i = buf[data + 1];
+            if (x + i > width) break;
+            if (data + 2 + i > end) { *error = -1; return -1; }
+            std::memcpy(row + x, buf + data + 2, i);
+            data += i + 2;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (y < ymax) { *error = -1; return -1; }
+    } else if (kind == 13) {                          // BLACK
+      std::memset(img, 0, width * height);
+    } else if (kind == 15) {                          // BRUN
+      for (int64_t y = 0; y < height; ++y) {
+        uint8_t* row = img + y * width;
+        data += 1;                                    // the packet count, ignored
+        int64_t x = 0, i = 0;
+        for (; x < width; x += i) {
+          if (data + 2 > end) { *error = -1; return -1; }
+          if (buf[data] & 0x80) {
+            i = 256 - buf[data];
+            if (x + i > width) break;
+            if (data + i + 1 > end) { *error = -1; return -1; }
+            std::memcpy(row + x, buf + data + 1, i);
+            data += i + 1;
+          } else {
+            i = buf[data];
+            if (x + i > width) break;
+            std::memset(row + x, buf[data + 1], i);
+            data += 2;
+          }
+        }
+        if (x != width) { *error = -1; return -1; }
+      }
+    } else if (kind == 16) {                          // COPY
+      if (data + width * height > end) return ptr;
+      std::memcpy(img, buf + data, width * height);
+    } else if (kind != 4 && kind != 11 && kind != 18) {
+      *error = -3;
+      return -1;
+    }
+    const int64_t advance = i32(ptr);
+    if (advance == 0) { *error = -2; return -1; }
+    if (advance < 0 || advance > left) { *error = -1; return -1; }
+    ptr += advance;
+    left -= advance;
+  }
+  return -1;
+}
+
+// Sub-byte TIFF tiles side by side (rows x across * tile_row_bytes) -> the
+// image's rows (rows x ceil(width * bits / 8), zeroed by the caller): each
+// tile row's first tile_width * bits bits, the last tile's cut at the
+// image's width: utils/tiff.py, tile_bits_gather_python.
+void tile_bits_gather(const uint8_t* raw, int64_t rows, int64_t across, int64_t tile_row_bytes,
+                      int64_t tile_width, int bits, int64_t width, uint8_t* out) {
+  const int64_t out_row = (width * bits + 7) / 8, tile_bits = tile_width * bits;
+  const int64_t total = width * bits;
+  for (int64_t r = 0; r < rows; ++r) {
+    const uint8_t* in = raw + r * across * tile_row_bytes;
+    uint8_t* o = out + r * out_row;
+    for (int64_t b = 0; b < total; ++b) {
+      const int64_t t = b / tile_bits, k = b % tile_bits;
+      const int bit = in[t * tile_row_bytes + k / 8] >> (7 - k % 8) & 1;
+      o[b / 8] |= static_cast<uint8_t>(bit << (7 - b % 8));
     }
   }
 }

@@ -28,29 +28,38 @@ gives it up. Read:
 - BMP and bare DIB (``utils/bmp.py``), TIFF (``utils/tiff.py``, first page,
   every compression Pillow's libtiff reads: none, PackBits, LZW, Deflate,
   JPEG, CCITT RLE/RLEW, Group 3, Group 4, ThunderScan, LZMA, Zstandard and
-  old-style JPEG; CIELab too), PBM/PGM/PPM and Pillow's PFM, P0 and Py
-  magics (``utils/pnm.py``), TGA (``utils/tga.py``);
+  old-style JPEG; CIELab too; strips or tiles at any bit depth it reads),
+  PBM/PGM/PPM and Pillow's PFM, P0 and Py magics (``utils/pnm.py``), TGA
+  (``utils/tga.py``);
 - SGI (``utils/sgi.py``), PCX and DCX (``utils/pcx.py``), ICO and CUR
   (``utils/ico.py``), QOI (``utils/qoi.py``), XBM (``utils/xbm.py``), IM
   (``utils/im.py``), ICNS (``utils/icns.py``, PNG and JPEG 2000 members),
   BLP (``utils/blp.py``), Sun raster (``utils/sun.py``), MSP
-  (``utils/msp.py``) and SPIDER (``utils/spider.py``).
+  (``utils/msp.py``) and SPIDER (``utils/spider.py``);
+- FITS (``utils/fits.py``, PIL's little-endian reading of its samples and
+  its GZIP_1 tables), FLI/FLC (``utils/fli.py``, the first frame), FTEX
+  (``utils/ftex.py``), GIMP brushes (``utils/gbr.py``), IM Tools
+  (``utils/imt.py``), IPTC/NAA (``utils/iptc.py``, raw or JPEG), McIdas
+  areas (``utils/mcidas.py``), Kodak PhotoCD (``utils/pcd.py``, the base
+  image), PIXAR (``utils/pixar.py``), XPM (``utils/xpm.py``) and XV
+  thumbnails (``utils/xvthumb.py``).
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
-and the format, though PIL reads them: HTJ2K code-blocks, AVIF, XPM, FTEX,
-GBR, PIXAR, FLI/FLC, PCD, McIdas, IMT, FITS, XV thumbnails, IPTC/NAA, MPEG,
-EPS, WMF/EMF and the BUFR, GRIB and HDF5 stubs. What PIL itself refuses raises a ``ValueError``
-naming the file. The card machine has no PIL.
+and the format, though PIL reads them: AVIF and HTJ2K code-blocks. The
+formats Pillow 12.1.0 opens here but cannot load (the BUFR, GRIB and HDF5
+stubs and WMF/EMF, which have no loader; EPS, without Ghostscript; MPEG,
+of which it reads the header only) and whatever else PIL itself refuses
+raise a plain ``ValueError`` naming the file. The card machine has no PIL.
 """
 from __future__ import annotations
 
-import re
 from typing import Optional
 
 import numpy as np
 
-from coma_tpu_torch.utils import (blp, bmp, dds, gif_reader, icns, ico, im, jp2, jpeg, msp, pcx,
-                                  pnm, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm)
+from coma_tpu_torch.utils import (blp, bmp, dds, fits, fli, ftex, gbr, gif_reader, icns, ico, im,
+                                  imt, iptc, jp2, jpeg, mcidas, msp, pcd, pcx, pixar, pnm, psd,
+                                  qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, NotThisFormat, to_mode
 from coma_tpu_torch.utils.png import decode_png_pil
 
@@ -68,6 +77,17 @@ def _refuse(fmt: str):
     return opener
 
 
+def _pillow_refuses(fmt: str, why: str):
+    """A format Pillow 12.1.0 opens here and then refuses to load: a plain
+    ``ValueError`` naming the file, as PIL's own refusals."""
+    def opener(data: bytes, name: str) -> Decoded:
+        raise ValueError(f"{name}: {fmt}: {why} (Pillow refuses it too)")
+    return opener
+
+
+_NO_LOADER = "Pillow has only a stub of this format and no loader for it"
+
+
 def _le(data: bytes, at: int, n: int = 4) -> int:
     return int.from_bytes(data[at:at + n], "little")
 
@@ -76,101 +96,23 @@ def _be(data: bytes, at: int, n: int = 4) -> int:
     return int.from_bytes(data[at:at + n], "big")
 
 
-def _gbr(data: bytes, name: str) -> Decoded:
-    """GIMP brushes past ``GbrImageFile._open``'s checks are refused; the
-    rest are left to the next format, as PIL leaves them."""
-    version = _be(data, 4)
-    if (len(data) < 20 or not (_be(data, 8) and _be(data, 12)) or _be(data, 16) not in (1, 4)
-            or version == 2 and data[20:24] != b"GIMP"):
-        raise NotThisFormat(f"{name}: not a GIMP brush")
-    raise FormatNotRead(name, "GIMP brush (GBR)")
-
-
-def _fli(data: bytes, name: str) -> Decoded:
-    if not (data[20:22] == bytes(2) and data[42:80] == bytes(38) and data[88:128] == bytes(40)
-            and len(data) >= 128):
-        raise NotThisFormat(f"{name}: not an FLI/FLC file")
-    raise FormatNotRead(name, "FLI/FLC animation")
-
-
-def _imt(data: bytes, name: str) -> Decoded:
-    """``ImtImageFile._open``: a header of ``width``, ``height`` and ``pixel
-    n8`` lines is an IM Tools file, refused; anything else is left to the
-    next format."""
-    buffer, pos = data[:100], 100
-    if b"\n" not in buffer:
-        raise NotThisFormat(f"{name}: not an IM Tools file")
-    width = height = 0
-    mode = None
-    field = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-    while True:
-        if buffer:
-            s, buffer = buffer[:1], buffer[1:]
-        else:
-            s, pos = data[pos:pos + 1], pos + 1
-        if not s or s == b"\x0c":
-            break
-        if b"\n" not in buffer:
-            buffer += data[pos:pos + 100]
-            pos += 100
-        lines = buffer.split(b"\n")
-        s += lines.pop(0)
-        buffer = b"\n".join(lines)
-        if len(s) == 1 or len(s) > 100:
-            break
-        if s[0] == ord(b"*"):
-            continue
-        m = field.match(s)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        if k == b"width":
-            width = int(v)
-        elif k == b"height":
-            height = int(v)
-        elif k == b"pixel" and v == b"n8":
-            mode = "L"
-    if not mode or width <= 0 or height <= 0:
-        raise NotThisFormat(f"{name}: not an IM Tools file")
-    raise FormatNotRead(name, "IM Tools (IMT)")
-
-
-def _iptc(data: bytes, name: str) -> Decoded:
-    """``IptcImageFile._open``: a first field that is not an IPTC tag is
-    left to the next format; an IPTC/NAA file is refused."""
-    if data[:1] == b"\x1c" and data[1:2] and data[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-        raise FormatNotRead(name, "IPTC/NAA")
-    raise NotThisFormat(f"{name}: not an IPTC/NAA file")
-
-
-def _pixar(data: bytes, name: str) -> Decoded:
-    """``PixarImageFile._open`` opens only channels/depth (14, 2) at a size."""
-    if len(data) < 428 or (_le(data, 424, 2), _le(data, 426, 2)) != (14, 2) \
-            or not (_le(data, 416, 2) and _le(data, 418, 2)):
-        raise NotThisFormat(f"{name}: not a PIXAR file PIL opens")
-    raise FormatNotRead(name, "PIXAR")
-
-
-def _mcidas(data: bytes, name: str) -> Decoded:
-    """``McIdasImageFile._open``: 1, 2 or 4 bytes an element, at a size."""
-    if len(data) < 256 or _be(data, 40) not in (1, 2, 4) or _be(data, 32) <= 0 \
-            or _be(data, 36) <= 0:
-        raise NotThisFormat(f"{name}: not a McIdas area file PIL opens")
-    raise FormatNotRead(name, "McIdas area")
+def _mpeg(data: bytes, name: str) -> Decoded:
+    """``MpegImageFile._open``: a sequence header of a size is opened (and
+    not loaded); a short or empty one is left to the next format."""
+    if len(data) < 7 or not (_be(data, 4, 3) >> 12 and _be(data, 4, 3) & 0xFFF):
+        raise NotThisFormat(f"{name}: not an MPEG file PIL opens")
+    raise ValueError(f"{name}: MPEG: cannot load this image (Pillow opens MPEG's header only; "
+                     "Pillow refuses it too)")
 
 
 def _wmf(data: bytes, name: str) -> Decoded:
-    """``WmfStubImageFile._open``: a placeable WMF or an EMF header."""
+    """``WmfStubImageFile._open``: a placeable WMF or an EMF header is opened,
+    and PIL has no loader for it here."""
     if not (data[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" and data[22:26] == b"\x01\x00\t\x00"
             or data[:4] == b"\x01\x00\x00\x00" and data[40:44] == b" EMF"):
         raise NotThisFormat(f"{name}: not a WMF/EMF file PIL opens")
-    raise FormatNotRead(name, "WMF/EMF")
-
-
-def _pcd(data: bytes, name: str) -> Decoded:
-    if data[2048:2052] != b"PCD_":
-        raise NotThisFormat(f"{name}: not a Kodak PhotoCD file")
-    raise FormatNotRead(name, "Kodak PhotoCD (PCD)")
+    raise ValueError(f"{name}: WMF/EMF: cannot find loader for this WMF file (Pillow refuses it "
+                     "too)")
 
 
 def _avif(data: bytes) -> bool:
@@ -190,34 +132,34 @@ PLUGINS = (
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", decode_png_pil),
     ("AVIF", _avif, _refuse("AVIF")),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
-    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _refuse("BUFR (a PIL stub)")),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _pillow_refuses("BUFR", _NO_LOADER)),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", ico.decode_cur),
     ("PCX", pcx.accept, pcx.decode_pcx),
     ("DCX", lambda d: len(d) >= 4 and _le(d, 0) == pcx.DCX_MAGIC, pcx.decode_dcx),
     ("DDS", lambda d: d[:4] == b"DDS ", dds.decode_dds),
     ("EPS", lambda d: d[:4] == b"%!PS" or len(d) >= 4 and _le(d, 0) == 0xC6D3D0C5,
-     _refuse("EPS")),
-    ("FITS", lambda d: d[:6] == b"SIMPLE", _refuse("FITS")),
+     _pillow_refuses("EPS", "Pillow renders EPS through Ghostscript, which is not installed")),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", fits.decode_fits),
     ("FLI", lambda d: len(d) >= 16 and _le(d, 4, 2) in (0xAF11, 0xAF12)
-     and _le(d, 14, 2) in (0, 3), _fli),
-    ("FTEX", lambda d: d[:4] == b"FTEX", _refuse("FTEX (Freeware texture)")),
-    ("GBR", lambda d: len(d) >= 8 and _be(d, 0) >= 20 and _be(d, 4) in (1, 2), _gbr),
+     and _le(d, 14, 2) in (0, 3), fli.decode_fli),
+    ("FTEX", lambda d: d[:4] == b"FTEX", ftex.decode_ftex),
+    ("GBR", lambda d: len(d) >= 8 and _be(d, 0) >= 20 and _be(d, 4) in (1, 2), gbr.decode_gbr),
     ("GRIB", lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1,
-     _refuse("GRIB (a PIL stub)")),
-    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", _refuse("HDF5 (a PIL stub)")),
+     _pillow_refuses("GRIB", _NO_LOADER)),
+    ("HDF5", lambda d: d[:8] == b"\x89HDF\r\n\x1a\n", _pillow_refuses("HDF5", _NO_LOADER)),
     ("JPEG2000", jp2.accept, jp2.decode_jp2),
     ("ICNS", lambda d: d[:4] == b"icns", icns.decode_icns),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", ico.decode_ico),
     ("IM", None, im.decode_im),
-    ("IMT", None, _imt),
-    ("IPTC", None, _iptc),
-    ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", _mcidas),
-    ("MPEG", lambda d: d[:4] == b"\0\0\1\xb3", _refuse("MPEG")),
+    ("IMT", None, imt.decode_imt),
+    ("IPTC", None, iptc.decode_iptc),
+    ("MCIDAS", lambda d: d[:8] == mcidas.MAGIC, mcidas.decode_mcidas),
+    ("MPEG", lambda d: d[:4] == b"\0\0\1\xb3", _mpeg),
     ("TIFF", lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"),
      tiff.decode_tiff),
     ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), msp.decode_msp),
-    ("PCD", None, _pcd),
-    ("PIXAR", lambda d: d[:4] == b"\200\350\000\000", _pixar),
+    ("PCD", None, pcd.decode_pcd),
+    ("PIXAR", lambda d: d[:4] == pixar.MAGIC, pixar.decode_pixar),
     ("PSD", lambda d: d[:4] == b"8BPS", psd.decode_psd),
     ("QOI", lambda d: d[:4] == b"qoif", qoi.decode_qoi),
     ("SGI", lambda d: len(d) >= 2 and _be(d, 0, 2) == 474, sgi.decode_sgi),
@@ -228,8 +170,8 @@ PLUGINS = (
     ("WMF", lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00",
      _wmf),
     ("XBM", xbm.accept, xbm.decode_xbm),
-    ("XPM", lambda d: d[:9] == b"/* XPM */", _refuse("XPM")),
-    ("XVTHUMB", lambda d: d[:6] == b"P7 332", _refuse("XV thumbnail")),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", xpm.decode_xpm),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332", xvthumb.decode_xvthumb),
 )
 
 

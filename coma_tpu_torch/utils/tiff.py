@@ -181,7 +181,7 @@ class _Ifd:
         count = self._int(at, 8 if big else 2) if first <= len(data) else 0
         # libtiff's TIFFFetchDirectory reads every entry or none
         self.whole = 0 < count <= 4096 and first + entry * count <= len(data)
-        self.tags, self.rationals = {}, {}
+        self.tags, self.rationals, self.kinds = {}, {}, {}
         # libtiff's view of the entries: (tag, type, count) of every one
         self.entries = [(self._int(first + entry * k, 2), self._int(first + entry * k + 2, 2),
                          self._int(first + entry * k + 4, word))
@@ -210,6 +210,7 @@ class _Ifd:
                 if libtiff:
                     continue
                 break
+            self.kinds[tag] = kind
             if kind in (5, 10) and n:          # rationals: (numerator, denominator) pairs
                 pairs = np.frombuffer(data, self.order + ("u4" if kind == 5 else "i4"), 2 * n,
                                       where).reshape(n, 2).tolist()
@@ -269,6 +270,14 @@ class _Ifd:
                     (tag == 339 and any(not 1 <= v <= 6 for v in values)) or \
                     (tag == 338 and (n > spp or any(v > 2 for v in values))):
                 return f"a bad value of tag {tag} (libtiff refuses it)"
+        bits = self.get(258, (1,))[0]
+        if self.get(262, (None,))[0] == 3 and bits < 8:
+            # a ColorMap of another count than 3 * 2^bits is ignored, and a
+            # palette image below 8 bits without one is refused
+            counts = [n for tag, _, n in self.entries if tag == 320]
+            if not counts or counts[0] != 3 << bits:
+                return (f"a {bits}-bit palette image without a ColorMap of {3 << bits} values "
+                        "(libtiff refuses it)")
         return None
 
     def estimated_count(self, offset: int):
@@ -367,6 +376,7 @@ def _unpack(raw: np.ndarray, rawmode: str, width: int, order: str) -> np.ndarray
 
 
 _REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+_REVERSED_LUT = np.frombuffer(_REVERSED, np.uint8)
 
 
 def _jpeg_block(chunk: bytes, tables, photometric: int, spp: int, name: str, native,
@@ -438,6 +448,13 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
         # Pillow's raw decoder too the rows left)
         need = block_row_bytes * (bh if tile and compression != 1 else
                                   min(bh, height - by * bh))
+        if compression == 1 and tile and bits % 8:
+            piece = _raw_subbyte_tile(data, offset, bx, by, bw, bh, bits, width, height, name)
+            if fill == 2:
+                piece = _REVERSED_LUT[piece]
+            raw[by * bh:by * bh + len(piece), bx * block_row_bytes:(bx + 1) * block_row_bytes] = \
+                piece
+            continue
         if compression == 1:
             # Pillow's raw decoder reads the rows from the offset, whatever
             # the byte count says, and the file must hold them
@@ -484,9 +501,61 @@ def _assemble(data: bytes, ifd: _Ifd, offsets, counts, compression: int, fill: i
         raw[by * bh:by * bh + rows, bx * block_row_bytes:bx * block_row_bytes + cols] = piece
     if tile:
         if bits % 8:
-            raise ValueError(f"{name}: tiled TIFF below 8 bits a pixel is not read")
+            return tile_bits_gather(raw[:height], across, block_row_bytes, bw, bits, width,
+                                    native)
         raw = raw[:, :width * bits // 8]
     return np.ascontiguousarray(raw[:height, :row_bytes])
+
+
+def tile_bits_gather_python(raw: np.ndarray, across: int, tile_row_bytes: int, bw: int,
+                            bits: int, width: int) -> np.ndarray:
+    """Sub-byte tiles side by side, (rows, across * tile_row_bytes) uint8 ->
+    the image's rows, (rows, ceil(width * bits / 8)): each tile row's first
+    ``bw * bits`` bits (its pixels; the rest pads it to a byte), the last
+    column's cut at the image's width, as Pillow's unpackers place each
+    tile's pixels. The reference of ``native/codecs.tile_bits_gather``."""
+    rows = raw.shape[0]
+    tiles = np.unpackbits(raw.reshape(rows, across, tile_row_bytes), axis=2)[:, :, :bw * bits]
+    return np.packbits(tiles.reshape(rows, -1)[:, :width * bits], axis=1)
+
+
+def tile_bits_gather(raw: np.ndarray, across: int, tile_row_bytes: int, bw: int, bits: int,
+                     width: int, native=None) -> np.ndarray:
+    """:func:`tile_bits_gather_python`, or its C++ twin (``native`` None:
+    where it builds)."""
+    from coma_tpu_torch.native import codecs
+
+    if native is None:
+        native = codecs.available()
+    if not native:
+        return tile_bits_gather_python(raw, across, tile_row_bytes, bw, bits, width)
+    return codecs.tile_bits_gather(np.ascontiguousarray(raw), across, tile_row_bytes, bw, bits,
+                                   width)
+
+
+def _raw_subbyte_tile(data: bytes, offset: int, bx: int, by: int, bw: int, bh: int, bits: int,
+                      width: int, height: int, name: str) -> np.ndarray:
+    """One uncompressed tile below 8 bits a pixel as Pillow's raw decoder
+    reads it (Pillow does not hand raw tiles to libtiff): (rows, ceil(bw *
+    bits / 8)) uint8. A tile inside the image has rows of ``ceil(bw * bits /
+    8)`` bytes; one that crosses the right edge rows ``int(bw * bits / 8)``
+    bytes apart (Pillow's stride, truncated), of which each row reads the
+    bytes of its pixels inside the image (a stride shorter than that is
+    refused, as Pillow refuses it). The file must hold the last row's."""
+    cw, ch = min(bw, width - bx * bw), min(bh, height - by * bh)
+    nbytes = (cw * bits + 7) // 8
+    pitch = bw * bits // 8 if bx * bw + bw > width else nbytes
+    if pitch < nbytes:
+        raise ValueError(f"{name}: a raw TIFF tile's row stride of {pitch} bytes is shorter "
+                         f"than its {nbytes} (Pillow refuses it: bad configuration)")
+    if offset + (ch - 1) * pitch + nbytes > len(data):
+        raise ValueError(f"{name}: a TIFF strip or tile runs past the end of the file "
+                         "(truncated; Pillow refuses it)")
+    buf = np.frombuffer(data, np.uint8)
+    out = np.zeros((ch, (bw * bits + 7) // 8), np.uint8)
+    starts = offset + pitch * np.arange(ch, dtype=np.int64)
+    out[:, :nbytes] = buf[starts[:, None] + np.arange(nbytes)]
+    return out
 
 
 def _libtiff_view(data: bytes, ifd: _Ifd, name: str, compression: int, width: int,
@@ -508,8 +577,12 @@ def _libtiff_view(data: bytes, ifd: _Ifd, name: str, compression: int, width: in
         raise ValueError(f"{name}: libtiff's directory gives {lt.get(277, (1,))[0]} samples "
                          f"a pixel, Pillow's {pillow_spp} (Pillow refuses it)")
     # the strip or tile arrays, as many values as libtiff's layout has
-    tiled_lt = 322 in lt.tags                       # libtiff's TIFF_ISTILED
+    tiled_lt = 322 in lt.tags or 323 in lt.tags     # libtiff's TIFF_ISTILED
     spp_lt = lt.get(277, (1,))[0]
+    if tiled_lt and not (322 in lt.tags and 323 in lt.tags):
+        # either tag sets libtiff's tile dimensions; its tiles then fail to read
+        raise ValueError(f"{name}: a TIFF with one tile dimension of two (libtiff's tiles fail "
+                         "to read; Pillow refuses it)")
     if tiled_lt:
         tw, th = lt.get(322, (0,))[0], lt.get(323, (0,))[0]
         nstrips = -(-width // tw) * -(-height // th) if tw and th else 0
@@ -553,6 +626,10 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
     ifd = _Ifd(data, name)
     width, height = ifd.get(256, (0,))[0], ifd.get(257, (0,))[0]
     compression = ifd.get(259, (1,))[0]
+    if ifd.kinds.get(259, 3) not in _INTEGER_TYPES:
+        # Pillow's COMPRESSION_INFO has no key of a float or a rational
+        raise ValueError(f"{name}: a TIFF compression of type {ifd.kinds[259]} (Pillow cannot "
+                         "identify it)")
     if compression in _REFUSED:
         raise ValueError(f"{name}: TIFF with {_REFUSED[compression]} compression is not read "
                          "(Pillow refuses it too)")
@@ -595,6 +672,10 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
                 or (photometric, bps, ifd.order) == (0, (16,), ">"):
             raise ValueError(f"{name}: a TIFF of photometric {photometric}, bits {bps}, fill "
                              f"order {fill} has no mode in Pillow")
+        if fill == 2 and compression == 1 and rawmode in ("P;1", "P;2", "P;4"):
+            # Pillow's raw decoder has no unpacker of the reversed raw mode
+            raise ValueError(f"{name}: an uncompressed {bps[0]}-bit palette TIFF of fill order "
+                             "2 (Pillow refuses it: unknown raw mode)")
     if compression == 7 and (any(b != 8 for b in bps) or planar):
         raise ValueError(f"{name}: a JPEG TIFF of {bps} bits (planar {planar}) is not read")
     if compression in _CCITT and bps != (1,):
@@ -615,6 +696,10 @@ def decode_tiff(data: bytes, name: str = "<bytes>", native=None) -> Decoded:
         if 322 not in lt.tags or 323 not in lt.tags:
             raise ValueError(f"{name}: a tiled TIFF without its tile size")
         bw, bh = lt.get(322)[0], lt.get(323)[0]
+        if compression != 1 and bw * sum(bps) % 8:
+            # measured: Pillow's libtiff tile decoder fails on such tiles
+            raise ValueError(f"{name}: a compressed TIFF tile of {bw} pixels at {sum(bps)} bits "
+                             "fills no whole bytes a row (Pillow refuses it: decoder error -2)")
         offsets, counts = lt.get(324), lt.get(325)
     else:
         bw, bh = width, min(lt.get(278, (height,))[0], height) or height

@@ -72,7 +72,7 @@ def need_gpp():
 
 
 def test_manifest_is_small_and_covers_every_kind():
-    assert sum(e["bytes"] for e in MANIFEST["files"]) <= 1_852_000
+    assert sum(e["bytes"] for e in MANIFEST["files"]) <= 1_942_000
     kinds = " ".join(e["kind"] for e in MANIFEST["files"])
     for word in ("baseline 420", "baseline 422", "baseline 444", "q30", "q75", "q95",
                  "grayscale", "odd size", "optimize", "restart", "progressive 4:2:0",
@@ -102,12 +102,18 @@ def test_manifest_is_small_and_covers_every_kind():
                  "progression CPRL", "code-block style bypass", "code-block style vsc",
                  "POC", "4:2:0 subsampled", "ROI maxshift", "SOP and EPH", "PPM", "PPT",
                  "JP2 palette", "ICNS ic07 JPEG 2000 member", "PSD Lab", "TIFF CIELab",
-                 "big-endian", "PFM", "PyP", "PyRGBA", "PyCMYK", "P0CMYK"):
+                 "big-endian", "PFM", "PyP", "PyRGBA", "PyCMYK", "P0CMYK", "FITS BITPIX -32",
+                 "NAXIS 3", "FITS GZIP_1", "FLI BRUN", "FLC LC and SS2", "FLC BLACK and COPY",
+                 "prefix chunk", "PhotoCD", "XPM two-character keys", "XPM of 300 colours",
+                 "XPM named colour", "FTEX DXT1", "FTEX uncompressed", "GIMP brush version 1",
+                 "GIMP brush version 2", "PIXAR", "IM Tools", "McIdas area, 2 bytes",
+                 "McIdas area, 4 bytes", "XV thumbnail", "IPTC/NAA raw", "IPTC/NAA RGB",
+                 "IPTC/NAA JPEG", "TIFF tiled 1-bit", "TIFF tiled 2-bit", "TIFF tiled 4-bit"):
         assert word in kinds, word
     big = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("behave")]
     assert big == [[1536, 2048], [1536, 2048]]
     atlas = [e["shape"][:2] for e in MANIFEST["files"] if e["file"].startswith("atlas")]
-    assert atlas == [[1536, 2048]] * 16
+    assert atlas == [[1536, 2048]] * 18
     assert MANIFEST["step_video"]["decoded_shape"] == [17, 256, 512, 3]
 
 

@@ -12,8 +12,12 @@ plugin order, against Pillow 12.1.0, bit for bit, with no tolerance:
   refuses, refused naming the file;
 - PIL's conversions of the modes these readers add ("F", "I", "I;16B",
   "PA", "RGBX", "YCbCr": every YCbCr triple);
-- the formats Pillow opens and the port does not read: a ``ValueError``
-  naming the file and the format;
+- the formats Pillow reads and the port does not (AVIF, HTJ2K): a
+  ``ValueError`` naming the file and the format; those Pillow opens here
+  and cannot load (BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF): a plain
+  ``ValueError`` naming the file, Pillow refusing it too; those the port
+  once refused (FITS, FLI/FLC, FTEX, GBR, IMT, IPTC/NAA, McIdas, PhotoCD,
+  PIXAR, XPM, XV thumbnails): equal to Pillow's;
 - the order of the plugins that take any file (IM, IMT, IPTC, PCD,
   SPIDER, TGA): a TGA still a TGA, an IM or SPIDER file never one;
 - the 2048 x 1536 atlas as QOI and SGI RLE against the manifest's hashes.
@@ -41,9 +45,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data", "images")
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from make_image_fixtures import (array_sha, blp1_jpeg_file, blp2_file, dcx_file,  # noqa: E402
-                                 icns_file, icns_rgb, im_file, msp_file, pcx_file,
-                                 REFUSED_FORMATS, refused_format_files, seeded_rgb, sgi_file,
-                                 spider_file, sun_file)
+                                 icns_file, icns_rgb, im_file, msp_file, ONCE_REFUSED, pcx_file,
+                                 PILLOW_REFUSES, REFUSED_FORMATS, refused_format_files,
+                                 seeded_rgb, sgi_file, spider_file, sun_file)
 
 MODES = (None, "RGB", "L")
 REFUSALS = (OSError, SyntaxError, ValueError, NotImplementedError, IndexError, KeyError,
@@ -526,7 +530,7 @@ def refused_files() -> dict:
 
 @pytest.mark.parametrize("word", sorted(REFUSED_FORMATS))
 def test_formats_pillow_opens_are_refused_naming_the_format(tmp_path, word):
-    """Pillow opens these files; the port says which file and which format
+    """Pillow reads these files; the port says which file and which format
     it does not read, and never "not an image file"."""
     ext, data = refused_files()[word]
     path = tmp_path / f"refused.{ext}"
@@ -538,18 +542,45 @@ def test_formats_pillow_opens_are_refused_naming_the_format(tmp_path, word):
     assert word in err.value.format
 
 
+@pytest.mark.parametrize("word", PILLOW_REFUSES)
+def test_formats_pillow_cannot_load_are_refused_naming_the_file(tmp_path, word):
+    """Pillow opens these files on this host and then refuses to load them
+    (no loader, no Ghostscript, an MPEG header only); the port raises a
+    plain ``ValueError`` naming the file, not ``FormatNotRead``."""
+    ext, data = refused_files()[word]
+    path = tmp_path / f"stub.{ext}"
+    path.write_bytes(data)
+    with Image.open(path) as image:
+        assert image.size[0] > 0
+        with pytest.raises(OSError):
+            image.load()
+    with pytest.raises(ValueError, match=rf"stub\.{ext}") as err:
+        read_image(str(path), "RGB")
+    assert not isinstance(err.value, FormatNotRead)
+
+
+@pytest.mark.parametrize("word", ONCE_REFUSED)
+def test_formats_once_refused_equal_pillow(tmp_path, word):
+    """The files of the formats the port refused before it read them: every
+    mode equal to Pillow's."""
+    ext, data = refused_files()[word]
+    check(tmp_path, data, f"once_refused.{ext}")
+    with Image.open(tmp_path / f"once_refused.{ext}") as image:
+        image.load()                        # Pillow reads it: not a refusal in disguise
+
+
 def test_mesh_warning_names_the_refused_format(tmp_path, capsys):
-    """An OBJ whose texture is an XPM (PIL reads it, the port does not)
+    """An OBJ whose texture is an AVIF (PIL reads it, the port does not)
     keeps its Kd colour, and the warning names the format."""
     from coma_tpu_torch.geometry.mesh import load_obj_textured
 
-    (tmp_path / "t.xpm").write_bytes(refused_files()["XPM"][1])
-    (tmp_path / "m.mtl").write_text("newmtl m\nKd 0.1 0.9 0.2\nmap_Kd t.xpm\n")
+    (tmp_path / "t.avif").write_bytes(refused_files()["AVIF"][1])
+    (tmp_path / "m.mtl").write_text("newmtl m\nKd 0.1 0.9 0.2\nmap_Kd t.avif\n")
     (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
                                     "usemtl m\nf 1/1 2/1 3/1\n")
     mesh = load_obj_textured(str(tmp_path / "a.obj"), tex_size=4)
     np.testing.assert_allclose(mesh.textures[1], np.broadcast_to([0.1, 0.9, 0.2], (4, 4, 3)))
-    assert "t.xpm (XPM) not decoded" in capsys.readouterr().out
+    assert "t.avif (AVIF) not decoded" in capsys.readouterr().out
 
 
 def test_unidentified_bytes_refused_as_pillow_refuses(tmp_path):

@@ -3,7 +3,8 @@
 Pillow on the results.
 
     python3 tools/fuzz_image_readers.py [--seed 0] [--trials 20] [--jpeg-scan 300]
-                                        [--formats jpg,gif,tif,webp,blp,ccitt,zstd,jp2,lab]
+                                        [--formats jpg,gif,tif,webp,blp,ccitt,zstd,jp2,lab,
+                                                   rare,subbyte_tiles]
 
 Needs Pillow (the CPU test host has it). Each small fixture of
 ``tests/data/images/`` (its manifest's files under 64 kB, not the gzipped
@@ -13,8 +14,12 @@ headers are), the file cut at a random length, or a byte inserted or
 dropped. ``--formats`` keeps the fixtures with those extensions, or the
 TIFF fixtures of those compressions (``ccitt``, ``thunderscan``, ``lzma``,
 ``zstd``, ``ojpeg``; see :data:`TIFF_CODECS`), or, for ``lab``, the fixtures
-Pillow opens as "LAB" (PSD and CIELab TIFF). Pillow opens
-and loads each result from memory and converts it to modes None, RGB and L;
+Pillow opens as "LAB" (PSD and CIELab TIFF), for ``rare`` those of
+:data:`RARE` (FITS, FLI/FLC, XPM, FTEX, GBR, PIXAR, IMT, McIdas, XV
+thumbnails, IPTC/NAA; the PhotoCD fixture is stored gzipped and left out),
+for ``subbyte_tiles`` the tiled TIFFs below 8 bits a pixel. Pillow opens
+and loads each result from a file, as ``read_image``'s paths are opened (so
+Pillow memory-maps what it maps), and converts it to modes None, RGB and L;
 ``utils/image_io.decode_image`` and ``utils/modes.to_mode`` do the same (a
 conversion both refuse, as "LAB" to "L", agrees).
 Every outcome falls in one of: equal arrays, both refuse, different arrays,
@@ -47,14 +52,25 @@ AGREE = ("equal", "both refuse")
 # --formats names for the TIFF compressions: their tag values
 TIFF_CODECS = {"ccitt": (2, 3, 4, 32771), "thunderscan": (32809,), "lzma": (34925,),
                "zstd": (50000,), "ojpeg": (6,)}
+# --formats rare: the extensions of the formats read through PIL's smaller plugins
+RARE = (".fits", ".fli", ".flc", ".xpm", ".ftc", ".ftu", ".gbr", ".pxr", ".imt", ".area", ".xv",
+        ".iptc")
+_SCRATCH = {}
 
 
 def pillow(data: bytes):
     """Pillow's three arrays, "big", or its refusal's message (a str)."""
+    import tempfile
+
     from PIL import Image
 
+    if "path" not in _SCRATCH:
+        fd, _SCRATCH["path"] = tempfile.mkstemp(prefix="fuzzed_")
+        os.close(fd)
+    with open(_SCRATCH["path"], "wb") as fh:
+        fh.write(data)
     try:
-        with Image.open(io.BytesIO(data)) as im:
+        with Image.open(_SCRATCH["path"]) as im:
             if im.size[0] * im.size[1] > 4_000_000:
                 return "big"
             im.load()
@@ -122,6 +138,18 @@ def tiff_compression(name: str) -> int:
             return 0
 
 
+def subbyte_tiles(name: str) -> bool:
+    """Whether a TIFF fixture is tiled below 8 bits a pixel."""
+    from coma_tpu_torch.utils.tiff import _Ifd
+
+    with open(os.path.join(FIXTURES, name), "rb") as fh:
+        try:
+            ifd = _Ifd(fh.read(), name)
+        except ValueError:
+            return False
+    return 322 in ifd.tags and sum(ifd.get(258, (1,))) < 8
+
+
 def damage(data: bytes, rng) -> bytes:
     b = bytearray(data)
     kind = rng.integers(0, 3)
@@ -144,8 +172,8 @@ def main() -> int:
     parser.add_argument("--jpeg-scan", type=int, default=0)
     parser.add_argument("--formats", default="",
                         help="comma-separated extensions, TIFF compressions (ccitt, "
-                        "thunderscan, lzma, zstd, ojpeg) or lab, to keep (default: every "
-                        "fixture)")
+                        "thunderscan, lzma, zstd, ojpeg), lab, rare or subbyte_tiles, to keep "
+                        "(default: every fixture)")
     args = parser.parse_args()
     resource.setrlimit(resource.RLIMIT_AS, (6 << 30, 6 << 30))
     warnings.simplefilter("ignore")
@@ -155,7 +183,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     rng = np.random.default_rng(args.seed)
     names = [e.strip(".").lower() for e in args.formats.split(",") if e.strip()]
-    keep = {"." + e for e in names if e not in TIFF_CODECS and e != "lab"}
+    keep = {"." + e for e in names if e not in TIFF_CODECS and e not in ("lab", "rare",
+                                                                        "subbyte_tiles")}
+    if "rare" in names:
+        keep.update(RARE)
     codecs = {c for e in names for c in TIFF_CODECS.get(e, ())}
     with open(os.path.join(FIXTURES, "manifest.json")) as fh:
         entries = [e for e in json.load(fh)["files"] if "stored" not in e and e["bytes"] < 64_000]
@@ -163,7 +194,8 @@ def main() -> int:
     files = [e["file"] for e in entries]
     if names:
         files = [f for f in files if os.path.splitext(f)[1].lower() in keep or f in lab
-                 or (codecs and f.endswith(".tif") and tiff_compression(f) in codecs)]
+                 or (codecs and f.endswith(".tif") and tiff_compression(f) in codecs)
+                 or ("subbyte_tiles" in names and f.endswith(".tif") and subbyte_tiles(f))]
     counts, classes, examples = collections.Counter(), collections.Counter(), {}
     for name in files:
         with open(os.path.join(FIXTURES, name), "rb") as fh:
@@ -207,6 +239,8 @@ def main() -> int:
             print(f"  {result}: {n}  [{message or '-'}]")
         diverged += sum(scan_classes.values())
     print(f"divergences: {diverged}")
+    if "path" in _SCRATCH:
+        os.remove(_SCRATCH["path"])
     return 1 if diverged else 0
 
 

@@ -1283,20 +1283,361 @@ def im_file(lines: list, body: bytes, lut: bytes = b"") -> bytes:
     return head + b"\0" * (511 - len(head)) + b"\x1a" + lut + body
 
 
-# the formats Pillow 12.1.0 opens on this host and the port names when it refuses them
-REFUSED_FORMATS = ("AVIF", "BUFR (a PIL stub)", "EPS", "FITS", "FLI/FLC animation",
-                   "FTEX (Freeware texture)", "GIMP brush (GBR)", "GRIB (a PIL stub)",
-                   "HDF5 (a PIL stub)", "HTJ2K (JPEG 2000 Part 15)", "IM Tools (IMT)",
-                   "IPTC/NAA", "McIdas area", "MPEG", "Kodak PhotoCD (PCD)", "PIXAR", "WMF/EMF",
-                   "XPM", "XV thumbnail")
+# --- the formats Pillow opens through its smaller plugins (FITS, FLI/FLC,
+# PhotoCD, XPM, FTEX, GBR, PIXAR, IMT, McIdas, XV thumbnails, IPTC/NAA) ---
+
+def fits_card(text: str) -> bytes:
+    return text.ljust(80).encode()
+
+
+def fits_header(cards: list) -> bytes:
+    """FITS header cards (``(keyword, value)`` or a whole card) and END,
+    padded with spaces to 2880 bytes."""
+    out = b"".join(fits_card(c if isinstance(c, str) else f"{c[0]:<8}= {c[1]:>20}")
+                   for c in cards)
+    return (out + fits_card("END")).ljust(-(-(len(out) + 80) // 2880) * 2880, b" ")
+
+
+def fits_file(image: np.ndarray, bitpix: int, planes: int = 0, extension: bool = False) -> bytes:
+    """A FITS file of ``image`` ((H, W), stored big-endian as the standard
+    says, first row first) at ``bitpix`` (8, 16, 32, -32, -64); ``planes``
+    makes it a cube of that many copies (NAXIS 3), ``extension`` puts the
+    image in an IMAGE extension after an empty primary unit."""
+    dtype = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    h, w = image.shape
+    cards = [("BITPIX", bitpix), ("NAXIS", 3 if planes else 2), ("NAXIS1", w), ("NAXIS2", h)]
+    if planes:
+        cards.append(("NAXIS3", planes))
+    body = np.ascontiguousarray(np.repeat(image[None], max(planes, 1), 0).astype(dtype)).tobytes()
+    body = body.ljust(-(-len(body) // 2880) * 2880, b"\0")
+    if extension:
+        return (fits_header([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", "T")])
+                + fits_header([("XTENSION", "'IMAGE   '")] + cards) + body)
+    return fits_header([("SIMPLE", "T")] + cards) + body
+
+
+def fits_gzip_file(values: np.ndarray, zbitpix: int) -> bytes:
+    """A FITS binary table of a GZIP_1-compressed image as Pillow's
+    ``FitsGzipDecoder`` reads it: (H, W) ``values`` as 4-byte big-endian
+    groups, the first row first, gzip-compressed after a one-row table."""
+    h, w = values.shape
+    stream = gzip.compress(values.astype(">i4").tobytes(), 9, mtime=0)
+    cards = [("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2), ("NAXIS1", 8),
+             ("NAXIS2", 1), ("PCOUNT", len(stream)), ("GCOUNT", 1), ("TFIELDS", 1),
+             ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", zbitpix), ("ZNAXIS", 2),
+             ("ZNAXIS1", w), ("ZNAXIS2", h)]
+    body = (struct.pack(">ii", len(stream), 0) + stream).ljust(
+        -(-(8 + len(stream)) // 2880) * 2880, b"\0")
+    return (fits_header([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0), ("EXTEND", "T")])
+            + fits_header(cards) + body)
+
+
+def fli_brun(idx: np.ndarray) -> bytes:
+    """FLI BRUN (15) rows: a packet count byte, then runs (a count below 128
+    and a byte) and literals (a negative count and its bytes)."""
+    out = bytearray()
+    for row in idx:
+        packets, line, i = bytearray(), row.tobytes(), 0
+        count = 0
+        while i < len(line):
+            j = i
+            while j < len(line) and j - i < 127 and line[j] == line[i]:
+                j += 1
+            if j - i >= 3:
+                packets += bytes([j - i, line[i]])
+            else:
+                j = i + 1
+                while j < len(line) and j - i < 128 and line[j:j + 3] != line[j:j + 1] * 3:
+                    j += 1
+                packets += bytes([256 - (j - i)]) + line[i:j]
+            count += 1
+            i = j
+        out += bytes([count & 255]) + packets
+    return bytes(out)
+
+
+def fli_lc(idx: np.ndarray, first: int = 0) -> bytes:
+    """FLI LC (12) byte deltas over a zero image from row ``first``: per row
+    a packet count, then (skip, count, bytes) literals and (skip, -count,
+    byte) runs, zeros skipped."""
+    rows = idx[first:]
+    out = bytearray(struct.pack("<HH", first, len(rows)))
+    for row in rows:
+        packets, x, n = bytearray(), 0, 0
+        while x < len(row):
+            skip = 0
+            while x < len(row) and row[x] == 0 and skip < 255:
+                x, skip = x + 1, skip + 1
+            if x >= len(row):
+                break
+            j = x
+            while j < len(row) and j - x < 127 and row[j] == row[x]:
+                j += 1
+            if j - x >= 3:
+                packets += bytes([skip, 256 - (j - x), row[x]])
+            else:
+                j = min(x + 1, len(row))
+                while j < len(row) and j - x < 127 and row[j] != 0:
+                    j += 1
+                packets += bytes([skip, j - x]) + row[x:j].tobytes()
+            n += 1
+            x = j
+        out += bytes([n]) + packets
+    return bytes(out)
+
+
+def fli_ss2(idx: np.ndarray, skip_first: int = 0) -> bytes:
+    """FLC SS2 (7) word deltas over a zero image: per line a packet count
+    word (after a line-skip word for the first line, and a last-byte word
+    on an odd width), then (skip, count, words) literals and (skip,
+    -count, word) runs."""
+    h, w = idx.shape
+    even = w - w % 2
+    lines = bytearray()
+    n = 0
+    for y in range(skip_first, h):
+        row = idx[y]
+        words = bytearray()
+        if y == skip_first and skip_first:
+            words += struct.pack("<H", 65536 - skip_first)
+        if w % 2:
+            words += struct.pack("<H", 0x8000 | int(row[-1]))
+        packets, x, count = bytearray(), 0, 0
+        while x < even:
+            j = x
+            while j + 2 <= even and j - x < 2 * 127 and row[j] == row[x] and \
+                    row[j + 1] == row[x + 1]:
+                j += 2
+            if j - x >= 6:
+                packets += bytes([0, 256 - (j - x) // 2, row[x], row[x + 1]])
+            else:
+                j = min(x + 2 * 127, even)
+                packets += bytes([0, (j - x) // 2]) + row[x:j].tobytes()
+            count += 1
+            x = j
+        lines += words + struct.pack("<H", count) + packets
+        n += 1
+    return struct.pack("<H", n) + bytes(lines)
+
+
+def fli_color(palette: np.ndarray, kind: int = 4, skip: int = 0) -> bytes:
+    """A COLOR256 (4) or COLOR (11, 6-bit values) chunk of one packet."""
+    values = palette if kind == 4 else palette >> 2
+    count = len(values)
+    return struct.pack("<H", 1) + bytes([skip, count & 255]) + values.astype(np.uint8).tobytes()
+
+
+def fli_file(subchunks: list, width: int, height: int, flc: bool = True, frames: int = 1,
+             prefix: bytes = b"", more_frames: int = 0) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file whose first frame holds
+    ``subchunks`` ((type, body) pairs), after an optional prefix chunk
+    (0xF100 of ``prefix``), then ``more_frames`` empty frames."""
+    def chunk(kind: int, body: bytes) -> bytes:
+        body = body + (b"\0" if len(body) % 2 else b"")
+        return struct.pack("<IH", 6 + len(body), kind) + body
+
+    def frame(parts: list) -> bytes:
+        body = b"".join(chunk(k, b) for k, b in parts)
+        return struct.pack("<IHH", 16 + len(body), 0xF1FA, len(parts)) + bytes(8) + body
+
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 0, 0xAF12 if flc else 0xAF11, frames, width, height,
+                     8, 0, 5)
+    pre = struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix if prefix else b""
+    out = bytes(head) + pre + frame(subchunks) + b"".join(frame([]) for _ in range(more_frames))
+    return out[:0] + struct.pack("<I", len(out)) + out[4:]
+
+
+def pcd_file(ycc: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file of (512, 768, 3) PhotoYCC samples: ``PCD_`` at 2048,
+    the orientation at 3586, the base image at sector 96 in pairs of rows
+    (Y, Y, C1 and C2 of the pair's 2 x 2 blocks, their top-left samples)."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    pairs = []
+    for y in range(0, 512, 2):
+        pairs.append(ycc[y, :, 0].tobytes() + ycc[y + 1, :, 0].tobytes()
+                     + ycc[y, ::2, 1].tobytes() + ycc[y, ::2, 2].tobytes())
+    return bytes(head) + b"".join(pairs)
+
+
+def xpm_file(idx: np.ndarray, colours: list, bpp: int = 1, keys=None, pixels_line=False,
+             rows=None) -> bytes:
+    """An XPM of ``idx`` over ``colours`` (``#rrggbb`` strings, "None" or a
+    name), keys of ``bpp`` characters; ``rows`` overrides the pixel lines."""
+    alphabet = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789.+@#$%&*="
+    if keys is None:
+        keys = ["".join(alphabet[(k // len(alphabet) ** i) % len(alphabet)] for i in range(bpp))
+                for k in range(len(colours))]
+    h, w = idx.shape
+    lines = ["/* XPM */", "static char *seed[] = {", "/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {len(colours)} {bpp}",']
+    lines += [f'"{k} c {c}",' for k, c in zip(keys, colours)]
+    if pixels_line:
+        lines.append("/* pixels */")
+    if rows is None:
+        rows = ["".join(keys[v] for v in row) for row in idx]
+    lines += [f'"{r}",' for r in rows[:-1]] + [f'"{rows[-1]}"', "};"]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def gbr_file(pixels: np.ndarray, version: int = 2, comment: bytes = b"seed") -> bytes:
+    """A GIMP brush of (H, W) gray or (H, W, 4) RGBA pixels."""
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else 4
+    body = comment + b"\0"
+    if version == 1:
+        return struct.pack(">5I", 20 + len(body), 1, w, h, depth) + body + pixels.tobytes()
+    return (struct.pack(">5I", 28 + len(body), 2, w, h, depth) + b"GIMP"
+            + struct.pack(">I", 10) + body + pixels.tobytes())
+
+
+def pixar_file(rgb: np.ndarray) -> bytes:
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HHxxxxHH", head, 416, rgb.shape[0], rgb.shape[1], 14, 2)
+    return bytes(head) + rgb.tobytes()
+
+
+def imt_file(gray: np.ndarray, comment: bool = True) -> bytes:
+    head = (b"* seeded\n" if comment else b"") + b"width %d\nheight %d\npixel n8\n" % (
+        gray.shape[1], gray.shape[0])
+    return head + b"\x0c" + gray.tobytes()
+
+
+def mcidas_file(values: np.ndarray, nbytes: int, prefix: int = 0, bands: int = 1,
+                offset: int = 256) -> bytes:
+    """A McIdas area of (H, W) ``values`` at ``nbytes`` a value (big-endian),
+    each row behind ``prefix`` bytes of its own, ``bands`` bands a row (the
+    first the image)."""
+    h, w = values.shape
+    words = [0] * 64                    # PIL's w[k] is words[k - 1]
+    words[1], words[8], words[9], words[10], words[13], words[14], words[33] = \
+        4, h, w, nbytes, bands, prefix, offset
+    dtype = {1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]
+    rows = []
+    for row in values.astype(dtype):
+        rows.append(bytes(prefix) + row.tobytes() + bytes(row.nbytes * max(bands - 1, 0)))
+    return struct.pack(">64i", *words).ljust(offset, b"\0") + b"".join(rows)
+
+
+def xv_file(idx: np.ndarray) -> bytes:
+    return (b"P7 332\n#XVVERSION:Version 2.28\n#IMGINFO:seeded\n#END_OF_COMMENTS\n"
+            + b"%d %d 255\n" % (idx.shape[1], idx.shape[0]) + idx.tobytes())
+
+
+def iptc_field(record: int, dataset: int, value: bytes) -> bytes:
+    if len(value) < 0x8000:
+        return b"\x1c" + bytes([record, dataset]) + struct.pack(">H", len(value)) + value
+    return b"\x1c" + bytes([record, dataset]) + b"\x80\x04" + struct.pack(">I", len(value)) + value
+
+
+def iptc_file(width: int, height: int, data: bytes, layers: int = 1, component: int = 0,
+              compression: int = 1, band: int = 0, split: int = 0) -> bytes:
+    """An IPTC/NAA file: (3, 60) layers and component, the size, the
+    compression, (3, 65) ``band`` where given, then the data in (8, 10)
+    fields (``split`` bytes each where given)."""
+    fields = [iptc_field(2, 0, b"\x00\x04"), iptc_field(3, 60, bytes([layers, component])),
+              iptc_field(3, 20, struct.pack(">H", width)),
+              iptc_field(3, 30, struct.pack(">H", height)),
+              iptc_field(3, 120, bytes([compression]))]
+    if band:
+        fields.append(iptc_field(3, 65, bytes([band])))
+    step = split or len(data) or 1
+    fields += [iptc_field(8, 10, data[k:k + step]) for k in range(0, len(data), step)]
+    return b"".join(fields)
+
+
+def ftex_file(width: int, height: int, fmt: int, body: bytes) -> bytes:
+    """An FTEX of one format (0 DXT1, 1 raw RGB) and one mipmap."""
+    return b"FTEX" + struct.pack("<7i", 0, width, height, 1, 1, fmt, 32) + \
+        struct.pack("<i", len(body)) + body
+
+
+def lzw_tiff(raw: bytes) -> bytes:
+    """TIFF LZW as libtiff's encoder writes it: a clear code first, codes
+    most significant bit first, the width growing when the next entry
+    passes its largest code, a clear at 4094 entries, an end code."""
+    bits, nbits = [], 9
+
+    def put(code: int):
+        bits.extend((code >> (nbits - 1 - k)) & 1 for k in range(nbits))
+
+    put(256)
+    table, free, w = {bytes([i]): i for i in range(256)}, 258, b""
+    for c in raw:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        w = bytes([c])
+        table[wc] = free
+        free += 1
+        if free == 4094:
+            put(256)
+            table, free, nbits = {bytes([i]): i for i in range(256)}, 258, 9
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+    if w:
+        put(table[w])
+        free += 1
+        if free > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+    put(257)
+    bits.extend([0] * (-len(bits) % 8))
+    return np.packbits(np.array(bits, np.uint8)).tobytes()
+
+
+def subbyte_tiled_tiff(levels: np.ndarray, bits: int, tile: tuple, compression: int = 1,
+                       photometric: int = 1, colormap=None, fill_order: int = 1) -> bytes:
+    """A tiled TIFF of (H, W) ``levels`` at 1, 2 or 4 bits a pixel, each
+    tile's rows packed most significant bits first and padded to a byte,
+    uncompressed (1), LZW (5) or PackBits (32773); ``fill_order`` 2
+    reverses every stored byte's bits."""
+    h, w = levels.shape
+    tw, th = tile
+    row = (tw * bits + 7) // 8
+    chunks = []
+    for ty in range(0, h, th):
+        for tx in range(0, w, tw):
+            block = np.zeros((th, tw), np.uint8)
+            part = levels[ty:ty + th, tx:tx + tw]
+            block[:part.shape[0], :part.shape[1]] = part
+            planes = np.unpackbits(block[..., None], axis=2)[..., 8 - bits:]
+            packed = np.packbits(planes.reshape(th, -1), axis=1)[:, :row]
+            raw = packed.tobytes()
+            if fill_order == 2:
+                raw = raw.translate(bytes(int(f"{b:08b}"[::-1], 2) for b in range(256)))
+            if compression == 5:
+                raw = lzw_tiff(raw)
+            elif compression == 32773:
+                raw = _packbits(raw, row)
+            chunks.append(raw)
+    return tiff_file(np.zeros((h, (w * bits + 7) // 8), np.uint8), (bits,), photometric,
+                     compression=compression, tile=tile, colormap=colormap, width=w,
+                     fill_order=fill_order, chunks=chunks)
+
+
+# the formats Pillow 12.1.0 reads and the port refuses, naming the format
+REFUSED_FORMATS = ("AVIF", "HTJ2K (JPEG 2000 Part 15)")
+# the formats Pillow 12.1.0 opens on this host and then refuses to load (stubs
+# without a loader, EPS without Ghostscript, MPEG's header only)
+PILLOW_REFUSES = ("BUFR", "EPS", "GRIB", "HDF5", "MPEG", "WMF/EMF")
+# the formats the port refused before it read them as Pillow does
+ONCE_REFUSED = ("FITS", "FLI/FLC", "FTEX", "GBR", "IMT", "IPTC/NAA", "McIdas", "PCD", "PIXAR",
+                "XPM", "XV thumbnail")
 
 
 def refused_format_files() -> dict:
     """Seeded files of every format Pillow 12.1.0 opens on this host that the
-    port does not read: {the format as the port's refusal names it: (file
-    extension, bytes)}. Pillow writes the AVIF and EPS ones and the
-    codestream whose COD marks its code-blocks HTJ2K; the rest are the
-    smallest headers (and data) Pillow's plugins open."""
+    port refused at first: {the format (a refusal's word for those of
+    :data:`REFUSED_FORMATS`): (file extension, bytes)}, in the order of
+    :data:`REFUSED_FORMATS`, :data:`PILLOW_REFUSES` and :data:`ONCE_REFUSED`.
+    Pillow writes the AVIF and EPS ones and the codestream whose COD marks
+    its code-blocks HTJ2K; the rest are the smallest whole files Pillow's
+    plugins open."""
     from PIL import Image
 
     def pil(image, fmt, **kw):
@@ -1307,54 +1648,33 @@ def refused_format_files() -> dict:
     rgb = Image.fromarray(seeded_rgb((16, 16), 190))
     gray = np.asarray(rgb.convert("L"))
     htj2k = with_cblk_style(pil(rgb, "JPEG2000", no_jp2=True), 0x40)
-
-    def card(text: str) -> bytes:
-        return text.ljust(80).encode()
-
-    fits = (card("SIMPLE  =                    T") + card("BITPIX  =                    8")
-            + card("NAXIS   =                    2") + card("NAXIS1  =                   16")
-            + card("NAXIS2  =                   16") + card("END")).ljust(2880, b" ")
-    fli = bytearray(128)
-    struct.pack_into("<IHHHHHHI", fli, 0, 128 + 16 * 16, 0xAF11, 1, 16, 16, 8, 0, 5)
-    gbr = struct.pack(">7I", 28 + 5, 2, 16, 16, 1, 0x47494D50, 10) + b"seed\0" + gray.tobytes()
-    iptc = b"".join(b"\x1c\x03" + bytes([tag]) + struct.pack(">H", len(v)) + v
-                    for tag, v in ((60, b"\x01\x00"), (20, b"\x00\x10"), (30, b"\x00\x10"),
-                                   (120, b"\x01"))) + b"\x1c\x08\x0a\x01\x00" + gray.tobytes()
-    words = [0] * 64                    # PIL's w[k] is words[k - 1]
-    words[1], words[8], words[9], words[10], words[13], words[33] = 4, 16, 16, 1, 1, 256
-    mcidas = struct.pack(">64i", *words) + gray.tobytes()
-    pixar = bytearray(1024)
-    pixar[:4] = b"\200\350\000\000"
-    struct.pack_into("<HHxxxxHH", pixar, 416, 16, 16, 14, 2)
     wmf = bytearray(b"\xd7\xcd\xc6\x9a\x00\x00") + struct.pack("<hhhhHIH", 0, 0, 160, 160, 1440,
                                                                0, 0)
     wmf += b"\x01\x00\x09\x00" + bytes(60)
-    ftex = b"FTEX" + struct.pack("<7i", 0, 16, 16, 1, 1, 0, 36) + struct.pack("<i", 768) + \
-        np.asarray(rgb).tobytes()
+    ycc = np.repeat(np.repeat(seeded_rgb((16, 24), 191), 32, 0), 32, 1)
     files = {
         "AVIF": ("avif", pil(rgb, "AVIF")),
-        "BUFR (a PIL stub)": ("bufr", b"BUFR" + bytes(60)),
-        "EPS": ("eps", pil(rgb, "EPS")),
-        "FITS": ("fits", fits + gray.tobytes().ljust(2880, b"\0")),
-        "FLI/FLC animation": ("fli", bytes(fli) + bytes(16 * 16)),
-        "FTEX (Freeware texture)": ("ftc", ftex),
-        "GIMP brush (GBR)": ("gbr", gbr),
-        "GRIB (a PIL stub)": ("grib", b"GRIB\0\0\0\x01" + bytes(60)),
-        "HDF5 (a PIL stub)": ("h5", b"\x89HDF\r\n\x1a\n" + bytes(60)),
         "HTJ2K (JPEG 2000 Part 15)": ("j2k", htj2k),
-        "IM Tools (IMT)": ("imt", b"width 16\nheight 16\npixel n8\n\x0c" + gray.tobytes()),
-        "IPTC/NAA": ("iptc", iptc),
-        "McIdas area": ("area", mcidas),
+        "BUFR": ("bufr", b"BUFR" + bytes(60)),
+        "EPS": ("eps", pil(rgb, "EPS")),
+        "GRIB": ("grib", b"GRIB\0\0\0\x01" + bytes(60)),
+        "HDF5": ("h5", b"\x89HDF\r\n\x1a\n" + bytes(60)),
         "MPEG": ("mpg", b"\0\0\1\xb3\x01\x00\x10" + bytes(40)),
-        "Kodak PhotoCD (PCD)": ("pcd", bytes(2048) + b"PCD_" + bytes(1535)),
-        "PIXAR": ("pxr", bytes(pixar) + np.asarray(rgb).tobytes()),
         "WMF/EMF": ("wmf", bytes(wmf)),
+        "FITS": ("fits", fits_file(gray, 8)),
+        "FLI/FLC": ("fli", fli_file([(16, gray.tobytes())], 16, 16, flc=False)),
+        "FTEX": ("ftc", ftex_file(16, 16, 1, np.asarray(rgb).tobytes())),
+        "GBR": ("gbr", gbr_file(gray)),
+        "IMT": ("imt", imt_file(gray, comment=False)),
+        "IPTC/NAA": ("iptc", iptc_file(16, 16, gray.tobytes())),
+        "McIdas": ("area", mcidas_file(gray, 1)),
+        "PCD": ("pcd", pcd_file(ycc)),
+        "PIXAR": ("pxr", pixar_file(np.asarray(rgb))),
         "XPM": ("xpm", b'/* XPM */\nstatic char *seed[] = {\n"4 2 2 1",\n"a c #FF0000",\n'
                        b'"b c #00FF00",\n"abab",\n"baba"\n};\n'),
-        "XV thumbnail": ("xv", b"P7 332\n#XVVERSION:Version 2.28\n#END_OF_COMMENTS\n16 16 255\n"
-                               + gray.tobytes()),
+        "XV thumbnail": ("xv", xv_file(gray)),
     }
-    assert tuple(files) == REFUSED_FORMATS
+    assert tuple(files) == REFUSED_FORMATS + PILLOW_REFUSES + ONCE_REFUSED
     return files
 
 
@@ -1414,6 +1734,7 @@ def fixtures() -> dict:
     out.update(tiff_codec_formats())
     out.update(jpeg2000_formats())
     out.update(lab_and_pnm_formats())
+    out.update(rare_formats())
     return out
 
 
@@ -2612,6 +2933,134 @@ def small_formats() -> dict:
     return out
 
 
+def rare_formats() -> dict:
+    """FITS (every storage PIL reads, a GZIP_1 table), FLI and FLC (each
+    chunk kind, a prefix chunk Pillow refuses), a PhotoCD base image, XPM
+    (two-character keys with a transparent key, over 256 colours, a named
+    colour refused), FTEX (DXT1 and raw), GIMP brushes, PIXAR, IM Tools,
+    McIdas areas, an XV thumbnail, IPTC/NAA (raw, banded, JPEG) and tiled
+    TIFFs at 1, 2 and 4 bits; the chair's textures in eleven of them; the
+    2048 x 1536 atlas as an FLC (stored gzip-compressed) and a gzip FITS."""
+    from PIL import Image
+
+    rng = np.random.default_rng(80)
+    rgb = seeded_rgb((12, 20), 81, noise=6) // 32 * 32
+    gray = rgb[..., 1]
+    idx = (gray // 16).astype(np.uint8)
+    palette = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    tex = seeded_rgb((24, 24), 82, noise=2) // 32 * 32
+    tex_p = Image.fromarray(tex).quantize(16)
+    tex_idx = np.asarray(tex_p)
+    tex_pal = np.asarray(tex_p.getpalette()[:48], np.uint8).reshape(16, 3)
+    buf = io.BytesIO()
+    Image.fromarray(gray).save(buf, "JPEG", quality=85)
+    gray_jpeg = buf.getvalue()
+    ycc = np.zeros((512, 768, 3), np.uint8)
+    yy, xx = np.mgrid[:512, :768]
+    ycc[..., 0] = (40 + 150 * xx / 768 + 30 * np.sin(yy / 40)) // 8 * 8
+    ycc[..., 1] = (156 + 40 * np.cos(xx / 90)) // 8 * 8
+    ycc[..., 2] = (137 + 50 * np.sin(yy / 70)) // 8 * 8
+    colours = [f"#{r:02X}{g:02X}{b:02X}" for r, g, b in palette[:6]] + ["None"]
+    many = [f"#{v:06x}" for v in rng.integers(0, 1 << 24, 300)]
+    levels = {b: (gray >> (8 - b)).astype(np.uint8) for b in (1, 2, 4)}
+    out = {
+        "fits_f32.fits": ("FITS BITPIX -32 (PIL's little-endian read)",
+                          fits_file(gray.astype(np.float32) * 1.7 - 30, -32)),
+        "fits_i16_cube.fits": ("FITS BITPIX 16, NAXIS 3, in an IMAGE extension",
+                               fits_file(gray.astype(np.int64) * 97 - 500, 16, planes=2,
+                                         extension=True)),
+        "fits_gzip_l.fits": ("FITS GZIP_1 binary table, BITPIX 8", fits_gzip_file(gray, 8)),
+        "fli_brun_color.fli": ("FLI BRUN with a COLOR (6-bit) palette", fli_file(
+            [(11, fli_color(palette[:64], 11)), (15, fli_brun(idx))], 20, 12, flc=False)),
+        "flc_lc_ss2.flc": ("FLC LC and SS2 over COLOR256, a stamp", fli_file(
+            [(4, fli_color(palette)), (18, bytes(8)), (12, fli_lc(idx, 2)),
+             (7, fli_ss2(idx[:, ::-1], 3))], 20, 12)),
+        "flc_black_copy.flc": ("FLC BLACK and COPY", fli_file(
+            [(16, idx[::-1].tobytes()), (13, bytes(4)), (16, idx.tobytes())], 20, 12)),
+        "refused_flc_prefix.flc": ("FLC with a prefix chunk (refused)", fli_file(
+            [(15, fli_brun(idx))], 20, 12, prefix=b"seed")),
+        "pcd_base.pcd": ("Kodak PhotoCD base image, rotated 270", pcd_file(ycc, 3)),
+        "xpm_two_char.xpm": ("XPM two-character keys, None", xpm_file(
+            idx % 6, colours, 2)),
+        "xpm_rgb_300.xpm": ("XPM of 300 colours (RGB)", xpm_file(
+            rng.integers(0, 300, (12, 20)), many, 2, pixels_line=True)),
+        "refused_xpm_named.xpm": ("XPM named colour (refused)", xpm_file(
+            idx % 3, colours[:2] + ["red"], 1)),
+        "ftex_dxt1.ftc": ("FTEX DXT1", ftex_file(20, 12, 0, bc_blocks(20, 12, 8, 83))),
+        "ftex_rgb.ftu": ("FTEX uncompressed", ftex_file(20, 12, 1, rgb.tobytes())),
+        "gbr_v1.gbr": ("GIMP brush version 1, gray", gbr_file(gray, 1)),
+        "gbr_v2_rgba.gbr": ("GIMP brush version 2, RGBA", gbr_file(np.concatenate(
+            [rgb, rgb[..., :1] // 2 + 100], -1), 2)),
+        "pixar.pxr": ("PIXAR RGB", pixar_file(rgb)),
+        "imt.imt": ("IM Tools", imt_file(gray)),
+        "mcidas_i16.area": ("McIdas area, 2 bytes, row prefix", mcidas_file(
+            gray.astype(np.int64) * 131, 2, prefix=4)),
+        "mcidas_i32.area": ("McIdas area, 4 bytes, two bands", mcidas_file(
+            gray.astype(np.int64) * 40000 - 10 ** 6, 4, bands=2)),
+        "xv_thumb.xv": ("XV thumbnail (P 3-3-2)", xv_file(
+            ((rgb[..., 0] >> 5) << 5 | (rgb[..., 1] >> 5) << 2 | rgb[..., 2] >> 6).astype(
+                np.uint8))),
+        "iptc_raw_l.iptc": ("IPTC/NAA raw L in two fields", iptc_file(
+            20, 12, gray.tobytes(), split=100)),
+        "iptc_rgb_band.iptc": ("IPTC/NAA RGB, band 2", iptc_file(
+            20, 12, gray.tobytes(), 3, 1, band=2)),
+        "iptc_jpeg.iptc": ("IPTC/NAA JPEG", iptc_file(20, 12, gray_jpeg, compression=5)),
+        "tiff_tiled_1bit_packbits.tif": ("TIFF tiled 1-bit, PackBits", subbyte_tiled_tiff(
+            levels[1], 1, (16, 8), 32773, 0)),
+        "tiff_tiled_p2_lzw.tif": ("TIFF tiled 2-bit palette, LZW", subbyte_tiled_tiff(
+            levels[2], 2, (16, 16), 5, 3, colormap=palette[:4])),
+        "tiff_tiled_l4_raw_fill2.tif": ("TIFF tiled 4-bit gray, raw, fill order 2",
+                                        subbyte_tiled_tiff(levels[4], 4, (16, 8), 1, 1,
+                                                           fill_order=2)),
+        "chair.xpm": ("chair texture, XPM", xpm_file(tex_idx, [
+            f"#{r:02x}{g:02x}{b:02x}" for r, g, b in tex_pal], 1)),
+        "chair_dxt1.ftc": ("chair texture, FTEX DXT1", ftex_file(24, 24, 0, _dxt1(tex))),
+        "chair_rgba.gbr": ("chair texture, GIMP brush RGBA", gbr_file(np.concatenate(
+            [tex[::-1], np.full((24, 24, 1), 255, np.uint8)], -1))),
+        "chair.pxr": ("chair texture, PIXAR", pixar_file(tex[:, ::-1])),
+        "chair.flc": ("chair texture, FLC BRUN", fli_file(
+            [(4, fli_color(tex_pal)), (15, fli_brun(tex_idx.T))], 24, 24)),
+        "chair_i16.area": ("chair texture, McIdas 2 bytes", mcidas_file(
+            tex[..., 0].astype(np.int64), 2)),
+        "chair.fits": ("chair texture, FITS", fits_file(tex[..., 1], 8)),
+        "chair.xv": ("chair texture, XV thumbnail", xv_file(
+            ((tex[..., 0] >> 5) << 5 | (tex[..., 1] >> 5) << 2 | tex[..., 2] >> 6).astype(
+                np.uint8))),
+        "chair.iptc": ("chair texture, IPTC/NAA", iptc_file(24, 24, tex[..., 2].tobytes())),
+        "chair_tiled_1bit.tif": ("chair texture, TIFF tiled 1-bit, LZW", subbyte_tiled_tiff(
+            (tex[..., 1] > 100).astype(np.uint8), 1, (16, 16), 5, 1)),
+    }
+    atlas = texture_atlas(9)
+    gray_atlas = np.asarray(Image.fromarray(atlas).convert("L"))
+    out["atlas_2048x1536.flc"] = ("2048 x 1536 atlas, FLC BRUN", fli_file(
+        [(4, fli_color(np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1))),
+         (15, fli_brun(gray_atlas))], 2048, 1536))
+    out["atlas_gzip_2048x1536.fits"] = ("2048 x 1536 atlas, FITS GZIP_1",
+                                        fits_gzip_file(gray_atlas, 8))
+    return out
+
+
+def _dxt1(rgb: np.ndarray) -> bytes:
+    """Each 4 x 4 block as DXT1 between its darkest and brightest pixel
+    (four-colour mode), every pixel the nearest of the four."""
+    h, w, _ = rgb.shape
+    out = bytearray()
+    for by in range(0, h, 4):
+        for bx in range(0, w, 4):
+            block = rgb[by:by + 4, bx:bx + 4].reshape(-1, 3).astype(np.int32)
+            luma = block.sum(1)
+            hi, lo = block[luma.argmax()], block[luma.argmin()]
+            c0 = (hi[0] >> 3) << 11 | (hi[1] >> 2) << 5 | hi[2] >> 3
+            c1 = (lo[0] >> 3) << 11 | (lo[1] >> 2) << 5 | lo[2] >> 3
+            if c0 <= c1:
+                c0, c1 = max(c0, c1 + 1) if c1 < 0xFFFF else c0, min(c1, c0 - 1) if c0 else c1
+            points = np.array([hi, lo, (2 * hi + lo) // 3, (hi + 2 * lo) // 3])
+            nearest = ((block[:, None] - points[None]) ** 2).sum(-1).argmin(1)
+            bits = sum(int(v) << (2 * k) for k, v in enumerate(nearest))
+            out += struct.pack("<HHI", c0, c1, bits)
+    return bytes(out)
+
+
 def _sgi_overrun(rgb: np.ndarray) -> bytes:
     """An SGI RLE file whose first row's first packet runs past the row."""
     data = bytearray(sgi_file(rgb[None, ..., 0], rle=True))
@@ -2647,7 +3096,8 @@ def _dxt5(rgba: np.ndarray) -> bytes:
     return bytes(out)
 
 
-GZIPPED = ("atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds", "atlas_2048x1536.qoi",
+GZIPPED = ("pcd_base.pcd", "atlas_2048x1536.flc", "atlas_gzip_2048x1536.fits",
+           "atlas_bc7_2048x1536.dds", "atlas_dxt1_2048x1536.dds", "atlas_2048x1536.qoi",
            "atlas_rle_2048x1536.sgi")
 
 
