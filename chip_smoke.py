@@ -72,12 +72,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    VAE mid block's (4, 1, 4096, 4096, 512), in bf16 on the tensor-core
    kernel ``csrc/flash_attention_sm90.cu`` (|kernel - plain| <= 5e-4 + 8e-3
    |plain|: the output is rounded to bf16 once, a relative error of at most
-   2^-8, and P enters the tensor cores as two bf16 terms), and (8, 8, 1024,
-   1024, 80) in float32 on ``csrc/flash_attention.cu`` (within 1e-4). A
+   2^-8, and P enters the tensor cores as two bf16 terms). Then in float32
+   on ``csrc/flash_attention.cu`` (within 1e-4) at the same UNet and VAE
+   shapes built in float32 (the library's default; the plain check on batch
+   rows 0 and 7 at 64² self) and at every shape the tiny loop gives it (read
+   from ``attention.shape_launches`` after one tiny UNet and VAE call). A
    non-finite output raises. Then the kernel's time, the plain version's,
    ``F.scaled_dot_product_attention``'s as a yardstick (the port never calls
    it), the bound, the kernel's share of the bound (bound / kernel) and its
-   ratio to SDPA (kernel / SDPA).
+   ratio to SDPA (kernel / SDPA); for float32 also the kernel's device time
+   per launch and the SDPA backend's kernels (``torch.profiler``), and the
+   instance's query rows, dynamic shared memory and blocks per SM.
 6. Inpainting: ``coma_tpu_torch.cli.inpaint`` at full width (SD-1.x UNet and
    VAE in bf16, CLIP ViT-L, the person segmenter; 512², 50 DDIM steps,
    guidance 7.5, mode ``p``, ``--random_weights``) on one batch of 4 images
@@ -87,7 +92,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    tensor-core kernel. The 4 images must be finite, in [0, 1], and
    written as 512x512 RGB PNGs. Then the tiny loop (64², f32) runs on the
    card and on the CPU from the same weights and noise and must agree within
-   1e-3.
+   1e-3, its 1002 K3 launches all on the float32 kernel.
 6b. Inpainting from a diffusers directory at SD-2-inpainting's published
    widths: the port's writer puts seeded random weights (UNet
    320/640/1280/1280, heads 5/10/20/20, cross-dim 1024, Linear
@@ -1086,7 +1091,6 @@ K3_SHAPES = (  # (name, B, H, Lq, Lk, D, dtype): phase 6's, CFG doubling the UNe
     ("unet_mid_self_8x8", 8, 8, 64, 64, 160, torch.bfloat16),
     ("unet_mid_cross_8x8", 8, 8, 64, 77, 160, torch.bfloat16),
     ("vae_mid", 4, 1, 4096, 4096, 512, torch.bfloat16),
-    ("unet_self_32x32_f32", 8, 8, 1024, 1024, 80, torch.float32),
     # phase 6b's SD-2 UNet: heads 5/10/20/20 of 64 channels
     ("sd2_unet_self_64x64", 8, 5, 4096, 4096, 64, torch.bfloat16),
     ("sd2_unet_cross_64x64", 8, 5, 4096, 77, 64, torch.bfloat16),
@@ -1097,7 +1101,75 @@ K3_SHAPES = (  # (name, B, H, Lq, Lk, D, dtype): phase 6's, CFG doubling the UNe
     ("sd2_unet_mid_self_8x8", 8, 20, 64, 64, 64, torch.bfloat16),
     ("sd2_unet_mid_cross_8x8", 8, 20, 64, 77, 64, torch.bfloat16),
 )
+K3_F32_SHAPES = (  # (name, B, H, Lq, Lk, D, batch rows held): SD-1's UNet and VAE in float32
+    ("unet_self_32x32_f32", 8, 8, 1024, 1024, 80, None),
+    ("unet_self_64x64_f32", 8, 8, 4096, 4096, 40, (0, 7)),
+    ("unet_cross_64x64_f32", 8, 8, 4096, 77, 40, None),
+    ("unet_cross_32x32_f32", 8, 8, 1024, 77, 80, None),
+    ("unet_self_16x16_f32", 8, 8, 256, 256, 160, None),
+    ("unet_cross_16x16_f32", 8, 8, 256, 77, 160, None),
+    ("unet_mid_self_8x8_f32", 8, 8, 64, 64, 160, None),
+    ("unet_mid_cross_8x8_f32", 8, 8, 64, 77, 160, None),
+    ("vae_mid_f32", 4, 1, 4096, 4096, 512, None),
+)
 K3_BF16_ATOL, K3_BF16_RTOL, K3_F32_ATOL = 5e-4, 8e-3, 1e-4
+
+
+def k3_profile(q, k, v, reps: int):
+    """One ``torch.profiler`` window over ``reps`` K3 calls and one
+    ``F.scaled_dot_product_attention`` call: K3's device ms per launch (the
+    mean over the launches the profiler recorded), and the names of the
+    device kernels SDPA ran (which backend took the call)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from coma_tpu_torch.ops.attention import scaled_dot_attention
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            scaled_dot_attention(q, k, v)
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    k3 = [e for e in events if "flash_attention" in e.key]
+    if not k3 or not sum(e.self_device_time_total for e in k3) > 0:
+        raise AssertionError("the profiler saw no device time of K3")
+    device_ms = sum(e.self_device_time_total for e in k3) / sum(e.count for e in k3) / 1e3
+    sdpa = sorted(e.key for e in events if "flash_attention" not in e.key)
+    return device_ms, "; ".join(sdpa) or "no device kernel seen"
+
+
+def tiny_k3_shapes():
+    """The float32 shapes the tiny loop (64², 'baseline' mode) gives K3, read
+    from ``attention.shape_launches`` after one tiny UNet call at its batch
+    (2 images under guidance) and one VAE encode and decode on the card."""
+    from coma_tpu_torch.models.diffusion import unet, vae
+    from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(SEED)
+    cfg = unet.tiny_unet_config()
+    net = init_flax_default_(unet.UNet2DCondition(cfg), g).to(DEVICE).eval()
+    enc, dec = (init_flax_default_(m(vae.tiny_vae_config()), g).to(DEVICE).eval()
+                for m in (vae.Encoder, vae.Decoder))
+    rng = np.random.default_rng(SEED)
+
+    def rand(*shape):
+        return torch.from_numpy(np.float32(rng.normal(size=shape))).to(DEVICE)
+
+    attention.shape_launches.clear()
+    with torch.no_grad():
+        net(rand(4, cfg.in_channels, 8, 8), torch.full((4,), 500.0, device=DEVICE),
+            rand(4, 7, cfg.cross_attention_dim))
+        enc(rand(2, 3, 64, 64))
+        dec(rand(2, 4, 8, 8))
+    torch.cuda.synchronize()
+    shapes = sorted(s[:5] for s in attention.shape_launches if s[5] == "float32")
+    attention.shape_launches.clear()
+    if not shapes:
+        raise AssertionError("the tiny UNet and VAE gave K3 no float32 call")
+    return [(f"tiny_{Lq}x{Lk}_d{D}", B, H, Lq, Lk, D, None) for B, H, Lq, Lk, D in shapes]
 
 
 def check_k3(rng, name, B, H, Lq, Lk, D, dtype, rows=None):
@@ -1124,9 +1196,19 @@ def check_k3(rng, name, B, H, Lq, Lk, D, dtype, rows=None):
         raise AssertionError(f"K3 {name}: kernel disagrees with plain (max abs {max_abs:.3e}, "
                              f"needs atol {atol_used:.3e} > {atol:.0e} with rtol {rtol:.0e})")
     del out, want, err
-    ms = cuda_ms(lambda: scaled_dot_attention(q, k, v), reps=10)
+    # float32 shapes of a few µs a call: more calls, as the host's call dominates
+    reps = 10 if dtype == torch.bfloat16 or B * H * Lq * Lk * D > 1e8 else 100
+    ms = cuda_ms(lambda: scaled_dot_attention(q, k, v), reps=reps)
     plain_ms = cuda_ms(lambda: attention_reference(q, k, v), reps=3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=10)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=reps)
+    extra = {}
+    if dtype == torch.float32:
+        from coma_tpu_torch.ops.attention import f32_tile
+
+        rows_per_block, smem, per_sm = f32_tile(B * H, Lq, D)
+        device_ms, backend = k3_profile(q, k, v, reps)
+        extra = dict(device_ms=device_ms, sdpa_backend=backend, block_rows=rows_per_block,
+                     dynamic_smem_bytes=smem, blocks_per_sm=per_sm)
     torch.cuda.empty_cache()
     size = torch.finfo(dtype).bits // 8
     nbytes = size * B * H * (2 * Lq + 2 * Lk) * D
@@ -1137,7 +1219,17 @@ def check_k3(rng, name, B, H, Lq, Lk, D, dtype, rows=None):
                 source=f"coma_tpu_torch/csrc/{KERNELS[dtype][0]}.cu",
                 max_abs_err=max_abs, atol_used=atol_used, atol=atol, rtol=rtol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                share_of_bound=bound_ms / ms, ratio_to_sdpa=ms / library_ms)
+                share_of_bound=bound_ms / ms, ratio_to_sdpa=ms / library_ms, **extra)
+
+
+def log_k3_f32(r, label) -> None:
+    log(f"K3 {r['shape']}: kernel {r['ms']:.4f} ms a call (device {r['device_ms']:.4f} ms), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+        f"{r['share_of_bound']:.3f}; SDPA {r['library_ms']:.4f} "
+        f"ms (kernel/SDPA {r['ratio_to_sdpa']:.3f}; {r['sdpa_backend']}); plain "
+        f"{r['plain_ms']:.4f} ms, max abs err {r['max_abs_err']:.3e} (limit {r['atol']:.0e}); "
+        f"instance of {r['block_rows']} query rows a block, {r['dynamic_smem_bytes']} B of "
+        f"dynamic shared memory, {r['blocks_per_sm']} block(s) an SM [{label}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1222,14 +1314,20 @@ def inpaint(root: str, label: str, flags=("--random_weights",), what="bf16, 50 s
     return seconds, peak_gb, out
 
 
+TINY_LOOP_K3_LAUNCHES = 50 * 20 + 2   # 10 transformer blocks x 2 x 50 steps; a VAE encode, decode
+
+
 def tiny_loop_against_cpu():
     """The tiny f32 loop ('baseline' mode, no segmenter) on the card, K3
     included, against the same loop on the CPU with the plain attention; the
-    same weights and noise. cuDNN's TF32 is switched off for this comparison."""
+    same weights and noise. cuDNN's TF32 is switched off for this comparison.
+    K3's counters are set to 0 before the card's run and read after: every
+    launch on the float32 kernel. Returns (max abs difference, launches)."""
     import copy
 
     from coma_tpu_torch.models.diffusion import pipeline, unet, vae
     from coma_tpu_torch.models.layers import init_flax_default_
+    from coma_tpu_torch.ops import attention
 
     g = torch.Generator().manual_seed(SEED)
     models = [init_flax_default_(unet.UNet2DCondition(unet.tiny_unet_config()), g),
@@ -1243,6 +1341,7 @@ def tiny_loop_against_cpu():
     outs = []
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    reset_k3_counters()
     try:
         for dev in ("cpu", DEVICE):
             m = [copy.deepcopy(x).to(dev).eval() for x in models]
@@ -1253,11 +1352,17 @@ def tiny_loop_against_cpu():
                                       ctx.to(dev) * 0, noise=noise).cpu())
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    launches = dict(attention.source_launches)
     err = float((outs[0] - outs[1]).abs().max())
     if not torch.isfinite(outs[1]).all() or err > 1e-3:
         raise AssertionError(f"tiny loop: card vs CPU max abs {err:.3e} (limit 1e-3)")
-    log(f"tiny loop (64², f32, 50 steps) on the card vs the CPU: max abs {err:.3e}")
-    return err
+    if launches["flash_attention"] != TINY_LOOP_K3_LAUNCHES or attention.launches != \
+            TINY_LOOP_K3_LAUNCHES:
+        raise AssertionError(f"tiny loop: K3 launches {launches}, expected "
+                             f"{TINY_LOOP_K3_LAUNCHES}, all on the float32 kernel")
+    log(f"tiny loop (64², f32, 50 steps) on the card vs the CPU: max abs {err:.3e}; K3 "
+        f"launches {launches}")
+    return err, launches["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -4490,6 +4595,12 @@ def main() -> int:
             f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
             f"{r['share_of_bound']:.3f}, kernel/SDPA {r['ratio_to_sdpa']:.3f} [{label}]")
+    # phase 5, float32: SD-1's shapes and the tiny loop's
+    k3_f32 = []
+    for shape in K3_F32_SHAPES + tuple(tiny_k3_shapes()):
+        r = check_k3(rng, *shape[:6], torch.float32, rows=shape[6])
+        k3_f32.append(r)
+        log_k3_f32(r, label)
 
     elapsed("phase 5")
 
@@ -4512,7 +4623,7 @@ def main() -> int:
             or by_source["flash_attention_sm90"] != K3_LAUNCHES_PER_BATCH:
         raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
                              f"({by_source}), expected {K3_LAUNCHES_PER_BATCH}, all bf16")
-    tiny_loop_against_cpu()
+    tiny_launches = tiny_loop_against_cpu()[1]
 
     elapsed("phase 6")
     # phase 6b: SD-2-inpainting from a diffusers directory; phase 6c: the crop
@@ -4618,10 +4729,15 @@ def main() -> int:
              source="coma_tpu_torch/csrc/flash_attention_sm90.cu",
              replaces="coma_tpu/ops/attention.py:41",
              launches=launches["flash_attention"],
-             max_abs_err=max(r["max_abs_err"] for r in k3 + p17["k3"]),
+             max_abs_err=max(r["max_abs_err"] for r in k3 + k3_f32 + p17["k3"]),
              ms=k3[0]["ms"], plain_ms=k3[0]["plain_ms"], bound_ms=k3[0]["bound_ms"],
              bound_by=k3[0]["bound_by"], library_ms=k3[0]["library_ms"], shape=k3[0]["shape"],
-             launches_by_source=by_source, shapes=k3,
+             f32={key: k3_f32[0][key] for key in (
+                 "shape", "source", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms", "sdpa_backend", "block_rows", "dynamic_smem_bytes",
+                 "blocks_per_sm")},
+             launches_tiny_loop=tiny_launches,
+             launches_by_source=by_source, shapes=k3, shapes_f32=k3_f32,
              launches_learn_coma=learned["launches"]["flash_attention"],
              launches_per_rank=per_rank["flash_attention"],
              launches_sd2_weights_dir=sd2["launches"],

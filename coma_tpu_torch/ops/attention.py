@@ -5,7 +5,9 @@ runs the JAX library's Pallas flash attention on the TPU for lane-aligned
 long sequences and XLA's einsum chain elsewhere, with two hand-written CUDA
 kernels chosen by dtype alone: bf16 goes to ``csrc/flash_attention_sm90.cu``
 (tensor cores through ``wgmma``, TMA-fed shared-memory tiles) and float32 to
-``csrc/flash_attention.cu`` (the FP32 pipes). :func:`attention_reference` is
+``csrc/flash_attention.cu`` (the FP32 pipes: register-tiled scores and P·V
+fed by ``cp.async`` rings, one softmax reduction per key tile; FFMA, no TF32,
+as the 67 TFLOP/s FP32 rate bounds it). :func:`attention_reference` is
 the plain version (``_xla_attention``, ``:17-21``). On a CPU tensor
 :func:`scaled_dot_attention` runs the plain version; on a CUDA tensor every
 call launches a kernel — the UNet's self- and cross-attention and the VAE's
@@ -112,3 +114,13 @@ def shared_memory_bytes(head_dim: int) -> int:
     fn = build.load(KERNELS[torch.bfloat16][0]).coma_flash_attention_bf16_smem
     fn.argtypes, fn.restype = [_I], ctypes.c_int
     return fn(head_dim)
+
+
+def f32_tile(bh: int, lq: int, head_dim: int) -> tuple:
+    """(query rows per block, dynamic shared memory in bytes, blocks per SM)
+    of the float32 kernel's instance that a (B·H, Lq, D) call launches."""
+    fn = build.load(KERNELS[torch.float32][0]).coma_flash_attention_f32_tile
+    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)], ctypes.c_int
+    rows, per_sm = _I(0), _I(0)
+    smem = fn(bh, lq, head_dim, ctypes.byref(rows), ctypes.byref(per_sm))
+    return rows.value, smem, per_sm.value

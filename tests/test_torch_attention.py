@@ -16,7 +16,15 @@ The bf16 kernel's tolerance argument is held here before any card run: an
 emulation of its rounding points (P split into two bf16 terms) stays within
 5e-4 + 8e-3·|plain(fp32)| at the UNet's and the VAE's shapes and at ×30
 logits, where one bf16 rounding of P would not.
+
+The float32 kernel's algorithm is held here too: a model of its tile order
+(keys in the kernel's tiles of BK, exp2 of pre-scaled scores, the online
+rescale once per tile, keys past Lk masked in the last tile, one partial
+sum per lane combined at the end) stays within the card's 1e-4 of
+``_xla_attention``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,3 +128,60 @@ def test_reference_in_bfloat16_stays_in_bfloat16():
                                        for a in (q, k, v))).astype(jnp.float32))
     scale = np.abs(want).max()
     np.testing.assert_allclose(out.float().numpy(), want, atol=3e-2 * scale, rtol=0)
+
+
+# csrc/flash_attention.cu's split per head dim: (TR lanes per row, TN keys
+# per lane); a key tile is BK = TR * TN keys, lane t holding keys t + TR i
+F32_SPLIT = {16: (2, 16), 32: (2, 16), 40: (2, 16), 64: (4, 8), 80: (4, 8), 160: (8, 4),
+             512: (16, 1)}
+F32_ATOL = 1e-4   # the card kernel's float32 limit against the plain version
+
+
+def emulate_f32_kernel(q, k, v):
+    """The order of ``csrc/flash_attention.cu``'s float32 arithmetic, as a
+    walk over key tiles: Q scaled once by the float32 qscale = log2(e)/√D,
+    scores of a tile of BK keys (zero-filled past Lk, then masked to -inf),
+    the row max once per tile, exp2 once per (row, key) against the new max,
+    the accumulator and each lane's partial sum rescaled by exp2(m_old -
+    m_new), and the TR partial sums of a row added at the end."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    TR, TN = F32_SPLIT[D]
+    BK = TR * TN
+    qs = q * torch.tensor(np.float32(attention.LOG2E / math.sqrt(D)))
+    m = torch.full((B, H, Lq), -math.inf)
+    part = torch.zeros(B, H, Lq, TR)            # lane t's sum over its keys
+    acc = torch.zeros(B, H, Lq, D)
+    for k0 in range(0, Lk, BK):
+        kt, vt = (torch.zeros(B, H, BK, D) for _ in range(2))
+        n = min(BK, Lk - k0)
+        kt[:, :, :n], vt[:, :, :n] = k[:, :, k0:k0 + n], v[:, :, k0:k0 + n]
+        s = qs @ kt.transpose(-1, -2)
+        s[..., n:] = -math.inf
+        mn = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.exp2(s - mn[..., None])
+        part = part * corr[..., None] + p.reshape(B, H, Lq, TN, TR).sum(-2)
+        acc = acc * corr[..., None] + p @ vt
+        m = mn
+    return acc / part.sum(-1, keepdim=True)
+
+
+TILE_ORDER = CASES + [  # (B, H, Lq, Lk, D, logit scale): the tiny loop's Lk = 7, ×30 at D = 512
+    (4, 2, 16, 7, 32, 1.0),
+    (4, 2, 64, 7, 16, 1.0),
+    (2, 8, 64, 7, 80, 1.0),
+    (2, 4, 100, 77, 64, 1.0),
+    (1, 2, 70, 77, 160, 1.0),
+    (1, 1, 100, 40, 512, 30.0),
+    (2, 3, 33, 1, 40, 1.0),
+]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,D,scale", TILE_ORDER)
+def test_f32_kernel_tile_order_matches_xla_attention(B, H, Lq, Lk, D, scale):
+    q, k, v = inputs(B, H, Lq, Lk, D, scale, seed=4)
+    want = np.asarray(_xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = emulate_f32_kernel(*map(torch.from_numpy, (q, k, v)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)
