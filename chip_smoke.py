@@ -273,10 +273,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    take; lossy, lossless, alpha and animated WebP; DDS of every block format
    and bit-mask layout Pillow reads; PSD of every mode; SGI, PCX, DCX, ICO,
    CUR, QOI, XBM, IM, ICNS, BLP, Sun raster, MSP, SPIDER and bare DIB files;
-   the 2048 x 1536 BEHAVE frames and atlas) through ``read_image`` with the
-   native decoders and codecs (``native/src/{jpeg_decode,image_codecs,
-   bcn_decode,webp_decode}.cpp``, built with ``g++``; the phase fails if
-   they do not build or load): the SHA-256 of modes None, RGB and L equal to
+   lossless AVIF of every sampling, range, matrix, tiling and aom tool
+   switch; the 2048 x 1536 BEHAVE frames and atlas) through ``read_image``
+   with the native decoders and codecs (``native/src/{jpeg_decode,
+   image_codecs,bcn_decode,webp_decode,av1_decode}.cpp``, built with
+   ``g++``; the phase fails if they do not build or load): the SHA-256 of
+   modes None, RGB and L equal to
    Pillow's in the manifest, and each file Pillow refuses refused naming
    itself. The
    BEHAVE frame's decode, median of 5, split into entropy and
@@ -285,15 +287,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decoder on the 512² texture, and the host decode ms (median of 5) of the
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
    JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-   TIFF-JPEG, QOI and SGI RLE. (b) A BEHAVE-shaped sequence of 2 frames
+   TIFF-JPEG, QOI, SGI RLE and lossless 4:2:0 AVIF, the AVIF fixtures'
+   count printed on a line of its own. (b) A BEHAVE-shaped sequence of 2 frames
    whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
    ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image equal
    to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512² JPEG
    as its seat's ``map_Kd`` and an arithmetic JPEG, a TGA, a BMP, a
    TIFF-LZW, a CMYK JPEG, a lossy WebP with alpha, a lossless WebP, a DDS
    BC7, a DDS DXT1, a PSD, a YCbCr 4:2:0 TIFF-JPEG, an SGI RLE, a PCX, a
-   QOI, an ICO, a BLP2 DXT5 and a Sun RLE file on its back, legs,
-   stretchers, armrests, seat trims and back slats, through
+   QOI, an ICO, a BLP2 DXT5, a Sun RLE file and the rest of
+   ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, last) on its back,
+   legs, stretchers, armrests, seat trims, back slats and seat studs, through
    ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
    the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
    counters from 0); each layer is its decoded texture bilinearly resized; the inpainting's inputs (384² renders
@@ -2679,13 +2683,14 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to forty image files) give the back, then
+    ``part_textures`` (up to forty-two image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
     stretcher, three low stretchers, a lumbar bar, a front apron, two seat
-    knobs, a cross of two bars under the seat, four foot pads, a back emblem
-    and two armrest pads a material, UVs and a ``map_Kd`` of their own.
+    knobs, a cross of two bars under the seat, four foot pads, a back emblem,
+    two armrest pads and two studs at the seat's front a material, UVs and a
+    ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
@@ -2744,7 +2749,9 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((0.19, 0.00, 0.19), (0.25, 0.02, 0.25)),
               ((-0.05, 0.80, -0.22), (0.05, 0.88, -0.19)),
               ((-0.27, 0.66, -0.20), (-0.23, 0.68, 0.20)),
-              ((0.23, 0.66, -0.20), (0.27, 0.68, 0.20))]
+              ((0.23, 0.66, -0.20), (0.27, 0.68, 0.20)),
+              ((-0.12, 0.44, 0.25), (-0.08, 0.47, 0.26)),
+              ((0.08, 0.44, 0.25), (0.12, 0.47, 0.26))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3799,7 +3806,8 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # (a wrong RSTn), TIFFs in CCITT Group 4 (fill order 2), Group 3 2-D, LZMA, Zstandard,
 # old-style JPEG and ThunderScan, a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
 # TIFF and a PFM, and XPM, FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD (stored gzipped: written
-# out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF
+# out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF, and a
+# lossless 4:2:0 AVIF and a lossless RGBA AVIF on two studs at the seat's front
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3810,7 +3818,7 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_lab.psd", "chair_cielab.tif", "chair.pfm", "chair.xpm",
                  "chair_dxt1.ftc", "chair_rgba.gbr", "chair.pxr", "chair.flc", "pcd_base.pcd",
                  "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
-                 "chair_tiled_1bit.tif")
+                 "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif")
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3822,7 +3830,7 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi", "atlas_zstd_2048x1536.tif",
                  "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
                  "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
-                 "atlas_gzip_2048x1536.fits")
+                 "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3880,8 +3888,9 @@ def decode_phase(label: str) -> dict:
     lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
     Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
-    tiles, layers, RPCL), FLC (BRUN) and FITS (a GZIP_1 table) (median of
-    5)."""
+    tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless
+    AVIF (4:2:0, coded-lossless AV1 through ``native/src/av1_decode.cpp``)
+    (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -3895,6 +3904,7 @@ def decode_phase(label: str) -> dict:
         raise AssertionError("a native image decoder (native/src/jpeg_decode.cpp, "
                              "image_codecs.cpp, bcn_decode.cpp, webp_decode.cpp, "
                              "tiff_codecs.cpp, j2k_decode.cpp) did not build or load")
+    codecs.av1_library()                 # the AV1 decoder has no fallback: raises with g++'s stderr
     manifest = image_manifest()
     equal, refused = [], []
     for name, entry in manifest.items():
@@ -4020,6 +4030,13 @@ def decode_phase(label: str) -> dict:
         f"{DECODE_REPS}: entropy {out['damaged_atlas_entropy_ms']:.3f} ms, reconstruction "
         f"{out['damaged_atlas_reconstruct_ms']:.3f} ms (host), beside the clean "
         f"{BEHAVE_COLOR}'s {out['entropy_ms']:.3f} and {out['reconstruct_ms']:.3f} ms [{label}]")
+    avif_equal = [n for n in equal if n.endswith(".avif")]
+    out["avif_equal"] = len(avif_equal)
+    atlas_avif = timed["atlas_lossless_2048x1536.avif"]
+    log(f"phase 16a: {len(avif_equal)} AVIF fixtures (coded-lossless AV1 through "
+        f"native/src/av1_decode.cpp, libyuv's conversion) equal to Pillow's hashes in modes None, "
+        f"RGB and L; atlas_lossless_2048x1536.avif ({atlas_avif['bytes']} bytes) host decode "
+        f"median of {DECODE_REPS}: {atlas_avif['median_ms']:.3f} ms [{label}]")
     log("phase 16a: host decode of the 2048 x 1536 atlas through read_image, median of "
         f"{DECODE_REPS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['median_ms']:.3f} ms"
                                        for n, t in timed.items()) + f" [{label}]")

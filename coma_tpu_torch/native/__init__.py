@@ -7,8 +7,9 @@ native half (``utils/jpeg.py`` loads it), ``src/image_codecs.cpp`` the LZW,
 PackBits, run-length (TGA, SGI, PCX, ICNS, Sun, MSP) and QOI decoders of the
 other image readers, ``src/bcn_decode.cpp`` the block decoders of DDS and
 BLP, ``src/webp_decode.cpp`` WebP's, ``src/tiff_codecs.cpp`` TIFF's CCITT
-and Zstandard and ``src/j2k_decode.cpp`` JPEG 2000's (``codecs.py`` loads
-them). This is host code, not a device kernel.
+and Zstandard, ``src/j2k_decode.cpp`` JPEG 2000's and ``src/av1_decode.cpp``
+AVIF's AV1 decoder (``codecs.py`` loads them). This is host code, not a
+device kernel.
 
 Each source is compiled with ``g++`` at first use into
 ``coma_tpu_torch/_build/`` (ignored by git), named by a hash of the source
@@ -16,6 +17,9 @@ and the flags, written to a per-process temporary file and renamed into
 place, so concurrent processes never load a half-written library. Each
 entry point has a pure-Python fallback (``geometry/sampling.py``); where no
 toolchain is present :func:`available` is false and the fallback runs.
+The AV1 decoder has none: :func:`require_library` raises where it does not
+build. Each source is one translation unit that includes no header of its
+own, so the hash of its text names everything the build reads.
 :func:`path_name` says which of the two a process uses.
 """
 from __future__ import annotations
@@ -75,6 +79,27 @@ def load_library(src: Path, declare: Callable[[ctypes.CDLL], None]) -> Optional[
                 declare(lib)
             _libs[src] = lib
         return _libs[src]
+
+
+class BuildError(RuntimeError):
+    """A native source that has no plain fallback did not build or load."""
+
+
+def require_library(src: Path, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """``src`` built and loaded once per process, for a reader with no plain
+    fallback: where it does not build or load, ``BuildError`` names the
+    source and gives the compiler's stderr."""
+    lib = load_library(src, declare)
+    if lib is not None:
+        return lib
+    try:
+        ctypes.CDLL(str(build_library(src)))
+        why = "it built but does not load"
+    except subprocess.CalledProcessError as err:
+        why = (err.stderr or b"").decode(errors="replace").strip() or f"g++ exited {err.returncode}"
+    except (OSError, subprocess.SubprocessError) as err:
+        why = str(err)
+    raise BuildError(f"{src}: the native build failed: {why}")
 
 
 def _declare(lib: ctypes.CDLL) -> None:

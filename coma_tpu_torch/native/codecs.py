@@ -5,10 +5,13 @@ icns,sun,msp,qoi}.py``), FLI/FLC's frame decoder (``utils/fli.py``), the
 sub-byte TIFF tile gathering (``utils/tiff.py``) and Little CMS's Lab
 interpolation (``utils/lcms.py``), of ``src/bcn_decode.cpp`` (DDS's and BLP's blocks), of
 ``src/webp_decode.cpp``, of ``src/tiff_codecs.cpp`` (TIFF's CCITT and
-Zstandard strips) and of ``src/j2k_decode.cpp`` (JPEG 2000's tier-1 and
-reconstruction, ``utils/j2k.py``), built with ``g++`` at first use like
-the other native sources. Each reader keeps its plain Python decoder as the
-reference and falls back to it where :func:`available` is false."""
+Zstandard strips), of ``src/j2k_decode.cpp`` (JPEG 2000's tier-1 and
+reconstruction, ``utils/j2k.py``) and of ``src/av1_decode.cpp`` (AVIF's AV1
+decoder, ``utils/avif.py``), built with ``g++`` at first use like the other
+native sources. Each reader keeps its plain Python decoder as the reference
+and falls back to it where :func:`available` is false, except the AV1
+decoder, which has no plain twin: where it does not build,
+``native.BuildError`` says why."""
 from __future__ import annotations
 
 import ctypes
@@ -438,4 +441,66 @@ def j2k_level_shift(plane: np.ndarray, prec: int, sgnd: bool, reversible: bool) 
     out = np.zeros(plane.shape, np.int32)
     _j2k_lib().j2k_level_shift(plane.ctypes.data, plane.size, prec, int(sgnd), int(reversible),
                                out.ctypes.data)
+    return out
+
+
+AV1_SRC = native._SRC_DIR / "av1_decode.cpp"
+AV1_INFO = ("width", "height", "mono_chrome", "subsampling_x", "subsampling_y",
+            "matrix_coefficients", "color_range", "tiles", "use_128x128_superblock",
+            "reduced_still_picture_header", "disable_cdf_update", "uniform_tile_spacing_flag")
+
+
+def _declare_av1(lib: ctypes.CDLL) -> None:
+    i32, i64, ptr = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+    lib.av1_probe.restype = ctypes.c_int
+    lib.av1_probe.argtypes = [ctypes.c_char_p, i64, ptr]
+    lib.av1_decode.restype = ctypes.c_int
+    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, ptr, ptr, ptr, i32]
+    lib.yuv_to_rgb.restype = None
+    lib.yuv_to_rgb.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
+
+
+def av1_library() -> ctypes.CDLL:
+    """``src/av1_decode.cpp`` built and loaded; ``native.BuildError`` (the
+    source's name and g++'s stderr) where it does not build."""
+    return native.require_library(AV1_SRC, _declare_av1)
+
+
+def av1_probe(payload: bytes) -> tuple:
+    """(status, {AV1_INFO name: value}) of an AV1 item's first frame: status 0,
+    or ``src/av1_decode.cpp``'s refusal or fault code (negative)."""
+    lib = av1_library()
+    info = np.zeros(len(AV1_INFO), np.int32)
+    status = lib.av1_probe(payload, len(payload), info.ctypes.data)
+    return int(status), dict(zip(AV1_INFO, info.tolist()))
+
+
+def av1_decode(payload: bytes, info: dict) -> tuple:
+    """(status, [Y, U, V] uint8 planes cropped to the frame (one for
+    monochrome), the per-tile exit-process padding checks) of the first
+    frame ``av1_probe`` described."""
+    lib = av1_library()
+    w, h = info["width"], info["height"]
+    sx, sy = info["subsampling_x"], info["subsampling_y"]
+    planes = [np.zeros((h, w), np.uint8)]
+    chroma = ((h + sy) >> sy, (w + sx) >> sx)
+    planes += [np.zeros(chroma, np.uint8), np.zeros(chroma, np.uint8)]
+    padding = np.zeros(max(info["tiles"], 1), np.int32)
+    status = lib.av1_decode(payload, len(payload), planes[0].ctypes.data, planes[1].ctypes.data,
+                            planes[2].ctypes.data, padding.ctypes.data, len(padding))
+    return int(status), planes[:1 if info["mono_chrome"] else 3], padding.astype(bool)
+
+
+def yuv_to_rgb(planes: list, sx: int, sy: int, constants: tuple) -> np.ndarray:
+    """libyuv's conversion of 8-bit Y, U, V planes with ``constants`` (YG,
+    YB, UB, UG, VG, VR): (H, W, 3) uint8; ``utils/avif.yuv_to_rgb_plain``."""
+    lib = av1_library()
+    y, u, v = (np.ascontiguousarray(p, np.uint8) for p in planes)
+    h, w = y.shape
+    if u.shape != ((h + sy) >> sy, (w + sx) >> sx) or v.shape != u.shape:
+        raise ValueError(f"planes {y.shape}, {u.shape}, {v.shape} at subsampling ({sx}, {sy})")
+    k = np.asarray(constants, np.int32)
+    out = np.empty((h, w, 3), np.uint8)
+    lib.yuv_to_rgb(y.ctypes.data, u.ctypes.data, v.ctypes.data, w, h, sx, sy, k.ctypes.data,
+                   out.ctypes.data)
     return out

@@ -42,10 +42,17 @@ gives it up. Read:
   (``utils/imt.py``), IPTC/NAA (``utils/iptc.py``, raw or JPEG), McIdas
   areas (``utils/mcidas.py``), Kodak PhotoCD (``utils/pcd.py``, the base
   image), PIXAR (``utils/pixar.py``), XPM (``utils/xpm.py``) and XV
-  thumbnails (``utils/xvthumb.py``).
+  thumbnails (``utils/xvthumb.py``);
+- AVIF whose AV1 frames are coded-lossless (``utils/avif.py`` over
+  ``utils/heif.py``, the AV1 decoder in ``native/src/av1_decode.cpp``):
+  every sampling, full and limited range, RGBA (premultiplied alpha and
+  limited-range alpha items too), tiles, 128 x 128 superblocks, the BT.601,
+  BT.709, BT.2020 and identity matrices.
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
-and the format, though PIL reads them: AVIF and HTJ2K code-blocks. The
+and the format, though PIL reads them: HTJ2K code-blocks, and AVIF outside
+that slice (lossy AV1, screen content tools, superres, film grain, high bit
+depth, grids, ``avis`` sequences), the detail naming what is not read. The
 formats Pillow 12.1.0 opens here but cannot load (the BUFR, GRIB and HDF5
 stubs and WMF/EMF, which have no loader; EPS, without Ghostscript; MPEG,
 of which it reads the header only) and whatever else PIL itself refuses
@@ -57,10 +64,10 @@ from typing import Optional
 
 import numpy as np
 
-from coma_tpu_torch.utils import (blp, bmp, dds, fits, fli, ftex, gbr, gif_reader, icns, ico, im,
+from coma_tpu_torch.utils import (avif, blp, bmp, dds, fits, fli, ftex, gbr, gif_reader, icns, ico, im,
                                   imt, iptc, jp2, jpeg, mcidas, msp, pcd, pcx, pixar, pnm, psd,
                                   qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
-from coma_tpu_torch.utils.modes import Decoded, FormatNotRead, NotThisFormat, to_mode
+from coma_tpu_torch.utils.modes import Decoded, NotThisFormat, to_mode
 from coma_tpu_torch.utils.png import decode_png_pil
 
 
@@ -69,12 +76,6 @@ def _jpeg(data: bytes, name: str) -> Decoded:
     if pixels.shape[-1] == 1:
         return Decoded(pixels[..., 0], "L")
     return Decoded(pixels, "CMYK" if pixels.shape[-1] == 4 else "RGB")
-
-
-def _refuse(fmt: str):
-    def opener(data: bytes, name: str) -> Decoded:
-        raise FormatNotRead(name, fmt)
-    return opener
 
 
 def _pillow_refuses(fmt: str, why: str):
@@ -130,7 +131,7 @@ PLUGINS = (
     ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", _jpeg),
     ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1] in b"0123456fy", pnm.decode_pnm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", decode_png_pil),
-    ("AVIF", _avif, _refuse("AVIF")),
+    ("AVIF", _avif, avif.decode_avif),
     ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), blp.decode_blp),
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), _pillow_refuses("BUFR", _NO_LOADER)),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", ico.decode_cur),

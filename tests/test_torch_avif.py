@@ -1,0 +1,330 @@
+"""The port's AVIF reader (``utils/heif.py``, ``utils/avif.py`` and the AV1
+decoder of ``native/src/av1_decode.cpp``) against Pillow 12.1.0 (libavif
+1.3.0 over dav1d 1.5.1 and libyuv 1909), bit for bit, with no tolerance:
+
+- every AVIF fixture of ``tests/data/images`` (coded-lossless frames: 4:4:4,
+  4:2:2, 4:2:0 and 4:0:0 at full and limited range and odd sizes, RGBA
+  (with premultiplied and limited-range alpha), several tiles of uniform and explicit spacing, 128 x 128 superblocks, each
+  aom tool switched off, no CDF update, a full sequence header, the BT.709,
+  BT.2020 and identity matrices, the 2048 x 1536 atlas) in modes
+  None, RGB and L through ``read_image``, against Pillow now and the
+  manifest's hashes;
+- each tile's symbol decoder ends on the specification's padding (its exit
+  process), on every fixture;
+- the files Pillow reads and the port refuses, refused naming the file,
+  "AVIF" and what is not read;
+- truncated and damaged files, each in a process of its own under a time
+  limit: Pillow's array or a ``ValueError`` naming the file, never a crash
+  or a hang;
+- every alpha value through libavif's limited-to-full mapping and libyuv's
+  unattenuation, on files written here;
+- the vectorised chroma upsampling against a row-by-row transcription of
+  libyuv's C rows, and a failed native build raising with the compiler's
+  stderr.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from coma_tpu_torch import native
+from coma_tpu_torch.native import codecs
+from coma_tpu_torch.utils import avif
+from coma_tpu_torch.utils.image_io import read_image
+from coma_tpu_torch.utils.modes import FormatNotRead
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "data", "images")
+sys.path.insert(0, os.path.join(REPO, "tools"))
+from make_image_fixtures import (array_sha, avif_alpha_limited, avif_file,  # noqa: E402
+                                 avif_refused_files)
+
+with open(os.path.join(FIXTURES, "manifest.json")) as _fh:
+    ENTRIES = [e for e in json.load(_fh)["files"] if e["file"].endswith(".avif")]
+NAMES = [e["file"] for e in ENTRIES]
+MODES = (None, "RGB", "L")
+CASE_SECONDS = 60
+
+
+def fixture(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as fh:
+        return fh.read()
+
+
+def test_fixtures_cover_the_slice():
+    kinds = " ".join(e["kind"] for e in ENTRIES)
+    for word in ("4:4:4", "4:2:2", "4:2:0", "4:0:0", "full range", "limited range", "RGBA",
+                 "two tile columns", "two by two tiles", "128 x 128 superblocks",
+                 "Exif orientation", "identity", "bt709", "bt2020", "speed 0", "speed 10",
+                 "disable_cdf_update", "explicit (non-uniform) spacing", "full sequence header",
+                 "premultiplied alpha", "limited-range alpha item", "2048 x 1536 atlas") + tuple(f"{s}=0" for s in (
+                     "enable-cfl-intra", "enable-filter-intra", "enable-intra-edge-filter",
+                     "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta")):
+        assert word in kinds, word
+    assert len(ENTRIES) == 36 and not any(e.get("raises") for e in ENTRIES)
+
+
+@pytest.mark.parametrize("entry", ENTRIES, ids=NAMES)
+def test_fixture_equals_pillow(entry):
+    """Modes None, RGB and L equal Pillow's arrays now and the manifest's
+    hashes; Pillow's mode."""
+    path = os.path.join(FIXTURES, entry["file"])
+    with Image.open(path) as im:
+        im.load()
+        want = {m: np.asarray(im if m is None else im.convert(m)) for m in MODES}
+        assert im.mode == entry["mode"]
+    for m in MODES:
+        got = read_image(path, m)
+        assert got.dtype == want[m].dtype and got.shape == want[m].shape, m
+        np.testing.assert_array_equal(got, want[m])
+        assert array_sha(got) == entry["sha256"][str(m)], m
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_tile_ends_on_the_specifications_padding(name):
+    """exit_symbol: each tile's trailing one bit where the symbol decoder
+    stopped, zeros after it: the decoder read exactly the symbols aom
+    wrote. A check of the stream's decoding, not a refusal of the reader."""
+    image, color, alpha = avif.decode_avif_planes(fixture(name), name)
+    for info, _, padding in (color,) + ((alpha,) if alpha else ()):
+        assert len(padding) == info["tiles"] and padding.all(), (name, padding)
+
+
+def test_what_the_fixtures_exercise():
+    """The tiles, superblock sizes, samplings and alpha items the fixtures
+    reach in the decoder (what aom chose for each)."""
+    seen = {}
+    for name in NAMES:
+        image, (info, planes, _), alpha = avif.decode_avif_planes(fixture(name), name)
+        seen[name] = (info["tiles"], info["use_128x128_superblock"], len(planes), bool(alpha),
+                      info["subsampling_x"], info["subsampling_y"], info["disable_cdf_update"],
+                      info["uniform_tile_spacing_flag"], info["reduced_still_picture_header"],
+                      image.premultiplied, alpha[0]["color_range"] if alpha else None)
+    assert seen["avif_tile_cols.avif"][0] == 2 and seen["avif_tiles_2x2.avif"][0] == 4
+    assert seen["avif_sb128.avif"][1] == 1 and seen["avif_speed0.avif"][1] == 1
+    assert seen["avif_400_45x31.avif"][2] == 1 and seen["avif_rgba_420.avif"][3]
+    assert seen["avif_rgba_400_limited.avif"][2:4] == (1, True)
+    assert seen["avif_422_43x29.avif"][4:6] == (1, 0)
+    assert seen["atlas_lossless_2048x1536.avif"][:2] == (8, 1)
+    assert seen["avif_no_cdf_update.avif"][6] == 1
+    assert seen["avif_explicit_tiles.avif"][0] == 2 and seen["avif_explicit_tiles.avif"][7] == 0
+    assert seen["avif_full_sequence_header.avif"][8] == 0
+    assert sum(s[8] for s in seen.values()) == len(seen) - 1      # the rest: reduced headers
+    assert [n for n, s in seen.items() if s[9]] == ["avif_rgba_premultiplied.avif"]
+    assert [n for n, s in seen.items() if s[10] == 0] == ["avif_rgba_limited_alpha.avif"]
+
+
+REFUSED = avif_refused_files()
+
+
+@pytest.mark.parametrize("word", sorted(REFUSED))
+def test_refused_naming_the_file_and_what_is_not_read(tmp_path, word):
+    path = tmp_path / "refused.avif"
+    path.write_bytes(REFUSED[word])
+    with Image.open(path) as im:
+        im.load()                               # Pillow reads it
+    with pytest.raises(FormatNotRead, match=rf"refused\.avif: AVIF: .*{word}") as err:
+        read_image(str(path), "RGB")
+    assert err.value.format == "AVIF"
+
+
+def test_grid_primary_item_refused(tmp_path):
+    """A ``grid`` primary item (the file's item type rewritten; Pillow's
+    writer makes no grid) is refused by name."""
+    data = fixture("avif_420_47x35.avif")
+    at = data.index(b"av01", data.index(b"infe"))
+    path = tmp_path / "grid.avif"
+    path.write_bytes(data[:at] + b"grid" + data[at + 4:])
+    with pytest.raises(FormatNotRead, match=r"grid\.avif: AVIF: .*a grid primary item"):
+        read_image(str(path))
+
+
+def test_ispe_other_than_the_frame_refused(tmp_path):
+    """An ``ispe`` that is not the AV1 frame's size: Pillow reads the frame
+    resized to it (libavif's scaling), which the port does not do; refused
+    by name."""
+    data = bytearray(fixture("avif_420_47x35.avif"))
+    at = data.index(b"ispe") + 8
+    data[at:at + 4] = (48).to_bytes(4, "big")
+    path = tmp_path / "ispe.avif"
+    path.write_bytes(bytes(data))
+    with Image.open(path) as im:
+        im.load()
+        assert im.size == (48, 35)
+    with pytest.raises(FormatNotRead, match=r"ispe\.avif: AVIF: .*an ispe of 48 x 35 over an AV1 "
+                                            r"frame of 47 x 35"):
+        read_image(str(path))
+
+
+def _rgba_of_every_alpha(seed: int) -> np.ndarray:
+    """Seeded colour over every alpha value, one row each (256 x 24)."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (256, 24, 3)).astype(np.uint8)
+    alpha = np.repeat(np.arange(256, dtype=np.uint8)[:, None, None], 24, 1)
+    return np.concatenate([rgb, alpha], -1)
+
+
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:0"])
+def test_premultiplied_alpha_at_every_value(tmp_path, subsampling):
+    """A prem reference: the colour taken back through libyuv's
+    ``ARGBUnattenuate`` table at each of the 256 alpha values, as Pillow
+    reads it."""
+    path = tmp_path / "prem.avif"
+    path.write_bytes(avif_file(_rgba_of_every_alpha(700), quality=100, subsampling=subsampling,
+                               alpha_premultiplied=True))
+    assert avif.heif.parse_avif(path.read_bytes(), "prem").premultiplied
+    np.testing.assert_array_equal(read_image(str(path)), _pillow(str(path)))
+
+
+def test_limited_range_alpha_at_every_value(tmp_path):
+    """A limited-range alpha item: each of the 256 stored values through
+    libavif's ``avifLimitedToFullY``, as Pillow reads it."""
+    path = tmp_path / "limited_alpha.avif"
+    path.write_bytes(avif_alpha_limited(avif_file(_rgba_of_every_alpha(701), quality=100,
+                                                  subsampling="4:4:4")))
+    got = read_image(str(path))
+    np.testing.assert_array_equal(got, _pillow(str(path)))
+    assert got[:16, :, 3].max() == 0 and got[235:, :, 3].min() == 255
+
+
+def _in_child(path: str) -> subprocess.CompletedProcess:
+    """``read_image(path)`` in a process of its own: its shape, or the
+    ValueError's message; a crash shows as the return code."""
+    code = ("import sys\nfrom coma_tpu_torch.utils.image_io import read_image\n"
+            "try:\n    print('shape', read_image(sys.argv[1]).shape)\n"
+            "except ValueError as err:\n    print('refused', err)\n")
+    return subprocess.run([sys.executable, "-c", code, path], capture_output=True, text=True,
+                          timeout=CASE_SECONDS, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+
+
+def _pillow(path: str):
+    try:
+        with Image.open(path) as im:
+            im.load()
+            return np.asarray(im)
+    except Exception:                           # noqa: BLE001 - any refusal of Pillow's
+        return None
+
+
+@pytest.mark.parametrize("k", range(10))
+def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k):
+    """A seeded cut of a fixture: Pillow's array, or a ValueError naming the
+    file (libavif refuses every cut inside the item's data), within the
+    time limit and without a crash."""
+    data = fixture("avif_tiles_2x2.avif")
+    cut = int(np.random.default_rng(500 + k).integers(1, len(data)))
+    path = tmp_path / f"cut{k}.avif"
+    path.write_bytes(data[:cut])
+    result = _in_child(str(path))
+    assert result.returncode == 0, result.stderr[-2000:]
+    want = _pillow(str(path))
+    if want is None:
+        assert result.stdout.startswith("refused") and f"cut{k}.avif" in result.stdout, \
+            result.stdout
+    else:
+        np.testing.assert_array_equal(read_image(str(path)), want)
+
+
+@pytest.mark.parametrize("k", range(10))
+def test_damaged_tile_data_never_crashes(tmp_path, k):
+    """Seeded bytes of a fixture's tiles changed: an image of the file's
+    size or a ValueError naming the file, within the time limit and without
+    a crash (every read of the symbol decoder stays inside its tile)."""
+    data = bytearray(fixture("avif_tiles_2x2.avif"))
+    rng = np.random.default_rng(600 + k)
+    start = data.index(b"mdat") + 40
+    for at in rng.integers(start, len(data), 1 + k % 4):
+        data[at] = int(rng.integers(0, 256))
+    path = tmp_path / f"damaged{k}.avif"
+    path.write_bytes(bytes(data))
+    result = _in_child(str(path))
+    assert result.returncode == 0, result.stderr[-2000:]
+    assert result.stdout.startswith(("shape (150, 270, 3)", "refused")), result.stdout
+    if result.stdout.startswith("refused"):
+        assert f"damaged{k}.avif" in result.stdout and "AVIF" in result.stdout
+
+
+def _linear_rows(s: np.ndarray, w: int) -> np.ndarray:
+    """libyuv's ``ScaleRowUp2_Linear_Any_C``, element by element."""
+    d = np.zeros(w, int)
+    d[0] = s[0]
+    for x in range(((w - 1) & ~1) // 2):
+        d[1 + 2 * x] = (3 * int(s[x]) + int(s[x + 1]) + 2) >> 2
+        d[2 + 2 * x] = (int(s[x]) + 3 * int(s[x + 1]) + 2) >> 2
+    d[w - 1] = s[(w - 1) // 2]
+    return d
+
+
+def _bilinear_rows(s: np.ndarray, t: np.ndarray, w: int) -> tuple:
+    """libyuv's ``ScaleRowUp2_Bilinear_Any_C``, element by element."""
+    s, t = s.astype(int), t.astype(int)
+    da, db = np.zeros(w, int), np.zeros(w, int)
+    da[0], db[0] = (3 * s[0] + t[0] + 2) >> 2, (s[0] + 3 * t[0] + 2) >> 2
+    for x in range(((w - 1) & ~1) // 2):
+        da[1 + 2 * x] = (s[x] * 9 + s[x + 1] * 3 + t[x] * 3 + t[x + 1] + 8) >> 4
+        da[2 + 2 * x] = (s[x] * 3 + s[x + 1] * 9 + t[x] + t[x + 1] * 3 + 8) >> 4
+        db[1 + 2 * x] = (s[x] * 3 + s[x + 1] + t[x] * 9 + t[x + 1] * 3 + 8) >> 4
+        db[2 + 2 * x] = (s[x] + s[x + 1] * 3 + t[x] * 3 + t[x + 1] * 9 + 8) >> 4
+    j = (w - 1) // 2
+    da[w - 1], db[w - 1] = (3 * s[j] + t[j] + 2) >> 2, (s[j] + 3 * t[j] + 2) >> 2
+    return da, db
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (2, 2), (3, 5), (6, 7), (9, 4), (11, 13)])
+def test_chroma_upsampling_equals_libyuvs_rows(h, w):
+    """``I420ToARGBMatrixBilinear``'s and ``I422ToARGBMatrixLinear``'s row
+    order, element by element, against the vectorised upsampling."""
+    rng = np.random.default_rng(h * 31 + w)
+    c420 = rng.integers(0, 256, ((h + 1) // 2, (w + 1) // 2)).astype(np.uint8)
+    want = [_linear_rows(c420[0], w)]
+    k = 0
+    while len(want) < h - 1:
+        want += list(_bilinear_rows(c420[k], c420[k + 1], w))
+        k += 1
+    if len(want) < h:
+        want.append(_linear_rows(c420[k], w))
+    np.testing.assert_array_equal(avif.upsample_chroma(c420, w, h, 1, 1), np.array(want[:h]))
+    c422 = rng.integers(0, 256, (h, (w + 1) // 2)).astype(np.uint8)
+    np.testing.assert_array_equal(avif.upsample_chroma(c422, w, h, 1, 0),
+                                  np.array([_linear_rows(r, w) for r in c422]))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_native_and_plain_conversion_agree(name):
+    """``native/src/av1_decode.cpp``'s libyuv rows against the numpy twin on
+    the fixture's planes, at every matrix and range libavif sends to
+    libyuv."""
+    _, (info, planes, _), _ = avif.decode_avif_planes(fixture(name), name)
+    if len(planes) == 1:
+        return
+    sx, sy = info["subsampling_x"], info["subsampling_y"]
+    for (matrix, full), constants in avif.LIBYUV_CONSTANTS.items():
+        np.testing.assert_array_equal(codecs.yuv_to_rgb(planes, sx, sy, constants),
+                                      avif.yuv_to_rgb_plain(planes, sx, sy, matrix, full))
+
+
+def test_failed_build_raises_naming_the_source(tmp_path):
+    """The AV1 decoder has no plain fallback: a source that does not build
+    raises ``native.BuildError`` naming it, with the compiler's stderr."""
+    src = tmp_path / "broken_av1.cpp"
+    src.write_text('extern "C" int av1_probe( { return 0; }\n')
+    with pytest.raises(native.BuildError, match=r"broken_av1\.cpp: the native build failed: "
+                                                r"(?s:.*)error"):
+        native.require_library(src, lambda lib: None)
+
+
+def test_pillow_reports_orientation_and_leaves_the_pixels(tmp_path):
+    """Exif orientation 6 is written as an irot property; Pillow reports it
+    in its Exif and returns the pixels unturned, as the port does."""
+    name = "avif_exif_orientation6.avif"
+    with Image.open(os.path.join(FIXTURES, name)) as im:
+        assert im.getexif().get(0x0112) == 6
+        assert im.size == (39, 27)
+    data = fixture(name)
+    assert b"irot" in data
+    assert read_image(os.path.join(FIXTURES, name)).shape == (27, 39, 3)

@@ -1735,6 +1735,7 @@ def fixtures() -> dict:
     out.update(jpeg2000_formats())
     out.update(lab_and_pnm_formats())
     out.update(rare_formats())
+    out.update(avif_formats())
     return out
 
 
@@ -3038,6 +3039,200 @@ def rare_formats() -> dict:
     out["atlas_gzip_2048x1536.fits"] = ("2048 x 1536 atlas, FITS GZIP_1",
                                         fits_gzip_file(gray_atlas, 8))
     return out
+
+
+def avif_file(image: np.ndarray, **kw) -> bytes:
+    """Pillow's AVIF writer (libavif 1.3.0 over aom 3.12.1) on ``image``."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "AVIF", **kw)
+    return buf.getvalue()
+
+
+def avif_nclx(data: bytes, matrix: int, full: int) -> bytes:
+    """``data`` with its ``colr`` ``nclx`` box's matrix_coefficients and
+    full_range_flag set (the AV1 planes unchanged: libavif takes the box's
+    values over the sequence header's)."""
+    at = data.index(b"colrnclx") + 8
+    out = bytearray(data)
+    out[at + 4:at + 6] = matrix.to_bytes(2, "big")
+    out[at + 6] = (out[at + 6] & 0x7F) | (0x80 if full else 0)
+    return bytes(out)
+
+
+def avif_alpha_limited(data: bytes) -> bytes:
+    """``data`` with its alpha item's AV1 sequence header set to limited
+    range: the ``color_range`` bit of its reduced, monochrome
+    ``color_config`` cleared (aom through libavif writes full-range alpha
+    only; libavif maps a limited-range alpha plane to full range). The
+    alpha item is found as the one monochrome sequence header, so the
+    colour item must not be 4:0:0."""
+    out = bytearray(data)
+
+    def mono_range_bit(pos: int):
+        """The color_range bit's offset of the sequence header whose
+        payload starts at byte ``pos``, or None where it is not a reduced
+        monochrome one (a colour item's, or tile data that looked like one)."""
+        def bits(n: int) -> int:
+            nonlocal pos
+            value = 0
+            for _ in range(n):
+                value = value << 1 | (out[pos >> 3] >> (7 - (pos & 7))) & 1
+                pos += 1
+            return value
+
+        pos *= 8
+        profile, _, reduced, _ = bits(3), bits(1), bits(1), bits(5)
+        if profile or not reduced:
+            return None
+        width_bits, height_bits = bits(4) + 1, bits(4) + 1
+        bits(width_bits + height_bits + 6)      # max sizes, six tool flags
+        if bits(1) or not bits(1):              # high_bitdepth, mono_chrome
+            return None
+        if bits(1):                             # color_description_present_flag
+            bits(24)
+        return pos
+
+    # each item's temporal delimiter OBU, then its sequence header OBU
+    starts = [k + 4 for k in range(data.index(b"mdat"), len(data) - 5)
+              if data[k:k + 3] == b"\x12\x00\x0a" and data[k + 3] < 0x80]
+    found = [bit for bit in map(mono_range_bit, starts) if bit is not None]
+    assert len(found) == 1, found
+    bit = found[0]
+    assert out[bit >> 3] >> (7 - (bit & 7)) & 1    # full range
+    out[bit >> 3] &= ~(0x80 >> (bit & 7)) & 0xFF
+    return bytes(out)
+
+
+# the aom tool switches of Pillow's ``advanced`` option, one fixture each
+AVIF_TOOL_SWITCHES = ("enable-cfl-intra", "enable-filter-intra", "enable-intra-edge-filter",
+                      "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta")
+
+
+def avif_formats() -> dict:
+    """Lossless AVIFs (``quality=100``: coded-lossless AV1 frames) of seeded
+    smooth-plus-noise images, which aom codes without screen content tools:
+    4:4:4, 4:2:2, 4:2:0 and 4:0:0 at full and limited range and odd sizes,
+    RGBA with a lossless alpha item (premultiplied, and of limited range),
+    two tile columns, two by two tiles, 128
+    x 128 superblocks, an Exif orientation (irot), one file per aom
+    tool switched off, speeds 0 and 10, no CDF update, tiles of explicit
+    spacing, a full (not reduced) sequence header, the BT.709, BT.2020 and identity
+    matrices (the ``nclx`` box rewritten), the chair's two AVIF textures and
+    the 2048 x 1536 atlas at 4:2:0 (with seeded noise of sigma 2, 1.48 MB)."""
+    from PIL import Image
+
+    out = {}
+    sizes = {"444": (37, 53), "422": (29, 43), "420": (35, 47), "400": (31, 45)}
+    for k, (tag, shape) in enumerate(sizes.items()):
+        sub = f"{tag[0]}:{tag[1]}:{tag[2]}"
+        for rng_, tail in (("full", ""), ("limited", "_limited")):
+            out[f"avif_{tag}{tail}_{shape[1]}x{shape[0]}.avif"] = (
+                f"AVIF lossless {sub}, {rng_} range, odd size",
+                avif_file(seeded_rgb(shape, 400 + k, noise=8), quality=100, subsampling=sub,
+                          range=rng_))
+    rng = np.random.default_rng(410)
+    rgb = seeded_rgb((41, 59), 411, noise=8)
+    alpha = np.clip(rgb[..., 1].astype(int) + rng.integers(-30, 30, rgb.shape[:2]), 0,
+                    255).astype(np.uint8)
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    out["avif_rgba_444.avif"] = ("AVIF lossless RGBA 4:4:4, a lossless alpha item",
+                                 avif_file(rgba, quality=100, subsampling="4:4:4"))
+    out["avif_rgba_420.avif"] = ("AVIF lossless RGBA 4:2:0, a lossless alpha item",
+                                 avif_file(rgba, quality=100, subsampling="4:2:0"))
+    out["avif_rgba_400_limited.avif"] = ("AVIF lossless RGBA 4:0:0, limited range (libyuv's "
+                                         "I400 row)", avif_file(rgba, quality=100,
+                                                               subsampling="4:0:0",
+                                                               range="limited"))
+    out["avif_rgba_premultiplied.avif"] = (
+        "AVIF lossless RGBA 4:2:0, premultiplied alpha (a prem reference; libyuv's "
+        "ARGBUnattenuate)", avif_file(rgba, quality=100, alpha_premultiplied=True))
+    out["avif_rgba_limited_alpha.avif"] = (
+        "AVIF lossless RGBA 4:4:4, a limited-range alpha item (its sequence header's "
+        "color_range cleared)", avif_alpha_limited(avif_file(rgba, quality=100,
+                                                             subsampling="4:4:4")))
+    big = seeded_rgb((150, 270), 412, noise=8)
+    out["avif_tile_cols.avif"] = ("AVIF lossless, two tile columns",
+                                  avif_file(big, quality=100, tile_cols=1))
+    out["avif_tiles_2x2.avif"] = ("AVIF lossless, two by two tiles",
+                                  avif_file(big, quality=100, subsampling="4:4:4", tile_rows=1,
+                                            tile_cols=1))
+    out["avif_sb128.avif"] = ("AVIF lossless, 128 x 128 superblocks (aom's sb-size 128)",
+                              avif_file(seeded_rgb((133, 201), 413, noise=8), quality=100,
+                                        advanced={"sb-size": "128"}))
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    out["avif_exif_orientation6.avif"] = ("AVIF lossless, Exif orientation 6 (an irot property)",
+                                          avif_file(seeded_rgb((27, 39), 414, noise=8),
+                                                    quality=100, exif=exif.tobytes()))
+    for k, switch in enumerate(AVIF_TOOL_SWITCHES):
+        out[f"avif_no_{switch[7:].replace('-', '_')}.avif"] = (
+            f"AVIF lossless, aom {switch}=0", avif_file(seeded_rgb((40, 56), 420 + k, noise=8),
+                                                        quality=100, advanced={switch: "0"}))
+    for speed in (0, 10):
+        out[f"avif_speed{speed}.avif"] = (f"AVIF lossless, aom speed {speed}", avif_file(
+            seeded_rgb((70, 90), 430 + speed, noise=8), quality=100, speed=speed))
+    out["avif_no_cdf_update.avif"] = ("AVIF lossless, disable_cdf_update (aom cdf-update-mode=0)",
+                                      avif_file(seeded_rgb((36, 52), 435, noise=8), quality=100,
+                                                advanced={"cdf-update-mode": "0"}))
+    out["avif_explicit_tiles.avif"] = ("AVIF lossless, two tiles of explicit (non-uniform) "
+                                       "spacing (aom tile-width, tile-height)", avif_file(
+                                           seeded_rgb((64, 96), 436, noise=8), quality=100,
+                                           advanced={"tile-width": "1", "tile-height": "1"}))
+    frames = [Image.fromarray(seeded_rgb((34, 50), 437 + k, noise=8)) for k in range(2)]
+    seq = io.BytesIO()
+    frames[0].save(seq, "AVIF", quality=100, save_all=True, append_images=frames[1:])
+    seq = seq.getvalue()
+    at = seq.index(b"ftypavis") + 4
+    out["avif_full_sequence_header.avif"] = (
+        "AVIF lossless, a full sequence header (an avis file's still item, its major brand "
+        "rewritten to avif)", seq[:at] + b"avif" + seq[at + 4:])
+    base444 = avif_file(seeded_rgb((33, 49), 440, noise=8), quality=100, subsampling="4:4:4")
+    base420 = avif_file(seeded_rgb((33, 49), 441, noise=8), quality=100)
+    out["avif_identity_444.avif"] = ("AVIF lossless, identity matrix (GBR)",
+                                     avif_nclx(base444, 0, 1))
+    for matrix, tag in ((1, "bt709"), (9, "bt2020")):
+        out[f"avif_{tag}_420.avif"] = (f"AVIF lossless, {tag} matrix, full range",
+                                       avif_nclx(base420, matrix, 1))
+        out[f"avif_{tag}_limited_420.avif"] = (f"AVIF lossless, {tag} matrix, limited range",
+                                               avif_nclx(base420, matrix, 0))
+    tex = seeded_rgb((48, 48), 450, noise=8)
+    out["chair_lossless_420.avif"] = ("chair texture, AVIF lossless 4:2:0",
+                                      avif_file(tex, quality=100))
+    tex_alpha = np.concatenate([tex, np.clip(
+        230 - tex[..., 2:] // 4 + rng.integers(-12, 12, (48, 48, 1)), 0, 255).astype(np.uint8)],
+        -1)
+    out["chair_rgba.avif"] = ("chair texture, AVIF lossless RGBA", avif_file(
+        tex_alpha, quality=100, subsampling="4:4:4"))
+    noisy = texture_atlas(9) + np.random.default_rng(451).normal(0, 2, (1536, 2048, 3))
+    out["atlas_lossless_2048x1536.avif"] = ("2048 x 1536 atlas, AVIF lossless 4:2:0", avif_file(
+        np.clip(noisy, 0, 255).astype(np.uint8), quality=100))
+    return out
+
+
+def avif_refused_files() -> dict:
+    """{refusal word: AVIF bytes} of the files Pillow reads and the port
+    refuses by name, one per word Pillow's writer (aom 3.12.1) can make: lossy AV1
+    (Pillow's default quality), screen content tools (aom's
+    tune-content=screen), film grain (film-grain-test on a lossless frame)
+    and an avis sequence. Superres (aom takes no option
+    of Pillow's for it), high bit depth (Pillow writes 8 bits), an inter
+    first frame, a lossy alpha item beside a lossless colour item and a grid
+    (libavif's writer makes one only through its own API) are not written."""
+    from PIL import Image
+
+    rgb = seeded_rgb((30, 44), 460, noise=8)
+    seq = io.BytesIO()
+    Image.fromarray(rgb).save(seq, "AVIF", quality=100, save_all=True,
+                              append_images=[Image.fromarray(rgb[::-1])])
+    return {
+        "lossy AV1": avif_file(rgb),
+        "AV1 screen content tools": avif_file(rgb // 64 * 64, quality=100,
+                                              advanced={"tune-content": "screen"}),
+        "AV1 film grain": avif_file(rgb, quality=100, advanced={"film-grain-test": "1"}),
+        "avis image sequence": seq.getvalue(),
+    }
 
 
 def _dxt1(rgb: np.ndarray) -> bytes:
