@@ -274,7 +274,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and bit-mask layout Pillow reads; PSD of every mode; SGI, PCX, DCX, ICO,
    CUR, QOI, XBM, IM, ICNS, BLP, Sun raster, MSP, SPIDER and bare DIB files;
    lossless AVIF of every sampling, range, matrix, tiling and aom tool
-   switch; the 2048 x 1536 BEHAVE frames and atlas) through ``read_image``
+   switch, and lossy AVIF as Pillow writes it (four q contexts, speeds 5 to
+   10, transforms of 4 to 64 points, 4:1 ones at speed 4, delta q, the deblocking filter, every
+   sampling, a lossy alpha item, tiles, 128² superblocks); the 2048 x 1536
+   BEHAVE frames and atlas) through ``read_image``
    with the native decoders and codecs (``native/src/{jpeg_decode,
    image_codecs,bcn_decode,webp_decode,av1_decode}.cpp``, built with
    ``g++``; the phase fails if they do not build or load): the SHA-256 of
@@ -287,8 +290,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decoder on the 512² texture, and the host decode ms (median of 5) of the
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
    JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-   TIFF-JPEG, QOI, SGI RLE and lossless 4:2:0 AVIF, the AVIF fixtures'
-   count printed on a line of its own. (b) A BEHAVE-shaped sequence of 2 frames
+   TIFF-JPEG, QOI, SGI RLE and lossless and lossy (Pillow's defaults) 4:2:0
+   AVIF, the lossless and lossy AVIF fixtures' counts printed on a line of
+   its own. (b) A BEHAVE-shaped sequence of 2 frames
    whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
    ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image equal
    to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512² JPEG
@@ -296,7 +300,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    TIFF-LZW, a CMYK JPEG, a lossy WebP with alpha, a lossless WebP, a DDS
    BC7, a DDS DXT1, a PSD, a YCbCr 4:2:0 TIFF-JPEG, an SGI RLE, a PCX, a
    QOI, an ICO, a BLP2 DXT5, a Sun RLE file and the rest of
-   ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, last) on its back,
+   ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, and a lossy AVIF at
+   Pillow's defaults, last) on its back,
    legs, stretchers, armrests, seat trims, back slats and seat studs, through
    ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
    the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
@@ -1119,26 +1124,35 @@ K3_F32_SHAPES = (  # (name, B, H, Lq, Lk, D, batch rows held): SD-1's UNet and V
 K3_BF16_ATOL, K3_BF16_RTOL, K3_F32_ATOL = 5e-4, 8e-3, 1e-4
 
 
+K3_PROFILE_WINDOWS = 3   # a window in which CUPTI recorded no device activity is taken again
+
+
 def k3_profile(q, k, v, reps: int):
     """One ``torch.profiler`` window over ``reps`` K3 calls and one
     ``F.scaled_dot_product_attention`` call: K3's device ms per launch (the
     mean over the launches the profiler recorded), and the names of the
-    device kernels SDPA ran (which backend took the call)."""
+    device kernels SDPA ran (which backend took the call). A window that
+    recorded no device time of K3 is taken again, ``K3_PROFILE_WINDOWS`` in
+    all; if none does, it raises."""
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from coma_tpu_torch.ops.attention import scaled_dot_attention
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            scaled_dot_attention(q, k, v)
-        F.scaled_dot_product_attention(q, k, v)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    k3 = [e for e in events if "flash_attention" in e.key]
-    if not k3 or not sum(e.self_device_time_total for e in k3) > 0:
-        raise AssertionError("the profiler saw no device time of K3")
+    for _ in range(K3_PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                scaled_dot_attention(q, k, v)
+            F.scaled_dot_product_attention(q, k, v)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        k3 = [e for e in events if "flash_attention" in e.key]
+        if k3 and sum(e.self_device_time_total for e in k3) > 0:
+            break
+    else:
+        raise AssertionError(f"the profiler saw no device time of K3 in {K3_PROFILE_WINDOWS} "
+                             "windows")
     device_ms = sum(e.self_device_time_total for e in k3) / sum(e.count for e in k3) / 1e3
     sdpa = sorted(e.key for e in events if "flash_attention" not in e.key)
     return device_ms, "; ".join(sdpa) or "no device kernel seen"
@@ -1985,7 +1999,8 @@ OPT_CPU_STEPS = 10
 # sums (index_add, the gather's backward) run in another order on the card
 OPT_LOSS_RTOL, OPT_VERTS_ATOL = 1e-3, 1e-3
 OPT_TIMED_STEPS = (20, 120)
-OPT_CLI_STEPS = 500   # of the CLI's 2000: the ms per step is timed apart (OPT_TIMED_STEPS)
+OPT_CLI_STEPS = 200   # of the CLI's 2000: the ms per step is timed apart (OPT_TIMED_STEPS)
+OPT_COLLISION_STEPS = 100
 OPT_PROFILED_STEPS = 50
 
 
@@ -2078,9 +2093,10 @@ def optimize_problem(files: dict, device):
 
 
 def optimize_phase(files: dict, label: str) -> dict:
-    """Phase 7: the CLI at its defaults but 500 steps, then with
-    ``--use_collision`` at 200 steps; ms per step (CUDA events, the difference of two fits); the card
-    against the CPU over 10 steps; the device's idle share over 50 steps."""
+    """Phase 7: the CLI at its defaults but ``OPT_CLI_STEPS`` steps, then
+    with ``--use_collision`` at ``OPT_COLLISION_STEPS``; ms per step (CUDA
+    events, the difference of two fits); the card against the CPU over 10
+    steps; the device's idle share over 50 steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from coma_tpu_torch.affordance.io import load_pickle
@@ -2090,7 +2106,8 @@ def optimize_phase(files: dict, label: str) -> dict:
         runs = dict(defaults=run_optimize_cli(files, out, label,
                                               ("--num_iters", str(OPT_CLI_STEPS))),
                     collision=run_optimize_cli(files, out, label,
-                                               ("--use_collision", "--num_iters", "200")))
+                                               ("--use_collision", "--num_iters",
+                                                str(OPT_COLLISION_STEPS))))
     coma = load_pickle(files["coma"])
     sel = len(derive_targets_from_coma(coma, 0, 0.3)[1])
     card = optimize_problem(files, DEVICE)
@@ -2683,13 +2700,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to forty-two image files) give the back, then
+    ``part_textures`` (up to forty-three image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
     stretcher, three low stretchers, a lumbar bar, a front apron, two seat
     knobs, a cross of two bars under the seat, four foot pads, a back emblem,
-    two armrest pads and two studs at the seat's front a material, UVs and a
+    two armrest pads and three studs at the seat's front a material, UVs and a
     ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
@@ -2751,7 +2768,8 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((-0.27, 0.66, -0.20), (-0.23, 0.68, 0.20)),
               ((0.23, 0.66, -0.20), (0.27, 0.68, 0.20)),
               ((-0.12, 0.44, 0.25), (-0.08, 0.47, 0.26)),
-              ((0.08, 0.44, 0.25), (0.12, 0.47, 0.26))]
+              ((0.08, 0.44, 0.25), (0.12, 0.47, 0.26)),
+              ((-0.02, 0.44, 0.25), (0.02, 0.47, 0.26))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3807,7 +3825,8 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # old-style JPEG and ThunderScan, a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
 # TIFF and a PFM, and XPM, FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD (stored gzipped: written
 # out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF, and a
-# lossless 4:2:0 AVIF and a lossless RGBA AVIF on two studs at the seat's front
+# lossless 4:2:0 AVIF, a lossless RGBA AVIF and a lossy AVIF (Pillow's defaults) on three
+# studs at the seat's front
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3818,7 +3837,8 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_lab.psd", "chair_cielab.tif", "chair.pfm", "chair.xpm",
                  "chair_dxt1.ftc", "chair_rgba.gbr", "chair.pxr", "chair.flc", "pcd_base.pcd",
                  "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
-                 "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif")
+                 "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif",
+                 "chair_lossy.avif")
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3830,7 +3850,8 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_2048x1536.qoi", "atlas_rle_2048x1536.sgi", "atlas_zstd_2048x1536.tif",
                  "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
                  "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
-                 "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif")
+                 "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif",
+                 "atlas_lossy_2048x1536.avif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3889,8 +3910,8 @@ def decode_phase(label: str) -> dict:
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
     Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
     tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless
-    AVIF (4:2:0, coded-lossless AV1 through ``native/src/av1_decode.cpp``)
-    (median of 5)."""
+    and lossy AVIF (4:2:0, coded-lossless and lossy AV1 through
+    ``native/src/av1_decode.cpp``) (median of 5)."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -4031,12 +4052,16 @@ def decode_phase(label: str) -> dict:
         f"{out['damaged_atlas_reconstruct_ms']:.3f} ms (host), beside the clean "
         f"{BEHAVE_COLOR}'s {out['entropy_ms']:.3f} and {out['reconstruct_ms']:.3f} ms [{label}]")
     avif_equal = [n for n in equal if n.endswith(".avif")]
-    out["avif_equal"] = len(avif_equal)
+    avif_lossy = [n for n in avif_equal if "lossy" in n]
+    out.update(avif_equal=len(avif_equal), avif_lossy_equal=len(avif_lossy))
     atlas_avif = timed["atlas_lossless_2048x1536.avif"]
-    log(f"phase 16a: {len(avif_equal)} AVIF fixtures (coded-lossless AV1 through "
-        f"native/src/av1_decode.cpp, libyuv's conversion) equal to Pillow's hashes in modes None, "
-        f"RGB and L; atlas_lossless_2048x1536.avif ({atlas_avif['bytes']} bytes) host decode "
-        f"median of {DECODE_REPS}: {atlas_avif['median_ms']:.3f} ms [{label}]")
+    lossy_avif = timed["atlas_lossy_2048x1536.avif"]
+    log(f"phase 16a: {len(avif_equal)} AVIF fixtures ({len(avif_equal) - len(avif_lossy)} "
+        f"coded-lossless, {len(avif_lossy)} lossy AV1 through native/src/av1_decode.cpp, "
+        f"libyuv's conversion) equal to Pillow's hashes in modes None, RGB and L; host decode "
+        f"median of {DECODE_REPS}: atlas_lossless_2048x1536.avif ({atlas_avif['bytes']} bytes) "
+        f"{atlas_avif['median_ms']:.3f} ms, atlas_lossy_2048x1536.avif ({lossy_avif['bytes']} "
+        f"bytes, Pillow's defaults) {lossy_avif['median_ms']:.3f} ms [{label}]")
     log("phase 16a: host decode of the 2048 x 1536 atlas through read_image, median of "
         f"{DECODE_REPS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['median_ms']:.3f} ms"
                                        for n, t in timed.items()) + f" [{label}]")
@@ -4106,7 +4131,8 @@ def jpeg_asset_phase(label: str) -> dict:
     lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab TIFF and a PFM, and
     its seat knobs, cross bars, foot pads, back emblem and armrest pads XPM,
     FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail,
-    IPTC/NAA and 1-bit tiled TIFF ones, through
+    IPTC/NAA and 1-bit tiled TIFF ones, and its studs two lossless AVIFs
+    and a lossy one (Pillow's defaults), through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4203,9 +4229,9 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in forty-one files of twenty-six formats (a
-    damaged JPEG, a Lab PSD, a CIELab TIFF and a PhotoCD among them), six
-    more TIFF compressions and a 1-bit tiled TIFF through stage 1 into K3,
+    frames, (c) an asset textured in forty-four files (a damaged JPEG, a Lab
+    PSD, a CIELab TIFF, a PhotoCD, TIFFs in six more compressions, a 1-bit
+    tiled TIFF, two lossless AVIFs and a lossy one among them) through stage 1 into K3,
     every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""

@@ -447,7 +447,12 @@ def j2k_level_shift(plane: np.ndarray, prec: int, sgnd: bool, reversible: bool) 
 AV1_SRC = native._SRC_DIR / "av1_decode.cpp"
 AV1_INFO = ("width", "height", "mono_chrome", "subsampling_x", "subsampling_y",
             "matrix_coefficients", "color_range", "tiles", "use_128x128_superblock",
-            "reduced_still_picture_header", "disable_cdf_update", "uniform_tile_spacing_flag")
+            "reduced_still_picture_header", "disable_cdf_update", "uniform_tile_spacing_flag",
+            "base_q_idx", "q_context", "reduced_tx_set", "loop_filter_level_0",
+            "loop_filter_level_1", "loop_filter_level_2", "loop_filter_level_3",
+            "loop_filter_sharpness", "delta_q_present", "enable_cdef", "tx_mode_select")
+# what av1_decode reports the frame reached
+AV1_STATS = ("tx_sizes", "tx_types", "delta_q_max", "deblocked_edges")
 
 
 def _declare_av1(lib: ctypes.CDLL) -> None:
@@ -455,7 +460,7 @@ def _declare_av1(lib: ctypes.CDLL) -> None:
     lib.av1_probe.restype = ctypes.c_int
     lib.av1_probe.argtypes = [ctypes.c_char_p, i64, ptr]
     lib.av1_decode.restype = ctypes.c_int
-    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, ptr, ptr, ptr, i32]
+    lib.av1_decode.argtypes = [ctypes.c_char_p, i64, ptr, ptr, ptr, ptr, i32, ptr]
     lib.yuv_to_rgb.restype = None
     lib.yuv_to_rgb.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr]
 
@@ -477,8 +482,8 @@ def av1_probe(payload: bytes) -> tuple:
 
 def av1_decode(payload: bytes, info: dict) -> tuple:
     """(status, [Y, U, V] uint8 planes cropped to the frame (one for
-    monochrome), the per-tile exit-process padding checks) of the first
-    frame ``av1_probe`` described."""
+    monochrome), the per-tile exit-process padding checks, {AV1_STATS name:
+    value}) of the first frame ``av1_probe`` described."""
     lib = av1_library()
     w, h = info["width"], info["height"]
     sx, sy = info["subsampling_x"], info["subsampling_y"]
@@ -486,9 +491,12 @@ def av1_decode(payload: bytes, info: dict) -> tuple:
     chroma = ((h + sy) >> sy, (w + sx) >> sx)
     planes += [np.zeros(chroma, np.uint8), np.zeros(chroma, np.uint8)]
     padding = np.zeros(max(info["tiles"], 1), np.int32)
+    stats = np.zeros(len(AV1_STATS), np.int32)
     status = lib.av1_decode(payload, len(payload), planes[0].ctypes.data, planes[1].ctypes.data,
-                            planes[2].ctypes.data, padding.ctypes.data, len(padding))
-    return int(status), planes[:1 if info["mono_chrome"] else 3], padding.astype(bool)
+                            planes[2].ctypes.data, padding.ctypes.data, len(padding),
+                            stats.ctypes.data)
+    return (int(status), planes[:1 if info["mono_chrome"] else 3], padding.astype(bool),
+            dict(zip(AV1_STATS, stats.tolist())))
 
 
 def yuv_to_rgb(planes: list, sx: int, sy: int, constants: tuple) -> np.ndarray:

@@ -1,5 +1,7 @@
 """AVIF files read as Pillow 12.1.0 reads them (libavif 1.3.0 over dav1d
-1.5.1 and libyuv 1909), for frames that are coded-lossless.
+1.5.1 and libyuv 1909), for frames that are coded-lossless or lossy as
+Pillow writes them at speeds 5 to 10 (no CDEF, loop restoration or
+quantizer matrices).
 
 :func:`decode_avif` takes the primary item (and its alpha item) from the
 HEIF container (``utils/heif.py``), decodes each AV1 payload's first frame
@@ -18,11 +20,13 @@ from Y, U, V, libavif's own copy). The mode is "RGBA" where an alpha item
 is present, else "RGB". The alpha plane is copied as libavif copies it: a
 limited-range one mapped to full range (``avifLimitedToFullY``), and where
 the primary item's ``prem`` reference says the colour is premultiplied, the
-colour divided by it as libyuv's ``ARGBUnattenuate`` divides.
+colour divided by it as libyuv's SIMD ``ARGBUnattenuate`` rows divide.
 
 Refused with ``utils.modes.FormatNotRead`` (format "AVIF", the detail
-naming what is not read): lossy AV1 (a frame that is not CodedLossless),
-AV1 screen content tools, superres, film grain and high bit depth, a first
+naming what is not read): AV1 CDEF that filters anything, loop
+restoration, quantizer matrices, delta lf, segment loop filter levels,
+a 16 x 64 or 64 x 16 transform (no encode here writes one to test it by),
+screen content tools, superres, film grain and high bit depth, a first
 shown frame that is not a key frame, another matrix, an ``ispe`` other than
 the frame's size (libavif resizes the frame to it), and what
 ``utils/heif.py`` refuses. A damaged or truncated file raises a
@@ -37,8 +41,10 @@ from coma_tpu_torch.utils import heif
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead
 
 # av1_decode.cpp's refusal codes and the words that name them
-REFUSALS = {-2: "lossy AV1", -3: "AV1 screen content tools", -4: "AV1 superres",
-            -5: "AV1 film grain", -6: "AV1 high bit depth", -7: "AV1 inter frame"}
+REFUSALS = {-3: "AV1 screen content tools", -4: "AV1 superres", -5: "AV1 film grain",
+            -6: "AV1 high bit depth", -7: "AV1 inter frame", -9: "AV1 CDEF",
+            -10: "AV1 loop restoration", -11: "AV1 quantizer matrices", -12: "AV1 delta lf",
+            -14: "AV1 segment loop filter levels", -15: "AV1 16x64 transforms"}
 TOO_LARGE = -8
 
 # libyuv's YuvConstants, (YG, YB, UB, UG, VG, VR), by (matrix, full range)
@@ -153,18 +159,25 @@ UNATTENUATE = np.array([0, 0xFFFF] + [0x10000 // a for a in range(2, 255)] + [0x
 
 
 def unattenuate(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
-    """libyuv's ``ARGBUnattenuateRow_C``, which libavif runs to take a
-    premultiplied colour back: C = min((C * 0x0101 * ia) >> 16, 255)."""
+    """libyuv's ``ARGBUnattenuateRow`` as Pillow's build runs it on x86 (its
+    SSSE3 and AVX2 rows), which libavif calls to take a premultiplied colour
+    back: v = (C * 0x0101 * ia) >> 16 in 16 bits, packed to a byte with
+    signed saturation, so min(v, 255), but 0 where v passes 32767 (a colour
+    of 128 or more over an alpha of 1, which only lossy coding makes; the C
+    row would clamp it to 255)."""
     ia = UNATTENUATE[alpha][..., None].astype(np.int64)
-    return np.minimum((rgb.astype(np.int64) * 0x0101 * ia) >> 16, 255).astype(np.uint8)
+    v = (rgb.astype(np.int64) * 0x0101 * ia) >> 16
+    return np.where(v > 32767, 0, np.minimum(v, 255)).astype(np.uint8)
 
 
 def decode_av1(payload: bytes, name: str, what: str) -> tuple:
-    """(the AV1 header's info, its planes, the tiles' padding checks) of an
+    """(the AV1 header's info with what the decoder reached
+    (``codecs.AV1_STATS``), its planes, the tiles' padding checks) of an
     item's first frame; a refusal or a fault raises naming the file."""
     status, info = codecs.av1_probe(payload)
     if status == 0:
-        status, planes, padding = codecs.av1_decode(payload, info)
+        status, planes, padding, stats = codecs.av1_decode(payload, info)
+        info.update(stats)
     if status in REFUSALS:
         raise FormatNotRead(name, "AVIF", f" ({REFUSALS[status]}, in its {what} item)")
     if status == TOO_LARGE:

@@ -2,20 +2,26 @@
 decoder of ``native/src/av1_decode.cpp``) against Pillow 12.1.0 (libavif
 1.3.0 over dav1d 1.5.1 and libyuv 1909), bit for bit, with no tolerance:
 
-- every AVIF fixture of ``tests/data/images`` (coded-lossless frames: 4:4:4,
-  4:2:2, 4:2:0 and 4:0:0 at full and limited range and odd sizes, RGBA
-  (with premultiplied and limited-range alpha), several tiles of uniform and explicit spacing, 128 x 128 superblocks, each
-  aom tool switched off, no CDF update, a full sequence header, the BT.709,
-  BT.2020 and identity matrices, the 2048 x 1536 atlas) in modes
-  None, RGB and L through ``read_image``, against Pillow now and the
-  manifest's hashes;
+- every AVIF fixture of ``tests/data/images`` in modes None, RGB and L
+  through ``read_image``, against Pillow now and the manifest's hashes:
+  coded-lossless frames (4:4:4, 4:2:2, 4:2:0 and 4:0:0 at full and limited
+  range and odd sizes, RGBA with premultiplied and limited-range alpha,
+  several tiles of uniform and explicit spacing, 128 x 128 superblocks,
+  each aom tool switched off, no CDF update, a full sequence header, the
+  BT.709, BT.2020 and identity matrices, the 2048 x 1536 atlas) and lossy
+  ones as Pillow writes them (qualities 99, 90, 75 and 30, which are the
+  four coefficient q contexts; speeds 5, 6, 7 and 10; transforms of 4 to
+  64 points of both intra transform sets, 4:1 ones (4 x 16 to 32 x 8, at
+  speed 4 without loop restoration) among them; TX_MODE_SELECT; delta q; the
+  deblocking filter with and without sharpness; the four samplings at odd
+  sizes; a lossy alpha item; tiles; 128 x 128 superblocks; the atlas);
 - each tile's symbol decoder ends on the specification's padding (its exit
   process), on every fixture;
 - the files Pillow reads and the port refuses, refused naming the file,
   "AVIF" and what is not read;
-- truncated and damaged files, each in a process of its own under a time
-  limit: Pillow's array or a ``ValueError`` naming the file, never a crash
-  or a hang;
+- truncated and damaged files, lossless and lossy, each in a process of
+  its own under a time limit: Pillow's array or a ``ValueError`` naming the
+  file, never a crash or a hang;
 - every alpha value through libavif's limited-to-full mapping and libyuv's
   unattenuation, on files written here;
 - the vectorised chroma upsampling against a row-by-row transcription of
@@ -65,7 +71,14 @@ def test_fixtures_cover_the_slice():
                      "enable-cfl-intra", "enable-filter-intra", "enable-intra-edge-filter",
                      "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta")):
         assert word in kinds, word
-    assert len(ENTRIES) == 36 and not any(e.get("raises") for e in ENTRIES)
+    for word in ("AVIF lossy, quality 99", "quality 90", "quality 75", "quality 30",
+                 "aom speed 5", "aom speed 7", "aom speed 10", "AVIF lossy 4:4:4",
+                 "AVIF lossy 4:2:2", "AVIF lossy 4:2:0", "AVIF lossy 4:0:0", "lossy alpha item",
+                 "deltaq-mode=3", "reduced-tx-type-set=1", "sharpness=4",
+                 "chair texture, AVIF lossy", "2048 x 1536 atlas, AVIF lossy",
+                 "4 x 16, 16 x 4, 8 x 32 and 32 x 8 transforms, deblocked"):
+        assert word in kinds, word
+    assert len(ENTRIES) == 56 and not any(e.get("raises") for e in ENTRIES)
 
 
 @pytest.mark.parametrize("entry", ENTRIES, ids=NAMES)
@@ -116,6 +129,63 @@ def test_what_the_fixtures_exercise():
     assert sum(s[8] for s in seen.values()) == len(seen) - 1      # the rest: reduced headers
     assert [n for n, s in seen.items() if s[9]] == ["avif_rgba_premultiplied.avif"]
     assert [n for n, s in seen.items() if s[10] == 0] == ["avif_rgba_limited_alpha.avif"]
+
+
+TX_64 = ("TX_64X64", "TX_32X64", "TX_64X32")
+TX_4TO1 = ("TX_4X16", "TX_16X4", "TX_8X32", "TX_32X8")
+TX_NAMES = ("TX_4X4", "TX_8X8", "TX_16X16", "TX_32X32", "TX_64X64", "TX_4X8", "TX_8X4",
+            "TX_8X16", "TX_16X8", "TX_16X32", "TX_32X16", "TX_32X64", "TX_64X32", "TX_4X16",
+            "TX_16X4", "TX_8X32", "TX_32X8", "TX_16X64", "TX_64X16")
+
+
+def test_what_the_lossy_fixtures_exercise():
+    """The header facts each lossy fixture is there for (q context,
+    reduced_tx_set, TX_MODE_SELECT, a non-zero loop filter level and
+    sharpness, delta q), what the decoder reached in it (the transform sizes
+    that coded coefficients, 64-point ones included, the intra transform
+    types, the deblocked edges), and the lossless fixtures untouched by
+    either."""
+    facts = {}
+    for name in NAMES:
+        _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
+        sizes = {t for k, t in enumerate(TX_NAMES) if info["tx_sizes"] >> k & 1}
+        facts[name] = dict(info, sizes=sizes, alpha=alpha and alpha[0])
+    lossy = [n for n in NAMES if "lossy" in n]
+    assert len(lossy) == 20
+    for name in set(NAMES) - set(lossy):                   # coded-lossless: TX_4X4 WHT only
+        f = facts[name]
+        assert f["base_q_idx"] == 0 and f["sizes"] <= {"TX_4X4"} and f["deblocked_edges"] == 0
+    assert [facts[f"avif_lossy_q{q}_96x72.avif"]["q_context"] for q in (99, 90, 75, 30)] == \
+        [0, 1, 2, 3]
+    assert [facts[f"avif_lossy_q{q}_96x72.avif"]["base_q_idx"] for q in (99, 90, 75, 30)] == \
+        [4, 24, 64, 176]
+    assert facts["avif_lossy_q90_96x72.avif"]["loop_filter_level_0"] == 0
+    assert facts["avif_lossy_q90_96x72.avif"]["deblocked_edges"] == 0
+    for name in ("avif_lossy_q75_96x72.avif", "avif_lossy_q30_96x72.avif", "chair_lossy.avif",
+                 "atlas_lossy_2048x1536.avif"):
+        assert facts[name]["loop_filter_level_0"] > 0 and facts[name]["deblocked_edges"] > 0
+    assert facts["avif_lossy_sharpness.avif"]["loop_filter_sharpness"] == 4
+    assert [n for n in lossy if facts[n]["reduced_tx_set"]] == ["avif_lossy_reduced_tx_set.avif"]
+    assert [n for n in lossy if facts[n]["delta_q_present"]] == ["avif_lossy_deltaq.avif"]
+    assert facts["avif_lossy_deltaq.avif"]["delta_q_max"] > 0
+    assert facts["atlas_lossy_2048x1536.avif"]["tx_mode_select"] == 1     # Pillow's defaults
+    assert facts["avif_lossy_q75_96x72.avif"]["tx_mode_select"] == 0       # TX_MODE_LARGEST
+    assert not any(facts[n]["enable_cdef"] for n in lossy)
+    assert set(TX_64) <= facts["avif_lossy_speed5_224x160.avif"]["sizes"]
+    assert set(TX_4TO1) <= facts["avif_lossy_tx4to1_224x160.avif"]["sizes"]
+    assert facts["avif_lossy_tx4to1_224x160.avif"]["deblocked_edges"] > 0
+    reached = set().union(*(facts[n]["sizes"] for n in lossy))
+    assert {"TX_4X4", "TX_8X8", "TX_16X16", "TX_32X32", "TX_4X8", "TX_8X16", "TX_16X32",
+            "TX_32X16"} | set(TX_64) | set(TX_4TO1) <= reached
+    assert not reached & {"TX_16X64", "TX_64X16"}        # refused: no encode here writes one
+    types = 0
+    for name in lossy:
+        types |= facts[name]["tx_types"]
+    assert {t for t in range(16) if types >> t & 1} >= {0, 1, 2, 3, 9, 10, 11}  # both sets
+    alpha = facts["avif_lossy_rgba.avif"]["alpha"]
+    assert alpha["base_q_idx"] > 0 and alpha["deblocked_edges"] > 0
+    assert facts["avif_lossy_tiles_2x2.avif"]["tiles"] == 4
+    assert facts["avif_lossy_sb128.avif"]["use_128x128_superblock"] == 1
 
 
 REFUSED = avif_refused_files()
@@ -180,6 +250,23 @@ def test_premultiplied_alpha_at_every_value(tmp_path, subsampling):
     np.testing.assert_array_equal(read_image(str(path)), _pillow(str(path)))
 
 
+def test_lossy_premultiplied_colour_over_its_alpha(tmp_path):
+    """Lossy coding of a premultiplied file leaves colours above their alpha;
+    over an alpha of 1 a colour of 128 or more passes 16 signed bits in
+    libyuv's SIMD unattenuation and comes back 0, as Pillow reads it."""
+    alpha = np.where(np.random.default_rng(700).random((96, 128, 1)) < 0.5, 0, 255)
+    rgba = np.concatenate([np.full((96, 128, 3), 230), alpha], -1).astype(np.uint8)
+    path = tmp_path / "prem_lossy.avif"
+    path.write_bytes(avif_file(rgba, quality=3, speed=9, alpha_premultiplied=True))
+    got = read_image(str(path))
+    np.testing.assert_array_equal(got, _pillow(str(path)))
+    _, (info, planes, _), (_, alpha, _) = avif.decode_avif_planes(path.read_bytes(), "prem")
+    rgb = codecs.yuv_to_rgb(planes, info["subsampling_x"], info["subsampling_y"],
+                            avif.LIBYUV_CONSTANTS[("BT.601", info["color_range"])])
+    wrapped = (alpha[0] == 1)[..., None] & (rgb >= 128)
+    assert wrapped.any() and (got[..., :3][wrapped] == 0).all()
+
+
 def test_limited_range_alpha_at_every_value(tmp_path):
     """A limited-range alpha item: each of the 256 stored values through
     libavif's ``avifLimitedToFullY``, as Pillow reads it."""
@@ -211,12 +298,17 @@ def _pillow(path: str):
         return None
 
 
+DAMAGED = ("avif_tiles_2x2.avif", "avif_lossy_tiles_2x2.avif")
+
+
+@pytest.mark.parametrize("name", DAMAGED)
 @pytest.mark.parametrize("k", range(10))
-def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k):
-    """A seeded cut of a fixture: Pillow's array, or a ValueError naming the
-    file (libavif refuses every cut inside the item's data), within the
-    time limit and without a crash."""
-    data = fixture("avif_tiles_2x2.avif")
+def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k, name):
+    """A seeded cut of a fixture (lossless, and lossy with its large
+    transforms and the deblocking filter): Pillow's array, or a ValueError
+    naming the file (libavif refuses every cut inside the item's data),
+    within the time limit and without a crash."""
+    data = fixture(name)
     cut = int(np.random.default_rng(500 + k).integers(1, len(data)))
     path = tmp_path / f"cut{k}.avif"
     path.write_bytes(data[:cut])
@@ -230,12 +322,15 @@ def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k):
         np.testing.assert_array_equal(read_image(str(path)), want)
 
 
+@pytest.mark.parametrize("name", DAMAGED)
 @pytest.mark.parametrize("k", range(10))
-def test_damaged_tile_data_never_crashes(tmp_path, k):
+def test_damaged_tile_data_never_crashes(tmp_path, k, name):
     """Seeded bytes of a fixture's tiles changed: an image of the file's
     size or a ValueError naming the file, within the time limit and without
-    a crash (every read of the symbol decoder stays inside its tile)."""
-    data = bytearray(fixture("avif_tiles_2x2.avif"))
+    a crash (every read of the symbol decoder stays inside its tile; the
+    transforms, the predictors and the deblocking filter stay inside their
+    buffers on damaged coefficients)."""
+    data = bytearray(fixture(name))
     rng = np.random.default_rng(600 + k)
     start = data.index(b"mdat") + 40
     for at in rng.integers(start, len(data), 1 + k % 4):

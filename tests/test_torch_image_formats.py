@@ -14,8 +14,8 @@ tolerance:
 - the native codecs (``native/src/image_codecs.cpp``: LZW, PackBits, TGA
   run-length) against their plain Python versions;
 - JPEG 2000, WebP, DDS and TIFF-JPEG files, once left out, equal to Pillow;
-  a format still left out (AVIF) raises a ``ValueError`` naming the file and
-  the format;
+  a format still left out (AVIF with quantizer matrices) raises a
+  ``ValueError`` naming the file and the format;
 - ``load_obj_textured`` on an OBJ whose materials take TGA, BMP, TIFF-LZW,
   CMYK and arithmetic JPEG, WebP (lossy with alpha, lossless), DDS (BC1,
   BC3, BC7), PSD and TIFF-JPEG textures, and ``BehaveSequence`` on a YCCK
@@ -385,7 +385,7 @@ def _gif_lzw(idx: np.ndarray):
 
 
 LEFT_OUT = [
-    ("avif", "AVIF", {}, "AVIF"),
+    ("avif", "AVIF", {"advanced": {"enable-qm": "1"}}, "AVIF"),   # quantizer matrices
 ]
 
 

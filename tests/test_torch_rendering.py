@@ -233,6 +233,28 @@ def test_load_obj_textured_keeps_kd_for_a_jpeg(tmp_path, capsys):
     assert "x.jpg" in out and all(n not in out for n in ("t.jpg", "p.jpg", "c.jpg"))
 
 
+def test_load_obj_textured_reads_a_lossy_avif(tmp_path, capsys):
+    """An AVIF ``map_Kd`` at Pillow's default quality (lossy AV1 with the
+    deblocking filter) and a lossy RGBA one decode and resize to
+    ``coma_tpu``'s layers through PIL, bit for bit, with no warning."""
+    yy, xx = np.mgrid[:36, :52]
+    tex = np.stack([120 + 90 * np.sin(xx / 5 + c) * np.cos(yy / 4) for c in range(3)], -1)
+    tex = np.uint8(np.clip(tex + np.random.default_rng(4).normal(0, 10, tex.shape), 0, 255))
+    Image.fromarray(tex).save(str(tmp_path / "t.avif"))
+    alpha = np.uint8(np.clip(200 - tex[..., :1] // 3, 0, 255))
+    Image.fromarray(np.concatenate([tex[::-1], alpha], -1)).save(str(tmp_path / "a.avif"))
+    (tmp_path / "m.mtl").write_text("newmtl t\nKd 0.1 0.9 0.2\nmap_Kd t.avif\n"
+                                    "newmtl a\nKd 0.1 0.9 0.2\nmap_Kd a.avif\n")
+    (tmp_path / "o.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
+                                    "usemtl t\nf 1/1 2/1 3/1\nusemtl a\nf 1/1 2/1 3/1\n")
+    got = t_mesh.load_obj_textured(str(tmp_path / "o.obj"), tex_size=16)
+    want = j_load_obj_textured(str(tmp_path / "o.obj"), tex_size=16)
+    np.testing.assert_array_equal(got.face_material, want.face_material)
+    np.testing.assert_array_equal(got.textures, want.textures)       # grey, t, a
+    assert not np.allclose(got.textures[1], [0.1, 0.9, 0.2])        # the texture, not Kd
+    assert "WARNING" not in capsys.readouterr().out
+
+
 # -------------------------------------------------------------- rasterizer
 
 def _soup(seed, n=40, res=64):

@@ -12,7 +12,8 @@ plugin order, against Pillow 12.1.0, bit for bit, with no tolerance:
   refuses, refused naming the file;
 - PIL's conversions of the modes these readers add ("F", "I", "I;16B",
   "PA", "RGBX", "YCbCr": every YCbCr triple);
-- the formats Pillow reads and the port does not (AVIF, HTJ2K): a
+- the formats Pillow reads and the port does not (AVIF with quantizer
+  matrices, HTJ2K): a
   ``ValueError`` naming the file and the format; those Pillow opens here
   and cannot load (BUFR, GRIB, HDF5, EPS, MPEG, WMF/EMF): a plain
   ``ValueError`` naming the file, Pillow refusing it too; those the port
@@ -570,8 +571,9 @@ def test_formats_once_refused_equal_pillow(tmp_path, word):
 
 
 def test_mesh_warning_names_the_refused_format(tmp_path, capsys):
-    """An OBJ whose texture is an AVIF (PIL reads it, the port does not)
-    keeps its Kd colour, and the warning names the format."""
+    """An OBJ whose texture is an AVIF with quantizer matrices (PIL reads it,
+    the port does not) keeps its Kd colour, and the warning names the
+    format."""
     from coma_tpu_torch.geometry.mesh import load_obj_textured
 
     (tmp_path / "t.avif").write_bytes(refused_files()["AVIF"][1])

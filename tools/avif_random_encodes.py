@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Hold the port's AVIF reader against Pillow on seeded random lossless encodes.
+"""Hold the port's AVIF reader against Pillow on seeded random encodes.
 
-    python3 tools/avif_random_encodes.py [--count 300] [--seed 0] [--max-side 96]
+    python3 tools/avif_random_encodes.py [--count 300] [--seed 0] [--max-side 96] [--lossy]
 
 Each case draws a size (1 to ``--max-side`` on a side), a subsampling
 (4:4:4, 4:2:2, 4:2:0, 4:0:0), a range, an image (smooth plus noise, flat,
 or uniform noise), an alpha plane or none (premultiplied, or its item set
-to limited range where the colour is not 4:0:0, at random), tile columns and rows, an aom speed and one of
-aom's intra tool switches off, writes it with Pillow at ``quality=100``
-(coded-lossless AV1: the slice the port reads) and compares
-``coma_tpu_torch``'s reader (``utils/avif.decode_avif`` and ``to_mode``, as
-``read_image`` runs them) with Pillow's array in modes None, RGB and L, to
-the byte. A file the port refuses by name (aom chose screen
-content tools for a flat image) is counted apart. Prints one JSON line: the
-counts of equal, refused and differing cases, and the first differing cases'
-parameters. Needs Pillow with AVIF (libavif over aom and dav1d) and
-``g++``; runs on the host.
+to limited range where the colour is not 4:0:0, at random), tile columns
+and rows, and writes it with Pillow. By default at ``quality=100``
+(coded-lossless AV1) with an aom speed of 0 to 10 and one of aom's intra
+tool switches off; with ``--lossy`` at a quality of 0 to 99 and a speed of
+5 to 10 (Pillow's lossy files without CDEF, loop restoration or quantizer
+matrices), with aom's deltaq-mode=3, sb-size=128, reduced-tx-type-set=1
+or a loop filter sharpness at random. It compares ``coma_tpu_torch``'s
+reader (``utils/avif.decode_avif`` and ``to_mode``, as ``read_image`` runs
+them) with Pillow's array in modes None, RGB and L, to the byte. A file the
+port refuses by name (aom chose screen content tools for a flat image) is
+counted apart. Prints one JSON line: the counts of equal, refused and
+differing cases, and the first differing cases' parameters. Needs Pillow
+with AVIF (libavif over aom and dav1d) and ``g++``; runs on the host.
 """
 from __future__ import annotations
 
@@ -35,9 +38,12 @@ from make_image_fixtures import (AVIF_TOOL_SWITCHES, avif_alpha_limited,  # noqa
                                  seeded_rgb)
 
 SUBSAMPLINGS = ("4:4:4", "4:2:2", "4:2:0", "4:0:0")
+# aom options of lossy files the port reads, each drawn with probability 0.2
+LOSSY_OPTIONS = (("deltaq-mode", "3"), ("sb-size", "128"), ("reduced-tx-type-set", "1"),
+                 ("sharpness", "3"))
 
 
-def draw(rng: np.random.Generator, k: int, max_side: int) -> tuple:
+def draw(rng: np.random.Generator, k: int, max_side: int, lossy: bool = False) -> tuple:
     """(the image, Pillow's save options, whether to set the alpha item to
     limited range) of case ``k``."""
     h, w = (int(v) for v in rng.integers(1, max_side + 1, 2))
@@ -46,12 +52,17 @@ def draw(rng: np.random.Generator, k: int, max_side: int) -> tuple:
         rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
     else:
         rgb = seeded_rgb((h, w), 1000 + k, noise=0.5 if kind == "flat" else 8)
-    options = dict(quality=100, subsampling=str(rng.choice(SUBSAMPLINGS)),
+    options = dict(quality=int(rng.integers(0, 100)) if lossy else 100,
+                   subsampling=str(rng.choice(SUBSAMPLINGS)),
                    range=str(rng.choice(["full", "limited"])),
-                   speed=int(rng.integers(0, 11)))
+                   speed=int(rng.integers(5, 11) if lossy else rng.integers(0, 11)))
     if rng.random() < 0.3:
         options.update(tile_cols=int(rng.integers(0, 2)), tile_rows=int(rng.integers(0, 2)))
-    if rng.random() < 0.4:
+    if lossy:
+        advanced = {key: value for key, value in LOSSY_OPTIONS if rng.random() < 0.2}
+        if advanced:
+            options["advanced"] = advanced
+    elif rng.random() < 0.4:
         options["advanced"] = {str(rng.choice(AVIF_TOOL_SWITCHES)): "0"}
     limited_alpha = False
     if rng.random() < 0.4:
@@ -67,6 +78,8 @@ def main() -> int:
     parser.add_argument("--count", type=int, default=300)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-side", type=int, default=96)
+    parser.add_argument("--lossy", action="store_true",
+                        help="lossy encodes (quality 0-99, speed 5-10) instead of quality=100")
     args = parser.parse_args()
     from PIL import Image
 
@@ -76,7 +89,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     equal, refused, differ = 0, [], []
     for k in range(args.count):
-        image, options, limited_alpha = draw(rng, k, args.max_side)
+        image, options, limited_alpha = draw(rng, k, args.max_side, args.lossy)
         buf = io.BytesIO()
         Image.fromarray(image).save(buf, "AVIF", **options)
         data = avif_alpha_limited(buf.getvalue()) if limited_alpha else buf.getvalue()
@@ -95,8 +108,8 @@ def main() -> int:
             equal += 1
         else:
             differ.append(case)
-    print(json.dumps(dict(count=args.count, seed=args.seed, equal=equal, refused=len(refused),
-                          differ=len(differ), first_differing=differ[:5],
+    print(json.dumps(dict(count=args.count, seed=args.seed, lossy=args.lossy, equal=equal,
+                          refused=len(refused), differ=len(differ), first_differing=differ[:5],
                           first_refused=refused[:5])))
     return 1 if differ else 0
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Write the image fixtures of ``tests/data/images/`` and their manifest.
 
-    python3 tools/make_image_fixtures.py [--damaged]
+    python3 tools/make_image_fixtures.py [--damaged | --only GROUP]
 
 ``--damaged`` writes only the damaged set of ``tests/data/images/damaged/``
 (:func:`damaged_fixtures`: libjpeg-turbo's recovery from corrupt data and
 the refusals of Pillow, libtiff and libwebp, with its own ``manifest.json``).
+``--only GROUP`` writes only the files of one group, a ``*_formats``
+function of this module (``--only avif_lossy_formats``), and puts their
+entries into the existing manifest in place, new ones at its end, leaving
+the others as they are.
 Needs Pillow and gcc with libjpeg-turbo's headers and library (the CPU test
 host has them; the card machine has neither, which is why the files and the
 manifest are committed). Every image is made from a numpy seed. Pillow
@@ -1635,9 +1639,9 @@ def refused_format_files() -> dict:
     port refused at first: {the format (a refusal's word for those of
     :data:`REFUSED_FORMATS`): (file extension, bytes)}, in the order of
     :data:`REFUSED_FORMATS`, :data:`PILLOW_REFUSES` and :data:`ONCE_REFUSED`.
-    Pillow writes the AVIF and EPS ones and the codestream whose COD marks
-    its code-blocks HTJ2K; the rest are the smallest whole files Pillow's
-    plugins open."""
+    Pillow writes the AVIF (with quantizer matrices, which the port does not
+    read) and EPS ones and the codestream whose COD marks its code-blocks
+    HTJ2K; the rest are the smallest whole files Pillow's plugins open."""
     from PIL import Image
 
     def pil(image, fmt, **kw):
@@ -1653,7 +1657,7 @@ def refused_format_files() -> dict:
     wmf += b"\x01\x00\x09\x00" + bytes(60)
     ycc = np.repeat(np.repeat(seeded_rgb((16, 24), 191), 32, 0), 32, 1)
     files = {
-        "AVIF": ("avif", pil(rgb, "AVIF")),
+        "AVIF": ("avif", pil(rgb, "AVIF", advanced={"enable-qm": "1"})),
         "HTJ2K (JPEG 2000 Part 15)": ("j2k", htj2k),
         "BUFR": ("bufr", b"BUFR" + bytes(60)),
         "EPS": ("eps", pil(rgb, "EPS")),
@@ -3208,18 +3212,98 @@ def avif_formats() -> dict:
     noisy = texture_atlas(9) + np.random.default_rng(451).normal(0, 2, (1536, 2048, 3))
     out["atlas_lossless_2048x1536.avif"] = ("2048 x 1536 atlas, AVIF lossless 4:2:0", avif_file(
         np.clip(noisy, 0, 255).astype(np.uint8), quality=100))
+    out.update(avif_lossy_formats())
+    return out
+
+
+def seeded_bars(shape: tuple, seed: int, count: int, thick: tuple, length: tuple) -> np.ndarray:
+    """(H, W, 3) uint8: ``count`` seeded bars, upright or lying, of a
+    thickness and length drawn from the two [low, high) ranges, in flat
+    colours on grey, with noise of sigma 3; long thin bars draw aom to 1:4
+    partitions."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = np.full((h, w, 3), 128.0)
+    for _ in range(count):
+        y, x = rng.integers(0, h), rng.integers(0, w)
+        t, n = rng.integers(*thick), rng.integers(*length)
+        if rng.random() < 0.5:
+            img[y:y + n, x:x + t] = rng.integers(0, 255, 3)
+        else:
+            img[y:y + t, x:x + n] = rng.integers(0, 255, 3)
+    return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
+
+
+def avif_lossy_formats() -> dict:
+    """Lossy AVIFs as Pillow writes them (aom at speeds 5 to 10, no CDEF, loop
+    restoration or quantizer matrices): qualities 99, 90, 75 (Pillow's
+    default) and 30, which reach the four coefficient q contexts; speeds 5
+    (transforms of 64 points), 7 and 10; 4:4:4, 4:2:2, 4:2:0 and 4:0:0 at odd
+    sizes; RGBA with a lossy alpha item; two by two tiles; 128 x 128
+    superblocks; delta q (aom's deltaq-mode=3); the reduced transform set;
+    a loop filter sharpness; transforms of 4:1 shape (speed 4 with loop
+    restoration off: aom tries 1:4 partitions only below speed 5); the
+    chair's lossy texture and the 2048 x 1536 atlas at Pillow's defaults."""
+    out = {}
+    for k, quality in enumerate((99, 90, 75, 30)):
+        out[f"avif_lossy_q{quality}_96x72.avif"] = (
+            f"AVIF lossy, quality {quality}", avif_file(seeded_rgb((72, 96), 470, noise=8),
+                                                        quality=quality))
+    out["avif_lossy_speed5_224x160.avif"] = (
+        "AVIF lossy, aom speed 5, quality 30 (64-point transforms)",
+        avif_file(seeded_rgb((160, 224), 480, noise=0.5), quality=30, speed=5))
+    for speed in (7, 10):
+        out[f"avif_lossy_speed{speed}.avif"] = (f"AVIF lossy, aom speed {speed}", avif_file(
+            seeded_rgb((72, 96), 471, noise=8), speed=speed))
+    sizes = {"444": (37, 53), "422": (29, 43), "420": (35, 47), "400": (31, 45)}
+    for k, (tag, shape) in enumerate(sizes.items()):
+        sub = f"{tag[0]}:{tag[1]}:{tag[2]}"
+        out[f"avif_lossy_{tag}_{shape[1]}x{shape[0]}.avif"] = (
+            f"AVIF lossy {sub}, odd size", avif_file(seeded_rgb(shape, 490 + k, noise=8),
+                                                     subsampling=sub))
+    rng = np.random.default_rng(495)
+    rgb = seeded_rgb((41, 59), 496, noise=8)
+    alpha = np.clip(rgb[..., 1].astype(int) + rng.integers(-30, 30, rgb.shape[:2]), 0,
+                    255).astype(np.uint8)
+    out["avif_lossy_rgba.avif"] = ("AVIF lossy RGBA, a lossy alpha item",
+                                   avif_file(np.concatenate([rgb, alpha[..., None]], -1)))
+    out["avif_lossy_tiles_2x2.avif"] = ("AVIF lossy, two by two tiles", avif_file(
+        seeded_rgb((150, 270), 475, noise=8), tile_rows=1, tile_cols=1))
+    out["avif_lossy_sb128.avif"] = ("AVIF lossy, 128 x 128 superblocks (aom's sb-size 128)",
+                                    avif_file(seeded_rgb((133, 201), 474, noise=8),
+                                              advanced={"sb-size": "128"}))
+    out["avif_lossy_deltaq.avif"] = ("AVIF lossy, delta q (aom's deltaq-mode=3)", avif_file(
+        seeded_rgb((128, 160), 473, noise=8), advanced={"deltaq-mode": "3"}))
+    out["avif_lossy_reduced_tx_set.avif"] = (
+        "AVIF lossy, the reduced transform set (aom's reduced-tx-type-set=1)",
+        avif_file(seeded_rgb((72, 96), 476, noise=8), advanced={"reduced-tx-type-set": "1"}))
+    out["avif_lossy_sharpness.avif"] = (
+        "AVIF lossy, quality 40, loop filter sharpness 4 (aom's sharpness=4)",
+        avif_file(seeded_rgb((72, 96), 477, noise=8), quality=40, advanced={"sharpness": "4"}))
+    out["avif_lossy_tx4to1_224x160.avif"] = (
+        "AVIF lossy, quality 30, aom speed 4 without loop restoration: 4 x 16, 16 x 4, 8 x 32 "
+        "and 32 x 8 transforms, deblocked", avif_file(
+            seeded_bars((160, 224), 9, 20, (14, 20), (60, 80)), quality=30, speed=4,
+            advanced={"enable-restoration": "0"}))
+    out["chair_lossy.avif"] = ("chair texture, AVIF lossy at Pillow's defaults",
+                               avif_file(seeded_rgb((48, 48), 452, noise=8)))
+    noisy = texture_atlas(9) + np.random.default_rng(451).normal(0, 2, (1536, 2048, 3))
+    out["atlas_lossy_2048x1536.avif"] = ("2048 x 1536 atlas, AVIF lossy at Pillow's defaults",
+                                         avif_file(np.clip(noisy, 0, 255).astype(np.uint8)))
     return out
 
 
 def avif_refused_files() -> dict:
     """{refusal word: AVIF bytes} of the files Pillow reads and the port
-    refuses by name, one per word Pillow's writer (aom 3.12.1) can make: lossy AV1
-    (Pillow's default quality), screen content tools (aom's
-    tune-content=screen), film grain (film-grain-test on a lossless frame)
-    and an avis sequence. Superres (aom takes no option
-    of Pillow's for it), high bit depth (Pillow writes 8 bits), an inter
-    first frame, a lossy alpha item beside a lossless colour item and a grid
-    (libavif's writer makes one only through its own API) are not written."""
+    refuses by name, one per word Pillow's writer (aom 3.12.1) can make: CDEF
+    (aom's enable-cdef=1), loop restoration (speed 4), quantizer matrices
+    (enable-qm=1), screen content tools (tune-content=screen), film grain
+    (film-grain-test on a lossless frame) and an avis sequence. Superres (aom
+    takes no option of Pillow's for it), delta lf (aom's deltalf-mode is not
+    an option of Pillow's), segment loop filter levels (aom writes no
+    segmentation here), high bit depth (Pillow writes 8 bits), an inter first
+    frame and a grid (libavif's writer makes one only through its own API)
+    are not written."""
     from PIL import Image
 
     rgb = seeded_rgb((30, 44), 460, noise=8)
@@ -3227,7 +3311,9 @@ def avif_refused_files() -> dict:
     Image.fromarray(rgb).save(seq, "AVIF", quality=100, save_all=True,
                               append_images=[Image.fromarray(rgb[::-1])])
     return {
-        "lossy AV1": avif_file(rgb),
+        "AV1 CDEF": avif_file(rgb, advanced={"enable-cdef": "1"}),
+        "AV1 loop restoration": avif_file(rgb, speed=4),
+        "AV1 quantizer matrices": avif_file(rgb, advanced={"enable-qm": "1"}),
         "AV1 screen content tools": avif_file(rgb // 64 * 64, quality=100,
                                               advanced={"tune-content": "screen"}),
         "AV1 film grain": avif_file(rgb, quality=100, advanced={"film-grain-test": "1"}),
@@ -3634,39 +3720,75 @@ def write_damaged() -> int:
     return 0
 
 
+def write_fixture(name: str, kind: str, data: bytes) -> dict:
+    """Write one fixture under ``OUT`` (gzipped where ``GZIPPED`` says) and
+    return its manifest entry: Pillow's mode, shape, dtype and hashes, or
+    its refusal."""
+    from PIL import Image
+
+    stored = name + ".gz" if name in GZIPPED else name
+    blob = gzip.compress(data, 9, mtime=0) if name in GZIPPED else data
+    with open(os.path.join(OUT, stored), "wb") as fh:
+        fh.write(blob)
+    entry = dict(file=name, kind=kind, bytes=len(blob))
+    if name in GZIPPED:
+        entry.update(stored=stored, raw_bytes=len(data))
+    try:
+        with Image.open(io.BytesIO(data) if name in GZIPPED else os.path.join(OUT, name)) as im:
+            own = np.asarray(im)
+            hashes = {"None": array_sha(own)}
+            for m in ("RGB", "L"):
+                try:
+                    hashes[m] = array_sha(np.asarray(im.convert(m)))
+                except ValueError:              # Pillow refuses "LAB" to "L": a null hash
+                    hashes[m] = None
+            entry.update(mode=im.mode, shape=list(own.shape), dtype=str(own.dtype),
+                         sha256=hashes)
+    except (OSError, SyntaxError, ValueError, NotImplementedError) as err:
+        entry.update(raises=True, pillow_error=f"{type(err).__name__}: {err}")
+    return entry
+
+
+def write_group(group: str) -> int:
+    """``--only GROUP``: write the files of one ``*_formats`` function and
+    put their entries into the existing ``manifest.json``."""
+    make = globals().get(group)
+    if not group.endswith("_formats") or not callable(make):
+        groups = sorted(k for k, v in globals().items() if k.endswith("_formats") and callable(v))
+        print(f"make_image_fixtures: no group {group!r}; the groups: {', '.join(groups)}",
+              file=sys.stderr)
+        return 2
+    path = os.path.join(OUT, "manifest.json")
+    with open(path) as fh:
+        manifest = json.load(fh)
+    at = {e["file"]: k for k, e in enumerate(manifest["files"])}
+    written = make()
+    for name, (kind, data) in written.items():
+        entry = write_fixture(name, kind, data)
+        if name in at:
+            manifest["files"][at[name]] = entry
+        else:
+            manifest["files"].append(entry)
+    with open(path, "w") as fh:
+        json.dump(manifest, fh, indent=1)
+        fh.write("\n")
+    print(f"wrote {len(written)} fixtures of {group} under {OUT} and their manifest entries")
+    return 0
+
+
 def main() -> int:
     try:
         import PIL
-        from PIL import Image, features
+        from PIL import features
     except ImportError:
         print("make_image_fixtures: needs Pillow", file=sys.stderr)
         return 2
     if "--damaged" in sys.argv[1:]:
         return write_damaged()
+    if "--only" in sys.argv[1:]:
+        return write_group(sys.argv[sys.argv.index("--only") + 1])
     os.makedirs(OUT, exist_ok=True)
-    entries = []
-    for name, (kind, data) in fixtures().items():
-        stored = name + ".gz" if name in GZIPPED else name
-        blob = gzip.compress(data, 9, mtime=0) if name in GZIPPED else data
-        with open(os.path.join(OUT, stored), "wb") as fh:
-            fh.write(blob)
-        entry = dict(file=name, kind=kind, bytes=len(blob))
-        if name in GZIPPED:
-            entry.update(stored=stored, raw_bytes=len(data))
-        try:
-            with Image.open(io.BytesIO(data) if name in GZIPPED else os.path.join(OUT, name)) as im:
-                own = np.asarray(im)
-                hashes = {"None": array_sha(own)}
-                for m in ("RGB", "L"):
-                    try:
-                        hashes[m] = array_sha(np.asarray(im.convert(m)))
-                    except ValueError:          # Pillow refuses "LAB" to "L": a null hash
-                        hashes[m] = None
-                entry.update(mode=im.mode, shape=list(own.shape), dtype=str(own.dtype),
-                             sha256=hashes)
-        except (OSError, SyntaxError, ValueError, NotImplementedError) as err:
-            entry.update(raises=True, pillow_error=f"{type(err).__name__}: {err}")
-        entries.append(entry)
+    entries = [write_fixture(name, kind, data) for name, (kind, data) in fixtures().items()]
     manifest = dict(pillow=PIL.__version__, libjpeg_turbo=features.version("libjpeg_turbo"),
                     libwebp=features.version("webp"), openjpeg=features.version("jpg_2000"),
                     libtiff=features.version("libtiff"), files=entries,
