@@ -111,14 +111,14 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    SMPL-X-shaped npz, its ``qual:backpack_human_contact`` pickle (H 10475,
    O 180, N 250) and 180-point object downsample, with a seeded VPoser
    snapshot (512 wide, latent 32), at the CLI defaults (lr 1e-2, weights 1e12 /
-   2.6e11) cut to 500 of their 2000 steps, then with ``--use_collision`` at
-   200 steps; every kernel's counter from 0 (the application runs none).
+   2.6e11) cut to 100 of their 2000 steps, then with ``--use_collision`` at
+   50 steps; every kernel's counter from 0 (the application runs none).
    Checks: the losses finite and the total falling from step 0; the card
    against the CPU over 10 steps (total loss within 1e-3 relative, vertices
    within 1e-3 m; the card sums ``index_add`` and the gather's backward with
    atomics). Printed:
    the wall clocks, ms per step (CUDA events), peak memory, and the device's
-   idle share over 50 steps (``torch.profiler``).
+   idle share over 10 steps (``torch.profiler``).
 
 8. SAM in the loop: ``cli/inpaint --adaptive_mask_model_type ps_ae
    --random_weights`` on phase 6's tree (4 images at 512², 50 steps; SAM
@@ -226,7 +226,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    kernel launched. Printed: ms per volume render and per contact scene
    (CUDA events), peak memory. (c) ``cli/train_segmenter`` at its defaults
    (``PersonSegmenter()``, batch 64 at 128², both domains, corruption with
-   the numpy JPEG, a pool of 48) cut to ``--steps 40 --eval_batches 2
+   the numpy JPEG, a pool of 48) cut to ``--steps 20 --eval_batches 2
    --log_every 10``: the loss finite and the mean of the last 10 steps below
    step 1's, the npz loaded by the port's loader segmenting 4 images, one
    AdamW step from seeded weights on 8 images card against CPU with TF32
@@ -276,7 +276,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    lossless AVIF of every sampling, range, matrix, tiling and aom tool
    switch, and lossy AVIF as Pillow writes it (four q contexts, speeds 5 to
    10, transforms of 4 to 64 points, 4:1 ones at speed 4, delta q, the deblocking filter, every
-   sampling, a lossy alpha item, tiles, 128² superblocks); the 2048 x 1536
+   sampling, a lossy alpha item, tiles, 128² superblocks) and restored at
+   speeds 0 to 4 or with aom's enable-cdef=1 (CDEF at cdef_bits 0 to 3 in
+   every sampling, Wiener, self-guided and switchable loop restoration on
+   every plane, mixed, over tiles, 16 x 64 and 64 x 16 transforms, a
+   restored alpha item); the 2048 x 1536
    BEHAVE frames and atlas) through ``read_image``
    with the native decoders and codecs (``native/src/{jpeg_decode,
    image_codecs,bcn_decode,webp_decode,av1_decode}.cpp``, built with
@@ -290,9 +294,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decoder on the 512² texture, and the host decode ms (median of 5) of the
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
    JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-   TIFF-JPEG, QOI, SGI RLE and lossless and lossy (Pillow's defaults) 4:2:0
-   AVIF, the lossless and lossy AVIF fixtures' counts printed on a line of
-   its own. (b) A BEHAVE-shaped sequence of 2 frames
+   TIFF-JPEG, QOI, SGI RLE and lossless, lossy (Pillow's defaults) and
+   restored (speed 4 with CDEF) 4:2:0 AVIF, the lossless, lossy and restored
+   AVIF fixtures' counts printed on a line of its own, and on another the
+   restored fixtures with CDEF-filtered blocks and with restored units,
+   from the decoder's counters. (b) A BEHAVE-shaped sequence of 2 frames
    whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
    ``BehaveSequence.__getitem__`` and ``get_person_mask``, every image equal
    to Pillow's hash; ms per frame. (c) Phase 13's chair with the 512² JPEG
@@ -300,8 +306,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    TIFF-LZW, a CMYK JPEG, a lossy WebP with alpha, a lossless WebP, a DDS
    BC7, a DDS DXT1, a PSD, a YCbCr 4:2:0 TIFF-JPEG, an SGI RLE, a PCX, a
    QOI, an ICO, a BLP2 DXT5, a Sun RLE file and the rest of
-   ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, and a lossy AVIF at
-   Pillow's defaults, last) on its back,
+   ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, a lossy AVIF at
+   Pillow's defaults and one at speed 0 with CDEF and loop restoration,
+   last; its counters must show both) on its back,
    legs, stretchers, armrests, seat trims, back slats and seat studs, through
    ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
    the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
@@ -1809,7 +1816,7 @@ def pointrend_phase(root: str, label: str, p_seconds: float) -> dict:
     return runs
 
 
-def profile_detector(label: str, calls: int = 3) -> dict:
+def profile_detector(label: str, calls: int = 1) -> dict:
     """Where a provoke step's detector time goes: the in-loop segment
     function (stand-in weights, batch 4 at 800 px, float32) under
     ``torch.profiler`` after a warm-up; wall ms per call, the device's busy
@@ -1999,9 +2006,9 @@ OPT_CPU_STEPS = 10
 # sums (index_add, the gather's backward) run in another order on the card
 OPT_LOSS_RTOL, OPT_VERTS_ATOL = 1e-3, 1e-3
 OPT_TIMED_STEPS = (20, 120)
-OPT_CLI_STEPS = 200   # of the CLI's 2000: the ms per step is timed apart (OPT_TIMED_STEPS)
-OPT_COLLISION_STEPS = 100
-OPT_PROFILED_STEPS = 50
+OPT_CLI_STEPS = 100   # of the CLI's 2000: the ms per step is timed apart (OPT_TIMED_STEPS)
+OPT_COLLISION_STEPS = 50
+OPT_PROFILED_STEPS = 10   # 50 until PR 25: the profiler took ~66 s of the host to read 50
 
 
 def write_vposer_snapshot(path: str, seed: int) -> None:
@@ -2096,7 +2103,7 @@ def optimize_phase(files: dict, label: str) -> dict:
     """Phase 7: the CLI at its defaults but ``OPT_CLI_STEPS`` steps, then
     with ``--use_collision`` at ``OPT_COLLISION_STEPS``; ms per step (CUDA
     events, the difference of two fits); the card against the CPU over 10
-    steps; the device's idle share over 50 steps."""
+    steps; the device's idle share over ``OPT_PROFILED_STEPS`` steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from coma_tpu_torch.affordance.io import load_pickle
@@ -2700,13 +2707,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to forty-three image files) give the back, then
+    ``part_textures`` (up to forty-four image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
     stretcher, three low stretchers, a lumbar bar, a front apron, two seat
     knobs, a cross of two bars under the seat, four foot pads, a back emblem,
-    two armrest pads and three studs at the seat's front a material, UVs and a
+    two armrest pads and four studs at the seat's front a material, UVs and a
     ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
@@ -2769,7 +2776,8 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((0.23, 0.66, -0.20), (0.27, 0.68, 0.20)),
               ((-0.12, 0.44, 0.25), (-0.08, 0.47, 0.26)),
               ((0.08, 0.44, 0.25), (0.12, 0.47, 0.26)),
-              ((-0.02, 0.44, 0.25), (0.02, 0.47, 0.26))]
+              ((-0.02, 0.44, 0.25), (0.02, 0.47, 0.26)),
+              ((0.16, 0.44, 0.25), (0.20, 0.47, 0.26))]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
@@ -3085,7 +3093,7 @@ BEHAVE_FRAMES = 64
 EVAL_SIM_ATOL = 1e-6
 VOLUME_ATOL, VOLUME_SHARE, VOLUME_MAX = 1e-4, 1e-3, 1e-2
 SCENE_SIZE = (512, 384)     # the Kinect camera at the CLI's resolution
-TRAIN_CUTS = ["--steps", "40", "--eval_batches", "2", "--log_every", "10"]
+TRAIN_CUTS = ["--steps", "20", "--eval_batches", "2", "--log_every", "10"]
 TRAIN_CHECK_BATCH, TRAIN_CHECK_LR = 8, 3e-4
 TRAIN_ATOL, TRAIN_GRAD_FLOOR = 1e-4, 1e-5
 
@@ -3450,7 +3458,7 @@ def train_step_card_vs_cpu() -> dict:
 
 
 def train_phase(out: str, label: str) -> dict:
-    """14c: ``cli/train_segmenter`` at its defaults cut to 40 steps (counters
+    """14c: ``cli/train_segmenter`` at its defaults cut to 20 steps (counters
     from 0), its checkpoint loaded and run, one step card against CPU."""
     from coma_tpu_torch.cli import train_segmenter
     from coma_tpu_torch.models.flax_params import load_flax_params
@@ -3825,8 +3833,8 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # old-style JPEG and ThunderScan, a lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab
 # TIFF and a PFM, and XPM, FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD (stored gzipped: written
 # out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF, and a
-# lossless 4:2:0 AVIF, a lossless RGBA AVIF and a lossy AVIF (Pillow's defaults) on three
-# studs at the seat's front
+# lossless 4:2:0 AVIF, a lossless RGBA AVIF, a lossy AVIF (Pillow's defaults) and a restored
+# one (speed 0 with CDEF: CDEF and loop restoration) on four studs at the seat's front
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3838,7 +3846,9 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_dxt1.ftc", "chair_rgba.gbr", "chair.pxr", "chair.flc", "pcd_base.pcd",
                  "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
                  "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif",
-                 "chair_lossy.avif")
+                 "chair_lossy.avif", "chair_restored.avif")
+# the restored part texture whose decoder counters phase 16c checks
+RESTORED_PART = "chair_restored.avif"
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3851,7 +3861,7 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
                  "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
                  "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif",
-                 "atlas_lossy_2048x1536.avif")
+                 "atlas_lossy_2048x1536.avif", "atlas_restored_2048x1536.avif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3898,6 +3908,23 @@ def image_sha(image: np.ndarray) -> str:
                           .tobytes()).hexdigest()
 
 
+def avif_counters(name: str) -> dict:
+    """The AV1 decoder's CDEF and restoration counters of an AVIF fixture,
+    its colour and alpha items summed: 8 x 8 blocks CDEF filtered, Wiener and
+    self-guided units."""
+    from coma_tpu_torch.utils import avif
+
+    with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
+        data = fh.read()
+    _, color, alpha = avif.decode_avif_planes(data, name)
+    items = [color[0]] + ([alpha[0]] if alpha else [])
+    out = dict(cdef_blocks=sum(i["cdef_blocks"] for i in items),
+               wiener=sum(i[f"wiener_units_{p}"] for i in items for p in range(3)),
+               sgrproj=sum(i[f"sgrproj_units_{p}"] for i in items for p in range(3)))
+    out["units"] = out["wiener"] + out["sgrproj"]
+    return out
+
+
 def decode_phase(label: str) -> dict:
     """(a) Every fixture through ``read_image`` (the native JPEG, BCn and
     WebP decoders and codecs, which must build) against Pillow's hashes for
@@ -3909,9 +3936,11 @@ def decode_phase(label: str) -> dict:
     lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
     Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
-    tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless
-    and lossy AVIF (4:2:0, coded-lossless and lossy AV1 through
-    ``native/src/av1_decode.cpp``) (median of 5)."""
+    tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless,
+    lossy and restored AVIF (4:2:0, coded-lossless and lossy AV1 through
+    ``native/src/av1_decode.cpp``, the restored one with CDEF and loop
+    restoration) (median of 5). Each restored AVIF fixture must show CDEF
+    or loop restoration in the decoder's counters."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -4053,15 +4082,34 @@ def decode_phase(label: str) -> dict:
         f"{BEHAVE_COLOR}'s {out['entropy_ms']:.3f} and {out['reconstruct_ms']:.3f} ms [{label}]")
     avif_equal = [n for n in equal if n.endswith(".avif")]
     avif_lossy = [n for n in avif_equal if "lossy" in n]
-    out.update(avif_equal=len(avif_equal), avif_lossy_equal=len(avif_lossy))
+    avif_restored = [n for n in avif_equal if "restored" in n]
+    restored = {n: avif_counters(n) for n in avif_restored}
+    shown = [n for n, c in restored.items() if not (c["cdef_blocks"] or c["units"])]
+    if shown:
+        raise AssertionError(f"{shown}: no CDEF-filtered block and no restored unit")
+    with_cdef = [n for n, c in restored.items() if c["cdef_blocks"]]
+    with_lr = [n for n, c in restored.items() if c["units"]]
+    out.update(avif_equal=len(avif_equal), avif_lossy_equal=len(avif_lossy),
+               avif_restored_equal=len(avif_restored), avif_cdef=len(with_cdef),
+               avif_restoration=len(with_lr), avif_restored_counters=restored)
     atlas_avif = timed["atlas_lossless_2048x1536.avif"]
     lossy_avif = timed["atlas_lossy_2048x1536.avif"]
-    log(f"phase 16a: {len(avif_equal)} AVIF fixtures ({len(avif_equal) - len(avif_lossy)} "
-        f"coded-lossless, {len(avif_lossy)} lossy AV1 through native/src/av1_decode.cpp, "
-        f"libyuv's conversion) equal to Pillow's hashes in modes None, RGB and L; host decode "
-        f"median of {DECODE_REPS}: atlas_lossless_2048x1536.avif ({atlas_avif['bytes']} bytes) "
-        f"{atlas_avif['median_ms']:.3f} ms, atlas_lossy_2048x1536.avif ({lossy_avif['bytes']} "
-        f"bytes, Pillow's defaults) {lossy_avif['median_ms']:.3f} ms [{label}]")
+    restored_avif = timed["atlas_restored_2048x1536.avif"]
+    lossless_count = len(avif_equal) - len(avif_lossy) - len(avif_restored)
+    log(f"phase 16a: {len(avif_equal)} AVIF fixtures ({lossless_count} coded-lossless, "
+        f"{len(avif_lossy)} lossy, {len(avif_restored)} restored AV1 through "
+        f"native/src/av1_decode.cpp, libyuv's conversion) equal to Pillow's hashes in modes "
+        f"None, RGB and L; host decode median of {DECODE_REPS}: atlas_lossless_2048x1536.avif "
+        f"({atlas_avif['bytes']} bytes) {atlas_avif['median_ms']:.3f} ms, "
+        f"atlas_lossy_2048x1536.avif ({lossy_avif['bytes']} bytes, Pillow's defaults) "
+        f"{lossy_avif['median_ms']:.3f} ms, atlas_restored_2048x1536.avif "
+        f"({restored_avif['bytes']} bytes, speed 4 with CDEF) {restored_avif['median_ms']:.3f} "
+        f"ms [{label}]")
+    log(f"phase 16a: restored AVIF fixtures equal to Pillow's hashes: {len(with_cdef)} with "
+        f"CDEF ({sum(c['cdef_blocks'] for c in restored.values())} 8x8 blocks filtered), "
+        f"{len(with_lr)} with loop restoration "
+        f"({sum(c['wiener'] for c in restored.values())} Wiener and "
+        f"{sum(c['sgrproj'] for c in restored.values())} self-guided units) [{label}]")
     log("phase 16a: host decode of the 2048 x 1536 atlas through read_image, median of "
         f"{DECODE_REPS}: " + ", ".join(f"{n} ({t['bytes']} bytes) {t['median_ms']:.3f} ms"
                                        for n, t in timed.items()) + f" [{label}]")
@@ -4131,8 +4179,9 @@ def jpeg_asset_phase(label: str) -> dict:
     lossless JP2, a lossy tiled J2K, a Lab PSD, a CIELab TIFF and a PFM, and
     its seat knobs, cross bars, foot pads, back emblem and armrest pads XPM,
     FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail,
-    IPTC/NAA and 1-bit tiled TIFF ones, and its studs two lossless AVIFs
-    and a lossy one (Pillow's defaults), through
+    IPTC/NAA and 1-bit tiled TIFF ones, and its studs two lossless AVIFs,
+    a lossy one (Pillow's defaults) and a restored one (CDEF and loop
+    restoration, both shown by the decoder's counters), through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4142,6 +4191,9 @@ def jpeg_asset_phase(label: str) -> dict:
 
     texture = os.path.join(IMAGE_FIXTURES, FABRIC_JPEG)
     manifest = dict(image_manifest(), **damaged_manifest())
+    counters = avif_counters(RESTORED_PART)
+    if not (counters["cdef_blocks"] and counters["units"]):
+        raise AssertionError(f"{RESTORED_PART}: counters {counters}: not CDEF and restoration")
     unpacked = os.path.join(SCRATCH, "part_textures")
     os.makedirs(unpacked, exist_ok=True)
     parts = []
@@ -4187,7 +4239,10 @@ def jpeg_asset_phase(label: str) -> dict:
         shutil.rmtree(unpacked, ignore_errors=True)
     log(f"phase 16c: the chair textured with {FABRIC_JPEG} and {', '.join(PART_TEXTURES)} at "
         f"{PHASE16_RES}², resized to {INPAINT_RES}² for inpainting: launches {out['launches']} "
-        f"({out['by_source']}) [{label}]")
+        f"({out['by_source']}); {RESTORED_PART}: {counters['cdef_blocks']} 8x8 blocks CDEF "
+        f"filtered, {counters['wiener']} Wiener and {counters['sgrproj']} self-guided units, "
+        f"decoded to Pillow's hash [{label}]")
+    out["restored_part"] = counters
     return out
 
 
@@ -4229,9 +4284,10 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in forty-four files (a damaged JPEG, a Lab
+    frames, (c) an asset textured in forty-five files (a damaged JPEG, a Lab
     PSD, a CIELab TIFF, a PhotoCD, TIFFs in six more compressions, a 1-bit
-    tiled TIFF, two lossless AVIFs and a lossy one among them) through stage 1 into K3,
+    tiled TIFF, two lossless AVIFs, a lossy one and a restored one among
+    them) through stage 1 into K3,
     every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""
@@ -4307,7 +4363,7 @@ def bench_line(d: dict, label: str) -> None:
     log(f"bench {json.dumps(d)} [{label}]")
 
 
-def idle_share(fn, calls: int = 2) -> dict:
+def idle_share(fn, calls: int = 1) -> dict:
     """``fn`` under ``torch.profiler`` after a warm-up call: wall ms per
     call, the device's busy ms and idle share."""
     from torch.profiler import ProfilerActivity, profile

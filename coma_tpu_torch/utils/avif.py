@@ -1,7 +1,8 @@
 """AVIF files read as Pillow 12.1.0 reads them (libavif 1.3.0 over dav1d
 1.5.1 and libyuv 1909), for frames that are coded-lossless or lossy as
-Pillow writes them at speeds 5 to 10 (no CDEF, loop restoration or
-quantizer matrices).
+Pillow writes them at any speed: the deblocking filter, CDEF (aom's
+enable-cdef=1) and Wiener, self-guided and switchable loop restoration
+(speeds 0 to 4) included; no quantizer matrices.
 
 :func:`decode_avif` takes the primary item (and its alpha item) from the
 HEIF container (``utils/heif.py``), decodes each AV1 payload's first frame
@@ -23,10 +24,9 @@ the primary item's ``prem`` reference says the colour is premultiplied, the
 colour divided by it as libyuv's SIMD ``ARGBUnattenuate`` rows divide.
 
 Refused with ``utils.modes.FormatNotRead`` (format "AVIF", the detail
-naming what is not read): AV1 CDEF that filters anything, loop
-restoration, quantizer matrices, delta lf, segment loop filter levels,
-a 16 x 64 or 64 x 16 transform (no encode here writes one to test it by),
-screen content tools, superres, film grain and high bit depth, a first
+naming what is not read): AV1 quantizer matrices, delta lf, segment loop
+filter levels, screen content tools, superres, film grain and high bit
+depth, a first
 shown frame that is not a key frame, another matrix, an ``ispe`` other than
 the frame's size (libavif resizes the frame to it), and what
 ``utils/heif.py`` refuses. A damaged or truncated file raises a
@@ -42,9 +42,8 @@ from coma_tpu_torch.utils.modes import Decoded, FormatNotRead
 
 # av1_decode.cpp's refusal codes and the words that name them
 REFUSALS = {-3: "AV1 screen content tools", -4: "AV1 superres", -5: "AV1 film grain",
-            -6: "AV1 high bit depth", -7: "AV1 inter frame", -9: "AV1 CDEF",
-            -10: "AV1 loop restoration", -11: "AV1 quantizer matrices", -12: "AV1 delta lf",
-            -14: "AV1 segment loop filter levels", -15: "AV1 16x64 transforms"}
+            -6: "AV1 high bit depth", -7: "AV1 inter frame", -11: "AV1 quantizer matrices",
+            -12: "AV1 delta lf", -14: "AV1 segment loop filter levels"}
 TOO_LARGE = -8
 
 # libyuv's YuvConstants, (YG, YB, UB, UG, VG, VR), by (matrix, full range)

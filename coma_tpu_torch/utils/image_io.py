@@ -43,18 +43,19 @@ gives it up. Read:
   areas (``utils/mcidas.py``), Kodak PhotoCD (``utils/pcd.py``, the base
   image), PIXAR (``utils/pixar.py``), XPM (``utils/xpm.py``) and XV
   thumbnails (``utils/xvthumb.py``);
-- AVIF whose AV1 frames are coded-lossless, or lossy without CDEF, loop
-  restoration or quantizer matrices, as Pillow writes them at speeds 5 to
-  10 (``utils/avif.py`` over ``utils/heif.py``, the AV1 decoder in
+- AVIF whose AV1 frames are coded-lossless, or lossy as Pillow writes
+  them at any speed, with the deblocking filter, CDEF and Wiener,
+  self-guided and switchable loop restoration, without quantizer matrices
+  (``utils/avif.py`` over ``utils/heif.py``, the AV1 decoder in
   ``native/src/av1_decode.cpp``): every sampling, full and limited range,
   RGBA (premultiplied alpha and limited-range alpha items too), tiles,
   128 x 128 superblocks, the BT.601, BT.709, BT.2020 and identity matrices.
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
 and the format, though PIL reads them: HTJ2K code-blocks, and AVIF outside
-those slices (CDEF, loop restoration, quantizer matrices, delta lf, segment
-loop filter levels, screen content tools, superres, film grain, high bit
-depth, grids, ``avis`` sequences), the detail naming what is not read. The
+those slices (quantizer matrices, delta lf, segment loop filter levels,
+screen content tools, superres, film grain, high bit depth, grids, ``avis``
+sequences), the detail naming what is not read. The
 formats Pillow 12.1.0 opens here but cannot load (the BUFR, GRIB and HDF5
 stubs and WMF/EMF, which have no loader; EPS, without Ghostscript; MPEG,
 of which it reads the header only) and whatever else PIL itself refuses

@@ -14,12 +14,17 @@ decoder of ``native/src/av1_decode.cpp``) against Pillow 12.1.0 (libavif
   64 points of both intra transform sets, 4:1 ones (4 x 16 to 32 x 8, at
   speed 4 without loop restoration) among them; TX_MODE_SELECT; delta q; the
   deblocking filter with and without sharpness; the four samplings at odd
-  sizes; a lossy alpha item; tiles; 128 x 128 superblocks; the atlas);
+  sizes; a lossy alpha item; tiles; 128 x 128 superblocks; the atlas) and
+  restored ones (CDEF at cdef_bits 0 to 3 in the four samplings, with
+  128 x 128 superblocks and tiles; Wiener, self-guided and switchable loop
+  restoration on luma and chroma, mixed per plane, at qualities 30 and 90,
+  over tiles; CDEF with restoration; 16 x 64 and 64 x 16 transforms; a
+  restored alpha item; the atlas at speed 4);
 - each tile's symbol decoder ends on the specification's padding (its exit
   process), on every fixture;
 - the files Pillow reads and the port refuses, refused naming the file,
   "AVIF" and what is not read;
-- truncated and damaged files, lossless and lossy, each in a process of
+- truncated and damaged files, lossless, lossy and restored, each in a process of
   its own under a time limit: Pillow's array or a ``ValueError`` naming the
   file, never a crash or a hang;
 - every alpha value through libavif's limited-to-full mapping and libyuv's
@@ -78,7 +83,19 @@ def test_fixtures_cover_the_slice():
                  "chair texture, AVIF lossy", "2048 x 1536 atlas, AVIF lossy",
                  "4 x 16, 16 x 4, 8 x 32 and 32 x 8 transforms, deblocked"):
         assert word in kinds, word
-    assert len(ENTRIES) == 56 and not any(e.get("raises") for e in ENTRIES)
+    for word in ("AVIF lossy 4:4:4, odd size, CDEF", "AVIF lossy 4:2:2, odd size, CDEF",
+                 "AVIF lossy 4:2:0, odd size, CDEF", "AVIF lossy 4:0:0, odd size, CDEF",
+                 "cdef_bits 1", "cdef_bits 2", "CDEF with 128 x 128 superblocks",
+                 "CDEF over two by two tiles", "Wiener restoration on every plane",
+                 "self-guided restoration on every plane", "mixed per plane",
+                 "quality 30, aom speed 4, loop restoration",
+                 "quality 90, aom speed 4, loop restoration", "loop restoration over two by two",
+                 "aom speed 0, CDEF with loop restoration", "a restored alpha item",
+                 "chair texture, AVIF lossy, aom speed 0", "atlas, AVIF lossy, aom speed 4",
+                 "switchable loop restoration", "cdef_bits 3",
+                 "16 x 64 and 64 x 16 transforms"):
+        assert word in kinds, word
+    assert len(ENTRIES) == 78 and not any(e.get("raises") for e in ENTRIES)
 
 
 @pytest.mark.parametrize("entry", ENTRIES, ids=NAMES)
@@ -152,7 +169,7 @@ def test_what_the_lossy_fixtures_exercise():
         facts[name] = dict(info, sizes=sizes, alpha=alpha and alpha[0])
     lossy = [n for n in NAMES if "lossy" in n]
     assert len(lossy) == 20
-    for name in set(NAMES) - set(lossy):                   # coded-lossless: TX_4X4 WHT only
+    for name in set(NAMES) - set(lossy) - set(RESTORED):   # coded-lossless: TX_4X4 WHT only
         f = facts[name]
         assert f["base_q_idx"] == 0 and f["sizes"] <= {"TX_4X4"} and f["deblocked_edges"] == 0
     assert [facts[f"avif_lossy_q{q}_96x72.avif"]["q_context"] for q in (99, 90, 75, 30)] == \
@@ -177,7 +194,7 @@ def test_what_the_lossy_fixtures_exercise():
     reached = set().union(*(facts[n]["sizes"] for n in lossy))
     assert {"TX_4X4", "TX_8X8", "TX_16X16", "TX_32X32", "TX_4X8", "TX_8X16", "TX_16X32",
             "TX_32X16"} | set(TX_64) | set(TX_4TO1) <= reached
-    assert not reached & {"TX_16X64", "TX_64X16"}        # refused: no encode here writes one
+    assert not reached & {"TX_16X64", "TX_64X16"}        # only restored fixtures reach them
     types = 0
     for name in lossy:
         types |= facts[name]["tx_types"]
@@ -186,6 +203,85 @@ def test_what_the_lossy_fixtures_exercise():
     assert alpha["base_q_idx"] > 0 and alpha["deblocked_edges"] > 0
     assert facts["avif_lossy_tiles_2x2.avif"]["tiles"] == 4
     assert facts["avif_lossy_sb128.avif"]["use_128x128_superblock"] == 1
+
+
+RESTORED = [n for n in NAMES if "restored" in n]
+RESTORATION_TYPES = {"none": codecs.RESTORE_NONE, "wiener": codecs.RESTORE_WIENER,
+                     "sgrproj": codecs.RESTORE_SGRPROJ, "switchable": codecs.RESTORE_SWITCHABLE}
+
+
+def _restoration(info: dict) -> tuple:
+    """(FrameRestorationType per plane by name, Wiener units per plane,
+    self-guided units per plane) of a frame; a 4:0:0 frame has plane 0 only."""
+    names = {v: k for k, v in RESTORATION_TYPES.items()}
+    planes = 1 if info["mono_chrome"] else 3
+    return (tuple(names[info[f"restoration_type_{p}"]] for p in range(planes)),
+            tuple(info[f"wiener_units_{p}"] for p in range(planes)),
+            tuple(info[f"sgrproj_units_{p}"] for p in range(planes)))
+
+
+def test_what_the_restored_fixtures_exercise():
+    """What each restored fixture is there for, from the header (cdef_bits,
+    each plane's FrameRestorationType) and the decoder's counters (8 x 8
+    blocks CDEF filtered, Wiener and self-guided units per plane): CDEF in
+    each of the four samplings, at cdef_bits 0 to 3, with 128 x 128
+    superblocks and tiles; Wiener and self-guided units on luma and on
+    chroma; both in a switchable frame; 16 x 64 and 64 x 16 transforms; a
+    restored alpha item; and PR 23's and PR 24's fixtures with neither
+    CDEF nor restoration."""
+    facts, alphas = {}, {}
+    for name in NAMES:
+        _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
+        facts[name] = info
+        alphas[name] = alpha and alpha[0]
+    assert len(RESTORED) == 22
+    for name in set(NAMES) - set(RESTORED):
+        f = facts[name]
+        assert f["cdef_blocks"] == 0 and _restoration(f)[0] == ("none",) * len(_restoration(f)[0])
+        assert not any(_restoration(f)[1] + _restoration(f)[2]), name
+    for tag, sub in (("444", (0, 0)), ("422", (1, 0)), ("420", (1, 1)), ("400", (1, 1))):
+        [name] = [n for n in RESTORED if f"cdef_{tag}_" in n]
+        f = facts[name]
+        assert f["cdef_blocks"] > 0 and (f["subsampling_x"], f["subsampling_y"]) == sub, name
+        assert f["mono_chrome"] == (tag == "400") and f["width"] % 2 and f["height"] % 2
+    assert {facts[n]["cdef_bits"] for n in RESTORED if facts[n]["cdef_blocks"]} == {0, 1, 2, 3}
+    for bits in (1, 3):
+        f = facts[f"avif_restored_cdef_bits{bits}.avif"]
+        assert f["cdef_bits"] == bits and f["cdef_blocks"] > 0
+    assert facts["avif_restored_cdef_bits2_sgrproj.avif"]["cdef_bits"] == 2
+    types, wiener, sgr = _restoration(facts["avif_restored_switchable.avif"])
+    assert types[0] == "switchable" and wiener[0] > 0 and sgr[0] > 0
+    sizes = facts["avif_restored_tx16x64.avif"]["tx_sizes"]
+    assert all(sizes >> TX_NAMES.index(t) & 1 for t in ("TX_16X64", "TX_64X16"))
+    f = facts["avif_restored_cdef_sb128.avif"]
+    assert f["use_128x128_superblock"] == 1 and f["cdef_blocks"] > 0
+    f = facts["avif_restored_cdef_tiles_2x2.avif"]
+    assert f["tiles"] == 4 and f["cdef_blocks"] > 0
+    assert _restoration(facts["avif_restored_wiener.avif"])[0] == ("wiener",) * 3
+    assert all(_restoration(facts["avif_restored_wiener.avif"])[1])
+    for name in ("avif_restored_sgrproj.avif", "avif_restored_cdef_bits2_sgrproj.avif"):
+        types, _, sgr = _restoration(facts[name])
+        assert types == ("sgrproj",) * 3 and all(sgr), name
+    assert _restoration(facts["avif_restored_mixed_speed4.avif"])[0] == ("none", "wiener",
+                                                                         "sgrproj")
+    assert _restoration(facts["avif_restored_mixed_speed0.avif"])[0] == ("sgrproj", "wiener",
+                                                                         "wiener")
+    for name, q in (("avif_restored_q30.avif", 176), ("avif_restored_q90.avif", 24)):
+        _, wiener, sgr = _restoration(facts[name])
+        assert facts[name]["base_q_idx"] == q and sum(wiener + sgr) > 0, name
+    f = facts["avif_restored_tiles_2x2.avif"]
+    assert f["tiles"] == 4 and f["restoration_unit_size_0"] == 128    # units across tile edges
+    assert _restoration(f)[1][0] >= 2
+    for name in ("avif_restored_cdef_lr_270x150.avif", "chair_restored.avif",
+                 "atlas_restored_2048x1536.avif"):
+        _, wiener, sgr = _restoration(facts[name])
+        assert facts[name]["cdef_blocks"] > 0 and sum(wiener + sgr) > 0, name
+    assert facts["atlas_restored_2048x1536.avif"]["tx_sizes"] >> TX_NAMES.index("TX_64X16") & 1
+    alpha = alphas["avif_restored_rgba.avif"]
+    assert alpha["mono_chrome"] and _restoration(alpha)[1] == (1,)
+    colour = [_restoration(facts[n]) for n in RESTORED if not facts[n]["mono_chrome"]]
+    for k in (1, 2):                                     # Wiener, self-guided
+        assert all(sum(r[k][p] for r in colour) for p in range(3))   # luma and chroma
 
 
 REFUSED = avif_refused_files()
@@ -298,14 +394,16 @@ def _pillow(path: str):
         return None
 
 
-DAMAGED = ("avif_tiles_2x2.avif", "avif_lossy_tiles_2x2.avif")
+DAMAGED = ("avif_tiles_2x2.avif", "avif_lossy_tiles_2x2.avif",
+           "avif_restored_cdef_lr_270x150.avif")
 
 
 @pytest.mark.parametrize("name", DAMAGED)
 @pytest.mark.parametrize("k", range(10))
 def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k, name):
-    """A seeded cut of a fixture (lossless, and lossy with its large
-    transforms and the deblocking filter): Pillow's array, or a ValueError
+    """A seeded cut of a fixture (lossless; lossy with its large transforms
+    and the deblocking filter; and with CDEF and loop restoration, which read
+    past unit and stripe edges): Pillow's array, or a ValueError
     naming the file (libavif refuses every cut inside the item's data),
     within the time limit and without a crash."""
     data = fixture(name)
@@ -328,8 +426,9 @@ def test_damaged_tile_data_never_crashes(tmp_path, k, name):
     """Seeded bytes of a fixture's tiles changed: an image of the file's
     size or a ValueError naming the file, within the time limit and without
     a crash (every read of the symbol decoder stays inside its tile; the
-    transforms, the predictors and the deblocking filter stay inside their
-    buffers on damaged coefficients)."""
+    transforms, the predictors, the deblocking filter, CDEF and loop
+    restoration stay inside their buffers on damaged coefficients and
+    filter parameters)."""
     data = bytearray(fixture(name))
     rng = np.random.default_rng(600 + k)
     start = data.index(b"mdat") + 40

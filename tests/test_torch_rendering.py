@@ -255,6 +255,35 @@ def test_load_obj_textured_reads_a_lossy_avif(tmp_path, capsys):
     assert "WARNING" not in capsys.readouterr().out
 
 
+def test_load_obj_textured_reads_a_restored_avif(tmp_path, capsys):
+    """An AVIF ``map_Kd`` written at aom speed 0 with CDEF on (CDEF and loop
+    restoration after the deblocking filter) and an RGBA one at speed 4 (its
+    alpha item restored too) decode and resize to ``coma_tpu``'s layers
+    through PIL, bit for bit, with no warning."""
+    yy, xx = np.mgrid[:64, :80]
+    tex = np.stack([120 + 90 * np.sin(xx / 6 + c) * np.cos(yy / 5) for c in range(3)], -1)
+    tex = np.uint8(np.clip(tex + np.random.default_rng(5).normal(0, 6, tex.shape), 0, 255))
+    Image.fromarray(tex).save(str(tmp_path / "t.avif"), speed=0, advanced={"enable-cdef": "1"})
+    alpha = np.uint8(np.clip(128 + 100 * np.sin(xx / 9)[..., None] * np.cos(yy / 7)[..., None],
+                             0, 255))
+    Image.fromarray(np.concatenate([tex[::-1], alpha], -1)).save(str(tmp_path / "a.avif"),
+                                                                 speed=4)
+    from coma_tpu_torch.utils.avif import decode_avif_planes
+
+    _, (info, _, _), _ = decode_avif_planes((tmp_path / "t.avif").read_bytes(), "t.avif")
+    assert info["cdef_blocks"] > 0 and info["wiener_units_0"] + info["sgrproj_units_0"] > 0
+    (tmp_path / "m.mtl").write_text("newmtl t\nKd 0.1 0.9 0.2\nmap_Kd t.avif\n"
+                                    "newmtl a\nKd 0.1 0.9 0.2\nmap_Kd a.avif\n")
+    (tmp_path / "o.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
+                                    "usemtl t\nf 1/1 2/1 3/1\nusemtl a\nf 1/1 2/1 3/1\n")
+    got = t_mesh.load_obj_textured(str(tmp_path / "o.obj"), tex_size=16)
+    want = j_load_obj_textured(str(tmp_path / "o.obj"), tex_size=16)
+    np.testing.assert_array_equal(got.face_material, want.face_material)
+    np.testing.assert_array_equal(got.textures, want.textures)       # grey, t, a
+    assert not np.allclose(got.textures[1], [0.1, 0.9, 0.2])        # the texture, not Kd
+    assert "WARNING" not in capsys.readouterr().out
+
+
 # -------------------------------------------------------------- rasterizer
 
 def _soup(seed, n=40, res=64):

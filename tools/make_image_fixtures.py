@@ -3213,6 +3213,7 @@ def avif_formats() -> dict:
     out["atlas_lossless_2048x1536.avif"] = ("2048 x 1536 atlas, AVIF lossless 4:2:0", avif_file(
         np.clip(noisy, 0, 255).astype(np.uint8), quality=100))
     out.update(avif_lossy_formats())
+    out.update(avif_restored_formats())
     return out
 
 
@@ -3293,17 +3294,114 @@ def avif_lossy_formats() -> dict:
     return out
 
 
+def seeded_patchwork(size: int, seed: int, noise: float) -> np.ndarray:
+    """(size, size, 3) uint8: :func:`seeded_bars` and :func:`seeded_rgb` in
+    alternate squares of 80 pixels, which draws aom at speeds 0 to 2 to
+    many CDEF strengths, switchable restoration and 1:4 splits of 64 x 64
+    blocks."""
+    bars = seeded_bars((size, size), 60 + seed, 80 * size * size // 102400, (2, 50), (10, 250))
+    smooth = seeded_rgb((size, size), 70 + seed, noise=noise)
+    yy, xx = np.mgrid[:size, :size]
+    return np.where(((xx // 80 + yy // 80 + seed) % 2)[..., None] == 1, bars, smooth)
+
+
+def avif_restored_formats() -> dict:
+    """Lossy AVIFs whose AV1 frames Pillow's writer (aom 3.12.1) codes with
+    CDEF (aom's enable-cdef=1) or loop restoration (speeds 0 to 4), or both:
+    CDEF at cdef_bits 0, 1 and 2, in 4:4:4, 4:2:2, 4:2:0 and 4:0:0 at odd
+    sizes, with 128 x 128 superblocks and with two by two tiles; Wiener
+    restoration on every plane, self-guided on every plane, the two mixed
+    per plane, at qualities 30 and 90, and with two by two tiles (units
+    across tile edges); CDEF with restoration at speed 0; switchable
+    restoration; CDEF at cdef_bits 3; TX_16X64 and TX_64X16 transforms;
+    RGBA whose alpha item is restored; the chair's restored texture and the
+    2048 x 1536 atlas at speed 4 with CDEF (also a TX_64X16 transform). Each
+    file's purpose is asserted from the decoder's counters in the AVIF
+    tests."""
+    cdef = {"enable-cdef": "1"}
+    out = {}
+    sizes = {"444": ((37, 53), 6), "422": ((29, 43), 5), "420": ((35, 47), 8),
+             "400": ((31, 45), 7)}
+    for tag, (shape, seed) in sizes.items():
+        sub = f"{tag[0]}:{tag[1]}:{tag[2]}"
+        out[f"avif_restored_cdef_{tag}_{shape[1]}x{shape[0]}.avif"] = (
+            f"AVIF lossy {sub}, odd size, CDEF", avif_file(seeded_rgb(shape, seed, noise=8),
+                                                           subsampling=sub, advanced=cdef))
+    out["avif_restored_cdef_bits1.avif"] = ("AVIF lossy, CDEF, cdef_bits 1", avif_file(
+        seeded_rgb((96, 128), 3, noise=8), advanced=cdef))
+    out["avif_restored_cdef_bits2_sgrproj.avif"] = (
+        "AVIF lossy, quality 50, aom speed 1, CDEF at cdef_bits 2 and self-guided restoration "
+        "on every plane", avif_file(seeded_bars((320, 320), 42, 60, (2, 40), (10, 200)),
+                                    quality=50, speed=1, advanced=cdef))
+    out["avif_restored_cdef_sb128.avif"] = (
+        "AVIF lossy, quality 50, CDEF with 128 x 128 superblocks", avif_file(
+            seeded_rgb((133, 201), 17, noise=8), quality=50, advanced=dict(cdef, **{"sb-size": "128"})))
+    out["avif_restored_cdef_tiles_2x2.avif"] = (
+        "AVIF lossy, quality 50, CDEF over two by two tiles", avif_file(
+            seeded_rgb((150, 270), 475, noise=8), quality=50, tile_rows=1, tile_cols=1,
+            advanced=cdef))
+    out["avif_restored_wiener.avif"] = ("AVIF lossy, aom speed 4, Wiener restoration on every "
+                                        "plane", avif_file(seeded_rgb((256, 320), 1, noise=2),
+                                                           speed=4))
+    out["avif_restored_sgrproj.avif"] = (
+        "AVIF lossy, quality 60, aom speed 0, self-guided restoration on every plane",
+        avif_file(seeded_bars((256, 320), 22, 40, (4, 30), (20, 120)), quality=60, speed=0))
+    out["avif_restored_mixed_speed4.avif"] = (
+        "AVIF lossy, quality 60, aom speed 4, restoration types mixed per plane (none, Wiener, "
+        "self-guided)", avif_file(seeded_rgb((96, 128), 186, noise=30), quality=60, speed=4))
+    out["avif_restored_mixed_speed0.avif"] = (
+        "AVIF lossy, quality 60, aom speed 0, restoration types mixed per plane (self-guided, "
+        "Wiener, Wiener)", avif_file(seeded_rgb((96, 128), 174, noise=30), quality=60, speed=0))
+    out["avif_restored_q30.avif"] = ("AVIF lossy, quality 30, aom speed 4, loop restoration",
+                                     avif_file(seeded_rgb((131, 145), 8, noise=8), quality=30,
+                                               speed=4))
+    out["avif_restored_q90.avif"] = ("AVIF lossy, quality 90, aom speed 4, loop restoration",
+                                     avif_file(seeded_rgb((128, 160), 201, noise=2), quality=90,
+                                               speed=4))
+    out["avif_restored_tiles_2x2.avif"] = (
+        "AVIF lossy, aom speed 4, loop restoration over two by two tiles (units across tile "
+        "edges)", avif_file(seeded_rgb((256, 320), 1, noise=2), speed=4, tile_rows=1,
+                            tile_cols=1))
+    out["avif_restored_cdef_lr_270x150.avif"] = (
+        "AVIF lossy, aom speed 0, CDEF with loop restoration", avif_file(
+            seeded_rgb((150, 270), 476, noise=8), speed=0, advanced=cdef))
+    out["avif_restored_switchable.avif"] = (
+        "AVIF lossy, quality 40, aom speed 0, CDEF and switchable loop restoration", avif_file(
+            seeded_patchwork(320, 0, 28), quality=40, speed=0, advanced=cdef))
+    out["avif_restored_cdef_bits3.avif"] = (
+        "AVIF lossy, quality 72, aom speed 2, CDEF at cdef_bits 3", avif_file(
+            seeded_patchwork(320, 3, 10), quality=72, speed=2, advanced=cdef))
+    out["avif_restored_tx16x64.avif"] = (
+        "AVIF lossy, quality 27, aom speed 0, CDEF and restoration, 16 x 64 and 64 x 16 "
+        "transforms", avif_file(seeded_patchwork(320, 5, 24), quality=27, speed=0,
+                                advanced=cdef))
+    rgb = seeded_rgb((96, 128), 496, noise=4)
+    yy, xx = np.mgrid[:96, :128]
+    wave = 128 + 100 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    alpha = np.clip(wave + np.random.default_rng(495).normal(0, 4, wave.shape), 0, 255)
+    out["avif_restored_rgba.avif"] = (
+        "AVIF lossy RGBA, aom speed 4, a restored alpha item", avif_file(
+            np.concatenate([rgb, alpha.astype(np.uint8)[..., None]], -1), speed=4))
+    out["chair_restored.avif"] = ("chair texture, AVIF lossy, aom speed 0, CDEF with loop "
+                                  "restoration", avif_file(seeded_rgb((48, 48), 452, noise=8),
+                                                           speed=0, advanced=cdef))
+    noisy = texture_atlas(9) + np.random.default_rng(451).normal(0, 2, (1536, 2048, 3))
+    out["atlas_restored_2048x1536.avif"] = (
+        "2048 x 1536 atlas, AVIF lossy, aom speed 4, CDEF with loop restoration",
+        avif_file(np.clip(noisy, 0, 255).astype(np.uint8), speed=4, advanced=cdef))
+    return out
+
+
 def avif_refused_files() -> dict:
     """{refusal word: AVIF bytes} of the files Pillow reads and the port
-    refuses by name, one per word Pillow's writer (aom 3.12.1) can make: CDEF
-    (aom's enable-cdef=1), loop restoration (speed 4), quantizer matrices
-    (enable-qm=1), screen content tools (tune-content=screen), film grain
-    (film-grain-test on a lossless frame) and an avis sequence. Superres (aom
-    takes no option of Pillow's for it), delta lf (aom's deltalf-mode is not
-    an option of Pillow's), segment loop filter levels (aom writes no
-    segmentation here), high bit depth (Pillow writes 8 bits), an inter first
-    frame and a grid (libavif's writer makes one only through its own API)
-    are not written."""
+    refuses by name, one per word Pillow's writer (aom 3.12.1) can make:
+    quantizer matrices (enable-qm=1), screen content tools
+    (tune-content=screen), film grain (film-grain-test on a lossless frame)
+    and an avis sequence. Superres (aom takes no option of Pillow's for it),
+    delta lf (aom's deltalf-mode is not an option of Pillow's), segment loop
+    filter levels (aom writes no segmentation here), high bit depth (Pillow
+    writes 8 bits), an inter first frame and a grid (libavif's writer makes
+    one only through its own API) are not written."""
     from PIL import Image
 
     rgb = seeded_rgb((30, 44), 460, noise=8)
@@ -3311,8 +3409,6 @@ def avif_refused_files() -> dict:
     Image.fromarray(rgb).save(seq, "AVIF", quality=100, save_all=True,
                               append_images=[Image.fromarray(rgb[::-1])])
     return {
-        "AV1 CDEF": avif_file(rgb, advanced={"enable-cdef": "1"}),
-        "AV1 loop restoration": avif_file(rgb, speed=4),
         "AV1 quantizer matrices": avif_file(rgb, advanced={"enable-qm": "1"}),
         "AV1 screen content tools": avif_file(rgb // 64 * 64, quality=100,
                                               advanced={"tune-content": "screen"}),
