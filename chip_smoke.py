@@ -294,9 +294,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    decoder on the 512² texture, and the host decode ms (median of 5) of the
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
    JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
-   TIFF-JPEG, QOI, SGI RLE and lossless, lossy (Pillow's defaults) and
-   restored (speed 4 with CDEF) 4:2:0 AVIF, the lossless, lossy and restored
-   AVIF fixtures' counts printed on a line of its own, and on another the
+   TIFF-JPEG, QOI, SGI RLE and lossless, lossy (Pillow's defaults),
+   restored (speed 4 with CDEF) and screen-content (palettes and intra block
+   copy) 4:2:0 AVIF, the lossless, lossy, restored and screen-content AVIF
+   fixtures' counts printed on a line of its own, and on another the
    restored fixtures with CDEF-filtered blocks and with restored units,
    from the decoder's counters. (b) A BEHAVE-shaped sequence of 2 frames
    whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
@@ -307,8 +308,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    BC7, a DDS DXT1, a PSD, a YCbCr 4:2:0 TIFF-JPEG, an SGI RLE, a PCX, a
    QOI, an ICO, a BLP2 DXT5, a Sun RLE file and the rest of
    ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, a lossy AVIF at
-   Pillow's defaults and one at speed 0 with CDEF and loop restoration,
-   last; its counters must show both) on its back,
+   Pillow's defaults, one at speed 0 with CDEF and loop restoration, whose
+   counters must show both, and two of screen content at Pillow's defaults,
+   last: a flat texture whose counters must show luma and chroma palettes
+   and a decal of letters whose counters must show intrabc blocks) on its back,
    legs, stretchers, armrests, seat trims, back slats and seat studs, through
    ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
    the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
@@ -2707,14 +2710,14 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to forty-four image files) give the back, then
+    ``part_textures`` (up to forty-six image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
     stretcher, three low stretchers, a lumbar bar, a front apron, two seat
     knobs, a cross of two bars under the seat, four foot pads, a back emblem,
-    two armrest pads and four studs at the seat's front a material, UVs and a
-    ``map_Kd`` of their own.
+    two armrest pads, four studs at the seat's front and two at its back a
+    material, UVs and a ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
 
@@ -2778,7 +2781,11 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((0.08, 0.44, 0.25), (0.12, 0.47, 0.26)),
               ((-0.02, 0.44, 0.25), (0.02, 0.47, 0.26)),
               ((0.16, 0.44, 0.25), (0.20, 0.47, 0.26))]
-    parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in extras[:len(part_textures) - 5]]
+    rear_studs = [((-0.20, 0.44, -0.26), (-0.16, 0.47, -0.25)),
+                  ((0.16, 0.44, -0.26), (0.20, 0.47, -0.25))]
+    # with no part textures, the first 34 extras in metal
+    boxes = (extras + rear_studs)[:len(part_textures) - 5] if part_textures else extras[:-5]
+    parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in boxes]
     for k in range(len(part_textures)):
         parts[1 + k] = (f"part{k}", parts[1 + k][1])
     vlines, tlines, flines, n, current = [], [], [], 0, None
@@ -3834,7 +3841,9 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # TIFF and a PFM, and XPM, FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD (stored gzipped: written
 # out before the run), McIdas, FITS, XV thumbnail, IPTC/NAA and 1-bit tiled TIFF, and a
 # lossless 4:2:0 AVIF, a lossless RGBA AVIF, a lossy AVIF (Pillow's defaults) and a restored
-# one (speed 0 with CDEF: CDEF and loop restoration) on four studs at the seat's front
+# one (speed 0 with CDEF: CDEF and loop restoration) on four studs at the seat's front, and
+# two screen-content AVIFs at Pillow's defaults (a flat texture in palette mode, a decal of
+# letters in intra block copy) on two studs at its back
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3846,9 +3855,12 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_dxt1.ftc", "chair_rgba.gbr", "chair.pxr", "chair.flc", "pcd_base.pcd",
                  "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
                  "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif",
-                 "chair_lossy.avif", "chair_restored.avif")
+                 "chair_lossy.avif", "chair_restored.avif", "chair_flat.avif",
+                 "chair_decal.avif")
 # the restored part texture whose decoder counters phase 16c checks
 RESTORED_PART = "chair_restored.avif"
+# the screen-content part textures whose counters phase 16c checks: palette, intrabc
+PALETTE_PART, INTRABC_PART = "chair_flat.avif", "chair_decal.avif"
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3861,7 +3873,8 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_g4_2048x1536.tif", "atlas_lossless_2048x1536.jp2",
                  "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
                  "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif",
-                 "atlas_lossy_2048x1536.avif", "atlas_restored_2048x1536.avif")
+                 "atlas_lossy_2048x1536.avif", "atlas_restored_2048x1536.avif",
+                 "atlas_screen_2048x1536.avif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3909,9 +3922,9 @@ def image_sha(image: np.ndarray) -> str:
 
 
 def avif_counters(name: str) -> dict:
-    """The AV1 decoder's CDEF and restoration counters of an AVIF fixture,
-    its colour and alpha items summed: 8 x 8 blocks CDEF filtered, Wiener and
-    self-guided units."""
+    """The AV1 decoder's counters of an AVIF fixture, its colour and alpha
+    items summed: 8 x 8 blocks CDEF filtered, Wiener and self-guided units,
+    Y and UV palette blocks, intrabc blocks and their chroma predictions."""
     from coma_tpu_torch.utils import avif
 
     with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
@@ -3920,7 +3933,9 @@ def avif_counters(name: str) -> dict:
     items = [color[0]] + ([alpha[0]] if alpha else [])
     out = dict(cdef_blocks=sum(i["cdef_blocks"] for i in items),
                wiener=sum(i[f"wiener_units_{p}"] for i in items for p in range(3)),
-               sgrproj=sum(i[f"sgrproj_units_{p}"] for i in items for p in range(3)))
+               sgrproj=sum(i[f"sgrproj_units_{p}"] for i in items for p in range(3)),
+               **{k: sum(i[k] for i in items) for k in ("palette_y_blocks", "palette_uv_blocks",
+                                                        "intrabc_blocks", "intrabc_chroma_blocks")})
     out["units"] = out["wiener"] + out["sgrproj"]
     return out
 
@@ -3937,10 +3952,11 @@ def decode_phase(label: str) -> dict:
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
     Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
     tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless,
-    lossy and restored AVIF (4:2:0, coded-lossless and lossy AV1 through
-    ``native/src/av1_decode.cpp``, the restored one with CDEF and loop
-    restoration) (median of 5). Each restored AVIF fixture must show CDEF
-    or loop restoration in the decoder's counters."""
+    lossy, restored and screen-content AVIF (4:2:0, coded-lossless and lossy
+    AV1 through ``native/src/av1_decode.cpp``, the restored one with CDEF and
+    loop restoration, the screen one with palettes and intra block copy)
+    (median of 5). Each restored AVIF fixture must show CDEF or loop
+    restoration in the decoder's counters."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -4083,6 +4099,7 @@ def decode_phase(label: str) -> dict:
     avif_equal = [n for n in equal if n.endswith(".avif")]
     avif_lossy = [n for n in avif_equal if "lossy" in n]
     avif_restored = [n for n in avif_equal if "restored" in n]
+    avif_screen = [n for n in avif_equal if "screen content" in manifest[n]["kind"]]
     restored = {n: avif_counters(n) for n in avif_restored}
     shown = [n for n, c in restored.items() if not (c["cdef_blocks"] or c["units"])]
     if shown:
@@ -4091,20 +4108,24 @@ def decode_phase(label: str) -> dict:
     with_lr = [n for n, c in restored.items() if c["units"]]
     out.update(avif_equal=len(avif_equal), avif_lossy_equal=len(avif_lossy),
                avif_restored_equal=len(avif_restored), avif_cdef=len(with_cdef),
-               avif_restoration=len(with_lr), avif_restored_counters=restored)
+               avif_restoration=len(with_lr), avif_restored_counters=restored,
+               avif_screen_equal=len(avif_screen))
     atlas_avif = timed["atlas_lossless_2048x1536.avif"]
     lossy_avif = timed["atlas_lossy_2048x1536.avif"]
     restored_avif = timed["atlas_restored_2048x1536.avif"]
-    lossless_count = len(avif_equal) - len(avif_lossy) - len(avif_restored)
+    screen_avif = timed["atlas_screen_2048x1536.avif"]
+    lossless_count = len(avif_equal) - len(avif_lossy) - len(avif_restored) - len(avif_screen)
     log(f"phase 16a: {len(avif_equal)} AVIF fixtures ({lossless_count} coded-lossless, "
-        f"{len(avif_lossy)} lossy, {len(avif_restored)} restored AV1 through "
+        f"{len(avif_lossy)} lossy, {len(avif_restored)} restored, {len(avif_screen)} screen "
+        f"content AV1 through "
         f"native/src/av1_decode.cpp, libyuv's conversion) equal to Pillow's hashes in modes "
         f"None, RGB and L; host decode median of {DECODE_REPS}: atlas_lossless_2048x1536.avif "
         f"({atlas_avif['bytes']} bytes) {atlas_avif['median_ms']:.3f} ms, "
         f"atlas_lossy_2048x1536.avif ({lossy_avif['bytes']} bytes, Pillow's defaults) "
         f"{lossy_avif['median_ms']:.3f} ms, atlas_restored_2048x1536.avif "
         f"({restored_avif['bytes']} bytes, speed 4 with CDEF) {restored_avif['median_ms']:.3f} "
-        f"ms [{label}]")
+        f"ms, atlas_screen_2048x1536.avif ({screen_avif['bytes']} bytes, palettes and intra "
+        f"block copy) {screen_avif['median_ms']:.3f} ms [{label}]")
     log(f"phase 16a: restored AVIF fixtures equal to Pillow's hashes: {len(with_cdef)} with "
         f"CDEF ({sum(c['cdef_blocks'] for c in restored.values())} 8x8 blocks filtered), "
         f"{len(with_lr)} with loop restoration "
@@ -4180,8 +4201,10 @@ def jpeg_asset_phase(label: str) -> dict:
     its seat knobs, cross bars, foot pads, back emblem and armrest pads XPM,
     FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail,
     IPTC/NAA and 1-bit tiled TIFF ones, and its studs two lossless AVIFs,
-    a lossy one (Pillow's defaults) and a restored one (CDEF and loop
-    restoration, both shown by the decoder's counters), through
+    a lossy one (Pillow's defaults), a restored one (CDEF and loop
+    restoration, both shown by the decoder's counters) and two of screen
+    content (palette blocks in one, intrabc blocks in the other, shown by
+    the counters), through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4194,6 +4217,12 @@ def jpeg_asset_phase(label: str) -> dict:
     counters = avif_counters(RESTORED_PART)
     if not (counters["cdef_blocks"] and counters["units"]):
         raise AssertionError(f"{RESTORED_PART}: counters {counters}: not CDEF and restoration")
+    screen = {n: avif_counters(n) for n in (PALETTE_PART, INTRABC_PART)}
+    if not (screen[PALETTE_PART]["palette_y_blocks"] and screen[PALETTE_PART]["palette_uv_blocks"]
+            and screen[INTRABC_PART]["intrabc_blocks"]
+            and screen[INTRABC_PART]["intrabc_chroma_blocks"]):
+        raise AssertionError(f"counters {screen}: {PALETTE_PART} without luma and chroma "
+                             f"palettes or {INTRABC_PART} without intrabc blocks")
     unpacked = os.path.join(SCRATCH, "part_textures")
     os.makedirs(unpacked, exist_ok=True)
     parts = []
@@ -4240,9 +4269,14 @@ def jpeg_asset_phase(label: str) -> dict:
     log(f"phase 16c: the chair textured with {FABRIC_JPEG} and {', '.join(PART_TEXTURES)} at "
         f"{PHASE16_RES}², resized to {INPAINT_RES}² for inpainting: launches {out['launches']} "
         f"({out['by_source']}); {RESTORED_PART}: {counters['cdef_blocks']} 8x8 blocks CDEF "
-        f"filtered, {counters['wiener']} Wiener and {counters['sgrproj']} self-guided units, "
-        f"decoded to Pillow's hash [{label}]")
+        f"filtered, {counters['wiener']} Wiener and {counters['sgrproj']} self-guided units; "
+        f"{PALETTE_PART}: {screen[PALETTE_PART]['palette_y_blocks']} Y and "
+        f"{screen[PALETTE_PART]['palette_uv_blocks']} UV palette blocks; {INTRABC_PART}: "
+        f"{screen[INTRABC_PART]['intrabc_blocks']} intrabc blocks, "
+        f"{screen[INTRABC_PART]['intrabc_chroma_blocks']} chroma predictions; each decoded to "
+        f"Pillow's hash [{label}]")
     out["restored_part"] = counters
+    out["screen_parts"] = screen
     return out
 
 

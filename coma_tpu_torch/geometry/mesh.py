@@ -7,7 +7,8 @@ A copy of ``coma_tpu/geometry/mesh.py``:
   ``utils/load_3d.py:load_obj_as_o3d_preserving_face_order``).
 - :func:`load_obj_textured` adds UVs, per-face materials and one texture
   layer per material for the textured renderer; ``map_Kd`` textures (PNG,
-  JPEG, TGA, BMP, TIFF, GIF, PNM, WebP, DDS, PSD) are read with
+  JPEG, TGA, BMP, TIFF, GIF, PNM, WebP, DDS, PSD, JPEG 2000, AVIF with
+  palettes and intra block copy, and Pillow's other formats) are read with
   :func:`coma_tpu_torch.utils.image_io.read_image` (PIL's pixels) and
   resized as PIL's bilinear resize does (the card has no PIL).
   A texture the reader refuses keeps the material's Kd layer with a printed

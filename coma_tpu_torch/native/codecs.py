@@ -452,13 +452,16 @@ AV1_INFO = ("width", "height", "mono_chrome", "subsampling_x", "subsampling_y",
             "loop_filter_level_1", "loop_filter_level_2", "loop_filter_level_3",
             "loop_filter_sharpness", "delta_q_present", "enable_cdef", "tx_mode_select",
             "cdef_bits", "cdef_damping", "restoration_type_0", "restoration_type_1",
-            "restoration_type_2", "restoration_unit_size_0", "restoration_unit_size_1")
+            "restoration_type_2", "restoration_unit_size_0", "restoration_unit_size_1",
+            "allow_screen_content_tools", "allow_intrabc")
 # FrameRestorationType's values in AV1_INFO
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
 # what av1_decode reports the frame reached
 AV1_STATS = ("tx_sizes", "tx_types", "delta_q_max", "deblocked_edges", "cdef_blocks",
              "wiener_units_0", "wiener_units_1", "wiener_units_2", "sgrproj_units_0",
-             "sgrproj_units_1", "sgrproj_units_2")
+             "sgrproj_units_1", "sgrproj_units_2", "palette_y_blocks", "palette_uv_blocks",
+             "palette_y_sizes", "palette_uv_sizes", "intrabc_blocks", "intrabc_chroma_blocks",
+             "intrabc_half_sample", "vartx_splits")
 
 
 def _declare_av1(lib: ctypes.CDLL) -> None:

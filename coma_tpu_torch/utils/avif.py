@@ -2,7 +2,9 @@
 1.5.1 and libyuv 1909), for frames that are coded-lossless or lossy as
 Pillow writes them at any speed: the deblocking filter, CDEF (aom's
 enable-cdef=1) and Wiener, self-guided and switchable loop restoration
-(speeds 0 to 4) included; no quantizer matrices.
+(speeds 0 to 4) included, and AV1's screen content tools, which aom turns on
+for flat-coloured and lettered images at any quality (palette mode and
+intra block copy); no quantizer matrices.
 
 :func:`decode_avif` takes the primary item (and its alpha item) from the
 HEIF container (``utils/heif.py``), decodes each AV1 payload's first frame
@@ -25,8 +27,7 @@ colour divided by it as libyuv's SIMD ``ARGBUnattenuate`` rows divide.
 
 Refused with ``utils.modes.FormatNotRead`` (format "AVIF", the detail
 naming what is not read): AV1 quantizer matrices, delta lf, segment loop
-filter levels, screen content tools, superres, film grain and high bit
-depth, a first
+filter levels, superres, film grain and high bit depth, a first
 shown frame that is not a key frame, another matrix, an ``ispe`` other than
 the frame's size (libavif resizes the frame to it), and what
 ``utils/heif.py`` refuses. A damaged or truncated file raises a
@@ -41,7 +42,7 @@ from coma_tpu_torch.utils import heif
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead
 
 # av1_decode.cpp's refusal codes and the words that name them
-REFUSALS = {-3: "AV1 screen content tools", -4: "AV1 superres", -5: "AV1 film grain",
+REFUSALS = {-4: "AV1 superres", -5: "AV1 film grain",
             -6: "AV1 high bit depth", -7: "AV1 inter frame", -11: "AV1 quantizer matrices",
             -12: "AV1 delta lf", -14: "AV1 segment loop filter levels"}
 TOO_LARGE = -8

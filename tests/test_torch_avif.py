@@ -19,14 +19,22 @@ decoder of ``native/src/av1_decode.cpp``) against Pillow 12.1.0 (libavif
   128 x 128 superblocks and tiles; Wiener, self-guided and switchable loop
   restoration on luma and chroma, mixed per plane, at qualities 30 and 90,
   over tiles; CDEF with restoration; 16 x 64 and 64 x 16 transforms; a
-  restored alpha item; the atlas at speed 4);
+  restored alpha item; the atlas at speed 4) and screen content (palette
+  mode at every palette size in luma and chroma in 4:2:0, 4:2:2 and 4:4:4
+  and in a 4:0:0 alpha item, lossy and coded-lossless; intra block copy in
+  luma and chroma, from half-sample chroma positions, with its var-tx
+  splits and inter transform types, the loop filters off, with 128 x 128
+  superblocks and over tiles; screen content without intra block copy;
+  speeds 0 to 2 and 10; the atlas of flat shapes and text);
 - each tile's symbol decoder ends on the specification's padding (its exit
   process), on every fixture;
 - the files Pillow reads and the port refuses, refused naming the file,
   "AVIF" and what is not read;
-- truncated and damaged files, lossless, lossy and restored, each in a process of
-  its own under a time limit: Pillow's array or a ``ValueError`` naming the
-  file, never a crash or a hang;
+- truncated and damaged files, lossless, lossy, restored and screen content,
+  each in a process of its own under a time limit: Pillow's array or a
+  ``ValueError`` naming the file, never a crash or a hang;
+- an OBJ whose materials take the flat and decal screen-content textures,
+  loaded as ``coma_tpu`` loads it;
 - every alpha value through libavif's limited-to-full mapping and libyuv's
   unattenuation, on files written here;
 - the vectorised chroma upsampling against a row-by-row transcription of
@@ -95,7 +103,21 @@ def test_fixtures_cover_the_slice():
                  "switchable loop restoration", "cdef_bits 3",
                  "16 x 64 and 64 x 16 transforms"):
         assert word in kinds, word
-    assert len(ENTRIES) == 78 and not any(e.get("raises") for e in ENTRIES)
+    for word in ("a flat 4-colour texture at Pillow's defaults", "AVIF screen content 4:4:4, a "
+                 "posterised gradient at quality 90", "AVIF screen content 4:2:2, a posterised",
+                 "coded-lossless (quality 100), palette", "squares of 2 to 8 colours",
+                 "a palette in the alpha item", "tune-content=screen with enable-intrabc=0",
+                 "4:2:0, lines of letters at quality 75", "4:4:4, lines of letters at quality 75",
+                 "4:2:0, lines of letters at quality 100", "4:4:4, lines of letters at quality 100",
+                 "intra block copy with 128 x 128 superblocks",
+                 "intra block copy over two tile columns", "AVIF screen content, lines of "
+                 "letters, aom speed 0", "aom speed 1", "aom speed 2", "lines of letters, aom "
+                 "speed 10", "chair texture, AVIF screen content, flat colours",
+                 "chair texture, AVIF screen content, a decal of letters",
+                 "2048 x 1536 atlas, AVIF screen content",
+                 "residuals over intra block copy in var-tx blocks"):
+        assert word in kinds, word
+    assert len(ENTRIES) == 101 and not any(e.get("raises") for e in ENTRIES)
 
 
 @pytest.mark.parametrize("entry", ENTRIES, ids=NAMES)
@@ -169,7 +191,7 @@ def test_what_the_lossy_fixtures_exercise():
         facts[name] = dict(info, sizes=sizes, alpha=alpha and alpha[0])
     lossy = [n for n in NAMES if "lossy" in n]
     assert len(lossy) == 20
-    for name in set(NAMES) - set(lossy) - set(RESTORED):   # coded-lossless: TX_4X4 WHT only
+    for name in set(NAMES) - set(lossy) - set(RESTORED) - set(SCREEN):  # TX_4X4 WHT only
         f = facts[name]
         assert f["base_q_idx"] == 0 and f["sizes"] <= {"TX_4X4"} and f["deblocked_edges"] == 0
     assert [facts[f"avif_lossy_q{q}_96x72.avif"]["q_context"] for q in (99, 90, 75, 30)] == \
@@ -206,6 +228,7 @@ def test_what_the_lossy_fixtures_exercise():
 
 
 RESTORED = [n for n in NAMES if "restored" in n]
+SCREEN = [e["file"] for e in ENTRIES if "screen content" in e["kind"]]
 RESTORATION_TYPES = {"none": codecs.RESTORE_NONE, "wiener": codecs.RESTORE_WIENER,
                      "sgrproj": codecs.RESTORE_SGRPROJ, "switchable": codecs.RESTORE_SWITCHABLE}
 
@@ -282,6 +305,104 @@ def test_what_the_restored_fixtures_exercise():
     colour = [_restoration(facts[n]) for n in RESTORED if not facts[n]["mono_chrome"]]
     for k in (1, 2):                                     # Wiener, self-guided
         assert all(sum(r[k][p] for r in colour) for p in range(3))   # luma and chroma
+
+
+def _sizes(mask: int) -> list:
+    return [n for n in range(2, 9) if mask >> n & 1]
+
+
+def test_what_the_screen_fixtures_exercise():
+    """What each screen-content fixture is there for, from the header
+    (allow_screen_content_tools, allow_intrabc, the loop filter levels,
+    cdef and restoration) and the decoder's counters: palette sizes 2 to 8
+    in luma and chroma in each of 4:2:0, 4:2:2 and 4:4:4, and in a 4:0:0
+    alpha item; intrabc blocks in luma and in chroma, from half-sample
+    chroma positions in 4:2:0; var-tx splits; no deblocking, CDEF or
+    restoration under allow_intrabc; screen content tools with no intrabc;
+    128 x 128 superblocks and tiles; lossless and lossy frames; and the
+    earlier fixtures with no screen content tool."""
+    facts, alphas = {}, {}
+    for name in NAMES:
+        _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
+        facts[name] = info
+        alphas[name] = alpha and alpha[0]
+    assert len(SCREEN) == 23
+    for name in set(NAMES) - set(SCREEN):
+        assert not facts[name]["allow_screen_content_tools"], name
+    for name in SCREEN:
+        f = facts[name]
+        if f["allow_intrabc"]:
+            assert f["deblocked_edges"] == f["cdef_blocks"] == 0, name
+            assert not any(f[f"loop_filter_level_{k}"] for k in range(4)), name
+            assert not any(f[f"restoration_type_{p}"] for p in range(3)), name
+        else:
+            assert f["intrabc_blocks"] == 0, name
+    for tag, sub in (("420", (1, 1)), ("422", (1, 0)), ("444", (0, 0))):
+        f = facts[f"avif_screen_palette_sizes_{tag}.avif"]
+        assert (f["subsampling_x"], f["subsampling_y"]) == sub
+        assert _sizes(f["palette_y_sizes"]) == _sizes(f["palette_uv_sizes"]) == list(range(2, 9))
+    for name in ("avif_screen_flat_420.avif", "chair_flat.avif", "avif_screen_posterised_444.avif",
+                 "avif_screen_posterised_422.avif"):
+        f = facts[name]
+        assert f["palette_y_blocks"] and f["palette_uv_blocks"] and not f["allow_intrabc"], name
+    f = facts["avif_screen_flat_lossless.avif"]
+    assert f["base_q_idx"] == 0 and f["palette_y_blocks"] and f["palette_uv_blocks"]
+    assert facts["avif_screen_flat_420.avif"]["base_q_idx"] == 64          # Pillow's quality 75
+    assert facts["avif_screen_flat_420.avif"]["deblocked_edges"] > 0
+    alpha = alphas["avif_screen_flat_rgba.avif"]
+    assert alpha["mono_chrome"] and alpha["allow_screen_content_tools"]
+    assert alpha["palette_y_blocks"] and not alpha["palette_uv_blocks"]
+    f = facts["avif_screen_no_intrabc.avif"]
+    assert f["allow_screen_content_tools"] and not f["allow_intrabc"] and f["palette_y_blocks"]
+    assert f["deblocked_edges"] > 0                      # the loop filter stays on without intrabc
+    for q, base in ((75, 64), (100, 0)):
+        for tag in ("420", "444"):
+            f = facts[f"avif_screen_glyphs_q{q}_{tag}.avif"]
+            assert f["base_q_idx"] == base and f["allow_intrabc"], (q, tag)
+            assert f["intrabc_blocks"] and f["intrabc_chroma_blocks"] and f["palette_y_blocks"]
+    assert facts["avif_screen_glyphs_q75_420.avif"]["intrabc_half_sample"] > 0
+    assert facts["avif_screen_glyphs_q75_444.avif"]["intrabc_half_sample"] == 0
+    f = facts["avif_screen_glyphs_sb128.avif"]
+    assert f["use_128x128_superblock"] and f["intrabc_blocks"] and f["vartx_splits"] > 0
+    f = facts["avif_screen_glyphs_tiles.avif"]
+    assert f["tiles"] == 2 and f["intrabc_blocks"]
+    assert [n for n in SCREEN if "speed" in n and facts[n]["intrabc_blocks"]] == \
+        ["avif_screen_speed1.avif", "avif_screen_speed2.avif"]
+    assert facts["avif_screen_speed0.avif"]["palette_y_blocks"]
+    assert not facts["avif_screen_speed10.avif"]["allow_screen_content_tools"]   # aom's speed 10
+    f = facts["chair_decal.avif"]
+    assert f["intrabc_blocks"] and f["intrabc_half_sample"] and f["palette_y_blocks"]
+    f = facts["atlas_screen_2048x1536.avif"]
+    assert f["width"] == 2048 and f["tiles"] == 8 and f["intrabc_blocks"] > 1000
+    assert f["palette_y_blocks"] > 1000 and f["vartx_splits"] > 0
+    f = facts["avif_screen_glyphs_residual.avif"]
+    assert f["intrabc_blocks"] and f["vartx_splits"] > 0
+    assert f["tx_types"] == (1 << 6) | (1 << 9)          # FLIPADST_FLIPADST and IDTX, inter sets
+
+
+def test_obj_with_screen_content_textures_loads_as_coma_tpu(tmp_path, capsys):
+    """An OBJ whose materials take the flat (palette) and decal (intra
+    block copy) AVIF textures: every layer equal to ``coma_tpu``'s (PIL's
+    decode and bilinear resize), none left at its Kd colour, no warning."""
+    from coma_tpu.geometry.mesh import load_obj_textured as j_load_obj_textured
+    from coma_tpu_torch.geometry.mesh import load_obj_textured
+
+    names = ["chair_flat.avif", "chair_decal.avif", "avif_screen_flat_420.avif"]
+    for name in names:
+        (tmp_path / name).write_bytes(fixture(name))
+    (tmp_path / "m.mtl").write_text("".join(f"newmtl m{k}\nKd 0.1 0.9 0.2\nmap_Kd {n}\n"
+                                            for k, n in enumerate(names)))
+    (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
+                                    + "".join(f"usemtl m{k}\nf 1/1 2/1 3/1\n"
+                                              for k in range(len(names))))
+    got = load_obj_textured(str(tmp_path / "a.obj"), tex_size=32)
+    assert "WARNING" not in capsys.readouterr().out
+    want = j_load_obj_textured(str(tmp_path / "a.obj"), tex_size=32)
+    np.testing.assert_array_equal(got.face_material, want.face_material)
+    assert len(got.textures) == len(want.textures) == len(names) + 1
+    np.testing.assert_array_equal(got.textures, want.textures)
+    for layer in got.textures[1:]:
+        assert not np.allclose(layer, [0.1, 0.9, 0.2])
 
 
 REFUSED = avif_refused_files()
@@ -395,15 +516,17 @@ def _pillow(path: str):
 
 
 DAMAGED = ("avif_tiles_2x2.avif", "avif_lossy_tiles_2x2.avif",
-           "avif_restored_cdef_lr_270x150.avif")
+           "avif_restored_cdef_lr_270x150.avif", "avif_screen_glyphs_sb128.avif")
+SHAPES = {e["file"]: tuple(e["shape"]) for e in ENTRIES}
 
 
 @pytest.mark.parametrize("name", DAMAGED)
 @pytest.mark.parametrize("k", range(10))
 def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k, name):
     """A seeded cut of a fixture (lossless; lossy with its large transforms
-    and the deblocking filter; and with CDEF and loop restoration, which read
-    past unit and stripe edges): Pillow's array, or a ValueError
+    and the deblocking filter; with CDEF and loop restoration, which read
+    past unit and stripe edges; and screen content, palettes and intra block
+    copy): Pillow's array, or a ValueError
     naming the file (libavif refuses every cut inside the item's data),
     within the time limit and without a crash."""
     data = fixture(name)
@@ -428,7 +551,8 @@ def test_damaged_tile_data_never_crashes(tmp_path, k, name):
     a crash (every read of the symbol decoder stays inside its tile; the
     transforms, the predictors, the deblocking filter, CDEF and loop
     restoration stay inside their buffers on damaged coefficients and
-    filter parameters)."""
+    filter parameters, intra block copy inside the frame on a damaged
+    displacement, a palette's colour map inside its block)."""
     data = bytearray(fixture(name))
     rng = np.random.default_rng(600 + k)
     start = data.index(b"mdat") + 40
@@ -438,7 +562,7 @@ def test_damaged_tile_data_never_crashes(tmp_path, k, name):
     path.write_bytes(bytes(data))
     result = _in_child(str(path))
     assert result.returncode == 0, result.stderr[-2000:]
-    assert result.stdout.startswith(("shape (150, 270, 3)", "refused")), result.stdout
+    assert result.stdout.startswith((f"shape {SHAPES[name]}", "refused")), result.stdout
     if result.stdout.startswith("refused"):
         assert f"damaged{k}.avif" in result.stdout and "AVIF" in result.stdout
 

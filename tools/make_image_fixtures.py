@@ -9,7 +9,12 @@ the refusals of Pillow, libtiff and libwebp, with its own ``manifest.json``).
 ``--only GROUP`` writes only the files of one group, a ``*_formats``
 function of this module (``--only avif_lossy_formats``), and puts their
 entries into the existing manifest in place, new ones at its end, leaving
-the others as they are.
+the others as they are. A whole run rewrites every file and the manifest
+with the bytes that are committed: where a writer of Pillow's or its
+libraries leaves memory it never wrote or the time in its output (1-bit
+TGA RLE rows, libtiff's alignment byte, libavif's ``avis`` timestamps), the
+tool writes the committed bytes there (:func:`tga_rle_1bit`,
+:func:`tiff_pad_byte`, :func:`avis_times`).
 Needs Pillow and gcc with libjpeg-turbo's headers and library (the CPU test
 host has them; the card machine has neither, which is why the files and the
 manifest are committed). Every image is made from a numpy seed. Pillow
@@ -459,6 +464,26 @@ def tga_file(image_type: int, width: int, height: int, depth: int, data: bytes,
     return header + image_id + cmap + data
 
 
+# The 46 bytes past each packed row that Pillow's TGA RLE encoder read into
+# every row of the committed ``refused_tga_rle_1bit.tga`` (it runs over a
+# 1-bit row as if each pixel were a byte, so it reads past the row's seven
+# packed bytes into memory it never wrote, different on every run)
+TGA_1BIT_TAIL = bytes.fromhex("0000000000000000000000000000000000d10c00000000000001000000000000"
+                              "0008090147000000004e00000000")
+
+
+def tga_rle_1bit(image) -> bytes:
+    """Pillow's TGA type 11 file of a mode "1" ``image`` (bottom-up rows,
+    its TGA 2.0 footer) with each row as Pillow's encoder reads it: the
+    packed bits, then :data:`TGA_1BIT_TAIL` where Pillow's read memory it
+    never wrote. Pillow's own writer gives other bytes on every run."""
+    packed = np.packbits(np.asarray(image), axis=1)[::-1]
+    tail = np.frombuffer(TGA_1BIT_TAIL, np.uint8)[:image.width - packed.shape[1]]
+    rows = np.concatenate([packed, np.broadcast_to(tail, (image.height, tail.size))], 1)
+    return (tga_file(11, image.width, image.height, 1, tga_rle(rows, 1)) + bytes(8)
+            + b"TRUEVISION-XFILE.\x00")
+
+
 def tga_rle(rows: np.ndarray, pixel_bytes: int, across_rows: bool = False) -> bytes:
     """Run-length packets of (H, W * pixel_bytes) rows: runs of repeated
     pixels, literals otherwise; ``across_rows`` lets literals continue into
@@ -626,6 +651,28 @@ def jpeg_tiff(writer, pixels: np.ndarray, rows_per_strip: int, sampling: str = "
     return tiff_file(pixels, (8, 8, 8), 6, compression=7, rows_per_strip=rows_per_strip,
                      chunks=stripped, tags={347: (7, b"\xff\xd8" + tables + b"\xff\xd9"),
                                             530: (3, [h, v])})
+
+
+def tiff_pad_byte(data: bytes, value: int) -> bytes:
+    """``data`` (a little-endian TIFF from Pillow's libtiff writer) with the
+    byte that aligns its first IFD after the last strip set to ``value``:
+    libtiff leaves it unwritten, so it differs from run to run (``value`` is
+    the committed file's). No reader reads it."""
+    out = bytearray(data)
+    ifd = struct.unpack("<I", data[4:8])[0]
+    values = {}
+    for k in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+        tag, kind, count, at = struct.unpack("<HHII", data[ifd + 2 + 12 * k:ifd + 14 + 12 * k])
+        if tag not in (273, 279):                # StripOffsets, StripByteCounts
+            continue
+        fmt = f"<{count}{'I' if kind == 4 else 'H'}"
+        size = struct.calcsize(fmt)
+        values[tag] = struct.unpack(fmt, data[at:at + size] if size > 4
+                                    else data[ifd + 10 + 12 * k:ifd + 10 + 12 * k + size])
+    end = max(o + n for o, n in zip(values[273], values[279]))
+    assert end == ifd - 1, (end, ifd)           # one byte of alignment before the IFD
+    out[end] = value
+    return bytes(out)
 
 
 def psd_file(planes: np.ndarray, ps_mode: int, bits: int = 8, rle: bool = False,
@@ -1950,7 +1997,7 @@ def other_formats() -> dict:
         "gif_animated.gif": ("GIF, 5 frames written by coma_tpu's PIL call (delta frames)",
                              _pil_animation(step_video_frames(5, 32, 64, 33))),
         "refused_tga_rle_1bit.tga": ("TGA type 11 at 1 bit (refused)",
-                                     pil(gray.convert("1"), "TGA", compression="tga_rle")),
+                                     tga_rle_1bit(gray.convert("1"))),
         "refused_tga_run_across.tga": ("TGA run-length run across a row end (refused)",
                                        tga_file(11, 4, 2, 8, b"\x87\x05")),
         "refused_bmp_depth.bmp": ("BMP 2-bit (refused)",
@@ -2126,9 +2173,9 @@ def new_formats() -> dict:
     out["atlas_rle_2048x1536.psd"] = ("2048 x 1536 atlas, PSD PackBits", psd_file(
         np.ascontiguousarray(atlas.transpose(2, 0, 1)), 3, rle=True, layer=False))
     out["atlas_ycbcr_jpeg_2048x1536.tif"] = ("2048 x 1536 atlas, TIFF JPEG YCbCr, strips of 64",
-                                             pil(Image.fromarray(atlas).convert("YCbCr"), "TIFF",
-                                                 compression="jpeg", quality=75,
-                                                 tiffinfo={278: 64}))
+                                             tiff_pad_byte(pil(Image.fromarray(atlas).convert(
+                                                 "YCbCr"), "TIFF", compression="jpeg", quality=75,
+                                                 tiffinfo={278: 64}), 0x92))
     return out
 
 
@@ -2630,7 +2677,11 @@ def packet_spans(cs: bytes) -> tuple:
     return cs[:pos], tiles
 
 
-def _segment(marker: int, body: bytes) -> bytes:
+def _j2k_segment(marker: int, body: bytes) -> bytes:
+    """A JPEG 2000 marker segment: the two-byte ``marker`` code, Lmar, the
+    body. (A name of its own: JPEG's ``_segment`` takes the code's second
+    byte, and a second definition of one name would replace the first for
+    every writer of the module.)"""
     return struct.pack(">HH", marker, len(body) + 2) + body
 
 
@@ -2644,11 +2695,11 @@ def repack_headers(cs: bytes, where: str) -> bytes:
         stream = b"".join(struct.pack(">I", sum(len(h) for h, _ in packets))
                           + b"".join(h for h, _ in packets) for _, _, packets in tiles)
         for z, k in enumerate(range(0, len(stream), 4000)):
-            out += _segment(0xFF60, bytes([z]) + stream[k:k + 4000])
+            out += _j2k_segment(0xFF60, bytes([z]) + stream[k:k + 4000])
     for index, markers, packets in tiles:
         headers = b"".join(h for h, _ in packets)
         if where == "ppt":
-            markers += b"".join(_segment(0xFF61, bytes([z]) + headers[k:k + 3000])
+            markers += b"".join(_j2k_segment(0xFF61, bytes([z]) + headers[k:k + 3000])
                                 for z, k in enumerate(range(0, len(headers), 3000)))
         body = b"".join(b for _, b in packets)
         sot_len = 12 + len(markers) + 2 + len(body)
@@ -3109,6 +3160,25 @@ def avif_alpha_limited(data: bytes) -> bytes:
     return bytes(out)
 
 
+# the creation and modification time (seconds since 1904) of the committed
+# avis-derived fixture's mvhd, tkhd and mdhd boxes
+AVIS_TIME = 3875178990
+
+
+def avis_times(data: bytes, seconds: int = AVIS_TIME) -> bytes:
+    """``data`` (an avis file from libavif) with the creation and
+    modification times of its mvhd, tkhd and mdhd boxes set to ``seconds``:
+    libavif writes the time of the call there."""
+    out = bytearray(data)
+    for box in (b"mvhd", b"tkhd", b"mdhd"):
+        at = out.index(box) + 4
+        if out[at] == 1:            # version 1: 64-bit times
+            out[at + 4:at + 20] = struct.pack(">QQ", seconds, seconds)
+        else:
+            out[at + 4:at + 12] = struct.pack(">II", seconds, seconds)
+    return bytes(out)
+
+
 # the aom tool switches of Pillow's ``advanced`` option, one fixture each
 AVIF_TOOL_SWITCHES = ("enable-cfl-intra", "enable-filter-intra", "enable-intra-edge-filter",
                       "enable-smooth-intra", "enable-paeth-intra", "enable-angle-delta")
@@ -3187,7 +3257,7 @@ def avif_formats() -> dict:
     frames = [Image.fromarray(seeded_rgb((34, 50), 437 + k, noise=8)) for k in range(2)]
     seq = io.BytesIO()
     frames[0].save(seq, "AVIF", quality=100, save_all=True, append_images=frames[1:])
-    seq = seq.getvalue()
+    seq = avis_times(seq.getvalue())
     at = seq.index(b"ftypavis") + 4
     out["avif_full_sequence_header.avif"] = (
         "AVIF lossless, a full sequence header (an avis file's still item, its major brand "
@@ -3214,6 +3284,7 @@ def avif_formats() -> dict:
         np.clip(noisy, 0, 255).astype(np.uint8), quality=100))
     out.update(avif_lossy_formats())
     out.update(avif_restored_formats())
+    out.update(avif_screen_formats())
     return out
 
 
@@ -3392,12 +3463,152 @@ def avif_restored_formats() -> dict:
     return out
 
 
+def seeded_flat(shape: tuple, seed: int, colours: int = 4) -> np.ndarray:
+    """(H, W, 3) uint8: ``colours`` flat colours in seeded rectangles over a
+    ground of the first, as a CAD part's texture is painted; aom codes such
+    an image with palette mode."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    palette = rng.integers(0, 256, (colours, 3))
+    labels = np.zeros((h, w), np.int64)
+    for k in range(3 * colours):
+        y, x = rng.integers(0, h), rng.integers(0, w)
+        labels[y:y + rng.integers(4, max(5, h // 2)), x:x + rng.integers(4, max(5, w // 2))] = \
+            k % colours
+    return palette[labels].astype(np.uint8)
+
+
+def seeded_posterised(shape: tuple, seed: int, levels: int = 6, period: int = 64) -> np.ndarray:
+    """(H, W, 3) uint8: a seeded oblique gradient between two colours that
+    repeats every ``period`` samples, posterised to ``levels`` bands."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:shape[0], :shape[1]]
+    a, b = rng.uniform(0.5, 1.5, 2)
+    band = np.floor((a * xx + b * yy) % period / period * levels) / (levels - 1)
+    lo, hi = rng.integers(0, 256, (2, 3))
+    return (lo + (hi - lo) * band[..., None]).astype(np.uint8)
+
+
+def seeded_glyphs(shape: tuple, seed: int, glyphs: int = 4, pitch: tuple = (10, 6),
+                  ink: tuple = (30, 30, 30), paper: tuple = (235, 235, 235),
+                  altered: float = 0.0) -> np.ndarray:
+    """(H, W, 3) uint8: lines of text, like a label or a decal: ``glyphs``
+    seeded 7 x 5 letters in ``ink`` on ``paper`` at a ``pitch`` of (line,
+    letter), a letter left out at random. Repeated letters draw aom to intra
+    block copy (where the frame holds a superblock five 64 x 64 superblocks
+    back in raster order, INTRABC_DELAY_SB64, so at least 129 samples wide
+    or tall) and to palette mode. With ``altered`` > 0 the ink darkens by 12
+    a line, in three steps, and that share of the letters has one sample
+    turned, so that copies leave residuals."""
+    rng = np.random.default_rng(seed)
+    letters = rng.integers(0, 2, (glyphs, 7, 5)).astype(bool)
+    img = np.empty(shape + (3,), np.uint8)
+    img[:] = paper
+    for y in range(1, shape[0] - 7, pitch[0]):
+        shade = np.clip(np.array(ink) + 12 * ((y // pitch[0]) % 3 if altered else 0), 0, 255)
+        for x in range(1, shape[1] - 5, pitch[1]):
+            if rng.random() < 0.85:
+                letter = letters[rng.integers(glyphs)].copy()
+                if altered and rng.random() < altered:
+                    letter[rng.integers(7), rng.integers(5)] ^= True
+                img[y:y + 7, x:x + 5][letter] = shade
+    return img
+
+
+def seeded_patchwork_palette(shape: tuple, seed: int) -> np.ndarray:
+    """(H, W, 3) uint8: 16 x 16 squares each in 2 to 8 colours of its own
+    (seeded stripes and dots on a ground), so that aom's palettes reach every
+    size in luma and chroma."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    img = np.empty((h, w, 3), np.uint8)
+    for y in range(0, h, 16):
+        for x in range(0, w, 16):
+            n = 2 + (y // 16 * 3 + x // 16) % 7
+            cols = rng.integers(0, 256, (n, 3))
+            labels = rng.integers(0, n, (4, 4)).repeat(4, 0).repeat(4, 1)
+            img[y:y + 16, x:x + 16] = cols[labels][:h - y, :w - x]
+    return img
+
+
+def avif_screen_formats() -> dict:
+    """AVIFs whose AV1 frames Pillow's writer (aom 3.12.1) codes with the
+    screen content tools, which aom turns on for flat content at any
+    quality: palette mode (a flat 4-colour texture at Pillow's defaults, a
+    posterised gradient at quality 90 in 4:4:4 and 4:2:2, the flat texture
+    coded-lossless, a patchwork of 2- to 8-colour squares whose palettes
+    reach every size in luma and chroma, a flat RGBA texture whose alpha
+    item takes a palette, screen content without intra block copy) and intra
+    block copy (lines of repeated letters at qualities 75 and 100 in 4:2:0,
+    whose chroma copies from half-sample positions, and 4:4:4, with 128 x
+    128 superblocks and with two tile columns; speeds 0 to 2 and 10); the
+    chair's flat and decal textures and the 2048 x 1536 atlas of flat
+    shapes and text. A frame that holds intra block copy is at least 129
+    samples on a side (INTRABC_DELAY_SB64); the rest are at most 128. Each
+    file's purpose is asserted from the decoder's counters in the AVIF
+    tests."""
+    out = {}
+    flat = seeded_flat((96, 128), 11)
+    out["avif_screen_flat_420.avif"] = ("AVIF screen content, a flat 4-colour texture at "
+                                        "Pillow's defaults, palette", avif_file(flat))
+    for sub in ("4:4:4", "4:2:2"):
+        out[f"avif_screen_posterised_{sub.replace(':', '')}.avif"] = (
+            f"AVIF screen content {sub}, a posterised gradient at quality 90, palette",
+            avif_file(seeded_posterised((72, 96), 12), quality=90, subsampling=sub))
+    out["avif_screen_flat_lossless.avif"] = (
+        "AVIF screen content, the flat texture coded-lossless (quality 100), palette",
+        avif_file(flat, quality=100))
+    for sub, seed in (("4:2:0", 13), ("4:4:4", 25), ("4:2:2", 18)):
+        tag = sub.replace(":", "")
+        out[f"avif_screen_palette_sizes_{tag}.avif"] = (
+            f"AVIF screen content {sub}, squares of 2 to 8 colours, every palette size",
+            avif_file(seeded_patchwork_palette((128, 128), seed), quality=90, subsampling=sub))
+    alpha = np.where(seeded_glyphs((96, 128), 14)[..., :1] < 128, 255, 96).astype(np.uint8)
+    rgba = np.concatenate([flat, alpha], -1)
+    out["avif_screen_flat_rgba.avif"] = ("AVIF screen content RGBA, a flat texture, a palette "
+                                         "in the alpha item", avif_file(rgba))
+    out["avif_screen_no_intrabc.avif"] = (
+        "AVIF screen content, aom tune-content=screen with enable-intrabc=0",
+        avif_file(seeded_glyphs((96, 192), 15), advanced={"tune-content": "screen",
+                                                           "enable-intrabc": "0"}))
+    text = seeded_glyphs((96, 192), 16)
+    for q in (75, 100):
+        for sub in ("4:2:0", "4:4:4"):
+            tag = sub.replace(":", "")
+            out[f"avif_screen_glyphs_q{q}_{tag}.avif"] = (
+                f"AVIF screen content {sub}, lines of letters at quality {q}, intra block copy",
+                avif_file(text, quality=q, subsampling=sub))
+    out["avif_screen_glyphs_sb128.avif"] = (
+        "AVIF screen content, lines of letters, intra block copy with 128 x 128 superblocks",
+        avif_file(seeded_glyphs((200, 320), 17), advanced={"sb-size": "128"}))
+    out["avif_screen_glyphs_residual.avif"] = (
+        "AVIF screen content, letters in three inks, some altered, at quality 50, aom speed 1: "
+        "residuals over intra block copy in var-tx blocks, a flipped ADST",
+        avif_file(seeded_glyphs((128, 256), 1, altered=0.3), quality=50, speed=1))
+    out["avif_screen_glyphs_tiles.avif"] = (
+        "AVIF screen content, lines of letters, intra block copy over two tile columns",
+        avif_file(seeded_glyphs((128, 512), 18), tile_cols=1))
+    for speed in (0, 1, 2, 10):
+        out[f"avif_screen_speed{speed}.avif"] = (
+            f"AVIF screen content, lines of letters, aom speed {speed}",
+            avif_file(seeded_glyphs((96, 192), 20 + speed), speed=speed))
+    out["chair_flat.avif"] = ("chair texture, AVIF screen content, flat colours, palette",
+                              avif_file(seeded_flat((48, 48), 453)))
+    out["chair_decal.avif"] = ("chair texture, AVIF screen content, a decal of letters, intra "
+                               "block copy", avif_file(seeded_glyphs((96, 256), 454)))
+    atlas = texture_atlas(10)
+    atlas[:768] = seeded_glyphs((768, 2048), 455, glyphs=26, ink=(20, 40, 90))
+    out["atlas_screen_2048x1536.avif"] = (
+        "2048 x 1536 atlas, AVIF screen content at Pillow's defaults, flat shapes and text",
+        avif_file(atlas))
+    return out
+
+
 def avif_refused_files() -> dict:
     """{refusal word: AVIF bytes} of the files Pillow reads and the port
     refuses by name, one per word Pillow's writer (aom 3.12.1) can make:
-    quantizer matrices (enable-qm=1), screen content tools
-    (tune-content=screen), film grain (film-grain-test on a lossless frame)
-    and an avis sequence. Superres (aom takes no option of Pillow's for it),
+    quantizer matrices (enable-qm=1), film grain (film-grain-test on a
+    lossless frame) and an avis sequence. Superres (aom takes no option of Pillow's for it),
     delta lf (aom's deltalf-mode is not an option of Pillow's), segment loop
     filter levels (aom writes no segmentation here), high bit depth (Pillow
     writes 8 bits), an inter first frame and a grid (libavif's writer makes
@@ -3410,8 +3621,6 @@ def avif_refused_files() -> dict:
                               append_images=[Image.fromarray(rgb[::-1])])
     return {
         "AV1 quantizer matrices": avif_file(rgb, advanced={"enable-qm": "1"}),
-        "AV1 screen content tools": avif_file(rgb // 64 * 64, quality=100,
-                                              advanced={"tune-content": "screen"}),
         "AV1 film grain": avif_file(rgb, quality=100, advanced={"film-grain-test": "1"}),
         "avis image sequence": seq.getvalue(),
     }
@@ -3845,6 +4054,26 @@ def write_fixture(name: str, kind: str, data: bytes) -> dict:
     return entry
 
 
+def libavif_version() -> str:
+    """The manifest's ``libavif`` entry: the version of Pillow's libavif and
+    of its dav1d (which decodes for Pillow), aom (which encodes) and libyuv,
+    "1.3.0 (dav1d 1.5.1, aom 3.12.1, libyuv 1909)" here. libyuv's comes from
+    the library itself (``avifLibYUVVersion``), the rest from Pillow."""
+    import ctypes
+    import glob
+
+    import PIL
+    from PIL import _avif, features
+
+    versions = dict(part.split(" [")[0:1] + part.split(":")[1:2]
+                    for part in _avif.codec_versions().split(", "))
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libavif-*"))[0])
+    lib.avifLibYUVVersion.restype = ctypes.c_uint
+    return (f"{features.version('avif')} (dav1d {versions['dav1d'].split('-')[0]}, aom "
+            f"{versions['aom'].lstrip('v')}, libyuv {lib.avifLibYUVVersion()})")
+
+
 def write_group(group: str) -> int:
     """``--only GROUP``: write the files of one ``*_formats`` function and
     put their entries into the existing ``manifest.json``."""
@@ -3888,7 +4117,7 @@ def main() -> int:
     manifest = dict(pillow=PIL.__version__, libjpeg_turbo=features.version("libjpeg_turbo"),
                     libwebp=features.version("webp"), openjpeg=features.version("jpg_2000"),
                     libtiff=features.version("libtiff"), files=entries,
-                    step_video=step_video_entry())
+                    step_video=step_video_entry(), libavif=libavif_version())
     with open(os.path.join(OUT, "manifest.json"), "w") as fh:
         json.dump(manifest, fh, indent=1)
         fh.write("\n")
