@@ -280,7 +280,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    speeds 0 to 4 or with aom's enable-cdef=1 (CDEF at cdef_bits 0 to 3 in
    every sampling, Wiener, self-guided and switchable loop restoration on
    every plane, mixed, over tiles, 16 x 64 and 64 x 16 transforms, a
-   restored alpha item); the 2048 x 1536
+   restored alpha item), with aom's quantizer matrices (tune=iq, every
+   level 0 to 14) and film grain (its 16 test vectors, grain tables, its
+   denoiser; every sampling, an alpha item); the 2048 x 1536
    BEHAVE frames and atlas) through ``read_image``
    with the native decoders and codecs (``native/src/{jpeg_decode,
    image_codecs,bcn_decode,webp_decode,av1_decode}.cpp``, built with
@@ -295,9 +297,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    2048 x 1536 atlas as TGA, TIFF-LZW, SOF9, block-smoothed progressive
    JPEG, lossy and lossless WebP, DDS BC7 and DXT1, PSD PackBits, YCbCr
    TIFF-JPEG, QOI, SGI RLE and lossless, lossy (Pillow's defaults),
-   restored (speed 4 with CDEF) and screen-content (palettes and intra block
-   copy) 4:2:0 AVIF, the lossless, lossy, restored and screen-content AVIF
-   fixtures' counts printed on a line of its own, and on another the
+   restored (speed 4 with CDEF), screen-content (palettes and intra block
+   copy) and tune=iq with denoise-noise-level (quantizer matrices and film
+   grain) 4:2:0 AVIF, the lossless, lossy, restored, screen-content and
+   quantizer-matrix and film-grain AVIF fixtures' counts printed on a line
+   of its own, and on another the
    restored fixtures with CDEF-filtered blocks and with restored units,
    from the decoder's counters. (b) A BEHAVE-shaped sequence of 2 frames
    whose k0-k3 colour frames and person masks are the 2048 x 1536 JPEGs:
@@ -309,9 +313,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    QOI, an ICO, a BLP2 DXT5, a Sun RLE file and the rest of
    ``PART_TEXTURES`` (two lossless AVIFs, 4:2:0 and RGBA, a lossy AVIF at
    Pillow's defaults, one at speed 0 with CDEF and loop restoration, whose
-   counters must show both, and two of screen content at Pillow's defaults,
-   last: a flat texture whose counters must show luma and chroma palettes
-   and a decal of letters whose counters must show intrabc blocks) on its back,
+   counters must show both, two of screen content at Pillow's defaults: a
+   flat texture whose counters must show luma and chroma palettes and a
+   decal of letters whose counters must show intrabc blocks, and last a
+   tune=iq one whose counters must show weighting by a quantizer matrix and
+   a denoised one whose counters must show film grain) on its back,
    legs, stretchers, armrests, seat trims, back slats and seat studs, through
    ``cli/generate_2d_hoi_images`` at 384² with phase 13's checks (view 0 on
    the card against the CPU, K3 1644 launches, all bf16, K1 and K2 none,
@@ -2710,13 +2716,13 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
     back to 95 cm and four 4 cm legs. Seat and back use a ``map_Kd``
     material (a 512² RGB PNG written by the port's writer, or a copy of the
     image file ``texture``), the legs a Kd-only material and carry no UVs.
-    ``part_textures`` (up to forty-six image files) give the back, then
+    ``part_textures`` (up to forty-eight image files) give the back, then
     each leg, then (past five) each of four stretchers between the legs, two
     armrests, four trims under the seat's edges, two slats before the back,
     a footrest bar, a headrest, two back posts, two armrest posts, a rear
     stretcher, three low stretchers, a lumbar bar, a front apron, two seat
     knobs, a cross of two bars under the seat, four foot pads, a back emblem,
-    two armrest pads, four studs at the seat's front and two at its back a
+    two armrest pads, four studs at the seat's front and four at its back a
     material, UVs and a ``map_Kd`` of their own.
     Returns the OBJ's path."""
     from coma_tpu_torch.utils.png import write_png
@@ -2782,7 +2788,9 @@ def write_chair(root: str, rng, texture: str = None, part_textures: tuple = ()) 
               ((-0.02, 0.44, 0.25), (0.02, 0.47, 0.26)),
               ((0.16, 0.44, 0.25), (0.20, 0.47, 0.26))]
     rear_studs = [((-0.20, 0.44, -0.26), (-0.16, 0.47, -0.25)),
-                  ((0.16, 0.44, -0.26), (0.20, 0.47, -0.25))]
+                  ((0.16, 0.44, -0.26), (0.20, 0.47, -0.25)),
+                  ((-0.08, 0.44, -0.26), (-0.04, 0.47, -0.25)),
+                  ((0.04, 0.44, -0.26), (0.08, 0.47, -0.25))]
     # with no part textures, the first 34 extras in metal
     boxes = (extras + rear_studs)[:len(part_textures) - 5] if part_textures else extras[:-5]
     parts += [("metal", chair_box(lo, hi, leg)) for lo, hi in boxes]
@@ -3843,7 +3851,8 @@ FABRIC_JPEG = "fabric_512.jpg"       # the 512² progressive texture of phase 16
 # lossless 4:2:0 AVIF, a lossless RGBA AVIF, a lossy AVIF (Pillow's defaults) and a restored
 # one (speed 0 with CDEF: CDEF and loop restoration) on four studs at the seat's front, and
 # two screen-content AVIFs at Pillow's defaults (a flat texture in palette mode, a decal of
-# letters in intra block copy) on two studs at its back
+# letters in intra block copy), a tune=iq AVIF (quantizer matrices) and a denoised one (film
+# grain) on four studs at its back
 PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_rgb_lzw.tif",
                  "cmyk_libjpeg.jpg", "chair_lossy_alpha.webp", "chair_lossless.webp",
                  "chair_bc7.dds", "chair_dxt1.dds", "chair_rle.psd", "chair_ycbcr_420.tif",
@@ -3856,11 +3865,13 @@ PART_TEXTURES = ("arith_420.jpg", "tga_rgba32_rle.tga", "bmp_rgb24.bmp", "tiff_r
                  "chair_i16.area", "chair.fits", "chair.xv", "chair.iptc",
                  "chair_tiled_1bit.tif", "chair_lossless_420.avif", "chair_rgba.avif",
                  "chair_lossy.avif", "chair_restored.avif", "chair_flat.avif",
-                 "chair_decal.avif")
+                 "chair_decal.avif", "chair_iq.avif", "chair_grain.avif")
 # the restored part texture whose decoder counters phase 16c checks
 RESTORED_PART = "chair_restored.avif"
 # the screen-content part textures whose counters phase 16c checks: palette, intrabc
 PALETTE_PART, INTRABC_PART = "chair_flat.avif", "chair_decal.avif"
+# the part textures whose counters phase 16c checks: quantizer matrices, film grain
+QM_PART, GRAIN_PART = "chair_iq.avif", "chair_grain.avif"
 # the damaged 2048 x 1536 atlas whose recovery phase 16a times
 DAMAGED_ATLAS = "atlas_damaged_restart_2048x1536.jpg"
 # the 2048 x 1536 files whose host decode phase 16a times
@@ -3874,7 +3885,7 @@ TIMED_DECODES = ("atlas_rle_2048x1536.tga", "atlas_lzw_2048x1536.tif",
                  "atlas_lossy_2048x1536.j2k", "atlas_2048x1536.flc",
                  "atlas_gzip_2048x1536.fits", "atlas_lossless_2048x1536.avif",
                  "atlas_lossy_2048x1536.avif", "atlas_restored_2048x1536.avif",
-                 "atlas_screen_2048x1536.avif")
+                 "atlas_screen_2048x1536.avif", "atlas_iq_grain_2048x1536.avif")
 BEHAVE_JPEG_FRAMES = 2
 DECODE_REPS = 5
 PHASE16_RES = 384                    # render_objects' resolution: inpaint resizes to 512²
@@ -3924,7 +3935,9 @@ def image_sha(image: np.ndarray) -> str:
 def avif_counters(name: str) -> dict:
     """The AV1 decoder's counters of an AVIF fixture, its colour and alpha
     items summed: 8 x 8 blocks CDEF filtered, Wiener and self-guided units,
-    Y and UV palette blocks, intrabc blocks and their chroma predictions."""
+    Y and UV palette blocks, intrabc blocks and their chroma predictions,
+    the (plane, transform size) pairs a quantizer matrix weighted and the
+    planes film grain ran on."""
     from coma_tpu_torch.utils import avif
 
     with open(os.path.join(IMAGE_FIXTURES, name), "rb") as fh:
@@ -3937,6 +3950,9 @@ def avif_counters(name: str) -> dict:
                **{k: sum(i[k] for i in items) for k in ("palette_y_blocks", "palette_uv_blocks",
                                                         "intrabc_blocks", "intrabc_chroma_blocks")})
     out["units"] = out["wiener"] + out["sgrproj"]
+    out["qm_weighted"] = sum(bool(v) for i in items for k, v in i.items()
+                             if k.startswith("qm_levels_"))
+    out["grain_planes"] = sum(bin(i["grain_planes"]).count("1") for i in items)
     return out
 
 
@@ -3952,11 +3968,14 @@ def decode_phase(label: str) -> dict:
     TIFF-JPEG, QOI, SGI RLE, TIFF-Zstandard, (thresholded) TIFF CCITT
     Group 4, lossless JPEG 2000 (JP2, 5/3), lossy JPEG 2000 (J2K, 9/7,
     tiles, layers, RPCL), FLC (BRUN), FITS (a GZIP_1 table) and lossless,
-    lossy, restored and screen-content AVIF (4:2:0, coded-lossless and lossy
-    AV1 through ``native/src/av1_decode.cpp``, the restored one with CDEF and
-    loop restoration, the screen one with palettes and intra block copy)
-    (median of 5). Each restored AVIF fixture must show CDEF or loop
-    restoration in the decoder's counters."""
+    lossy, restored, screen-content and quantizer-matrix with film grain
+    AVIF (4:2:0, coded-lossless and lossy AV1 through
+    ``native/src/av1_decode.cpp``, the restored one with CDEF and loop
+    restoration, the screen one with palettes and intra block copy, the last
+    tune=iq with denoise-noise-level) (median of 5). Each restored AVIF
+    fixture must show CDEF or loop restoration in the decoder's counters,
+    each quantizer-matrix or film-grain fixture a weighted transform block
+    or grain."""
     import statistics
 
     from coma_tpu_torch.native import codecs
@@ -4100,6 +4119,13 @@ def decode_phase(label: str) -> dict:
     avif_lossy = [n for n in avif_equal if "lossy" in n]
     avif_restored = [n for n in avif_equal if "restored" in n]
     avif_screen = [n for n in avif_equal if "screen content" in manifest[n]["kind"]]
+    avif_qm_grain = [n for n in avif_equal if "quantizer matrices" in manifest[n]["kind"]
+                     or "film grain" in manifest[n]["kind"]]
+    qm_grain = {n: avif_counters(n) for n in avif_qm_grain}
+    shown = [n for n, c in qm_grain.items() if not (c["qm_weighted"] or c["grain_planes"])
+             and "coded-lossless" not in manifest[n]["kind"]]
+    if shown:
+        raise AssertionError(f"{shown}: no block weighted by a quantizer matrix and no grain")
     restored = {n: avif_counters(n) for n in avif_restored}
     shown = [n for n, c in restored.items() if not (c["cdef_blocks"] or c["units"])]
     if shown:
@@ -4109,15 +4135,20 @@ def decode_phase(label: str) -> dict:
     out.update(avif_equal=len(avif_equal), avif_lossy_equal=len(avif_lossy),
                avif_restored_equal=len(avif_restored), avif_cdef=len(with_cdef),
                avif_restoration=len(with_lr), avif_restored_counters=restored,
-               avif_screen_equal=len(avif_screen))
+               avif_screen_equal=len(avif_screen), avif_qm_grain_equal=len(avif_qm_grain),
+               avif_qm=sum(bool(c["qm_weighted"]) for c in qm_grain.values()),
+               avif_grain=sum(bool(c["grain_planes"]) for c in qm_grain.values()))
     atlas_avif = timed["atlas_lossless_2048x1536.avif"]
     lossy_avif = timed["atlas_lossy_2048x1536.avif"]
     restored_avif = timed["atlas_restored_2048x1536.avif"]
     screen_avif = timed["atlas_screen_2048x1536.avif"]
-    lossless_count = len(avif_equal) - len(avif_lossy) - len(avif_restored) - len(avif_screen)
+    iq_avif = timed["atlas_iq_grain_2048x1536.avif"]
+    lossless_count = (len(avif_equal) - len(avif_lossy) - len(avif_restored) - len(avif_screen)
+                      - len(avif_qm_grain))
     log(f"phase 16a: {len(avif_equal)} AVIF fixtures ({lossless_count} coded-lossless, "
         f"{len(avif_lossy)} lossy, {len(avif_restored)} restored, {len(avif_screen)} screen "
-        f"content AV1 through "
+        f"content, {len(avif_qm_grain)} with quantizer matrices ({out['avif_qm']} weighted) or "
+        f"film grain ({out['avif_grain']} grained) AV1 through "
         f"native/src/av1_decode.cpp, libyuv's conversion) equal to Pillow's hashes in modes "
         f"None, RGB and L; host decode median of {DECODE_REPS}: atlas_lossless_2048x1536.avif "
         f"({atlas_avif['bytes']} bytes) {atlas_avif['median_ms']:.3f} ms, "
@@ -4125,7 +4156,9 @@ def decode_phase(label: str) -> dict:
         f"{lossy_avif['median_ms']:.3f} ms, atlas_restored_2048x1536.avif "
         f"({restored_avif['bytes']} bytes, speed 4 with CDEF) {restored_avif['median_ms']:.3f} "
         f"ms, atlas_screen_2048x1536.avif ({screen_avif['bytes']} bytes, palettes and intra "
-        f"block copy) {screen_avif['median_ms']:.3f} ms [{label}]")
+        f"block copy) {screen_avif['median_ms']:.3f} ms, atlas_iq_grain_2048x1536.avif "
+        f"({iq_avif['bytes']} bytes, tune=iq with denoise-noise-level: quantizer matrices and "
+        f"film grain) {iq_avif['median_ms']:.3f} ms [{label}]")
     log(f"phase 16a: restored AVIF fixtures equal to Pillow's hashes: {len(with_cdef)} with "
         f"CDEF ({sum(c['cdef_blocks'] for c in restored.values())} 8x8 blocks filtered), "
         f"{len(with_lr)} with loop restoration "
@@ -4202,9 +4235,10 @@ def jpeg_asset_phase(label: str) -> dict:
     FTEX DXT1, GBR RGBA, PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail,
     IPTC/NAA and 1-bit tiled TIFF ones, and its studs two lossless AVIFs,
     a lossy one (Pillow's defaults), a restored one (CDEF and loop
-    restoration, both shown by the decoder's counters) and two of screen
+    restoration, both shown by the decoder's counters), two of screen
     content (palette blocks in one, intrabc blocks in the other, shown by
-    the counters), through
+    the counters), a tune=iq one (blocks weighted by a quantizer matrix)
+    and a denoised one (film grain on every plane), through
     ``cli/generate_2d_hoi_images`` at
     ``PHASE16_RES``² (so ``inpaint`` resizes to 512²) into one batch of 4 on
     K3, with phase 13's checks; every texture layer and the inpainting's
@@ -4223,6 +4257,10 @@ def jpeg_asset_phase(label: str) -> dict:
             and screen[INTRABC_PART]["intrabc_chroma_blocks"]):
         raise AssertionError(f"counters {screen}: {PALETTE_PART} without luma and chroma "
                              f"palettes or {INTRABC_PART} without intrabc blocks")
+    qm_grain = {n: avif_counters(n) for n in (QM_PART, GRAIN_PART)}
+    if not (qm_grain[QM_PART]["qm_weighted"] and qm_grain[GRAIN_PART]["grain_planes"] == 3):
+        raise AssertionError(f"counters {qm_grain}: {QM_PART} with no block weighted by a "
+                             f"quantizer matrix or {GRAIN_PART} without grain on every plane")
     unpacked = os.path.join(SCRATCH, "part_textures")
     os.makedirs(unpacked, exist_ok=True)
     parts = []
@@ -4273,10 +4311,13 @@ def jpeg_asset_phase(label: str) -> dict:
         f"{PALETTE_PART}: {screen[PALETTE_PART]['palette_y_blocks']} Y and "
         f"{screen[PALETTE_PART]['palette_uv_blocks']} UV palette blocks; {INTRABC_PART}: "
         f"{screen[INTRABC_PART]['intrabc_blocks']} intrabc blocks, "
-        f"{screen[INTRABC_PART]['intrabc_chroma_blocks']} chroma predictions; each decoded to "
-        f"Pillow's hash [{label}]")
+        f"{screen[INTRABC_PART]['intrabc_chroma_blocks']} chroma predictions; {QM_PART}: "
+        f"{qm_grain[QM_PART]['qm_weighted']} (plane, transform size) pairs weighted by a "
+        f"quantizer matrix; {GRAIN_PART}: film grain on {qm_grain[GRAIN_PART]['grain_planes']} "
+        f"planes; each decoded to Pillow's hash [{label}]")
     out["restored_part"] = counters
     out["screen_parts"] = screen
+    out["qm_grain_parts"] = qm_grain
     return out
 
 
@@ -4318,10 +4359,11 @@ def step_video_seeded_phase(label: str) -> dict:
 def phase16(label: str) -> dict:
     """Phase 16: (a) every image fixture, the damaged ones too, against
     Pillow's hashes and the host decode times, (b) the BEHAVE reader on JPEG
-    frames, (c) an asset textured in forty-five files (a damaged JPEG, a Lab
+    frames, (c) an asset textured in forty-nine files (a damaged JPEG, a Lab
     PSD, a CIELab TIFF, a PhotoCD, TIFFs in six more compressions, a 1-bit
-    tiled TIFF, two lossless AVIFs, a lossy one and a restored one among
-    them) through stage 1 into K3,
+    tiled TIFF, two lossless AVIFs, a lossy one, a restored one, two of
+    screen content, a tune=iq one and a denoised one among them) through
+    stage 1 into K3,
     every
     kernel's counter from 0 before (c)'s path and read after it, (d) the
     step-video GIF as PIL writes it."""

@@ -453,15 +453,30 @@ AV1_INFO = ("width", "height", "mono_chrome", "subsampling_x", "subsampling_y",
             "loop_filter_sharpness", "delta_q_present", "enable_cdef", "tx_mode_select",
             "cdef_bits", "cdef_damping", "restoration_type_0", "restoration_type_1",
             "restoration_type_2", "restoration_unit_size_0", "restoration_unit_size_1",
-            "allow_screen_content_tools", "allow_intrabc")
+            "allow_screen_content_tools", "allow_intrabc", "separate_uv_delta_q",
+            "using_qmatrix", "qm_y", "qm_u", "qm_v", "apply_grain", "num_y_points",
+            "num_cb_points", "num_cr_points", "chroma_scaling_from_luma", "ar_coeff_lag",
+            "grain_scale_shift", "overlap_flag", "clip_to_restricted_range")
 # FrameRestorationType's values in AV1_INFO
 RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = 0, 1, 2, 3
-# what av1_decode reports the frame reached
+# the transform sizes, in the order of the AV1 specification (and of the
+# decoder's bit masks)
+TX_NAMES = ("TX_4X4", "TX_8X8", "TX_16X16", "TX_32X32", "TX_64X64", "TX_4X8", "TX_8X4",
+            "TX_8X16", "TX_16X8", "TX_16X32", "TX_32X16", "TX_32X64", "TX_64X32", "TX_4X16",
+            "TX_16X4", "TX_8X32", "TX_32X8", "TX_16X64", "TX_64X16")
+# what av1_decode reports the frame reached; qm_levels_<plane>_<size> is the
+# bit mask of the quantizer matrix levels that weighted a coded transform
+# block of that plane and size, grain_planes the bit mask of the planes film
+# grain was applied to, grain_subsampling_* the subsampling it ran at (-1:
+# none)
 AV1_STATS = ("tx_sizes", "tx_types", "delta_q_max", "deblocked_edges", "cdef_blocks",
              "wiener_units_0", "wiener_units_1", "wiener_units_2", "sgrproj_units_0",
              "sgrproj_units_1", "sgrproj_units_2", "palette_y_blocks", "palette_uv_blocks",
              "palette_y_sizes", "palette_uv_sizes", "intrabc_blocks", "intrabc_chroma_blocks",
-             "intrabc_half_sample", "vartx_splits")
+             "intrabc_half_sample", "vartx_splits") + tuple(
+                 f"qm_levels_{p}_{t}" for p in range(3) for t in TX_NAMES) + (
+             "qm_unweighted_blocks", "grain_planes", "grain_subsampling_x",
+             "grain_subsampling_y")
 
 
 def _declare_av1(lib: ctypes.CDLL) -> None:

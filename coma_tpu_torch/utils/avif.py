@@ -2,9 +2,11 @@
 1.5.1 and libyuv 1909), for frames that are coded-lossless or lossy as
 Pillow writes them at any speed: the deblocking filter, CDEF (aom's
 enable-cdef=1) and Wiener, self-guided and switchable loop restoration
-(speeds 0 to 4) included, and AV1's screen content tools, which aom turns on
+(speeds 0 to 4) included, AV1's screen content tools, which aom turns on
 for flat-coloured and lettered images at any quality (palette mode and
-intra block copy); no quantizer matrices.
+intra block copy), quantizer matrices (aom's still-image tune=iq, or
+enable-qm) and film grain (aom's denoiser, its test vectors and grain
+tables), which dav1d synthesises onto the colour and the alpha item.
 
 :func:`decode_avif` takes the primary item (and its alpha item) from the
 HEIF container (``utils/heif.py``), decodes each AV1 payload's first frame
@@ -26,11 +28,11 @@ the primary item's ``prem`` reference says the colour is premultiplied, the
 colour divided by it as libyuv's SIMD ``ARGBUnattenuate`` rows divide.
 
 Refused with ``utils.modes.FormatNotRead`` (format "AVIF", the detail
-naming what is not read): AV1 quantizer matrices, delta lf, segment loop
-filter levels, superres, film grain and high bit depth, a first
-shown frame that is not a key frame, another matrix, an ``ispe`` other than
-the frame's size (libavif resizes the frame to it), and what
-``utils/heif.py`` refuses. A damaged or truncated file raises a
+naming what is not read): AV1 delta lf, segment loop filter levels,
+superres and high bit depth, a first shown frame that is not a key frame,
+another matrix, an ``ispe`` other than the frame's size (libavif resizes
+the frame to it), and what ``utils/heif.py`` refuses (``grid`` items and
+``avis`` sequences among it). A damaged or truncated file raises a
 ``ValueError`` naming the file. No PIL here.
 """
 from __future__ import annotations
@@ -42,8 +44,7 @@ from coma_tpu_torch.utils import heif
 from coma_tpu_torch.utils.modes import Decoded, FormatNotRead
 
 # av1_decode.cpp's refusal codes and the words that name them
-REFUSALS = {-4: "AV1 superres", -5: "AV1 film grain",
-            -6: "AV1 high bit depth", -7: "AV1 inter frame", -11: "AV1 quantizer matrices",
+REFUSALS = {-4: "AV1 superres", -6: "AV1 high bit depth", -7: "AV1 inter frame",
             -12: "AV1 delta lf", -14: "AV1 segment loop filter levels"}
 TOO_LARGE = -8
 

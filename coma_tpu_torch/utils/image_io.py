@@ -45,7 +45,8 @@ gives it up. Read:
   thumbnails (``utils/xvthumb.py``);
 - AVIF whose AV1 frames are coded-lossless, or lossy as Pillow writes
   them at any speed, with the deblocking filter, CDEF and Wiener,
-  self-guided and switchable loop restoration, without quantizer matrices
+  self-guided and switchable loop restoration, screen content tools,
+  quantizer matrices and film grain
   (``utils/avif.py`` over ``utils/heif.py``, the AV1 decoder in
   ``native/src/av1_decode.cpp``): every sampling, full and limited range,
   RGBA (premultiplied alpha and limited-range alpha items too), tiles,
@@ -53,9 +54,8 @@ gives it up. Read:
 
 Refused with ``utils.modes.FormatNotRead``, a ``ValueError`` naming the file
 and the format, though PIL reads them: HTJ2K code-blocks, and AVIF outside
-those slices (quantizer matrices, delta lf, segment loop filter levels,
-screen content tools, superres, film grain, high bit depth, grids, ``avis``
-sequences), the detail naming what is not read. The
+those slices (delta lf, segment loop filter levels, superres, high bit
+depth, grids, ``avis`` sequences), the detail naming what is not read. The
 formats Pillow 12.1.0 opens here but cannot load (the BUFR, GRIB and HDF5
 stubs and WMF/EMF, which have no loader; EPS, without Ghostscript; MPEG,
 of which it reads the header only) and whatever else PIL itself refuses

@@ -25,16 +25,26 @@ decoder of ``native/src/av1_decode.cpp``) against Pillow 12.1.0 (libavif
   luma and chroma, from half-sample chroma positions, with its var-tx
   splits and inter transform types, the loop filters off, with 128 x 128
   superblocks and over tiles; screen content without intra block copy;
-  speeds 0 to 2 and 10; the atlas of flat shapes and text);
+  speeds 0 to 2 and 10; the atlas of flat shapes and text) and quantizer
+  matrices and film grain (aom's still-image tune=iq in 4:2:0, 4:4:4 and
+  RGBA, enable-qm at every level 0 to 14 on luma and chroma, with CDEF,
+  loop restoration and 64-point and 4:1 transforms, over palettes and
+  intra block copy, a coded-lossless frame at level 15, a qm_v of its own
+  under separate_uv_delta_q; aom's 16 film-grain-test vectors, grain
+  tables of AR lags 0 and 1, grain in 4:4:4, 4:2:2 and 4:0:0, clipped to
+  restricted range, in an alpha item, from aom's denoiser, and both tools
+  in one file and in the atlas);
 - each tile's symbol decoder ends on the specification's padding (its exit
   process), on every fixture;
 - the files Pillow reads and the port refuses, refused naming the file,
   "AVIF" and what is not read;
-- truncated and damaged files, lossless, lossy, restored and screen content,
+- truncated and damaged files, lossless, lossy, restored, screen content
+  and film grain,
   each in a process of its own under a time limit: Pillow's array or a
   ``ValueError`` naming the file, never a crash or a hang;
 - an OBJ whose materials take the flat and decal screen-content textures,
-  loaded as ``coma_tpu`` loads it;
+  and one whose materials take the tune=iq and denoised textures, loaded
+  as ``coma_tpu`` loads them;
 - every alpha value through libavif's limited-to-full mapping and libyuv's
   unattenuation, on files written here;
 - the vectorised chroma upsampling against a row-by-row transcription of
@@ -117,7 +127,18 @@ def test_fixtures_cover_the_slice():
                  "2048 x 1536 atlas, AVIF screen content",
                  "residuals over intra block copy in var-tx blocks"):
         assert word in kinds, word
-    assert len(ENTRIES) == 101 and not any(e.get("raises") for e in ENTRIES)
+    for word in ("aom tune=iq at Pillow's defaults 4:2:0", "AVIF quantizer matrices 4:4:4",
+                 "AVIF quantizer matrices RGBA", "at aom speed 4, CDEF and loop restoration",
+                 "64-point transforms", "separate_uv_delta_q", "intra block copy",
+                 "coded-lossless with enable-qm=1", "AVIF film grain 4:4:4",
+                 "AVIF film grain 4:2:2", "AVIF film grain 4:0:0", "film-grain-table",
+                 "clip_to_restricted_range", "grain in the alpha item", "a denoised photograph",
+                 "AVIF quantizer matrices and film grain", "chair texture, AVIF quantizer",
+                 "chair texture, AVIF film grain", "2048 x 1536 atlas, AVIF quantizer matrices") + \
+            tuple(f"qm-min = qm-max = {level}" for level in range(15)) + \
+            tuple(f"film-grain-test {vector}" for vector in range(1, 17)):
+        assert word in kinds, word
+    assert len(ENTRIES) == 155 and not any(e.get("raises") for e in ENTRIES)
 
 
 @pytest.mark.parametrize("entry", ENTRIES, ids=NAMES)
@@ -172,9 +193,7 @@ def test_what_the_fixtures_exercise():
 
 TX_64 = ("TX_64X64", "TX_32X64", "TX_64X32")
 TX_4TO1 = ("TX_4X16", "TX_16X4", "TX_8X32", "TX_32X8")
-TX_NAMES = ("TX_4X4", "TX_8X8", "TX_16X16", "TX_32X32", "TX_64X64", "TX_4X8", "TX_8X4",
-            "TX_8X16", "TX_16X8", "TX_16X32", "TX_32X16", "TX_32X64", "TX_64X32", "TX_4X16",
-            "TX_16X4", "TX_8X32", "TX_32X8", "TX_16X64", "TX_64X16")
+TX_NAMES = codecs.TX_NAMES
 
 
 def test_what_the_lossy_fixtures_exercise():
@@ -191,7 +210,7 @@ def test_what_the_lossy_fixtures_exercise():
         facts[name] = dict(info, sizes=sizes, alpha=alpha and alpha[0])
     lossy = [n for n in NAMES if "lossy" in n]
     assert len(lossy) == 20
-    for name in set(NAMES) - set(lossy) - set(RESTORED) - set(SCREEN):  # TX_4X4 WHT only
+    for name in set(NAMES) - set(lossy) - set(RESTORED) - set(SCREEN) - set(QM_GRAIN):  # WHT
         f = facts[name]
         assert f["base_q_idx"] == 0 and f["sizes"] <= {"TX_4X4"} and f["deblocked_edges"] == 0
     assert [facts[f"avif_lossy_q{q}_96x72.avif"]["q_context"] for q in (99, 90, 75, 30)] == \
@@ -229,6 +248,8 @@ def test_what_the_lossy_fixtures_exercise():
 
 RESTORED = [n for n in NAMES if "restored" in n]
 SCREEN = [e["file"] for e in ENTRIES if "screen content" in e["kind"]]
+QM_GRAIN = [e["file"] for e in ENTRIES if "quantizer matrices" in e["kind"]
+            or "film grain" in e["kind"]]
 RESTORATION_TYPES = {"none": codecs.RESTORE_NONE, "wiener": codecs.RESTORE_WIENER,
                      "sgrproj": codecs.RESTORE_SGRPROJ, "switchable": codecs.RESTORE_SWITCHABLE}
 
@@ -250,15 +271,15 @@ def test_what_the_restored_fixtures_exercise():
     each of the four samplings, at cdef_bits 0 to 3, with 128 x 128
     superblocks and tiles; Wiener and self-guided units on luma and on
     chroma; both in a switchable frame; 16 x 64 and 64 x 16 transforms; a
-    restored alpha item; and PR 23's and PR 24's fixtures with neither
-    CDEF nor restoration."""
+    restored alpha item; and the lossless, lossy and screen content
+    fixtures with neither CDEF nor restoration."""
     facts, alphas = {}, {}
     for name in NAMES:
         _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
         facts[name] = info
         alphas[name] = alpha and alpha[0]
     assert len(RESTORED) == 22
-    for name in set(NAMES) - set(RESTORED):
+    for name in set(NAMES) - set(RESTORED) - set(QM_GRAIN):
         f = facts[name]
         assert f["cdef_blocks"] == 0 and _restoration(f)[0] == ("none",) * len(_restoration(f)[0])
         assert not any(_restoration(f)[1] + _restoration(f)[2]), name
@@ -320,14 +341,14 @@ def test_what_the_screen_fixtures_exercise():
     chroma positions in 4:2:0; var-tx splits; no deblocking, CDEF or
     restoration under allow_intrabc; screen content tools with no intrabc;
     128 x 128 superblocks and tiles; lossless and lossy frames; and the
-    earlier fixtures with no screen content tool."""
+    lossless, lossy and restored fixtures with no screen content tool."""
     facts, alphas = {}, {}
     for name in NAMES:
         _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
         facts[name] = info
         alphas[name] = alpha and alpha[0]
     assert len(SCREEN) == 23
-    for name in set(NAMES) - set(SCREEN):
+    for name in set(NAMES) - set(SCREEN) - set(QM_GRAIN):
         assert not facts[name]["allow_screen_content_tools"], name
     for name in SCREEN:
         f = facts[name]
@@ -388,6 +409,134 @@ def test_obj_with_screen_content_textures_loads_as_coma_tpu(tmp_path, capsys):
     from coma_tpu_torch.geometry.mesh import load_obj_textured
 
     names = ["chair_flat.avif", "chair_decal.avif", "avif_screen_flat_420.avif"]
+    for name in names:
+        (tmp_path / name).write_bytes(fixture(name))
+    (tmp_path / "m.mtl").write_text("".join(f"newmtl m{k}\nKd 0.1 0.9 0.2\nmap_Kd {n}\n"
+                                            for k, n in enumerate(names)))
+    (tmp_path / "a.obj").write_text("mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\n"
+                                    + "".join(f"usemtl m{k}\nf 1/1 2/1 3/1\n"
+                                              for k in range(len(names))))
+    got = load_obj_textured(str(tmp_path / "a.obj"), tex_size=32)
+    assert "WARNING" not in capsys.readouterr().out
+    want = j_load_obj_textured(str(tmp_path / "a.obj"), tex_size=32)
+    np.testing.assert_array_equal(got.face_material, want.face_material)
+    assert len(got.textures) == len(want.textures) == len(names) + 1
+    np.testing.assert_array_equal(got.textures, want.textures)
+    for layer in got.textures[1:]:
+        assert not np.allclose(layer, [0.1, 0.9, 0.2])
+
+
+def _qm_levels(info: dict, plane_type: int) -> set:
+    """The quantizer matrix levels that weighted a coded transform block of
+    luma (``plane_type`` 0) or chroma (1), at any size."""
+    planes = (0,) if plane_type == 0 else (1, 2)
+    return {level for p in planes for t in TX_NAMES for level in range(15)
+            if info[f"qm_levels_{p}_{t}"] >> level & 1}
+
+
+def _qm_sizes(info: dict) -> set:
+    """The transform sizes a quantizer matrix weighted, in any plane."""
+    return {t for p in range(3) for t in TX_NAMES if info[f"qm_levels_{p}_{t}"]}
+
+
+def _grain_sampling(info: dict) -> str:
+    """The sampling the film grain ran at ("" where it ran on no plane)."""
+    if not info["grain_planes"]:
+        return ""
+    if info["mono_chrome"]:
+        return "4:0:0"
+    return {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}[
+        (info["grain_subsampling_x"], info["grain_subsampling_y"])]
+
+
+def test_what_the_qm_grain_fixtures_exercise():
+    """What each quantizer-matrix and film-grain fixture is there for, from
+    the header (using_qmatrix, qm_y/u/v, separate_uv_delta_q, the grain
+    parameters) and the decoder's counters (the levels weighted per plane
+    and transform size, the transform blocks left unweighted, the planes the
+    grain ran on and its sampling): levels 0 to 14 on luma and on chroma,
+    level 15 on the lossless frame, weighted 64-point and 4:1 sizes and an
+    unweighted 1-D or IDTX type, a qm_v of its own, matrices under CDEF,
+    loop restoration, palettes and intra block copy and in an alpha item;
+    AR lags 0 to 3, chroma scaling from luma, overlap on and off, clipping
+    to restricted range, grain at 4:2:0, 4:2:2, 4:4:4 and 4:0:0 and in an
+    alpha item; and no earlier fixture with either tool."""
+    facts, alphas = {}, {}
+    for name in NAMES:
+        _, (info, _, _), alpha = avif.decode_avif_planes(fixture(name), name)
+        facts[name] = info
+        alphas[name] = alpha and alpha[0]
+    assert len(QM_GRAIN) == 54
+    for name in set(NAMES) - set(QM_GRAIN):
+        f = facts[name]
+        assert not f["using_qmatrix"] and not f["apply_grain"] and not _qm_sizes(f), name
+        assert f["grain_planes"] == 0 and f["grain_subsampling_x"] == -1, name
+    qm = [n for n in QM_GRAIN if facts[n]["using_qmatrix"]]
+    grain = [n for n in QM_GRAIN if facts[n]["grain_planes"]]
+    assert set(qm) | set(grain) == set(QM_GRAIN)
+    for plane_type in (0, 1):
+        assert set().union(*(_qm_levels(facts[n], plane_type) for n in qm)) == set(range(15))
+    for level in range(15):
+        f = facts[f"avif_qm_level{level}.avif"]
+        assert (f["qm_y"], f["qm_u"], f["qm_v"]) == (level,) * 3
+        assert _qm_levels(f, 0) == _qm_levels(f, 1) == {level}
+    f = facts["avif_qm_lossless.avif"]
+    assert f["using_qmatrix"] and f["base_q_idx"] == 0 and f["qm_y"] < 15
+    assert not _qm_sizes(f) and f["qm_unweighted_blocks"] == 0          # SegQMLevel 15
+    sizes = set().union(*(_qm_sizes(facts[n]) for n in qm))
+    assert {"TX_64X64", "TX_4X16", "TX_16X4"} <= sizes
+    assert "TX_64X64" in _qm_sizes(facts["avif_qm_speed5_tx64.avif"])
+    f = facts["avif_qm_speed4_cdef_lr.avif"]
+    assert f["cdef_blocks"] and sum(f[f"sgrproj_units_{p}"] + f[f"wiener_units_{p}"]
+                                    for p in range(3))
+    assert _qm_sizes(f) & {"TX_4X16", "TX_16X4", "TX_8X32", "TX_32X8"}
+    assert sum(facts[n]["qm_unweighted_blocks"] for n in qm) > 0        # 1-D types and IDTX
+    f = facts["avif_qm_separate_uv.avif"]
+    assert f["separate_uv_delta_q"] and (f["qm_y"], f["qm_u"], f["qm_v"]) == (11, 11, 3)
+    assert all(f[f"qm_levels_2_{t}"] in (0, 1 << 3) for t in TX_NAMES)
+    assert [n for n in NAMES if facts[n]["separate_uv_delta_q"]] == ["avif_qm_separate_uv.avif"]
+    f = facts["avif_qm_screen.avif"]
+    assert f["palette_y_blocks"] and f["intrabc_blocks"] and _qm_levels(f, 0)
+    alpha = alphas["avif_qm_iq_rgba.avif"]
+    assert alpha["mono_chrome"] and _qm_levels(alpha, 0)
+    for name in ("avif_qm_iq_420.avif", "avif_qm_iq_444.avif", "chair_iq.avif"):
+        assert _qm_levels(facts[name], 0) and _qm_levels(facts[name], 1), name
+    assert {facts[n]["ar_coeff_lag"] for n in grain} == {0, 1, 2, 3}
+    assert facts["avif_grain_table_lag0.avif"]["ar_coeff_lag"] == 0
+    assert facts["avif_grain_table_lag1.avif"]["ar_coeff_lag"] == 1
+    for vector in range(1, 17):
+        [name] = [n for n in grain if n.startswith(f"avif_grain_test{vector}_")]
+        assert _grain_sampling(facts[name]) == "4:2:0", name
+    assert {_grain_sampling(facts[n]) for n in grain} == {"4:2:0", "4:2:2", "4:4:4", "4:0:0"}
+    for tag, sampling in (("444", "4:4:4"), ("422", "4:2:2"), ("400", "4:0:0")):
+        names = [n for n in grain if n.startswith(f"avif_grain_{tag}_")]
+        assert len(names) == 2 and all(_grain_sampling(facts[n]) == sampling for n in names)
+    assert facts["avif_grain_400_test2.avif"]["grain_planes"] == 1
+    assert any(facts[n]["chroma_scaling_from_luma"] and facts[n]["grain_planes"] == 7
+               for n in grain)
+    assert {facts[n]["overlap_flag"] for n in grain} == {0, 1}
+    assert [n for n in grain if facts[n]["clip_to_restricted_range"]] == \
+        ["avif_grain_limited_test3.avif"]
+    assert any(facts[n]["num_y_points"] and not facts[n]["num_cb_points"] and
+               facts[n]["grain_planes"] == 1 for n in grain)             # luma only
+    alpha = alphas["avif_grain_rgba.avif"]
+    assert alpha["mono_chrome"] and alpha["grain_planes"] == 1
+    for name in ("avif_grain_denoised.avif", "chair_grain.avif"):
+        assert facts[name]["grain_planes"] == 7 and facts[name]["ar_coeff_lag"] == 3, name
+    for name in ("avif_qm_grain_both.avif", "atlas_iq_grain_2048x1536.avif"):
+        assert facts[name]["grain_planes"] and _qm_levels(facts[name], 0), name
+
+
+def test_obj_with_qm_and_grain_textures_loads_as_coma_tpu(tmp_path, capsys):
+    """An OBJ whose materials take a tune=iq texture (quantizer matrices)
+    and denoised photographs (aom's denoiser, film grain): every layer
+    equal to ``coma_tpu``'s (PIL's decode and bilinear resize), none left at
+    its Kd colour, no warning."""
+    from coma_tpu.geometry.mesh import load_obj_textured as j_load_obj_textured
+    from coma_tpu_torch.geometry.mesh import load_obj_textured
+
+    names = ["chair_iq.avif", "avif_grain_denoised.avif", "chair_grain.avif",
+             "avif_qm_grain_both.avif"]
     for name in names:
         (tmp_path / name).write_bytes(fixture(name))
     (tmp_path / "m.mtl").write_text("".join(f"newmtl m{k}\nKd 0.1 0.9 0.2\nmap_Kd {n}\n"
@@ -516,7 +665,8 @@ def _pillow(path: str):
 
 
 DAMAGED = ("avif_tiles_2x2.avif", "avif_lossy_tiles_2x2.avif",
-           "avif_restored_cdef_lr_270x150.avif", "avif_screen_glyphs_sb128.avif")
+           "avif_restored_cdef_lr_270x150.avif", "avif_screen_glyphs_sb128.avif",
+           "avif_grain_rgba.avif")
 SHAPES = {e["file"]: tuple(e["shape"]) for e in ENTRIES}
 
 
@@ -525,8 +675,9 @@ SHAPES = {e["file"]: tuple(e["shape"]) for e in ENTRIES}
 def test_truncated_file_refused_or_equal_never_crashes(tmp_path, k, name):
     """A seeded cut of a fixture (lossless; lossy with its large transforms
     and the deblocking filter; with CDEF and loop restoration, which read
-    past unit and stripe edges; and screen content, palettes and intra block
-    copy): Pillow's array, or a ValueError
+    past unit and stripe edges; screen content, palettes and intra block
+    copy; and film grain, whose parameters end the frame header, in both
+    items): Pillow's array, or a ValueError
     naming the file (libavif refuses every cut inside the item's data),
     within the time limit and without a crash."""
     data = fixture(name)
@@ -552,7 +703,8 @@ def test_damaged_tile_data_never_crashes(tmp_path, k, name):
     transforms, the predictors, the deblocking filter, CDEF and loop
     restoration stay inside their buffers on damaged coefficients and
     filter parameters, intra block copy inside the frame on a damaged
-    displacement, a palette's colour map inside its block)."""
+    displacement, a palette's colour map inside its block, the grain
+    synthesis inside its templates on damaged grain parameters)."""
     data = bytearray(fixture(name))
     rng = np.random.default_rng(600 + k)
     start = data.index(b"mdat") + 40

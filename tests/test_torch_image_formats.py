@@ -14,7 +14,7 @@ tolerance:
 - the native codecs (``native/src/image_codecs.cpp``: LZW, PackBits, TGA
   run-length) against their plain Python versions;
 - JPEG 2000, WebP, DDS and TIFF-JPEG files, once left out, equal to Pillow;
-  a format still left out (AVIF with quantizer matrices) raises a
+  a format still left out (an AVIF ``avis`` sequence) raises a
   ``ValueError`` naming the file and the format;
 - ``load_obj_textured`` on an OBJ whose materials take TGA, BMP, TIFF-LZW,
   CMYK and arithmetic JPEG, WebP (lossy with alpha, lossless), DDS (BC1,
@@ -385,7 +385,8 @@ def _gif_lzw(idx: np.ndarray):
 
 
 LEFT_OUT = [
-    ("avif", "AVIF", {"advanced": {"enable-qm": "1"}}, "AVIF"),   # quantizer matrices
+    ("avif", "AVIF", {"save_all": True, "append_images": [         # an avis sequence
+        Image.fromarray(seeded_rgb((16, 16), 82))]}, "AVIF"),
 ]
 
 

@@ -571,8 +571,8 @@ def test_formats_once_refused_equal_pillow(tmp_path, word):
 
 
 def test_mesh_warning_names_the_refused_format(tmp_path, capsys):
-    """An OBJ whose texture is an AVIF with quantizer matrices (PIL reads it,
-    the port does not) keeps its Kd colour, and the warning names the
+    """An OBJ whose texture is an AVIF ``avis`` sequence (PIL reads it, the
+    port does not) keeps its Kd colour, and the warning names the
     format."""
     from coma_tpu_torch.geometry.mesh import load_obj_textured
 

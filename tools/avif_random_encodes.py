@@ -2,7 +2,7 @@
 """Hold the port's AVIF reader against Pillow on seeded random encodes.
 
     python3 tools/avif_random_encodes.py [--count 300] [--seed 0] [--max-side 96]
-        [--lossy | --restored | --screen]
+        [--lossy | --restored | --screen | --qm-grain]
 
 Each case draws a size (1 to ``--max-side`` on a side), a subsampling
 (4:4:4, 4:2:2, 4:2:0, 4:0:0), a range, an image (smooth plus noise, flat,
@@ -21,14 +21,23 @@ gradient, lines of letters, squares of 2 to 8 colours; up to 256 samples
 on a side by default, so that intra block copy has room) at a quality of 0
 to 100 and a speed of 0 to 10, with aom's sb-size=128, tune-content=screen,
 enable-intrabc=0 or enable-palette=0 at random, which aom codes with
-palette mode and intra block copy where it finds them worth it. It
+palette mode and intra block copy where it finds them worth it; with
+``--qm-grain`` a smooth-plus-noise image or a seeded patchwork at a quality
+of 0 to 100 and a speed of 0 to 10, with quantizer matrices (aom's
+tune=iq, or enable-qm=1 with a random qm-min and qm-max) in three cases of
+four and film grain (aom's film-grain-test 1 to 16, or denoise-noise-level
+of 5 to 50) in three of four, alone or together. It
 compares ``coma_tpu_torch``'s
 reader (``utils/avif.decode_avif`` and ``to_mode``, as ``read_image`` runs
 them) with Pillow's array in modes None, RGB and L, to the byte. A file the
-port refuses by name is counted apart. Prints one JSON line: the counts of
-equal, refused and differing cases (with ``--screen`` also how many equal
+port refuses by name is counted apart, and so is a file Pillow fails to
+decode (aom 3.12.1's denoiser writes a few that dav1d refuses, in 4:0:0
+over two tile columns) where the port refuses it as damaged too. Prints one JSON line: the counts of equal, refused,
+refused by both and differing cases (with ``--screen`` also how many equal
 cases reached screen content tools, palettes and intra block copy, and the
-luma transform types read in frames with intra block copy), and the first
+luma transform types read in frames with intra block copy; with
+``--qm-grain`` the quantizer matrix levels weighted and the grain's AR lags
+and subsamplings), and the first
 differing cases' parameters. Needs Pillow
 with AVIF (libavif over aom and dav1d) and ``g++``; runs on the host.
 """
@@ -47,16 +56,42 @@ sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
 from make_image_fixtures import (AVIF_TOOL_SWITCHES, avif_alpha_limited,  # noqa: E402
-                                 seeded_flat, seeded_glyphs, seeded_patchwork_palette,
-                                 seeded_posterised, seeded_rgb)
+                                 seeded_flat, seeded_glyphs, seeded_patchwork,
+                                 seeded_patchwork_palette, seeded_posterised, seeded_rgb)
 
 SUBSAMPLINGS = ("4:4:4", "4:2:2", "4:2:0", "4:0:0")
+# (subsampling_x, subsampling_y) -> the sampling's name
+SAMPLINGS = {(0, 0): "4:4:4", (1, 0): "4:2:2", (1, 1): "4:2:0"}
 # aom options of lossy files the port reads, each drawn with probability 0.2
 LOSSY_OPTIONS = (("deltaq-mode", "3"), ("sb-size", "128"), ("reduced-tx-type-set", "1"),
                  ("sharpness", "3"))
 # aom options of screen content, each drawn with probability 0.15
 SCREEN_OPTIONS = (("sb-size", "128"), ("tune-content", "screen"), ("enable-intrabc", "0"),
                   ("enable-palette", "0"))
+
+
+def qm_grain_options(rng: np.random.Generator, quality: int) -> dict:
+    """aom options of quantizer matrices and film grain: tune=iq (not at
+    quality 100: aom refuses its chroma delta q in a lossless frame) or
+    enable-qm=1 with a random qm-min <= qm-max in three cases of four, and
+    film-grain-test 1 to 16 or denoise-noise-level 5 to 50 in three of four
+    (at least one of the two)."""
+    advanced = {}
+    draw_qm, draw_grain = rng.random() < 0.75, rng.random() < 0.75
+    if not (draw_qm or draw_grain):
+        draw_qm = draw_grain = True
+    if draw_qm:
+        if rng.random() < 0.3 and quality < 100:
+            advanced["tune"] = "iq"
+        else:
+            lo, hi = sorted(int(v) for v in rng.integers(0, 16, 2))
+            advanced.update({"enable-qm": "1", "qm-min": str(lo), "qm-max": str(hi)})
+    if draw_grain:
+        if rng.random() < 0.5:
+            advanced["film-grain-test"] = str(int(rng.integers(1, 17)))
+        else:
+            advanced["denoise-noise-level"] = str(int(rng.integers(5, 51)))
+    return advanced
 
 
 def draw_screen(rng: np.random.Generator, k: int, max_side: int) -> np.ndarray:
@@ -77,15 +112,20 @@ def draw_screen(rng: np.random.Generator, k: int, max_side: int) -> np.ndarray:
 
 
 def draw(rng: np.random.Generator, k: int, max_side: int, lossy: bool = False,
-         restored: bool = False, screen: bool = False) -> tuple:
+         restored: bool = False, screen: bool = False, qm_grain: bool = False) -> tuple:
     """(the image, Pillow's save options, whether to set the alpha item to
     limited range) of case ``k``; ``restored``: lossy at speeds 0 to 4, CDEF
     on in half the cases; ``screen``: screen content at any quality and
-    speed."""
+    speed; ``qm_grain``: quantizer matrices or film grain or both at any
+    quality and speed."""
     lossy = lossy or restored
     if screen:
         rgb = draw_screen(rng, k, max_side)
         h, w = rgb.shape[:2]
+    elif qm_grain and rng.random() < 0.25:
+        side = int(rng.integers(1, max_side + 1))
+        rgb = seeded_patchwork(side, k, float(rng.uniform(0, 30)))
+        h = w = side
     else:
         h, w = (int(v) for v in rng.integers(1, max_side + 1, 2))
         kind = rng.choice(["smooth", "smooth", "flat", "noise"])
@@ -93,8 +133,8 @@ def draw(rng: np.random.Generator, k: int, max_side: int, lossy: bool = False,
             rgb = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
         else:
             rgb = seeded_rgb((h, w), 1000 + k, noise=0.5 if kind == "flat" else 8)
-    options = dict(quality=int(rng.integers(0, 101 if screen else 100)) if lossy or screen
-                   else 100,
+    options = dict(quality=int(rng.integers(0, 101 if screen or qm_grain else 100))
+                   if lossy or screen or qm_grain else 100,
                    subsampling=str(rng.choice(SUBSAMPLINGS)),
                    range=str(rng.choice(["full", "limited"])),
                    speed=int(rng.integers(0, 5) if restored else
@@ -105,6 +145,8 @@ def draw(rng: np.random.Generator, k: int, max_side: int, lossy: bool = False,
         advanced = {key: value for key, value in SCREEN_OPTIONS if rng.random() < 0.15}
         if advanced:
             options["advanced"] = advanced
+    elif qm_grain:
+        options["advanced"] = qm_grain_options(rng, options["quality"])
     elif lossy:
         advanced = {key: value for key, value in LOSSY_OPTIONS if rng.random() < 0.2}
         if restored and rng.random() < 0.5:
@@ -138,6 +180,8 @@ def main() -> int:
                         help="lossy encodes at speeds 0-4 (loop restoration), CDEF on in half")
     parser.add_argument("--screen", action="store_true",
                         help="screen content (palette, intra block copy) at any quality and speed")
+    parser.add_argument("--qm-grain", action="store_true",
+                        help="quantizer matrices and film grain at any quality and speed")
     args = parser.parse_args()
     if args.max_side is None:
         args.max_side = 256 if args.screen else 96
@@ -147,12 +191,13 @@ def main() -> int:
     from coma_tpu_torch.utils.modes import FormatNotRead, to_mode
 
     rng = np.random.default_rng(args.seed)
-    equal, refused, differ = 0, [], []
+    equal, refused, differ, both_refuse = 0, [], [], 0
     reached = dict(screen_content_tools=0, palette=0, intrabc=0)
     intrabc_tx_types = 0      # the luma transform types of the frames with intrabc blocks
+    qm_levels, grain = [0, 0], dict(ar_coeff_lag=set(), subsampling=set(), alpha=0)
     for k in range(args.count):
         image, options, limited_alpha = draw(rng, k, args.max_side, args.lossy, args.restored,
-                                             args.screen)
+                                             args.screen, args.qm_grain)
         buf = io.BytesIO()
         Image.fromarray(image).save(buf, "AVIF", **options)
         data = avif_alpha_limited(buf.getvalue()) if limited_alpha else buf.getvalue()
@@ -161,6 +206,15 @@ def main() -> int:
             got = decode_avif(data, f"case{k}.avif")
         except FormatNotRead as err:
             refused.append(dict(case, reason=str(err)))
+            continue
+        except ValueError as err:          # damaged: equal where Pillow refuses the file too
+            try:
+                with Image.open(io.BytesIO(data)) as im:
+                    im.load()
+            except (OSError, RuntimeError, ValueError):
+                both_refuse += 1
+            else:
+                differ.append(dict(case, reason=str(err)))
             continue
         with Image.open(io.BytesIO(data)) as im:
             im.load()
@@ -176,6 +230,17 @@ def main() -> int:
                 reached["intrabc"] += info["intrabc_blocks"] > 0
                 if info["intrabc_blocks"]:
                     intrabc_tx_types |= info["tx_types"]
+            if args.qm_grain:
+                _, (info, _, _), alpha = decode_avif_planes(data, f"case{k}.avif")
+                for name, mask in info.items():
+                    if name.startswith("qm_levels_"):
+                        qm_levels[name[10] != "0"] |= mask
+                for item in (info,) + ((alpha[0],) if alpha else ()):
+                    if item["grain_planes"]:
+                        grain["ar_coeff_lag"].add(item["ar_coeff_lag"])
+                        grain["subsampling"].add("4:0:0" if item["mono_chrome"] else SAMPLINGS[
+                            item["grain_subsampling_x"], item["grain_subsampling_y"]])
+                grain["alpha"] += bool(alpha and alpha[0]["grain_planes"])
         else:
             differ.append(case)
     print(json.dumps(dict(count=args.count, seed=args.seed, lossy=args.lossy,
@@ -184,7 +249,14 @@ def main() -> int:
                           **(dict(equal_cases_reaching=reached, tx_types_with_intrabc=[
                               t for t in range(16) if intrabc_tx_types >> t & 1])
                              if args.screen else {}),
-                          refused=len(refused), differ=len(differ), first_differing=differ[:5],
+                          **(dict(qm_grain=True, qm_levels_weighted=dict(
+                              luma=[v for v in range(15) if qm_levels[0] >> v & 1],
+                              chroma=[v for v in range(15) if qm_levels[1] >> v & 1]),
+                              grain_ar_coeff_lags=sorted(grain["ar_coeff_lag"]),
+                              grain_subsamplings=sorted(grain["subsampling"]),
+                              grain_alpha_items=grain["alpha"]) if args.qm_grain else {}),
+                          refused=len(refused), both_refuse=both_refuse, differ=len(differ),
+                          first_differing=differ[:5],
                           first_refused=refused[:5])))
     return 1 if differ else 0
 

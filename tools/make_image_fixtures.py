@@ -1686,7 +1686,7 @@ def refused_format_files() -> dict:
     port refused at first: {the format (a refusal's word for those of
     :data:`REFUSED_FORMATS`): (file extension, bytes)}, in the order of
     :data:`REFUSED_FORMATS`, :data:`PILLOW_REFUSES` and :data:`ONCE_REFUSED`.
-    Pillow writes the AVIF (with quantizer matrices, which the port does not
+    Pillow writes the AVIF (an ``avis`` sequence, which the port does not
     read) and EPS ones and the codestream whose COD marks its code-blocks
     HTJ2K; the rest are the smallest whole files Pillow's plugins open."""
     from PIL import Image
@@ -1704,7 +1704,8 @@ def refused_format_files() -> dict:
     wmf += b"\x01\x00\x09\x00" + bytes(60)
     ycc = np.repeat(np.repeat(seeded_rgb((16, 24), 191), 32, 0), 32, 1)
     files = {
-        "AVIF": ("avif", pil(rgb, "AVIF", advanced={"enable-qm": "1"})),
+        "AVIF": ("avif", pil(rgb, "AVIF", save_all=True,
+                             append_images=[rgb.transpose(Image.Transpose.FLIP_TOP_BOTTOM)])),
         "HTJ2K (JPEG 2000 Part 15)": ("j2k", htj2k),
         "BUFR": ("bufr", b"BUFR" + bytes(60)),
         "EPS": ("eps", pil(rgb, "EPS")),
@@ -3285,6 +3286,7 @@ def avif_formats() -> dict:
     out.update(avif_lossy_formats())
     out.update(avif_restored_formats())
     out.update(avif_screen_formats())
+    out.update(avif_qm_grain_formats())
     return out
 
 
@@ -3604,11 +3606,266 @@ def avif_screen_formats() -> dict:
     return out
 
 
+class _Bits:
+    """The bits of an OBU payload, read and rewritten MSB first."""
+
+    def __init__(self, data: bytes):
+        self.bits = "".join(f"{b:08b}" for b in data)
+        self.pos = 0
+
+    def f(self, n: int) -> int:
+        value = int(self.bits[self.pos:self.pos + n] or "0", 2)
+        self.pos += n
+        return value
+
+    def delta_q(self) -> str:
+        """read_delta_q: its bits (delta_coded, and delta_q where coded)."""
+        start = self.pos
+        if self.f(1):
+            self.f(7)
+        return self.bits[start:self.pos]
+
+
+def _leb128(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def avif_separate_uv_q(data: bytes, qm_v: int) -> bytes:
+    """``data`` (a one-item AVIF of a colour frame of at most 64 x 64 that
+    Pillow wrote with a reduced sequence header and quantizer matrices,
+    without CDEF, loop restoration, segmentation, delta q or film grain)
+    with the AV1 sequence header's separate_uv_delta_q set and the frame
+    header's quantization_params rewritten to match: diff_uv_delta 1 with
+    the V deltas equal to the U ones, and qm_v ``qm_v`` (aom 3.12.1 writes
+    separate_uv_delta_q 0 whatever Pillow's options). The frame OBU grows
+    by the bits inserted, realigned; the OBU size, the iloc extent and the
+    mdat box grow with it."""
+    at = data.index(b"mdat") + 4
+    # temporal delimiter, sequence header, frame (each with its size)
+    assert data[at:at + 2] == b"\x12\x00" and data[at + 2] == 0x0A, data[at:at + 3]
+    seq_size, seq_at = data[at + 3], at + 4
+    assert seq_size < 0x80
+    seq = _Bits(data[seq_at:seq_at + seq_size])
+    profile, _, reduced = seq.f(3), seq.f(1), seq.f(1)
+    assert reduced and profile in (0, 1), (reduced, profile)
+    seq.f(5)
+    wbits, hbits = seq.f(4) + 1, seq.f(4) + 1
+    width, height = seq.f(wbits) + 1, seq.f(hbits) + 1
+    assert width <= 64 and height <= 64, (width, height)
+    sb128, _, _, superres, cdef, restoration = (seq.f(1) for _ in range(6))
+    assert not (superres or cdef) and not seq.f(1)              # 8 bits
+    assert not (profile == 0 and seq.f(1))                        # mono_chrome
+    if seq.f(1):                                                  # color_description_present
+        seq.f(24)
+    seq.f(1)                                                      # color_range
+    if profile == 0:
+        seq.f(2)                                                  # chroma_sample_position
+    assert seq.bits[seq.pos] == "0"                               # separate_uv_delta_q
+    seq.bits = seq.bits[:seq.pos] + "1" + seq.bits[seq.pos + 1:]
+    seq.f(1)
+    assert not seq.f(1)                                           # film_grain_params_present
+    frame_at = seq_at + seq_size
+    assert data[frame_at] == 0x32                                 # OBU_FRAME with a size
+    size, n = 0, 0
+    while True:
+        byte = data[frame_at + 1 + n]
+        size |= (byte & 0x7F) << (7 * n)
+        n += 1
+        if byte < 0x80:
+            break
+    payload_at = frame_at + 1 + n
+    frame = _Bits(data[payload_at:payload_at + size])
+    frame.f(1)                                                    # disable_cdf_update
+    screen = frame.f(1)
+    if screen:
+        frame.f(1)                                                # force_integer_mv
+    if frame.f(1):                                                # render_and_frame_size_different
+        frame.f(32)
+    if screen:
+        assert not frame.f(1)                                     # allow_intrabc
+    assert frame.f(1)                                             # uniform_tile_spacing_flag
+    base_q_idx = frame.f(8)
+    assert base_q_idx
+    frame.delta_q()                                               # DeltaQYDc
+    u_at = frame.pos
+    frame.delta_q()
+    frame.delta_q()
+    u_bits = frame.bits[u_at:frame.pos]
+    assert frame.f(1)                                             # using_qmatrix
+    frame.f(8)                                                    # qm_y, qm_u
+    qm_at = frame.pos
+    assert not frame.f(1)                                         # segmentation_enabled
+    assert not frame.f(1)                                         # delta_q_present
+    levels = frame.f(12)
+    if levels:
+        frame.f(12)
+    frame.f(3)                                                    # loop_filter_sharpness
+    if frame.f(1) and frame.f(1):                                 # loop_filter_delta_update
+        for _ in range(10):
+            if frame.f(1):
+                frame.f(7)
+    if restoration:
+        assert not frame.f(6)                                     # lr_type of each plane
+    frame.f(2)                                                    # tx_mode_select, reduced_tx_set
+    header_end = frame.pos
+    tiles = frame.bits[(header_end + 7) // 8 * 8:]
+    header = (frame.bits[:u_at] + "1" + u_bits + u_bits + frame.bits[u_at + len(u_bits):qm_at]
+              + f"{qm_v:04b}" + frame.bits[qm_at:header_end])
+    header += "0" * (-len(header) % 8)
+    bits = header + tiles
+    new = bytes(int(bits[k:k + 8], 2) for k in range(0, len(bits), 8))
+    new_seq = bytes(int(seq.bits[k:k + 8], 2) for k in range(0, len(seq.bits), 8))
+    obus = data[at:seq_at] + new_seq + b"\x32" + _leb128(len(new)) + new
+    grow = len(obus) - (payload_at + size - at)
+    assert payload_at + size == len(data), "the colour item is the file's last bytes"
+    out = bytearray(data[:at] + obus)
+    mdat = out.index(b"mdat") - 4
+    out[mdat:mdat + 4] = struct.pack(">I", struct.unpack(">I", out[mdat:mdat + 4])[0] + grow)
+    # iloc version 0, offset_size 4, length_size 4, one item of one extent
+    iloc = out.index(b"iloc") + 4
+    assert out[iloc] == 0 and out[iloc + 4] == 0x44
+    assert struct.unpack(">H", out[iloc + 6:iloc + 8])[0] == 1
+    length_at = iloc + 8 + 2 + 2 + 2 + 4        # item_ID, data_reference_index, extent_count, offset
+    (length,) = struct.unpack(">I", out[length_at:length_at + 4])
+    assert length == len(data) - at
+    out[length_at:length_at + 4] = struct.pack(">I", length + grow)
+    return bytes(out)
+
+
+# film-grain-table files (aom's grain_table.c format) of AR lags 0 and 1,
+# which no film-grain-test vector has
+def avif_grain_table(lag: int, seed: int) -> str:
+    """A film grain table of one entry over all time: seed ``seed``, AR lag
+    ``lag``, three Y scaling points and two per chroma plane, seeded AR
+    coefficients."""
+    rng = np.random.default_rng(seed)
+    n = 2 * lag * (lag + 1)
+    coeffs = lambda k: " ".join(str(int(v)) for v in rng.integers(-24, 25, k))
+    return (f"filmgrn1\nE 0 9223372036854775807 1 {seed} 1\n"
+            f"\tp {lag} 7 {lag} 10 0 1 150 90 280 120 100 240\n"
+            "\tsY 3  0 20 128 60 255 40\n\tsCb 2 0 30 255 50\n\tsCr 2 0 25 255 45\n"
+            f"\tcY {coeffs(n)}\n\tcCb {coeffs(n + 1)}\n\tcCr {coeffs(n + 1)}\n")
+
+
+def avif_qm_grain_formats() -> dict:
+    """Lossy AVIFs whose AV1 frames Pillow's writer (aom 3.12.1) codes with
+    quantizer matrices (aom's tune=iq, its still-image tune, or
+    enable-qm=1) or film grain (aom's film-grain-test vectors, a
+    film-grain-table, or its denoiser's denoise-noise-level, which replaces
+    the noise it removes with grain parameters), or both: tune=iq at
+    Pillow's defaults in 4:2:0, 4:4:4 and RGBA; enable-qm=1 at speed 4 with
+    CDEF and restoration and at speed 5 (64-point transforms); qm-min =
+    qm-max pinned to each level 0 to 14; a colour item rewritten to
+    separate_uv_delta_q with a qm_v of its own; screen content under a
+    matrix (palette and intra block copy); a coded-lossless frame with
+    enable-qm=1 (level 15); film-grain-test 1 to 16 at 4:2:0 (odd sizes
+    among them), vectors at 4:4:4, 4:2:2 and 4:0:0, at limited range
+    (clip_to_restricted_range), in an alpha item; tables of AR lags 0 and
+    1; the denoiser on a seeded noisy patchwork; both tools in one file;
+    the chair's two textures and the 2048 x 1536 atlas with both. Every
+    file but the screen content one (intra block copy needs a frame over
+    128 samples on a side) and the atlas is at most 128 on a side. Each
+    file's purpose is asserted from the decoder's counters in the AVIF
+    tests."""
+    out = {}
+    rgb = seeded_rgb((96, 128), 520, noise=8)
+    out["avif_qm_iq_420.avif"] = ("AVIF quantizer matrices, aom tune=iq at Pillow's defaults "
+                                  "4:2:0", avif_file(rgb, advanced={"tune": "iq"}))
+    out["avif_qm_iq_444.avif"] = ("AVIF quantizer matrices 4:4:4, aom tune=iq",
+                                  avif_file(rgb, subsampling="4:4:4", advanced={"tune": "iq"}))
+    yy, xx = np.mgrid[:96, :128]
+    alpha = np.clip(128 + 110 * np.sin(xx / 11.0) * np.cos(yy / 9.0), 0, 255).astype(np.uint8)
+    out["avif_qm_iq_rgba.avif"] = ("AVIF quantizer matrices RGBA, aom tune=iq, a weighted alpha "
+                                   "item", avif_file(np.concatenate([rgb, alpha[..., None]], -1),
+                                                     advanced={"tune": "iq"}))
+    out["avif_qm_speed4_cdef_lr.avif"] = (
+        "AVIF quantizer matrices, enable-qm=1 at aom speed 4, CDEF and loop restoration, 4:1 "
+        "transforms", avif_file(seeded_patchwork(128, 523, 20), speed=4,
+                                advanced={"enable-qm": "1", "enable-cdef": "1"}))
+    out["avif_qm_speed5_tx64.avif"] = (
+        "AVIF quantizer matrices, enable-qm=1 at quality 30, aom speed 5, 64-point transforms",
+        avif_file(seeded_rgb((128, 128), 522, noise=0.5), quality=30, speed=5,
+                  advanced={"enable-qm": "1"}))
+    for level in range(15):
+        out[f"avif_qm_level{level}.avif"] = (
+            f"AVIF quantizer matrices, qm-min = qm-max = {level}", avif_file(
+                seeded_rgb((40, 56), 530 + level, noise=8), quality=60,
+                advanced={"enable-qm": "1", "qm-min": str(level), "qm-max": str(level)}))
+    out["avif_qm_separate_uv.avif"] = (
+        "AVIF quantizer matrices, a colour item rewritten to separate_uv_delta_q with qm_v 3",
+        avif_separate_uv_q(avif_file(seeded_rgb((48, 64), 545, noise=8), quality=60,
+                                     advanced={"enable-qm": "1", "qm-min": "11",
+                                               "qm-max": "11"}), 3))
+    out["avif_qm_screen.avif"] = (
+        "AVIF quantizer matrices over lines of letters, palette and intra block copy",
+        avif_file(seeded_glyphs((96, 192), 546, altered=0.3), quality=60,
+                  advanced={"enable-qm": "1"}))
+    out["avif_qm_lossless.avif"] = ("AVIF quantizer matrices, coded-lossless with enable-qm=1 "
+                                    "(level 15)", avif_file(seeded_rgb((40, 56), 547, noise=8),
+                                                            quality=100,
+                                                            advanced={"enable-qm": "1"}))
+    sizes = ((40, 56), (33, 47), (48, 64), (37, 29))
+    for vector in range(1, 17):
+        shape = sizes[vector % 4]
+        out[f"avif_grain_test{vector}_{shape[1]}x{shape[0]}.avif"] = (
+            f"AVIF film grain 4:2:0, aom film-grain-test {vector}", avif_file(
+                seeded_rgb(shape, 550 + vector, noise=8),
+                advanced={"film-grain-test": str(vector)}))
+    for sub, vectors in (("4:4:4", (1, 15)), ("4:2:2", (4, 10)), ("4:0:0", (2, 13))):
+        for vector in vectors:
+            tag = sub.replace(":", "")
+            out[f"avif_grain_{tag}_test{vector}.avif"] = (
+                f"AVIF film grain {sub}, aom film-grain-test {vector}", avif_file(
+                    seeded_rgb((35, 45), 570 + vector, noise=8), subsampling=sub,
+                    advanced={"film-grain-test": str(vector)}))
+    out["avif_grain_limited_test3.avif"] = (
+        "AVIF film grain at limited range, aom film-grain-test 3: clip_to_restricted_range",
+        avif_file(seeded_rgb((40, 56), 590, noise=8), range="limited",
+                  advanced={"film-grain-test": "3"}))
+    rgba = np.concatenate([seeded_rgb((48, 64), 591, noise=8), alpha[:48, :64, None]], -1)
+    out["avif_grain_rgba.avif"] = ("AVIF film grain RGBA, aom film-grain-test 7, grain in the "
+                                   "alpha item", avif_file(rgba,
+                                                           advanced={"film-grain-test": "7"}))
+    with tempfile.TemporaryDirectory() as tmp:
+        for lag in (0, 1):
+            table = os.path.join(tmp, f"lag{lag}.tbl")
+            with open(table, "w") as fh:
+                fh.write(avif_grain_table(lag, 600 + lag))
+            out[f"avif_grain_table_lag{lag}.avif"] = (
+                f"AVIF film grain from an aom film-grain-table, ar_coeff_lag {lag}", avif_file(
+                    seeded_rgb((40, 56), 600 + lag, noise=8),
+                    advanced={"film-grain-table": table}))
+    out["avif_grain_denoised.avif"] = (
+        "AVIF film grain, aom denoise-noise-level=25 at Pillow's default quality on a noisy "
+        "patchwork, a denoised photograph", avif_file(
+            seeded_patchwork(128, 7, 20), advanced={"denoise-noise-level": "25"}))
+    out["avif_qm_grain_both.avif"] = (
+        "AVIF quantizer matrices and film grain, aom tune=iq with denoise-noise-level=25",
+        avif_file(seeded_patchwork(128, 8, 20), advanced={"tune": "iq",
+                                                          "denoise-noise-level": "25"}))
+    tex = seeded_rgb((48, 48), 452, noise=8)
+    out["chair_iq.avif"] = ("chair texture, AVIF quantizer matrices, aom tune=iq",
+                            avif_file(tex, advanced={"tune": "iq"}))
+    out["chair_grain.avif"] = ("chair texture, AVIF film grain, denoise-noise-level=25",
+                               avif_file(seeded_rgb((64, 64), 452, noise=8),
+                                         advanced={"denoise-noise-level": "25"}))
+    noisy = texture_atlas(11) + np.random.default_rng(612).normal(0, 4, (1536, 2048, 3))
+    out["atlas_iq_grain_2048x1536.avif"] = (
+        "2048 x 1536 atlas, AVIF quantizer matrices and film grain, aom tune=iq with "
+        "denoise-noise-level=25", avif_file(np.clip(noisy, 0, 255).astype(np.uint8),
+                                            advanced={"tune": "iq", "denoise-noise-level": "25"}))
+    return out
+
+
 def avif_refused_files() -> dict:
     """{refusal word: AVIF bytes} of the files Pillow reads and the port
-    refuses by name, one per word Pillow's writer (aom 3.12.1) can make:
-    quantizer matrices (enable-qm=1), film grain (film-grain-test on a
-    lossless frame) and an avis sequence. Superres (aom takes no option of Pillow's for it),
+    refuses by name, one per word Pillow's writer (aom 3.12.1) can make: an
+    avis sequence. Superres (aom takes no option of Pillow's for it),
     delta lf (aom's deltalf-mode is not an option of Pillow's), segment loop
     filter levels (aom writes no segmentation here), high bit depth (Pillow
     writes 8 bits), an inter first frame and a grid (libavif's writer makes
@@ -3619,11 +3876,7 @@ def avif_refused_files() -> dict:
     seq = io.BytesIO()
     Image.fromarray(rgb).save(seq, "AVIF", quality=100, save_all=True,
                               append_images=[Image.fromarray(rgb[::-1])])
-    return {
-        "AV1 quantizer matrices": avif_file(rgb, advanced={"enable-qm": "1"}),
-        "AV1 film grain": avif_file(rgb, quality=100, advanced={"film-grain-test": "1"}),
-        "avis image sequence": seq.getvalue(),
-    }
+    return {"avis image sequence": seq.getvalue()}
 
 
 def _dxt1(rgb: np.ndarray) -> bytes:

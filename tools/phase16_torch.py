@@ -11,11 +11,12 @@ Zstandard decoders and the JPEG 2000 decoder among them, built with ``g++``
 at first use) against
 Pillow's hashes, with the 2048 x 1536 decodes timed (the JPEG 2000 atlases
 among them); (b) the BEHAVE reader on JPEG colour frames and masks; (c) a
-chair textured in forty-seven files (twenty-seven formats, TIFFs in six more
+chair textured in forty-nine files (twenty-seven formats, TIFFs in six more
 compressions and a 1-bit tiled one, JPEG 2000, Lab, PFM, XPM, FTEX, GBR,
 PIXAR, FLC, PhotoCD, McIdas, FITS, XV thumbnail, IPTC/NAA, lossless AVIF,
-lossy AVIF at Pillow's defaults, AVIF with CDEF and loop restoration, and
-AVIF of screen content in palette mode and intra block copy)
+lossy AVIF at Pillow's defaults, AVIF with CDEF and loop restoration,
+AVIF of screen content in palette mode and intra block copy, and AVIF with
+quantizer matrices (tune=iq) and with film grain (a denoised photograph))
 through stage 1 at
 384² and one inpainting batch of 4 at 512², with the same checks and kernel
 counters as the full script; (d) the seeded
